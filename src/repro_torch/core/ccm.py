@@ -1,0 +1,173 @@
+"""Phase 2 — Convergent Cross Mapping, mpEDM improved algorithm (paper
+Alg. 2), bucketed layout, over a chunk of library series.
+
+The kNN table depends only on the library series, so each library's
+tables are built once and reused across all N targets.  Targets are
+grouped by optE (:func:`make_bucket_plan`); each library series gets
+tables only at the distinct optE values (the bucket set), and every
+bucket segment of targets streams through its ONE shared table in the
+batched lookup.  The chunk's series are a leading tensor dimension: one
+kNN launch builds the tables of the whole chunk, and one lookup launch
+per (bucket segment, target block) serves every table of the chunk.
+
+rho[i, j] = pearson(future of target j, cross-map prediction of j from
+library i's manifold).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import engine as engines
+from repro_torch.core import embedding, knn
+from repro_torch.core.stats import pearson
+from repro_torch.core.types import EDMConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Static grouping of targets by optimal embedding dimension.
+
+    buckets: ascending distinct E values present in optE;
+    counts[b]: number of targets whose optE == buckets[b].
+    """
+
+    buckets: tuple[int, ...]
+    counts: tuple[int, ...]
+
+    @property
+    def offsets(self) -> tuple[int, ...]:
+        """Start offset of each bucket's segment in the sorted target order."""
+        out, off = [], 0
+        for c in self.counts:
+            out.append(off)
+            off += c
+        return tuple(out)
+
+    @property
+    def n_targets(self) -> int:
+        return sum(self.counts)
+
+
+def make_bucket_plan(optE: np.ndarray) -> tuple[BucketPlan, np.ndarray]:
+    """Group targets by optE: (plan, order), ``order`` a stable host
+    permutation into bucket-sorted layout."""
+    optE = np.asarray(optE)
+    values, counts = np.unique(optE, return_counts=True)
+    plan = BucketPlan(
+        buckets=tuple(int(v) for v in values),
+        counts=tuple(int(c) for c in counts),
+    )
+    order = np.argsort(optE, kind="stable")
+    return plan, order
+
+
+def _check_k(k: int, Lp: int, cfg: EDMConfig, where: str) -> None:
+    if k < 1:
+        raise ValueError(f"{where}: neighbour count k={k} must be >= 1")
+    if k > Lp:
+        raise ValueError(
+            f"{where}: k={k} neighbours requested but only Lp={Lp} library "
+            f"points are embeddable (series too short for E_max={cfg.E_max}, "
+            f"tau={cfg.tau}, Tp={cfg.Tp}; shrink E_max/k_override or use a "
+            "longer series)"
+        )
+
+
+def _bucket_k(cfg: EDMConfig, plan: BucketPlan) -> int:
+    """Table width of the bucketed layout (``k_override`` when set)."""
+    return plan.buckets[-1] + 1 if cfg.k_override is None else cfg.k_override
+
+
+def ccm_row_tables_bucketed(
+    rows: torch.Tensor, cfg: EDMConfig, plan: BucketPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN tables + weights for a chunk of library series.
+
+    rows (S, L) -> (idx, w), each (S, len(plan.buckets), Lp, k)."""
+    eng = engines.get_engine(cfg.engine)
+    Lp = cfg.n_points(rows.shape[-1])
+    kb = _bucket_k(cfg, plan)
+    _check_k(kb, Lp, cfg, "ccm_row_tables_bucketed")
+    V = embedding.lag_matrix(rows, cfg.E_max, cfg.tau, Lp)
+    idx, sqd = eng.knn_tables_bucketed(
+        V, V, kb, buckets=plan.buckets, exclude_self=cfg.exclude_self, cfg=cfg
+    )
+    return knn.tables_with_weights_bucketed(idx, sqd, plan.buckets)
+
+
+def _rho_for_table(eng, idx, w, seg, cfg: EDMConfig) -> torch.Tensor:
+    """rho of every target of one bucket segment against one table per
+    library series.
+
+    idx/w (S, Lp, k); seg (n, Lp) bucket-sorted target futures.  Targets
+    go through the lookup in blocks of ``cfg.target_block``; per-target
+    results are independent, so the blocking never shows in the values.
+    Returns (S, n)."""
+    n = seg.shape[0]
+    tb = min(cfg.target_block, n)
+    out = [
+        pearson(seg[b0 : b0 + tb], eng.ccm_lookup(idx, w, seg[b0 : b0 + tb]))
+        for b0 in range(0, n, tb)
+    ]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
+def ccm_row_lookup_bucketed(
+    idx: torch.Tensor, w: torch.Tensor, fut_sorted: torch.Tensor,
+    cfg: EDMConfig, seg_plan: tuple[tuple[int, int], ...],
+) -> torch.Tensor:
+    """rho of the bucket-sorted targets against a chunk's tables.
+
+    idx/w (S, len(buckets), Lp, k); fut_sorted (t, Lp); seg_plan
+    ((table_row, count), ...) with counts summing to t.  Returns (S, t)."""
+    eng = engines.get_engine(cfg.engine)
+    segs, off = [], 0
+    for b, cnt in seg_plan:
+        seg = fut_sorted[off : off + cnt]
+        segs.append(_rho_for_table(eng, idx[:, b], w[:, b], seg, cfg))
+        off += cnt
+    if fut_sorted.shape[0] != off:
+        raise ValueError(
+            f"seg_plan covers {off} targets but tile has {fut_sorted.shape[0]}"
+        )
+    return segs[0] if len(segs) == 1 else torch.cat(segs, dim=-1)
+
+
+def ccm_block_bucketed(
+    rows: torch.Tensor, fut_sorted: torch.Tensor, cfg: EDMConfig, plan: BucketPlan
+) -> torch.Tensor:
+    """Bucketed rho rows: rows (S, L) -> (S, N), columns in plan order."""
+    idx, w = ccm_row_tables_bucketed(rows, cfg, plan)
+    return ccm_row_lookup_bucketed(
+        idx, w, fut_sorted, cfg, tuple(enumerate(plan.counts))
+    )
+
+
+def all_futures(ts: torch.Tensor, cfg: EDMConfig) -> torch.Tensor:
+    """(N, L) -> (N, Lp) future values, the cross-map targets."""
+    Lp = cfg.n_points(ts.shape[-1])
+    return embedding.future_values(ts, cfg.E_max, cfg.tau, cfg.Tp, Lp)
+
+
+def ccm_matrix(ts: torch.Tensor, optE, cfg: EDMConfig) -> torch.Tensor:
+    """Full (N, N) causal map on one device, bucketed and untiled, built
+    in chunks of ``cfg.lib_block`` library series (small problems,
+    tests).  The bucket permutation is undone on the columns."""
+    if cfg.target_tile or not cfg.bucketed:
+        raise NotImplementedError(
+            "the port computes the bucketed, untiled map only "
+            "(target_tile=0, bucketed=True)"
+        )
+    plan, order = make_bucket_plan(np.asarray(optE))
+    dev = ts.device
+    fut_sorted = all_futures(ts, cfg)[torch.as_tensor(order, device=dev)]
+    rho_sorted = torch.cat(
+        [
+            ccm_block_bucketed(ts[r : r + cfg.lib_block], fut_sorted, cfg, plan)
+            for r in range(0, ts.shape[0], cfg.lib_block)
+        ]
+    )
+    return rho_sorted[:, torch.as_tensor(np.argsort(order), device=dev)]

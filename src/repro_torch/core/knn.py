@@ -1,0 +1,249 @@
+"""kNN tables of the port — the plain PyTorch table functions.
+
+These are the plain versions of the ``knn_topk`` CUDA kernel
+(``kernels/knn_topk``) and the ``torch-reference`` engine's path.  They
+compute the JAX package's ``core/knn.py`` tables exactly: the same
+indices and the same float32 distance bits, ties included.
+
+Distances follow the cumulative-E recurrence D_E = D_{E-1} + (lag
+difference)^2 with the square-then-add rounding pinned (:func:`_acc_sq`).
+Selection streams over candidate tiles of width ``tile_c``: each tile is
+sorted to its own top-k and merged into a running sorted (Lq, k) table
+(:func:`merge_topk_sorted`), so no (Lq, Lc) matrix wider than one tile
+exists.  Both the per-tile selection and the merge are STABLE sorts on
+the distance, which resolves equal distances to the lowest candidate id
+— the ``lax.top_k`` rule.  ``torch.topk`` is never used: its tie order
+is undocumented.
+
+Masked candidates (the self column under ``exclude_self``) carry +inf
+and come back as (+inf, own id), which is what the JAX tables hold in
+the k == Lc case.
+
+Every table function takes the series batch as the leading dimension:
+Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) -> idx, dist (S, n_sel, Lq, k).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.stats import simplex_weights
+
+INF = float("inf")
+
+# Working-set budget of the plain table functions' candidate tile: one
+# (rows, tile) float32 distance block, its masked copy and the stable
+# sort's values + int64 positions.  A bound on host or device memory for
+# the plain version only; the CUDA kernel stages its own tiles in shared
+# memory and ignores it.
+KNN_TILE_BUDGET_BYTES = 256 * 2**20
+KNN_TILE_MIN, KNN_TILE_MAX = 128, 16384
+_BYTES_PER_TILE_ELEM = 4 + 4 + 4 + 8
+
+
+def _dtype(d) -> torch.dtype:
+    return getattr(torch, d) if isinstance(d, str) else d
+
+
+def calibrate_knn_tile(
+    rows: int, Lc: int, budget_bytes: int = KNN_TILE_BUDGET_BYTES
+) -> int:
+    """Widest power-of-two tile width in [KNN_TILE_MIN, KNN_TILE_MAX]
+    whose (rows, tile) working set fits ``budget_bytes``; stops once the
+    tile covers the library (a single tile is the direct selection)."""
+    if Lc < 1:
+        raise ValueError(f"Lc={Lc} must be positive")
+    tile = KNN_TILE_MIN
+    while (
+        tile < Lc
+        and tile < KNN_TILE_MAX
+        and rows * 2 * tile * _BYTES_PER_TILE_ELEM <= budget_bytes
+    ):
+        tile *= 2
+    return tile
+
+
+def resolve_stream_tile(rows: int, Lc: int, cfg) -> int:
+    """``cfg.knn_tile_c`` semantics: > 0 forces that width, 0 calibrates
+    (:func:`calibrate_knn_tile`), -1 (the removed dense route) raises."""
+    if cfg.knn_tile_c > 0:
+        return cfg.knn_tile_c
+    if cfg.knn_tile_c < 0:
+        raise ValueError(
+            "knn_tile_c=-1 (the removed dense distance-matrix selection "
+            "path) is deprecated: use 0 (calibrated) or a positive width"
+        )
+    return calibrate_knn_tile(rows, Lc)
+
+
+def _acc_sq(D, vq, vc, dist_dtype):
+    """One cumulative-E distance update with pinned square-then-add
+    rounding: d = vq - vc, sq = d * d, D + max(sq, 0), each rounded on
+    its own (eager PyTorch runs them as separate elementwise ops, so no
+    multiply-add contraction can occur) — the float sequence of the JAX
+    ``_acc_sq`` and of the CUDA kernel.
+
+    vq (S, Lq), vc (S, tile), D (S, Lq, tile)."""
+    d = vq[..., :, None] - vc[..., None, :]
+    sq = (d * d).to(dist_dtype)
+    return D + torch.clamp_min(sq, 0)
+
+
+def merge_topk_sorted(run_i, run_d, new_i, new_d, k: int):
+    """Merge a running sorted top-k list with a later tile's sorted list.
+
+    Every id of ``new`` is larger than every id of ``run`` (tiles are
+    swept in ascending candidate order) and both lists are sorted by
+    (distance, id), so a stable sort of [run | new] on the distance
+    orders by (distance, id) — the lax.top_k tie rule."""
+    d = torch.cat([run_d, new_d], dim=-1)
+    i = torch.cat([run_i, new_i], dim=-1)
+    d_sorted, order = torch.sort(d, dim=-1, stable=True)
+    return torch.gather(i, -1, order[..., :k]), d_sorted[..., :k]
+
+
+def check_select_Es(select_Es, E_rows: int) -> tuple[int, ...]:
+    select_Es = tuple(int(e) for e in select_Es)
+    if not select_Es or list(select_Es) != sorted(set(select_Es)) or select_Es[0] < 1:
+        raise ValueError(f"select_Es must be ascending, distinct, >= 1: {select_Es}")
+    if select_Es[-1] > E_rows:
+        raise ValueError(f"selection E {select_Es[-1]} exceeds lag rows {E_rows}")
+    return select_Es
+
+
+def _select_tile(D, invalid, k: int, c0: int):
+    """Sorted top-min(k, width) of one (S, Lq, width) distance block."""
+    Dm = D.float()
+    if invalid is not None:
+        Dm = Dm.masked_fill(invalid, INF)
+    d_sorted, pos = torch.sort(Dm, dim=-1, stable=True)
+    m = min(k, D.shape[-1])
+    return (pos[..., :m] + c0).to(torch.int32), d_sorted[..., :m]
+
+
+def _knn_tables_streaming(
+    Vq: torch.Tensor,
+    Vc: torch.Tensor,
+    k: int,
+    exclude_self: bool,
+    tile_c: int,
+    select_Es: tuple[int, ...],
+    dist_dtype=torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate-tiled selection at the E values in ``select_Es``; the
+    distance recurrence still sweeps every e up to max(select_Es).
+
+    Returns (idx int32, dist float32), each (S, len(select_Es), Lq, k)."""
+    S, E_rows, Lq = Vq.shape
+    Lc = Vc.shape[-1]
+    select_Es = check_select_Es(select_Es, E_rows)
+    if Vc.shape[:2] != (S, E_rows):
+        raise ValueError(f"Vq {tuple(Vq.shape)} and Vc {tuple(Vc.shape)} disagree")
+    if k > Lc:
+        raise ValueError(f"k={k} exceeds candidate count Lc={Lc}")
+    if exclude_self and Lq != Lc:
+        raise ValueError("exclude_self requires query set == candidate set")
+    dist_dtype = _dtype(dist_dtype)
+    # The first tile is selected directly, so it must hold >= k columns;
+    # balanced widths as in the JAX table functions (any width gives the same
+    # tables).
+    tile_c = max(k, min(tile_c, Lc))
+    n_tiles = -(-Lc // tile_c)
+    tile_c = max(k, -(-Lc // n_tiles))
+    want = set(select_Es)
+    rows = torch.arange(Lq, device=Vq.device)[:, None]
+    run_i = run_d = None
+    for c0 in range(0, Lc, tile_c):
+        c1 = min(c0 + tile_c, Lc)
+        invalid = None
+        if exclude_self:
+            invalid = torch.arange(c0, c1, device=Vq.device)[None, :] == rows
+        D = torch.zeros((S, Lq, c1 - c0), dtype=dist_dtype, device=Vq.device)
+        t_i, t_d = [], []
+        for e in range(select_Es[-1]):
+            D = _acc_sq(D, Vq[:, e], Vc[:, e, c0:c1], dist_dtype)
+            if e + 1 in want:
+                i, d = _select_tile(D, invalid, k, c0)
+                t_i.append(i)
+                t_d.append(d)
+        T_i, T_d = torch.stack(t_i, dim=1), torch.stack(t_d, dim=1)
+        if run_i is None:
+            run_i, run_d = T_i, T_d
+        else:
+            run_i, run_d = merge_topk_sorted(run_i, run_d, T_i, T_d, k)
+    return run_i, run_d
+
+
+def knn_tables_all_E_streaming(
+    Vq, Vc, k_max: int, exclude_self: bool, tile_c: int, dist_dtype=torch.float32
+):
+    """All-E streaming tables: (S, E_rows, Lq, k_max) each — phase 1's
+    selection path (and the unbucketed phase 2's)."""
+    return _knn_tables_streaming(
+        Vq, Vc, k_max, exclude_self, tile_c,
+        tuple(range(1, Vq.shape[1] + 1)), dist_dtype,
+    )
+
+
+def knn_tables_bucketed_streaming(
+    Vq, Vc, k: int, exclude_self: bool, buckets, tile_c: int,
+    dist_dtype=torch.float32,
+):
+    """Bucketed streaming tables: (S, len(buckets), Lq, k) each —
+    selection only at the bucket dimensions (phase 2)."""
+    return _knn_tables_streaming(
+        Vq, Vc, k, exclude_self, tile_c, tuple(buckets), dist_dtype
+    )
+
+
+def knn_tables_dense(
+    Vq, Vc, k_max: int, exclude_self: bool, dist_dtype=torch.float32
+):
+    """DENSE ORACLE: the full (S, Lq, Lc) distance matrix, selected at
+    every E by one stable sort.  Tests hold the streaming table functions (any
+    tile width) and the kernel against it."""
+    S, E_rows, Lq = Vq.shape
+    Lc = Vc.shape[-1]
+    if exclude_self and Lq != Lc:
+        raise ValueError("exclude_self requires query set == candidate set")
+    dist_dtype = _dtype(dist_dtype)
+    invalid = torch.eye(Lq, dtype=torch.bool, device=Vq.device) if exclude_self else None
+    D = torch.zeros((S, Lq, Lc), dtype=dist_dtype, device=Vq.device)
+    outs = []
+    for e in range(E_rows):
+        D = _acc_sq(D, Vq[:, e], Vc[:, e], dist_dtype)
+        outs.append(_select_tile(D, invalid, k_max, 0))
+    return (
+        torch.stack([o[0] for o in outs], dim=1),
+        torch.stack([o[1] for o in outs], dim=1),
+    )
+
+
+def tables_with_weights(indices, sq_dists):
+    """Stacked all-E tables (..., E_max, Lq, k) -> (indices, weights):
+    table e (E = e+1) weights its first E+1 neighbours."""
+    E_max = indices.shape[-3]
+    k_valid = torch.arange(2, E_max + 2, device=sq_dists.device)[:, None, None]
+    return indices, simplex_weights(sq_dists, k_valid)
+
+
+def tables_with_weights_bucketed(indices, sq_dists, buckets):
+    """Bucketed tables (..., nb, Lq, k): row b weights buckets[b] + 1
+    neighbours."""
+    k_valid = (
+        torch.as_tensor(buckets, dtype=torch.int64, device=sq_dists.device)[:, None, None]
+        + 1
+    )
+    return indices, simplex_weights(sq_dists, k_valid)
+
+
+def simplex_forecast(idx, w, fut_c):
+    """Weighted average of candidate futures (paper Alg. 5).
+
+    idx, w: (S, ..., Lq, k); fut_c: (S, Lc) per-series candidate futures
+    (or (Lc,) shared by every table).  Returns (S, ..., Lq)."""
+    if fut_c.dim() == 1:
+        g = fut_c[idx.long()]
+    else:
+        S = fut_c.shape[0]
+        g = torch.gather(fut_c, -1, idx.reshape(S, -1).long()).reshape(idx.shape)
+    return (w * g).sum(dim=-1)

@@ -1,0 +1,199 @@
+"""'zarr-lite' memmap store of the port, in the JAX package's on-disk
+format: ``<name>/meta.json`` + ``<name>/data.npy``, causal-map row
+blocks ``rows_<row0>.npy`` listed with their crc32 in a self-checksummed
+``blocks.json`` manifest, and a ``.crc32`` sidecar beside the assembled
+map — so ``repro``'s ``edm_fleet fsck`` verifies a port store.
+
+Every write is write-temp + fsync + os.replace: a process killed at any
+point leaves the old file or the new one, never a torn mix.  The
+manifest doubles as the resume record: a rerun recomputes only the rows
+it does not cover.  Only full-width row blocks (the untiled phase 2)
+are ported; tiles, writer shards and fault points are not.
+"""
+from __future__ import annotations
+
+import errno
+import json
+import os
+import pathlib
+import time
+
+import numpy as np
+
+from repro_torch.runtime.integrity import (
+    Crc32,
+    IntegrityError,
+    checksum_file,
+    manifest_with_crc,
+    read_manifest_shard,
+    write_sidecar,
+)
+
+FATAL_WRITE_ERRNOS = (errno.ENOSPC, errno.EDQUOT, errno.EROFS)
+
+
+def _fsync_dir(path: pathlib.Path) -> None:
+    """Best-effort directory fsync after a rename."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _unique_tmp(path: pathlib.Path) -> pathlib.Path:
+    return path.parent / f"{path.name}.tmp-{os.getpid()}-{os.urandom(4).hex()}"
+
+
+def _classify_write_error(e: OSError, path: pathlib.Path,
+                          tmp: pathlib.Path) -> OSError:
+    try:
+        tmp.unlink()
+    except OSError:
+        pass
+    if e.errno in FATAL_WRITE_ERRNOS:
+        return OSError(e.errno, f"out of space at {path} "
+                                f"({os.strerror(e.errno)})")
+    return e
+
+
+def atomic_write_text(path: str | pathlib.Path, text: str) -> None:
+    """write-temp + fsync + os.replace."""
+    path = pathlib.Path(path)
+    tmp = _unique_tmp(path)
+    try:
+        with open(tmp, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+    except OSError as e:
+        raise _classify_write_error(e, path, tmp) from e
+    os.replace(tmp, path)
+    _fsync_dir(path.parent)
+
+
+def atomic_save_npy(path: pathlib.Path, arr: np.ndarray) -> dict:
+    """Atomic np.save; the crc32 is accumulated while the bytes stream
+    out.  Returns {bytes, fsync_s, crc32}."""
+    tmp = _unique_tmp(path)
+    try:
+        with open(tmp, "wb") as f:
+            tee = Crc32(f)
+            np.save(tee, arr)
+            f.flush()
+            t0 = time.perf_counter()
+            os.fsync(f.fileno())
+            fsync_s = time.perf_counter() - t0
+    except OSError as e:
+        raise _classify_write_error(e, path, tmp) from e
+    os.replace(tmp, path)
+    _fsync_dir(path.parent)
+    return {"bytes": int(arr.nbytes), "fsync_s": fsync_s, "crc32": tee.hex}
+
+
+def save_meta(path: str | pathlib.Path, shape, dtype, meta: dict | None = None) -> None:
+    """Write just the zarr-lite meta.json."""
+    p = pathlib.Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    atomic_write_text(
+        p / "meta.json",
+        json.dumps({"shape": list(shape), "dtype": str(dtype), **(meta or {})}),
+    )
+
+
+def load_dataset(path: str | pathlib.Path, mmap: bool = True) -> np.ndarray:
+    return np.load(pathlib.Path(path) / "data.npy", mmap_mode="r" if mmap else None)
+
+
+class TileWriter:
+    """Streamed causal-map output in full-width row blocks + the
+    ``blocks.json`` manifest (``"row0": [nrows, crc32]``), the resume
+    unit of the pipeline.  Coverage is tracked per row, so a rerun with
+    another ``lib_block`` resumes exactly where the last run stopped."""
+
+    def __init__(self, path: str | pathlib.Path, N: int):
+        self.dir = pathlib.Path(path)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.N = N
+        self.manifest = self.dir / "blocks.json"
+        self.done: dict[str, list] = (
+            read_manifest_shard(self.manifest) or {}
+            if self.manifest.exists() else {}
+        )
+        if any("," in key for key in self.done):
+            raise ValueError(
+                f"{self.dir} holds column tiles (a --target-tile store); the "
+                "port writes and resumes full-width row blocks only"
+            )
+
+    def _blocks(self):
+        """Yield (row0, nrows, crc|None) per manifest entry (legacy bare
+        row counts read as unverified)."""
+        for key, val in self.done.items():
+            if isinstance(val, list):
+                yield int(key), int(val[0]), val[1]
+            else:
+                yield int(key), int(val), None
+
+    def covered(self) -> np.ndarray:
+        """(N,) bool: rows already in the store."""
+        cov = np.zeros(self.N, bool)
+        for row0, nr, _crc in self._blocks():
+            cov[row0 : row0 + nr] = True
+        return cov
+
+    def chunk_plan(self, chunk: int) -> list[tuple[int, int]]:
+        """Ordered (row0, nrows) work list: each run of uncovered rows
+        split into at-most-``chunk`` spans."""
+        uncovered = np.nonzero(~self.covered())[0]
+        if uncovered.size == 0:
+            return []
+        run_starts = np.nonzero(np.diff(uncovered) > 1)[0] + 1
+        plan: list[tuple[int, int]] = []
+        for run in np.split(uncovered, run_starts):
+            s, e = int(run[0]), int(run[-1]) + 1
+            for row0 in range(s, e, chunk):
+                plan.append((row0, min(chunk, e - row0)))
+        return plan
+
+    def commit(self) -> None:
+        atomic_write_text(self.manifest, manifest_with_crc(self.done))
+
+    def write_block(self, row0: int, rho_rows: np.ndarray) -> None:
+        """One full-width row block, then the manifest entry."""
+        rho_rows = rho_rows[: max(0, self.N - row0)]
+        stats = atomic_save_npy(self.dir / f"rows_{row0:08d}.npy", rho_rows)
+        self.done[str(row0)] = [int(rho_rows.shape[0]), stats["crc32"]]
+        self.commit()
+
+    def assemble(self, mmap_path: str | pathlib.Path | None = None) -> np.ndarray:
+        """Gather every block into the (N, N) map, verifying each block's
+        crc first.  With ``mmap_path`` the map is a .npy memmap there
+        (given its own sidecar); else a dense host array."""
+        if mmap_path is None:
+            rho = np.zeros((self.N, self.N), np.float32)
+        else:
+            p = pathlib.Path(mmap_path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            rho = np.lib.format.open_memmap(
+                p, mode="w+", dtype=np.float32, shape=(self.N, self.N)
+            )
+        for row0, _nr, crc in self._blocks():
+            f = self.dir / f"rows_{row0:08d}.npy"
+            if crc is not None and checksum_file(f) != crc:
+                raise IntegrityError(
+                    f"{f}: content does not match the manifest checksum "
+                    f"{crc} — the store is corrupt; remove the block and its "
+                    "manifest entry and rerun to recompute it"
+                )
+            block = np.load(f)[:, : self.N]
+            rho[row0 : row0 + block.shape[0]] = block
+        if mmap_path is not None:
+            rho.flush()
+            write_sidecar(p, checksum_file(p))
+        return rho

@@ -1,0 +1,56 @@
+"""Execution-engine interface of the port: the named EDM ops that
+dominate runtime — kNN-table construction, simplex forecast and the
+batched CCM lookup — behind one interface, as in ``repro.engine``.
+
+Ops take the series batch as a leading tensor dimension (the JAX engines
+take one series and are vmapped):
+
+  knn_tables          Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) ->
+                      idx, dist (S, E_rows, Lq, k)
+  knn_tables_bucketed same, only at the bucket E values ->
+                      (S, len(buckets), Lq, k)
+  simplex_forecast    idx, w (S, ..., Lq, k), fut_c (S, Lc) -> (S, ..., Lq)
+  ccm_lookup          idx, w ([S,] Lq, k), Y (B, Lp) -> ([S,] B, Lq)
+"""
+from __future__ import annotations
+
+from repro_torch.core import knn
+
+
+class Engine:
+    """Base engine; subclasses implement :meth:`_select_tables` and
+    :meth:`ccm_lookup`."""
+
+    #: registry key; subclasses must set this.
+    name: str = "base"
+
+    @staticmethod
+    def knn_selection_tile(rows: int, Lc: int, cfg) -> int:
+        """Candidate-tile width of the plain streaming table functions
+        (``cfg.knn_tile_c``; 0 = calibrated).  Invisible in the output."""
+        return knn.resolve_stream_tile(rows, Lc, cfg)
+
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+        raise NotImplementedError
+
+    def knn_tables(self, Vq, Vc, k, *, exclude_self, cfg):
+        """kNN tables for every embedding dimension 1..E_rows."""
+        return self._select_tables(
+            Vq, Vc, k, exclude_self, tuple(range(1, Vq.shape[1] + 1)), cfg
+        )
+
+    def knn_tables_bucketed(self, Vq, Vc, k, *, buckets, exclude_self, cfg):
+        """kNN tables only at the embedding dimensions in ``buckets``
+        (ascending, distinct); lags above max(buckets) are never read."""
+        return self._select_tables(Vq, Vc, k, exclude_self, tuple(buckets), cfg)
+
+    def simplex_forecast(self, idx, w, fut_c):
+        """Weighted neighbour-future average (paper Alg. 5)."""
+        return knn.simplex_forecast(idx, w, fut_c)
+
+    def ccm_lookup(self, idx, w, Y_fut):
+        """Batched simplex lookup: targets sharing one table per series."""
+        raise NotImplementedError
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"<Engine {self.name}>"

@@ -1,0 +1,26 @@
+"""``cuda`` engine: the hand-written kernels for CUDA tensors.
+
+kNN tables go through ``kernels/knn_topk`` (the selection set is passed
+to the kernel, so E values outside the bucket set only accumulate
+distance) and the batched lookup through ``kernels/ccm_lookup``.  For a
+CPU tensor each wrapper runs its plain version; for a CUDA tensor it
+launches its kernel or raises.
+"""
+from __future__ import annotations
+
+from repro_torch.engine.base import Engine
+from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+from repro_torch.kernels.knn_topk.ops import knn_topk
+
+
+class CudaEngine(Engine):
+    name = "cuda"
+
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+        return knn_topk(
+            Vq.contiguous(), Vc.contiguous(), k, exclude_self, select_Es,
+            dist_dtype=cfg.dist_dtype,
+        )
+
+    def ccm_lookup(self, idx, w, Y_fut):
+        return ccm_lookup(idx.contiguous(), w.contiguous(), Y_fut.contiguous())

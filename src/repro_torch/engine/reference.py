@@ -1,0 +1,23 @@
+"""``torch-reference`` engine: the plain PyTorch versions on any device
+(the CPU or a CUDA card).  kNN tables come from the streaming table functions
+of ``core/knn.py`` at the resolved tile width; lookups from the plain
+``ccm_lookup`` version."""
+from __future__ import annotations
+
+from repro_torch.engine.base import Engine
+from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+
+class ReferenceEngine(Engine):
+    name = "torch-reference"
+
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+        tile = self.knn_selection_tile(Vq.shape[0] * Vq.shape[2], Vc.shape[2], cfg)
+        return knn_topk_ref(
+            Vq, Vc, k, exclude_self, select_Es, tile_c=tile,
+            dist_dtype=cfg.dist_dtype,
+        )
+
+    def ccm_lookup(self, idx, w, Y_fut):
+        return ccm_lookup_ref(idx, w, Y_fut)

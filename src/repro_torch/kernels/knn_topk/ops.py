@@ -1,0 +1,107 @@
+"""Wrapper of the knn_topk CUDA kernel (``csrc/knn_topk.cu``).
+
+For a CUDA tensor it launches the kernel or raises; for a CPU tensor it
+runs the plain version (``ref.py``).  There is no other route: no
+fallback from a failed launch to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import knn
+from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load_library("knn_topk")
+    if lib.knn_topk_launch.argtypes is None:
+        lib.knn_topk_launch.argtypes = _ARGTYPES
+        lib.knn_topk_launch.restype = ctypes.c_int
+        for fn in (lib.knn_topk_max_k, lib.knn_topk_max_e):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def select_mask(select_Es) -> int:
+    """Bit e set <=> E = e + 1 is selected."""
+    m = 0
+    for e in select_Es:
+        m |= 1 << (int(e) - 1)
+    return m
+
+
+def knn_topk(
+    Vq: torch.Tensor,
+    Vc: torch.Tensor,
+    k: int,
+    exclude_self: bool,
+    select_Es,
+    dist_dtype="float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN tables at the embedding dimensions ``select_Es``.
+
+    Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) float32 -> (idx int32, dist
+    float32), each (S, len(select_Es), Lq, k), sorted by (distance, id);
+    masked self entries come back as +inf.  E values below max(select_Es)
+    outside the set only accumulate distance.
+    """
+    select_Es = tuple(int(e) for e in select_Es)
+    if Vq.device.type == "cpu" and Vc.device.type == "cpu":
+        return knn_topk_ref(Vq, Vc, k, exclude_self, select_Es,
+                            dist_dtype=dist_dtype)
+    if not (Vq.is_cuda and Vc.is_cuda and Vq.device == Vc.device):
+        raise ValueError(
+            f"knn_topk: Vq on {Vq.device} and Vc on {Vc.device}; both must "
+            "be on one CUDA device (or both on the CPU for the plain version)"
+        )
+    if str(dist_dtype) not in ("float32", "torch.float32"):
+        raise ValueError(
+            f"knn_topk kernel accumulates in float32 only (dist_dtype="
+            f"{dist_dtype}); the bfloat16 accumulator is in the plain version"
+        )
+    if Vq.dtype != torch.float32 or Vc.dtype != torch.float32:
+        raise ValueError(f"knn_topk takes float32, got {Vq.dtype} / {Vc.dtype}")
+    if Vq.dim() != 3 or Vc.dim() != 3 or Vq.shape[:2] != Vc.shape[:2]:
+        raise ValueError(
+            f"knn_topk takes Vq (S, E_rows, Lq) and Vc (S, E_rows, Lc), got "
+            f"{tuple(Vq.shape)} and {tuple(Vc.shape)}"
+        )
+    if not (Vq.is_contiguous() and Vc.is_contiguous()):
+        raise ValueError("knn_topk takes contiguous Vq and Vc")
+    S, E_rows, Lq = Vq.shape
+    Lc = Vc.shape[2]
+    knn.check_select_Es(select_Es, E_rows)
+    lib = _lib()
+    if not 1 <= k <= min(Lc, lib.knn_topk_max_k()):
+        raise ValueError(
+            f"knn_topk: k={k} must be in [1, min(Lc={Lc}, "
+            f"{lib.knn_topk_max_k()})]"
+        )
+    if select_Es[-1] > lib.knn_topk_max_e():
+        raise ValueError(f"knn_topk: E={select_Es[-1]} above {lib.knn_topk_max_e()}")
+    if exclude_self and Lq != Lc:
+        raise ValueError("exclude_self requires query set == candidate set")
+    n_sel = len(select_Es)
+    idx = torch.empty((S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
+    dist = torch.empty((S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
+    with torch.cuda.device(Vq.device):
+        rc = lib.knn_topk_launch(
+            Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+            S, E_rows, Lq, Lc, k, select_mask(select_Es), int(exclude_self),
+            kernels.current_stream(Vq.device),
+        )
+    kernels.check_launch("knn_topk", rc, lib)
+    knn_topk.LAUNCHES += 1
+    return idx, dist
+
+
+#: kernel launches since the last reset (chip_smoke.py resets and reads it)
+knn_topk.LAUNCHES = 0

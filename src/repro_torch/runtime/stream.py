@@ -1,0 +1,79 @@
+"""Chunk streamer: overlap device compute with the host-side drain of
+finished chunks (double buffering).
+
+PyTorch on a CUDA card returns from a kernel launch before the kernel
+runs.  :meth:`ChunkStreamer.submit` starts a non-blocking copy of the
+chunk's result into pinned host memory and records an event behind it;
+the chunk is drained (event synchronized, ``drain(tag, ndarray)``
+called) only once ``depth`` chunks are in flight, so with depth = 2 the
+next chunk is already queued on the card while the previous one is
+copied out and written.  Drains run in submission order, which the
+store's resume manifest needs.  CPU tensors and numpy arrays pass
+through without a copy.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+class _HostCopy:
+    """A device tensor on its way to host memory."""
+
+    def __init__(self, value: Any):
+        self._src = value
+        self._event = None
+        if isinstance(value, torch.Tensor) and value.is_cuda:
+            self._host = torch.empty(value.shape, dtype=value.dtype,
+                                     pin_memory=True)
+            self._host.copy_(value, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(value.device))
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            return self._host.numpy()
+        if isinstance(self._src, torch.Tensor):
+            return self._src.numpy()
+        return np.asarray(self._src)
+
+
+class ChunkStreamer:
+    """Bounded queue of in-flight chunks with ordered drains."""
+
+    def __init__(self, drain: Callable[[Any, np.ndarray], None], depth: int = 2):
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self.drain = drain
+        self.depth = depth
+        self._pending: collections.deque[tuple[Any, _HostCopy]] = collections.deque()
+
+    def submit(self, tag: Any, value: Any) -> None:
+        """Enqueue a dispatched chunk result; drain the oldest chunk(s)
+        once ``depth`` are in flight (depth 1 = synchronous)."""
+        self._pending.append((tag, _HostCopy(value)))
+        while len(self._pending) >= self.depth:
+            self._drain_one()
+
+    def _drain_one(self) -> None:
+        tag, copy = self._pending.popleft()
+        self.drain(tag, copy.wait())
+
+    def flush(self) -> None:
+        """Drain everything still in flight."""
+        while self._pending:
+            self._drain_one()
+
+    def __enter__(self) -> "ChunkStreamer":
+        return self
+
+    def __exit__(self, exc_type, *_exc) -> None:
+        # Don't mask an in-loop exception with a drain of stale chunks.
+        if exc_type is None:
+            self.flush()
+        else:
+            self._pending.clear()

@@ -18,3 +18,9 @@ def small_network():
     from repro.data.synthetic import logistic_network
 
     return logistic_network(10, 300, density=0.2, strength=0.25, seed=4)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips from inside the test without one)"
+    )

@@ -1,0 +1,106 @@
+"""Each CUDA kernel of the port against its plain version on the card.
+
+Marked ``gpu``; run on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_*.py
+
+Without a card every test here skips from inside its body (never at
+collection, so every pytest worker collects the same tests)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+import numpy as np  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+def _card():
+    from repro_torch.kernels import kernels_available
+
+    if not kernels_available():
+        pytest.skip("needs a CUDA card and nvcc (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _lags(S, E, L, seed):
+    x = np.random.default_rng(seed).standard_normal((S, E, L)).astype(np.float32)
+    x[0, :, 100:150] = x[0, :, :50]  # duplicated points -> ties
+    x[-1] = 0.25  # a dead series: every distance ties at 0
+    return x
+
+
+@pytest.mark.parametrize("exclude_self,select_Es,k", [
+    (False, tuple(range(1, 21)), 21),
+    (True, (3, 5, 8, 12), 13),
+    (True, tuple(range(1, 21)), 21),
+])
+def test_knn_topk_kernel_equals_plain_version(exclude_self, select_Es, k):
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = torch.tensor(_lags(4, 20, 400, 0), device=dev)
+    Vq, Vc = (x, x) if exclude_self else (x[..., 200:].contiguous(), x[..., :200].contiguous())
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+def test_knn_topk_kernel_k_equals_Lc():
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = torch.tensor(_lags(2, 5, 21, 1)[..., :21], device=dev)
+    ki, kd = knn_topk(x, x, 21, True, range(1, 6))
+    ri, rd = knn_topk_ref(x, x, 21, True, range(1, 6))
+    assert torch.equal(ki, ri) and torch.isinf(kd[..., -1]).all()
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+def test_knn_topk_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    x = torch.zeros((1, 4, 40), device=dev)
+    with pytest.raises(ValueError, match="float32 only"):
+        knn_topk(x, x, 3, True, (1,), dist_dtype="bfloat16")
+    with pytest.raises(ValueError, match="k="):
+        knn_topk(x, x, 33, True, (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_topk(x[..., ::2], x[..., ::2], 3, True, (1,))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        knn_topk(x, x.cpu(), 3, True, (1,))
+
+
+@pytest.mark.parametrize("S,Lq,k,B,Lp", [(None, 1430, 21, 2048, 1430),
+                                          (8, 1430, 13, 300, 1430),
+                                          (3, 257, 5, 33, 300)])
+def test_ccm_lookup_kernel_equals_plain_version(S, Lq, k, B, Lp):
+    dev = _card()
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+
+    rng = np.random.default_rng(2)
+    lead = () if S is None else (S,)
+    idx = torch.tensor(rng.integers(0, Lp, lead + (Lq, k)).astype(np.int32), device=dev)
+    w = torch.tensor(rng.uniform(0, 1, lead + (Lq, k)).astype(np.float32), device=dev)
+    Y = torch.tensor(rng.standard_normal((B, Lp)).astype(np.float32), device=dev)
+    got, want = ccm_lookup(idx, w, Y), ccm_lookup_ref(idx, w, Y)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6 * float(Y.abs().max())
+
+
+def test_cuda_engine_map_matches_torch_reference_on_the_card():
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+
+    ts = dummy_brain(40, 500, seed=3)
+    got = run_causal_inference(ts, EDMConfig(E_max=10), device=dev)
+    want = run_causal_inference(ts, EDMConfig(E_max=10, engine="torch-reference"),
+                                device=dev)
+    assert np.array_equal(got.optE, want.optE)
+    assert np.abs(got.rho - want.rho).max() <= 1e-5

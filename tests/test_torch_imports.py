@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the card by default — without one they raise
+instead of silently running on the CPU."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402,F401  (the tests run both packages; jax stays on the CPU)
+import numpy as np  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _port_modules():
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(REPO / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    mods = list(_port_modules())
+    assert len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+_BAD_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_has_no_jax_or_repro_import(path):
+    text = (REPO / path).read_text()
+    assert not _BAD_IMPORT.findall(text), f"{path} imports jax or repro"
+
+
+def test_run_causal_inference_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.core.pipeline import run_causal_inference, run_phase1
+    from repro_torch.core.types import EDMConfig
+
+    ts = np.random.default_rng(0).standard_normal((4, 120)).astype(np.float32)
+    cfg = EDMConfig(E_max=3)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_causal_inference(ts, cfg, **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_phase1(ts, cfg, **kw)
+
+
+def test_edm_run_cli_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import edm_run
+
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            edm_run.main(["--synthetic", "4x120", "--e-max", "3",
+                          "--out", str(tmp_path / "o"), *extra])
+    assert not (tmp_path / "o" / "causal_map").exists()
+
+
+@pytest.mark.parametrize("flag", ["--lib-sizes 10,20", "--surrogates 5",
+                                  "--workers 2", "--target-tile 8",
+                                  "--no-bucketed", "--autotune",
+                                  "--platform gpu"])
+def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
+    from repro_torch.launch import edm_run
+
+    with pytest.raises(SystemExit) as e:
+        edm_run.main(["--synthetic", "4x120", "--out", str(tmp_path),
+                      "--device", "cpu", *flag.split()])
+    assert e.value.code != 0
+    assert flag.split()[0] in capsys.readouterr().err
