@@ -4,10 +4,13 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card at the main path's
-shapes, drives the main path (``repro_torch.launch.edm_run``) at the
-series length and E_max of the paper's Fish1_Normo recording, checks the
-map against the plain-version engine, and times every kernel with CUDA
+each against its plain PyTorch version on the card at the shapes of the
+paths that run it, drives two paths of ``repro_torch.launch.edm_run`` at
+the series length and E_max of the paper's Fish1_Normo recording — the
+main path (the causal map) and the significance path (map, convergence
+statistics, surrogate p-values and BH-FDR edges) — each with the kernel
+launch counts set to 0 just before it and read just after, checks both
+against the plain-version engine, and times every kernel with CUDA
 events beside its bound, its plain version and (where one exists) one
 PyTorch library call computing the same function.
 
@@ -43,8 +46,13 @@ FISH1_L, E_MAX = 1450, 20
 SUBJECT11_L = 8528
 LIB_BLOCK = 8
 TARGET_BLOCK = 2048
-CHECK_N = 256  # series of the cuda vs torch-reference engine check
-PROFILE_N = 512  # series of the profiled main-path run
+CHECK_N = 256  # series of the cuda vs torch-reference engine checks
+PROFILE_N = 512  # series of the profiled runs of both paths
+# The significance path: the repo's default library sizes up to Lp = 1430
+# and surrogate count, the surrogates' null model and the FDR level.
+SIG_LIB_SIZES = (100, 200, 400, 800, 1430)
+SIG_M, SIG_CHECK_M = 20, 9
+NEAR_TIE = 1e-6  # |difference| below which a comparison may round either way
 
 
 def emit(phase: str, **kw) -> None:
@@ -93,6 +101,16 @@ def lookup_bound_ms(S, B, Lq, Lp, k):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def prefix_bound_ms(B, E_hi, n_sel, Lq, P, S, k):
+    """3 fp32 operations per (query, swept position, lag); bytes = the
+    swept columns and the queries read once, col_ids once, the S table
+    snapshots written once."""
+    ops = 3.0 * B * Lq * P * E_hi
+    nbytes = 4.0 * B * E_hi * (Lq + P) + 4.0 * P + 8.0 * B * S * n_sel * Lq * k
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def same_bits(torch, a, b) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
@@ -132,6 +150,99 @@ def check_knn(torch, name, Vq, Vc, k, exclude_self, select_Es):
     return err
 
 
+def check_knn_prefix(torch, name, Vq, Vc, k, exclude_self, buckets, lib_sizes,
+                     col_ids):
+    """Prefix kernel vs plain version on the card: idx equal, dist
+    bit-equal."""
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    ki, kd = knn_topk_prefix(Vq, Vc, k, exclude_self, buckets, lib_sizes,
+                             col_ids=col_ids)
+    torch.cuda.synchronize()
+    ri, rd = knn_topk_prefix_ref(Vq, Vc, k, exclude_self, buckets, lib_sizes,
+                                 col_ids=col_ids)
+    idx_eq = bool(torch.equal(ki, ri))
+    bits_eq = same_bits(torch, kd, rd)
+    err = finite_max_abs(torch, kd, rd)
+    emit("check_knn_prefix", case=name, shape=list(Vq.shape) + [Vc.shape[-1]],
+         k=k, exclude_self=exclude_self, buckets=list(buckets),
+         lib_sizes=list(lib_sizes), permuted=col_ids is not None,
+         idx_equal=idx_eq, dist_bits_equal=bits_eq, max_abs_err=err)
+    if not (idx_eq and bits_eq):
+        bad = (ki != ri).nonzero()[:5].tolist()
+        raise AssertionError(f"knn_topk_prefix kernel != plain version ({name}); "
+                             f"first differing idx positions {bad}")
+    return err
+
+
+def check_prng(torch, dev):
+    """The port's threefry draws on the card equal the CPU's bit for bit
+    (integer ops only; the uniforms compared as bits)."""
+    from repro_torch.inference import prng
+
+    n_cmp = 0
+    for seed in (0, 1, 2**31 - 1):
+        kc, kd = prng.prng_key(seed), prng.prng_key(seed, dev)
+        ids = torch.arange(2048)
+        pairs = {
+            "split": (prng.split(kc, 20), prng.split(kd, 20)),
+            "fold_in": (prng.fold_in(kc, ids), prng.fold_in(kd, ids.to(dev))),
+            "bits": (prng.random_bits(kc, 8508), prng.random_bits(kd, 8508)),
+            "uniform": (prng.uniform(prng.split(kc, 20), 726, 0.0, prng.TWO_PI_F32),
+                        prng.uniform(prng.split(kd, 20), 726, 0.0, prng.TWO_PI_F32)),
+            "permutation_1430": (prng.permutation(kc, 1430), prng.permutation(kd, 1430)),
+            "permutation_8508": (prng.permutation(kc, 8508), prng.permutation(kd, 8508)),
+        }
+        for what, (a, b) in pairs.items():
+            b = b.cpu()
+            same = (same_bits(torch, a, b) if a.dtype == torch.float32
+                    else bool(torch.equal(a, b)))
+            if not same:
+                raise AssertionError(f"prng {what} (seed {seed}) differs between "
+                                     "the card and the CPU")
+            n_cmp += a.numel()
+    emit("check_prng", seeds=[0, 1, 2**31 - 1], values_compared=n_cmp, equal=True)
+
+
+def sig_near_ties(torch, ts, optE, rho, cfg, sig, dev):
+    """(trend, p) near-tie masks (N, N) of a significance run: pairs whose
+    rho curve has two sizes within NEAR_TIE, or whose null rho lies
+    within NEAR_TIE of the observed rho for some surrogate — computed in
+    chunks with the plain engine."""
+    import numpy as np
+
+    from repro_torch.core import ccm
+    from repro_torch.inference import convergence
+    from repro_torch.inference.pipeline import SignificanceChunkRunner
+
+    r = SignificanceChunkRunner(ts, optE, cfg, sig, device=dev)
+    inv = np.argsort(r.order)
+    seg = tuple(enumerate(r.plan.counts))
+    seg_m = tuple((b, c * r.m) for b, c in seg)
+    S = len(sig.lib_sizes)
+    iu = np.triu_indices(S, 1)
+    trend_tie = np.zeros((r.N, r.N), bool)
+    p_tie = np.zeros((r.N, r.N), bool)
+    for row0 in range(0, r.N, cfg.lib_block):
+        rows = r.ts_d[row0 : row0 + cfg.lib_block]
+        cidx, cw = convergence.conv_block_tables(rows, cfg, r.plan, sig.lib_sizes,
+                                                 r.col_ids)
+        curves = torch.stack([
+            ccm.ccm_row_lookup_bucketed(cidx[:, s], cw[:, s], r.fut_sorted, cfg, seg)
+            for s in range(S)
+        ]).cpu().numpy()[..., inv]
+        gaps = np.abs(curves[iu[1]] - curves[iu[0]])
+        trend_tie[row0 : row0 + rows.shape[0]] = (gaps <= NEAR_TIE).any(0)
+        fidx, fw = ccm.ccm_row_tables_bucketed(rows, cfg, r.plan)
+        null = ccm.ccm_row_lookup_bucketed(fidx, fw, r.fut_surr, cfg, seg_m)
+        null = null.cpu().numpy().reshape(rows.shape[0], r.N, r.m)[:, inv]
+        obs = np.asarray(rho[row0 : row0 + rows.shape[0]])
+        p_tie[row0 : row0 + rows.shape[0]] = (
+            np.abs(null - obs[..., None]) <= NEAR_TIE).any(-1)
+    return trend_tie, p_tie
+
+
 def check_lookup(torch, name, idx, w, Y):
     """Kernel vs plain version: |diff| <= 1e-6 * max|Y| (see docs/PORT.md)."""
     from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
@@ -151,27 +262,10 @@ def check_lookup(torch, name, idx, w, Y):
     return err
 
 
-def profile_main_path(torch, dev, n, smi):
-    """Trace one in-process main-path run (no store) with torch.profiler:
-    the device's busy share of the wall time and device time by kernel.
-    Kernels run on one stream, so their device times add up without
-    overlap."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.pipeline import run_causal_inference
-    from repro_torch.core.types import EDMConfig
-    from repro_torch.data.synthetic import dummy_brain
-
-    ts = dummy_brain(n, FISH1_L, seed=5)
-    cfg = EDMConfig(E_max=E_MAX)
-    run_causal_inference(ts[: 2 * LIB_BLOCK], cfg, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    timings: dict = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_causal_inference(ts, cfg, device=dev, timings=timings)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+def _device_time_by_kernel(prof):
+    """[(device us, kernel name, calls)] from a finished profile, largest
+    first.  Kernels run on one stream, so their device times add up
+    without overlap."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -183,18 +277,57 @@ def profile_main_path(torch, dev, n, smi):
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
             rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    emit("profile", N=n, L=FISH1_L, wall_s=wall, **timings,
-         device_busy_s=busy_s, device_busy_share=busy_s / wall,
-         top=[{"name": k[:90], "device_s": us / 1e6, "calls": c}
-              for us, k, c in rows[:12]], smi=smi)
+    return sorted(rows, reverse=True)
+
+
+def profile_paths(torch, dev, n, smi):
+    """Trace one in-process run of each path (no store) with
+    torch.profiler: the main path (the map), then the significance stage
+    on that map.  Emits per path the device's busy share of the wall
+    time and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = dummy_brain(n, FISH1_L, seed=5)
+    cfg = EDMConfig(E_max=E_MAX)
+    sig = SignificanceConfig(lib_sizes=SIG_LIB_SIZES, n_surrogates=SIG_M,
+                             alpha=0.05, seed=0)
+    warm = run_causal_inference(ts[: 2 * LIB_BLOCK], cfg, device=dev)
+    run_significance(ts[: 2 * LIB_BLOCK], warm.optE, warm.rho, cfg, sig, device=dev)
+    torch.cuda.synchronize()
+    timings: dict = {}
+    out = {}
+    for phase, run in (
+        ("profile", lambda: out.update(
+            cmap=run_causal_inference(ts, cfg, device=dev, timings=timings))),
+        ("profile_significance", lambda: run_significance(
+            ts, out["cmap"].optE, out["cmap"].rho, cfg, sig, device=dev)),
+    ):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = _device_time_by_kernel(prof)
+        busy_s = sum(r[0] for r in rows) / 1e6
+        extra = timings if phase == "profile" else {
+            "surrogates": SIG_M, "lib_sizes": list(SIG_LIB_SIZES)}
+        emit(phase, N=n, L=FISH1_L, wall_s=wall, **extra,
+             device_busy_s=busy_s, device_busy_share=busy_s / wall,
+             top=[{"name": k[:90], "device_s": us / 1e6, "calls": c}
+                  for us, k, c in rows[:12]], smi=smi)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=16384,
-                    help="series in the end-to-end run (Fish1_Normo has 53,053)")
+                    help="series in the main-path run (Fish1_Normo has 53,053)")
+    ap.add_argument("--sig-n", type=int, default=2048,
+                    help="series in the significance-path run")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -232,8 +365,10 @@ def main(argv=None) -> int:
     from repro_torch.data.synthetic import dummy_brain
     from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
     from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
-    from repro_torch.kernels.knn_topk.ops import knn_topk
-    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+    from repro_torch.inference import prng
+    from repro_torch.inference.convergence import subsample_permutation
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
     from repro_torch.launch import edm_run
 
     # ---- kernels against their plain versions, main-path shapes ---------
@@ -270,6 +405,26 @@ def main(argv=None) -> int:
                      w8[:3, :1000].contiguous(), Y[:777]),
     )
 
+    # ---- the prefix kernel against its plain version, significance shapes
+    # col_ids: the pipeline's subsampling permutation at seed 0
+    perm_key = prng.split(prng.prng_key(0, dev), 2)[0]
+    col_ids = subsample_permutation(perm_key, Lp)
+    bsel = (3, 5, 8, 12)
+    prefix_err = max(
+        check_knn_prefix(torch, "sig_buckets", V8, V8, 13, True, bsel,
+                         SIG_LIB_SIZES, col_ids),
+        check_knn_prefix(torch, "sig_all_E", V8, V8, E_MAX + 1, True, all_E,
+                         SIG_LIB_SIZES, col_ids),
+        check_knn_prefix(torch, "natural_order", V8, V8, 13, True, bsel,
+                         SIG_LIB_SIZES, None),
+        check_knn_prefix(torch, "lib0_is_k_plus_1", V8, V8, 13, True, bsel,
+                         (14, 700, Lp), col_ids),
+        check_knn_prefix(torch, "tied_rows", Vt, Vt, E_MAX + 1, True, all_E,
+                         (E_MAX + 2, 100, Vt.shape[-1]),
+                         subsample_permutation(perm_key, Vt.shape[-1])),
+    )
+    check_prng(torch, dev)
+
     # ---- the main path; the launch counts start at 0 here ---------------
     out_dir = ROOT / "build" / "smoke_out"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -302,6 +457,53 @@ def main(argv=None) -> int:
     del result, rho
     shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- the significance path; the launch counts start at 0 here -------
+    sig_dir = ROOT / "build" / "smoke_sig"
+    shutil.rmtree(sig_dir, ignore_errors=True)
+    knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        summary = edm_run.main([
+            "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
+            "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+            "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+            "--fdr", "0.05", "--seed", "0", "--out", str(sig_dir)])
+    sig_launches = {"knn_topk": knn_topk.LAUNCHES,
+                    "knn_topk_prefix": knn_topk_prefix.LAUNCHES,
+                    "ccm_lookup": ccm_lookup.LAUNCHES}
+    peak_sig = torch.cuda.max_memory_allocated(dev)
+    for ln in log.getvalue().strip().splitlines()[-2:]:
+        print(ln, flush=True)
+    out = summary["significance"]
+    n = args.sig_n
+    maps = {"rho": summary["result"].rho, "drho": out.drho, "trend": out.trend,
+            "pvals": out.pvals}
+    for name, a in maps.items():
+        a = np.asarray(a)
+        if a.shape != (n, n) or not np.isfinite(a).all():
+            raise AssertionError(f"significance map {name}: shape {a.shape}, "
+                                 f"finite {np.isfinite(a).all()}")
+    j = np.asarray(out.pvals, np.float64) * (SIG_M + 1)
+    if not (np.abs(j - np.rint(j)).max() <= 1e-4
+            and np.rint(j).min() >= 1 and np.rint(j).max() <= SIG_M + 1):
+        raise AssertionError("p-values outside {j / (m + 1)}")
+    if min(sig_launches.values()) < 1:
+        raise AssertionError(f"significance path missed a kernel: {sig_launches}")
+    sig_buckets = tuple(int(b) for b in np.unique(summary["result"].optE))
+    emit("significance", N=n, L=FISH1_L, E_max=E_MAX, lib_block=LIB_BLOCK,
+         lib_sizes=list(SIG_LIB_SIZES), surrogates=SIG_M, surrogate="phase",
+         fdr=0.05, seed=0, n_cut_from=53053, wall_s=summary["wall_s"]
+         + summary["significance_s"], phase1_s=summary["phase1_s"],
+         phase2_s=summary["phase2_s"], assemble_s=summary["assemble_s"],
+         significance_s=summary["significance_s"], peak_device_bytes=peak_sig,
+         buckets=list(sig_buckets), launches=sig_launches, edges=summary["edges"],
+         p_threshold=out.p_threshold, n_tests=out.n_tests,
+         drho_mean=float(np.asarray(out.drho).mean()),
+         trend_mean=float(np.asarray(out.trend).mean()), smi=smi)
+    del summary, out, maps
+    shutil.rmtree(sig_dir, ignore_errors=True)
+
     # ---- times with CUDA events at the main path's shapes ---------------
     kb = buckets[-1] + 1
     Vq1, Vc1 = V8[..., Lh:].contiguous(), V8[..., :Lh].contiguous()
@@ -329,6 +531,22 @@ def main(argv=None) -> int:
                                          select_Es=list(all_E))
     emit("time_knn_topk", smi=smi, **times)
 
+    # the significance path's prefix build: one chunk, its bucket set
+    kp = sig_buckets[-1] + 1
+    prefix_err = max(prefix_err, check_knn_prefix(
+        torch, "sig_path_buckets", V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES,
+        col_ids))
+    ms = time_ms(torch, lambda: knn_topk_prefix(V8, V8, kp, True, sig_buckets,
+                                                SIG_LIB_SIZES, col_ids=col_ids), 20)
+    plain = time_ms(torch, lambda: knn_topk_prefix_ref(
+        V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES, col_ids=col_ids), 2)
+    bound, by = prefix_bound_ms(V8.shape[0], sig_buckets[-1], len(sig_buckets), Lp,
+                                SIG_LIB_SIZES[-1], len(SIG_LIB_SIZES), kp)
+    ptimes = dict(kernel_ms=ms, plain_ms=plain, bound_us=bound * 1e3, bound_by=by,
+                  B=V8.shape[0], Lq=Lp, P=SIG_LIB_SIZES[-1],
+                  lib_sizes=list(SIG_LIB_SIZES), k=kp, buckets=list(sig_buckets))
+    emit("time_knn_topk_prefix", smi=smi, **ptimes)
+
     import torch.nn.functional as F
 
     ltimes = {}
@@ -353,7 +571,7 @@ def main(argv=None) -> int:
                             bound_by=by, S=S, B=Y.shape[0], Lq=Lp, k=idx.shape[-1])
     emit("time_ccm_lookup", smi=smi, **ltimes)
 
-    profile_main_path(torch, dev, PROFILE_N, smi)
+    profile_paths(torch, dev, PROFILE_N, smi)
 
     # ---- engine check: cuda vs torch-reference ---------------------------
     from repro_torch.core.pipeline import run_causal_inference
@@ -376,6 +594,33 @@ def main(argv=None) -> int:
         if not (optE_eq and err <= 1e-5):
             raise AssertionError(f"cuda engine != torch-reference ({case})")
 
+    # ---- significance engine check: cuda vs torch-reference --------------
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = dummy_brain(CHECK_N, FISH1_L, seed=6)
+    cmap = run_causal_inference(ts, EDMConfig(E_max=E_MAX), device=dev)
+    sig = SignificanceConfig(lib_sizes=SIG_LIB_SIZES, n_surrogates=SIG_CHECK_M,
+                             alpha=0.05, seed=0)
+    ref_cfg = EDMConfig(E_max=E_MAX, engine="torch-reference")
+    got = run_significance(ts, cmap.optE, cmap.rho, EDMConfig(E_max=E_MAX), sig,
+                           device=dev)
+    want = run_significance(ts, cmap.optE, cmap.rho, ref_cfg, sig, device=dev)
+    trend_tie, p_tie = sig_near_ties(torch, ts, cmap.optE, cmap.rho, ref_cfg, sig,
+                                     dev)
+    drho_err = float(np.abs(got.drho - want.drho).max())
+    trend_bad = int((got.trend != want.trend)[~trend_tie].sum())
+    p_bad = int((got.pvals != want.pvals)[~p_tie].sum())
+    emit("sig_engine_check", N=CHECK_N, L=FISH1_L, m=SIG_CHECK_M,
+         drho_max_abs_err=drho_err, tol=1e-5, near_tie=NEAR_TIE,
+         trend_near_ties_skipped=int(trend_tie.sum()),
+         p_near_ties_skipped=int(p_tie.sum()), trend_mismatches=trend_bad,
+         p_mismatches=p_bad, trend_equal_all=bool(np.array_equal(got.trend,
+                                                                 want.trend)),
+         pvals_equal_all=bool(np.array_equal(got.pvals, want.pvals)),
+         edges=[len(got.edges), len(want.edges)])
+    if not (drho_err <= 1e-5 and trend_bad == 0 and p_bad == 0):
+        raise AssertionError("cuda engine != torch-reference (significance)")
+
     # ---- the kernels line --------------------------------------------------
     k2 = times["phase2"]
     l8 = ltimes["chunk_tables"]
@@ -383,18 +628,29 @@ def main(argv=None) -> int:
         {"name": "knn_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
          "replaces": "src/repro/kernels/knn_topk/knn_topk.py:211",
-         "launches": launches["knn_topk"], "max_abs_err": knn_err,
+         "launches": launches["knn_topk"],
+         "launches_significance": sig_launches["knn_topk"], "max_abs_err": knn_err,
          "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_us"] / 1e3,
          "bound_by": k2["bound_by"], "library_ms": None, "checked": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
          "replaces": "src/repro/kernels/ccm_lookup/ccm_lookup.py:24",
-         "launches": launches["ccm_lookup"], "max_abs_err": lookup_err,
+         "launches": launches["ccm_lookup"],
+         "launches_significance": sig_launches["ccm_lookup"],
+         "max_abs_err": lookup_err,
          "ms": l8["kernel_ms"], "plain_ms": l8["plain_ms"],
          "bound_ms": l8["bound_us"] / 1e3,
          "bound_by": l8["bound_by"], "library_ms": l8["library_ms"],
          "checked": True},
+        {"name": "knn_topk_prefix", "route": "cuda",
+         "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
+         "replaces": "src/repro/kernels/knn_topk/knn_topk.py:398",
+         "launches": sig_launches["knn_topk_prefix"],
+         "launches_significance": sig_launches["knn_topk_prefix"],
+         "max_abs_err": prefix_err, "ms": ptimes["kernel_ms"],
+         "plain_ms": ptimes["plain_ms"], "bound_ms": ptimes["bound_us"] / 1e3,
+         "bound_by": ptimes["bound_by"], "library_ms": None, "checked": True},
     ]}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(line), flush=True)

@@ -64,6 +64,30 @@ def make_bucket_plan(optE: np.ndarray) -> tuple[BucketPlan, np.ndarray]:
     return plan, order
 
 
+def make_tile_plans(
+    plan: BucketPlan, tile: int
+) -> list[tuple[int, tuple[tuple[int, int], ...]]]:
+    """Column-tile decomposition of the bucket-sorted target axis:
+    [(col0, seg_plan), ...] covering sorted columns [0, N) in tiles of
+    ``tile`` (the last may be short); seg_plan is the ((table_row,
+    count), ...) intersection of the tile with the bucket segments, as
+    :func:`ccm_row_lookup_bucketed` takes it.  The port runs one tile
+    (tile = N); the tiled phase 2 is not ported."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    N = plan.n_targets
+    plans: list[tuple[int, tuple[tuple[int, int], ...]]] = []
+    for c0 in range(0, N, tile):
+        c1 = min(c0 + tile, N)
+        segs = []
+        for b, (off, cnt) in enumerate(zip(plan.offsets, plan.counts)):
+            lo, hi = max(off, c0), min(off + cnt, c1)
+            if hi > lo:
+                segs.append((b, hi - lo))
+        plans.append((c0, tuple(segs)))
+    return plans
+
+
 def _check_k(k: int, Lp: int, cfg: EDMConfig, where: str) -> None:
     if k < 1:
         raise ValueError(f"{where}: neighbour count k={k} must be >= 1")

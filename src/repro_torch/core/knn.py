@@ -21,6 +21,13 @@ the k == Lc case.
 
 Every table function takes the series batch as the leading dimension:
 Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) -> idx, dist (S, n_sel, Lq, k).
+
+The prefix-snapshot tables of the convergence diagnostic
+(:func:`knn_tables_prefix_streaming`, the plain version of the
+``knn_topk_prefix`` kernel) sweep the candidates through a ``col_ids``
+permutation and snapshot the running lists at each library size; there
+equal distances go to the earliest sweep position, as in the JAX
+prefix builders.
 """
 from __future__ import annotations
 
@@ -91,10 +98,13 @@ def _acc_sq(D, vq, vc, dist_dtype):
 def merge_topk_sorted(run_i, run_d, new_i, new_d, k: int):
     """Merge a running sorted top-k list with a later tile's sorted list.
 
-    Every id of ``new`` is larger than every id of ``run`` (tiles are
-    swept in ascending candidate order) and both lists are sorted by
-    (distance, id), so a stable sort of [run | new] on the distance
-    orders by (distance, id) — the lax.top_k tie rule."""
+    Both lists are sorted by (distance, arrival), and every entry of
+    ``new`` arrived after every entry of ``run``, so a stable sort of
+    [run | new] on the distance orders by (distance, arrival).  Where
+    tiles are swept in ascending candidate id (the main path), arrival
+    order is id order — the lax.top_k tie rule; the prefix tables sweep
+    through a ``col_ids`` permutation, where it is the earliest sweep
+    position."""
     d = torch.cat([run_d, new_d], dim=-1)
     i = torch.cat([run_i, new_i], dim=-1)
     d_sorted, order = torch.sort(d, dim=-1, stable=True)
@@ -193,6 +203,147 @@ def knn_tables_bucketed_streaming(
     return _knn_tables_streaming(
         Vq, Vc, k, exclude_self, tile_c, tuple(buckets), dist_dtype
     )
+
+
+def _check_prefix_args(
+    Lq: int, Lc: int, k: int, exclude_self: bool,
+    buckets: tuple[int, ...], lib_sizes: tuple[int, ...], E_rows: int,
+    col_ids,
+) -> None:
+    """The JAX package's validation of the prefix tables, message for
+    message."""
+    if not buckets or list(buckets) != sorted(set(buckets)):
+        raise ValueError(f"buckets must be ascending and distinct: {buckets}")
+    if buckets[-1] > E_rows:
+        raise ValueError(f"bucket E {buckets[-1]} exceeds lag rows {E_rows}")
+    if not lib_sizes or list(lib_sizes) != sorted(set(lib_sizes)):
+        raise ValueError(
+            f"lib_sizes must be ascending and distinct: {lib_sizes}"
+        )
+    if lib_sizes[-1] > Lc:
+        raise ValueError(
+            f"lib_sizes[-1]={lib_sizes[-1]} exceeds candidate count Lc={Lc}"
+        )
+    # Every query row must find k real neighbours inside the smallest
+    # library; with self-exclusion one prefix column may be the query
+    # itself, so one extra candidate is required.
+    need = k + 1 if exclude_self else k
+    if lib_sizes[0] < need:
+        raise ValueError(
+            f"lib_sizes[0]={lib_sizes[0]} too small for k={k} neighbours"
+            + (" with self-exclusion" if exclude_self else "")
+            + "; raise the smallest library size or shrink k"
+        )
+    if exclude_self and col_ids is None and Lq != Lc:
+        raise ValueError("exclude_self requires query set == candidate set")
+
+
+def _prefix_tile_bounds(
+    lib_sizes: tuple[int, ...], tile_c: int
+) -> list[tuple[int, int]]:
+    """Candidate-tile [start, stop) spans of sweep positions covering
+    [0, lib_sizes[-1]) that never cross a library-size boundary, so the
+    running list after the tile ending at each boundary IS that
+    prefix's table."""
+    bounds = []
+    lo = 0
+    for hi in lib_sizes:
+        for s in range(lo, hi, tile_c):
+            bounds.append((s, min(s + tile_c, hi)))
+        lo = hi
+    return bounds
+
+
+def knn_tables_prefix_streaming(
+    Vq: torch.Tensor,
+    Vc: torch.Tensor,
+    k: int,
+    exclude_self: bool,
+    buckets,
+    lib_sizes,
+    tile_c: int,
+    dist_dtype=torch.float32,
+    col_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-sweep prefix-snapshot kNN tables of the convergence diagnostic.
+
+    Vq (B, E_rows, Lq), Vc (B, E_rows, Lc) -> (idx int32, dist float32),
+    each (B, S, len(buckets), Lq, k) with S = len(lib_sizes): slice s
+    holds, at every bucket E, the top-k over sweep positions
+    [0, lib_sizes[s]).  ``col_ids`` (Lc,) routes sweep position p to
+    candidate column col_ids[p] (None = natural order); emitted indices
+    are the original column ids and ``exclude_self`` masks
+    col_ids[p] == query row.
+
+    Tiles are clipped at library-size boundaries and the running list
+    is snapshotted at each boundary.  Ties go to the earliest sweep
+    position: each tile is sorted stably in sweep order and merged
+    running-before-new (:func:`merge_topk_sorted`).  With a permuted
+    ``col_ids`` that differs from the main path's lowest-id rule."""
+    B, E_rows, Lq = Vq.shape
+    Lc = Vc.shape[-1]
+    buckets = tuple(int(b) for b in buckets)
+    lib_sizes = tuple(int(s) for s in lib_sizes)
+    _check_prefix_args(Lq, Lc, k, exclude_self, buckets, lib_sizes, E_rows,
+                       col_ids)
+    if Vc.shape[:2] != (B, E_rows):
+        raise ValueError(f"Vq {tuple(Vq.shape)} and Vc {tuple(Vc.shape)} disagree")
+    dist_dtype = _dtype(dist_dtype)
+    dev = Vq.device
+    E_hi = buckets[-1]
+    # The first tile selects directly, so it must hold k real candidates
+    # (as in the JAX builder, tiles are never narrowed to lib_sizes[0]).
+    tile_c = max(k + 1 if exclude_self else k, tile_c)
+    want = set(buckets)
+    boundary = set(lib_sizes)
+    rows = torch.arange(Lq, device=dev)[:, None]
+    if col_ids is not None:
+        col_ids = col_ids.to(device=dev, dtype=torch.int64)
+    run_i = run_d = None
+    snaps_i, snaps_d = [], []
+    for start, stop in _prefix_tile_bounds(lib_sizes, tile_c):
+        if col_ids is None:
+            ids = torch.arange(start, stop, device=dev)
+            vc_t = Vc[:, :E_hi, start:stop]
+        else:
+            ids = col_ids[start:stop]
+            vc_t = Vc[:, :E_hi].index_select(-1, ids)
+        invalid = (ids[None, :] == rows) if exclude_self else None
+        D = torch.zeros((B, Lq, stop - start), dtype=dist_dtype, device=dev)
+        t_i, t_d = [], []
+        for e in range(E_hi):
+            D = _acc_sq(D, Vq[:, e], vc_t[:, e], dist_dtype)
+            if e + 1 in want:
+                pos, d = _select_tile(D, invalid, k, 0)
+                t_i.append(ids[pos.long()].to(torch.int32))
+                t_d.append(d)
+        T_i, T_d = torch.stack(t_i, dim=1), torch.stack(t_d, dim=1)
+        if run_i is None:
+            run_i, run_d = T_i, T_d
+        else:
+            run_i, run_d = merge_topk_sorted(run_i, run_d, T_i, T_d, k)
+        if stop in boundary:
+            snaps_i.append(run_i)
+            snaps_d.append(run_d)
+    return torch.stack(snaps_i, dim=1), torch.stack(snaps_d, dim=1)
+
+
+def knn_tables_prefix_rebuild(
+    Vq, Vc, k: int, exclude_self: bool, buckets, lib_sizes, tile_c: int,
+    dist_dtype=torch.float32, col_ids=None,
+):
+    """Per-size oracle of :func:`knn_tables_prefix_streaming`: one
+    independent sweep per library size, the same tables."""
+    lib_sizes = tuple(int(s) for s in lib_sizes)
+    _check_prefix_args(Vq.shape[-1], Vc.shape[-1], k, exclude_self,
+                       tuple(buckets), lib_sizes, Vq.shape[1], col_ids)
+    outs = [
+        knn_tables_prefix_streaming(Vq, Vc, k, exclude_self, buckets, (Ls,),
+                                    tile_c, dist_dtype, col_ids)
+        for Ls in lib_sizes
+    ]
+    return (torch.cat([o[0] for o in outs], dim=1),
+            torch.cat([o[1] for o in outs], dim=1))
 
 
 def knn_tables_dense(

@@ -120,6 +120,11 @@ def run_causal_inference(
     N = ts.shape[0]
     if out_dir is not None:
         integrity.stamp_fingerprint(out_dir, integrity.fingerprint_of(ts, cfg))
+        if TileWriter(out_dir, N).has_tiles:
+            raise ValueError(
+                f"{out_dir} holds column tiles (a --target-tile store); the "
+                "port's phase 2 writes and resumes full-width row blocks only"
+            )
 
     t0 = _perf()
     simplex_rhos, optE = run_phase1(ts, cfg, dev)

@@ -1,14 +1,18 @@
 """'zarr-lite' memmap store of the port, in the JAX package's on-disk
-format: ``<name>/meta.json`` + ``<name>/data.npy``, causal-map row
-blocks ``rows_<row0>.npy`` listed with their crc32 in a self-checksummed
-``blocks.json`` manifest, and a ``.crc32`` sidecar beside the assembled
-map — so ``repro``'s ``edm_fleet fsck`` verifies a port store.
+format: ``<name>/meta.json`` + ``<name>/data.npy``, blocks listed with
+their crc32 in a self-checksummed ``blocks.json`` manifest — full-width
+causal-map row blocks ``rows_<row0>.npy`` (``"row0": [nrows, crc32]``)
+and the significance stage's column tiles ``tile_<row0>_<col0>.npy``
+(``"row0,col0": [nrows, ncols, crc32]``, columns in the bucket-sorted
+order recorded in ``col_order.npy``) — and a ``.crc32`` sidecar beside
+every standalone array, so ``repro``'s ``edm_fleet fsck`` verifies a
+port store.
 
 Every write is write-temp + fsync + os.replace: a process killed at any
 point leaves the old file or the new one, never a torn mix.  The
 manifest doubles as the resume record: a rerun recomputes only the rows
-it does not cover.  Only full-width row blocks (the untiled phase 2)
-are ported; tiles, writer shards and fault points are not.
+it does not cover.  Writer shards (``blocks.<writer>.json``, the fleet)
+and fault points are not ported.
 """
 from __future__ import annotations
 
@@ -96,6 +100,15 @@ def atomic_save_npy(path: pathlib.Path, arr: np.ndarray) -> dict:
     return {"bytes": int(arr.nbytes), "fsync_s": fsync_s, "crc32": tee.hex}
 
 
+def save_npy_checksummed(path: pathlib.Path, arr: np.ndarray) -> dict:
+    """atomic_save_npy + ``<path>.crc32`` sidecar, for standalone .npy
+    artifacts with no manifest to carry their checksum (col_order,
+    edges).  The sidecar lands after the data."""
+    stats = atomic_save_npy(path, arr)
+    write_sidecar(path, stats["crc32"])
+    return stats
+
+
 def save_meta(path: str | pathlib.Path, shape, dtype, meta: dict | None = None) -> None:
     """Write just the zarr-lite meta.json."""
     p = pathlib.Path(path)
@@ -111,10 +124,15 @@ def load_dataset(path: str | pathlib.Path, mmap: bool = True) -> np.ndarray:
 
 
 class TileWriter:
-    """Streamed causal-map output in full-width row blocks + the
-    ``blocks.json`` manifest (``"row0": [nrows, crc32]``), the resume
-    unit of the pipeline.  Coverage is tracked per row, so a rerun with
-    another ``lib_block`` resumes exactly where the last run stopped."""
+    """Streamed (N, N) output in blocks + the ``blocks.json`` manifest,
+    the resume unit of the pipeline.  Phase 2 writes full-width row
+    blocks in natural column order (:meth:`write_block`); the
+    significance stage writes (row-chunk x col-tile) tiles in the
+    bucket-sorted column order declared by :meth:`ensure_col_order`
+    (:meth:`write_tile`), undone at :meth:`assemble`.  Both are full
+    width: the port has no tiled phase 2.  Coverage is per row, so a
+    rerun with another ``lib_block`` resumes exactly where the last run
+    stopped."""
 
     def __init__(self, path: str | pathlib.Path, N: int):
         self.dir = pathlib.Path(path)
@@ -125,32 +143,47 @@ class TileWriter:
             read_manifest_shard(self.manifest) or {}
             if self.manifest.exists() else {}
         )
-        if any("," in key for key in self.done):
-            raise ValueError(
-                f"{self.dir} holds column tiles (a --target-tile store); the "
-                "port writes and resumes full-width row blocks only"
-            )
+        co = self.dir / "col_order.npy"
+        self._col_order: np.ndarray | None = np.load(co) if co.exists() else None
+
+    @property
+    def has_tiles(self) -> bool:
+        return any("," in key for key in self.done)
 
     def _blocks(self):
-        """Yield (row0, nrows, crc|None) per manifest entry (legacy bare
-        row counts read as unverified)."""
+        """Yield (tiled, row0, col0, nrows, ncols, crc|None) per manifest
+        entry (legacy entries without a crc read as unverified)."""
         for key, val in self.done.items():
-            if isinstance(val, list):
-                yield int(key), int(val[0]), val[1]
+            if "," in key:
+                row0, col0 = (int(v) for v in key.split(","))
+                yield (True, row0, col0, int(val[0]), int(val[1]),
+                       val[2] if len(val) > 2 else None)
+            elif isinstance(val, list):
+                yield False, int(key), 0, int(val[0]), self.N, val[1]
             else:
-                yield int(key), int(val), None
+                yield False, int(key), 0, int(val), self.N, None
 
     def covered(self) -> np.ndarray:
-        """(N,) bool: rows already in the store."""
+        """(N,) bool: rows held by a full-width block or tile (a partial
+        tile, which only the unported tiled path writes, covers
+        nothing: its rows are recomputed)."""
         cov = np.zeros(self.N, bool)
-        for row0, nr, _crc in self._blocks():
-            cov[row0 : row0 + nr] = True
+        for _tiled, row0, col0, nr, nc, _crc in self._blocks():
+            if col0 == 0 and nc >= self.N:
+                cov[row0 : row0 + nr] = True
         return cov
 
-    def chunk_plan(self, chunk: int) -> list[tuple[int, int]]:
+    def chunk_plan(
+        self, chunk: int, covered: np.ndarray | None = None
+    ) -> list[tuple[int, int]]:
         """Ordered (row0, nrows) work list: each run of uncovered rows
-        split into at-most-``chunk`` spans."""
-        uncovered = np.nonzero(~self.covered())[0]
+        split into at-most-``chunk`` spans.  ``covered`` overrides this
+        writer's own coverage (the significance stage passes the AND of
+        its artifacts' coverages, so a chunk missing from any of them is
+        recomputed for all)."""
+        if covered is None:
+            covered = self.covered()
+        uncovered = np.nonzero(~np.asarray(covered))[0]
         if uncovered.size == 0:
             return []
         run_starts = np.nonzero(np.diff(uncovered) > 1)[0] + 1
@@ -162,7 +195,24 @@ class TileWriter:
         return plan
 
     def commit(self) -> None:
+        """Rewrite the manifest (atomic); flushes deferred tile entries."""
         atomic_write_text(self.manifest, manifest_with_crc(self.done))
+
+    def ensure_col_order(self, order: np.ndarray) -> None:
+        """Declare (and persist, checksummed) the on-disk column
+        permutation of tile writes; raises if it conflicts with a prior
+        run's layout."""
+        order = np.asarray(order)
+        f = self.dir / "col_order.npy"
+        if not f.exists():
+            save_npy_checksummed(f, order)
+        elif not np.array_equal(np.load(f), order):
+            raise ValueError(
+                f"resume column-order mismatch in {self.dir}: the store "
+                "was written under a different target permutation "
+                "(different optE/bucketing?); use a fresh --out dir"
+            )
+        self._col_order = order
 
     def write_block(self, row0: int, rho_rows: np.ndarray) -> None:
         """One full-width row block, then the manifest entry."""
@@ -171,10 +221,24 @@ class TileWriter:
         self.done[str(row0)] = [int(rho_rows.shape[0]), stats["crc32"]]
         self.commit()
 
+    def write_tile(self, row0: int, col0: int, block: np.ndarray,
+                   commit: bool = True) -> None:
+        """One (row-chunk x col-tile) block, columns in on-disk order.
+        ``commit=False`` defers the manifest rewrite to :meth:`commit`
+        (an uncommitted tile is merely recomputed on resume)."""
+        block = block[: max(0, self.N - row0), : max(0, self.N - col0)]
+        stats = atomic_save_npy(self.dir / f"tile_{row0:08d}_{col0:08d}.npy",
+                                block)
+        self.done[f"{row0},{col0}"] = [int(block.shape[0]), int(block.shape[1]),
+                                       stats["crc32"]]
+        if commit:
+            self.commit()
+
     def assemble(self, mmap_path: str | pathlib.Path | None = None) -> np.ndarray:
-        """Gather every block into the (N, N) map, verifying each block's
-        crc first.  With ``mmap_path`` the map is a .npy memmap there
-        (given its own sidecar); else a dense host array."""
+        """Gather every block into the (N, N) map, undoing col_order and
+        verifying each block's crc first.  With ``mmap_path`` the map is a
+        .npy memmap there (given its own sidecar); else a dense host
+        array."""
         if mmap_path is None:
             rho = np.zeros((self.N, self.N), np.float32)
         else:
@@ -183,16 +247,24 @@ class TileWriter:
             rho = np.lib.format.open_memmap(
                 p, mode="w+", dtype=np.float32, shape=(self.N, self.N)
             )
-        for row0, _nr, crc in self._blocks():
-            f = self.dir / f"rows_{row0:08d}.npy"
+        colmap = self._col_order
+        for tiled, row0, col0, _nr, _nc, crc in self._blocks():
+            f = (self.dir / f"tile_{row0:08d}_{col0:08d}.npy" if tiled
+                 else self.dir / f"rows_{row0:08d}.npy")
             if crc is not None and checksum_file(f) != crc:
                 raise IntegrityError(
                     f"{f}: content does not match the manifest checksum "
                     f"{crc} — the store is corrupt; remove the block and its "
                     "manifest entry and rerun to recompute it"
                 )
-            block = np.load(f)[:, : self.N]
-            rho[row0 : row0 + block.shape[0]] = block
+            block = np.load(f)
+            if not tiled:
+                block = block[:, : self.N]
+            nr, nc = block.shape
+            if tiled and colmap is not None:
+                rho[row0 : row0 + nr, colmap[col0 : col0 + nc]] = block
+            else:
+                rho[row0 : row0 + nr, col0 : col0 + nc] = block
         if mmap_path is not None:
             rho.flush()
             write_sidecar(p, checksum_file(p))

@@ -9,6 +9,8 @@ take one series and are vmapped):
                       idx, dist (S, E_rows, Lq, k)
   knn_tables_bucketed same, only at the bucket E values ->
                       (S, len(buckets), Lq, k)
+  knn_tables_prefix   same, per nested library size ->
+                      (S, len(lib_sizes), len(buckets), Lq, k)
   simplex_forecast    idx, w (S, ..., Lq, k), fut_c (S, Lc) -> (S, ..., Lq)
   ccm_lookup          idx, w ([S,] Lq, k), Y (B, Lp) -> ([S,] B, Lq)
 """
@@ -43,6 +45,18 @@ class Engine:
         """kNN tables only at the embedding dimensions in ``buckets``
         (ascending, distinct); lags above max(buckets) are never read."""
         return self._select_tables(Vq, Vc, k, exclude_self, tuple(buckets), cfg)
+
+    def knn_tables_prefix(self, Vq, Vc, k, *, buckets, lib_sizes,
+                          exclude_self, cfg, col_ids=None):
+        """Per-library-size kNN tables of the convergence diagnostic:
+        prefixes [0, Ls) of the sweep order ``col_ids`` (None = natural
+        order).  Default: the per-size rebuild oracle, one independent
+        sweep per size; both engines override it with one sweep."""
+        tile = self.knn_selection_tile(Vq.shape[0] * Vq.shape[2], Vc.shape[2], cfg)
+        return knn.knn_tables_prefix_rebuild(
+            Vq, Vc, k, exclude_self, buckets, lib_sizes, tile,
+            dist_dtype=cfg.dist_dtype, col_ids=col_ids,
+        )
 
     def simplex_forecast(self, idx, w, fut_c):
         """Weighted neighbour-future average (paper Alg. 5)."""

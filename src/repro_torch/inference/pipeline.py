@@ -1,0 +1,384 @@
+"""Significance driver of the port: rho maps -> validated causal graphs,
+on one device.
+
+Runs the two statistical stages over the phase-2 decomposition (row
+chunks of ``lib_block`` library series; one column tile of all N
+targets, since the tiled phase 2 is not ported), with phase 2's
+ChunkStreamer and TileWriter store:
+
+  * CONVERGENCE — per row chunk, ONE prefix-snapshot table build yields
+    bucketed kNN tables for every library size (nested prefixes of the
+    seeded subsampling permutation); the rho-vs-library-size curves
+    reduce on the device to the drho and monotonic-trend maps.
+  * SURROGATE NULLS — per row chunk the full-library tables are rebuilt
+    (phase 2's tables, so the null matches the observed statistic);
+    every target contributes m surrogate futures batched along the
+    target axis, and the per-pair p-value (1 + #{null >= obs}) / (m + 1)
+    is computed on the device.
+  * FDR + ASSEMBLY — p-values take only m+1 distinct values, so the
+    Benjamini–Hochberg threshold is computed exactly from streamed
+    per-value counts, and the edge list is assembled row by row.
+
+The surrogate futures depend only on the seed and the global series id,
+so the untiled port builds them ONCE per run, (N * m, Lp) float32 on the
+device, where the JAX runner regenerates its one tile's batch for every
+row chunk; the values are the same.
+
+With ``out_dir`` set, blocks stream through TileWriters into
+``rho_conv/`` (drho), ``rho_trend/``, ``pvals/`` and ``edges/``, and a
+killed run resumes at the first chunk any artifact is missing.  Entry
+points run on the card unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import ccm
+from repro_torch.core.pipeline import _check_main_path
+from repro_torch.core.types import EDMConfig
+from repro_torch.data import store
+from repro_torch.data.store import TileWriter
+from repro_torch.inference import convergence, prng, significance, surrogates
+from repro_torch.inference.types import SignificanceConfig, SignificanceResult
+from repro_torch.runtime import integrity
+from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.stream import ChunkStreamer
+
+# Surrogate values drawn per block of the once-per-run build: bounds the
+# int64 words and complex spectra the generators hold at once.
+SURR_BUILD_VALUES = 1 << 22
+
+
+class SignificanceChunkRunner:
+    """Per-chunk significance compute — convergence tables and tile
+    reductions, surrogate-null batches — apart from chunk planning and
+    finalization.  Everything the values depend on is derived here from
+    shared inputs only: the bucket plan and column order from phase-1
+    optE, the subsampling permutation and surrogate keys from sig.seed
+    (per-target fold_in).  ``run`` computes any subset of row chunks and
+    drains blocks through the caller's sink."""
+
+    def __init__(self, ts: np.ndarray, optE: np.ndarray, cfg: EDMConfig,
+                 sig: SignificanceConfig, device=None):
+        _check_main_path(cfg)
+        self.dev = dev = resolve_device(device)
+        self.cfg, self.sig = cfg, sig
+        N, L = ts.shape
+        self.N = N
+        Lp = cfg.n_points(L)
+        self.do_conv = bool(sig.lib_sizes)
+        self.do_null = sig.n_surrogates > 0
+        if self.do_conv and sig.lib_sizes[-1] > Lp:
+            raise ValueError(
+                f"lib_sizes[-1]={sig.lib_sizes[-1]} exceeds the {Lp} "
+                f"embeddable library points of length-{L} series "
+                f"(E_max={cfg.E_max}, tau={cfg.tau}, Tp={cfg.Tp})"
+            )
+        self.m = sig.n_surrogates
+        self.chunk = cfg.lib_block
+        self.T = N
+        self.plan, self.order = ccm.make_bucket_plan(np.asarray(optE, np.int32))
+        self.tile_plans = ccm.make_tile_plans(self.plan, self.T)
+        self.ts_d = torch.as_tensor(np.asarray(ts, np.float32)).to(dev)
+        order_d = torch.as_tensor(self.order).to(dev)
+        self.fut_sorted = ccm.all_futures(self.ts_d, cfg)[order_d]
+
+        perm_key, self.surr_key = prng.split(prng.prng_key(sig.seed, dev), 2)
+        self.col_ids = convergence.subsample_permutation(perm_key, Lp)
+        self.fut_surr = self._build_surrogates(order_d) if self.do_null else None
+
+    def _build_surrogates(self, order_d: torch.Tensor) -> torch.Tensor:
+        """(N * m, Lp) surrogate futures of the bucket-sorted targets, in
+        blocks of targets; each target's draws depend only on its global
+        id, so the blocking never shows in the values."""
+        m, L = self.m, self.ts_d.shape[-1]
+        step = max(1, SURR_BUILD_VALUES // (m * L))
+        parts = []
+        for t0 in range(0, self.N, step):
+            ids = order_d[t0 : t0 + step]
+            parts.append(surrogates.surrogate_futures(
+                self.surr_key, self.ts_d[ids], ids, n=m,
+                kind=self.sig.surrogate, cfg=self.cfg,
+            ))
+        return torch.cat(parts)
+
+    def run(self, plan_chunks, rho, drain, on_chunk=None) -> None:
+        """Compute the given (row0, valid) chunks, draining ("conv"|
+        "pval", row0, c0, valid)-tagged blocks in submission order.
+
+        rho: the observed causal map (memmap fine; read only when the
+        null stage is active).  on_chunk(row0) fires before each chunk."""
+        N, T, m, cfg = self.N, self.T, self.m, self.cfg
+        with ChunkStreamer(drain, depth=cfg.stream_depth) as streamer:
+            for row0, valid in plan_chunks:
+                if on_chunk is not None:
+                    on_chunk(row0)
+                rows = self.ts_d[row0 : row0 + valid]
+                if self.do_conv:
+                    cidx, cw = convergence.conv_block_tables(
+                        rows, cfg, self.plan, self.sig.lib_sizes, self.col_ids
+                    )
+                if self.do_null:
+                    fidx, fw = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
+                    rho_chunk = np.asarray(rho[row0 : row0 + valid], np.float32)
+                for c0, seg_plan in self.tile_plans:
+                    c1 = min(c0 + T, N)
+                    if self.do_conv:
+                        drho, trend = convergence.conv_block_tile(
+                            cidx, cw, self.fut_sorted[c0:c1], cfg, seg_plan
+                        )
+                        streamer.submit(("conv", row0, c0, valid),
+                                        torch.stack([drho, trend]))
+                    if self.do_null:
+                        rho_obs = torch.as_tensor(
+                            np.ascontiguousarray(rho_chunk[:, self.order[c0:c1]])
+                        ).to(self.dev)
+                        seg_plan_m = tuple((b, cnt * m) for b, cnt in seg_plan)
+                        streamer.submit(
+                            ("pval", row0, c0, valid),
+                            significance.null_block_pvals(
+                                fidx, fw, self.fut_surr[c0 * m : c1 * m],
+                                rho_obs, cfg, seg_plan_m, m,
+                            ),
+                        )
+
+
+# ------------------------------------------------------------------- driver
+def _writer(out_dir, name: str, N: int, order) -> TileWriter:
+    w = TileWriter(f"{out_dir}/{name}", N)
+    w.ensure_col_order(order)
+    return w
+
+
+def make_store_drain(N: int, conv_w, trend_w, pv_w):
+    """Tile-store sink for :meth:`SignificanceChunkRunner.run` blocks:
+    the block routing (conv stacks [drho; trend], pval is flat) and one
+    manifest commit per chunk (at its last tile)."""
+
+    def drain(tag, block):
+        kind, row0, c0, valid = tag
+        last = c0 + block.shape[-1] >= N
+        if kind == "conv":
+            conv_w.write_tile(row0, c0, block[0][:valid], commit=last)
+            trend_w.write_tile(row0, c0, block[1][:valid], commit=last)
+        else:
+            pv_w.write_tile(row0, c0, block[:valid], commit=last)
+
+    return drain
+
+
+def _check_resume_config(out_dir, sig: SignificanceConfig) -> None:
+    """Pin the null-model parameters of a store to its first run: only
+    coverage is inspected on resume, so a rerun with other surrogates,
+    seed or lib_sizes would otherwise reuse blocks of the old ones.
+    alpha is not pinned: it enters only the BH pass and the edge mask,
+    recomputed every run."""
+    f = pathlib.Path(out_dir) / "significance.json"
+    want = {
+        "lib_sizes": list(sig.lib_sizes),
+        "n_surrogates": sig.n_surrogates,
+        "surrogate": sig.surrogate,
+        "seed": sig.seed,
+    }
+    if f.exists():
+        have = json.loads(f.read_text())
+        if have != want:
+            raise ValueError(
+                f"resume config mismatch in {out_dir}: store was written "
+                f"with {have} but this run asks for {want}; use a fresh "
+                "--out dir (only --fdr may change across resumes)"
+            )
+        return
+    f.parent.mkdir(parents=True, exist_ok=True)
+    store.atomic_write_text(f, json.dumps(want))
+
+
+def run_significance(
+    ts: np.ndarray,
+    optE: np.ndarray,
+    rho: np.ndarray,
+    cfg: EDMConfig,
+    sig: SignificanceConfig,
+    device=None,
+    out_dir: Optional[str] = None,
+    progress: bool = False,
+) -> SignificanceResult:
+    """Validate a causal map: convergence statistics, surrogate p-values,
+    and the BH-FDR significance-masked edge list, on the card unless
+    ``device="cpu"``.
+
+    ts (N, L) series; optE (N,) phase-1 optimal embeddings; rho the
+    (N, N) observed causal map (memmap fine — read a chunk of rows at a
+    time).  With ``out_dir`` every artifact streams through a TileWriter
+    (resumable) and the returned maps are disk-backed memmaps."""
+    if not (sig.lib_sizes or sig.n_surrogates > 0):
+        return SignificanceResult(None, None, None, None)
+    runner = SignificanceChunkRunner(ts, optE, cfg, sig, device)
+    N = runner.N
+    do_conv, do_null = runner.do_conv, runner.do_null
+    m, chunk, order = runner.m, runner.chunk, runner.order
+
+    if out_dir is not None:
+        # Same stamp-or-verify as run_causal_inference; the sig params
+        # are pinned separately.
+        integrity.stamp_fingerprint(
+            out_dir, integrity.fingerprint_of(np.asarray(ts, np.float32), cfg)
+        )
+        _check_resume_config(out_dir, sig)
+        conv_w = _writer(out_dir, "rho_conv", N, order) if do_conv else None
+        trend_w = _writer(out_dir, "rho_trend", N, order) if do_conv else None
+        pv_w = _writer(out_dir, "pvals", N, order) if do_null else None
+        writers = [w for w in (conv_w, trend_w, pv_w) if w is not None]
+        cov = writers[0].covered()
+        for w in writers[1:]:
+            cov &= w.covered()
+        plan_chunks = writers[0].chunk_plan(chunk, covered=cov)
+        drho_map = trend_map = pv_map = None
+        store_drain = make_store_drain(N, conv_w, trend_w, pv_w)
+    else:
+        drho_map = np.zeros((N, N), np.float32) if do_conv else None
+        trend_map = np.zeros((N, N), np.float32) if do_conv else None
+        pv_map = np.ones((N, N), np.float32) if do_null else None
+        plan_chunks = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
+        store_drain = None
+
+    # Streaming BH inputs: p-values take the m+1 values j/(m+1), so the
+    # per-value counts (diagonal excluded) fix the BH threshold exactly.
+    p_counts = np.zeros(m + 1, np.int64)
+
+    def drain(tag, block):
+        kind, row0, c0, valid = tag
+        cols = order[c0 : c0 + block.shape[-1]]
+        last = c0 + block.shape[-1] >= N
+        if kind == "pval":
+            pv_b = block[:valid]
+            offdiag = cols[None, :] != (row0 + np.arange(valid))[:, None]
+            p_counts[:] += np.bincount(
+                np.rint(pv_b[offdiag] * (m + 1)).astype(np.int64) - 1,
+                minlength=m + 1,
+            )
+        if store_drain is not None:
+            store_drain(tag, block)
+        elif kind == "conv":
+            drho_map[row0 : row0 + valid, cols] = block[0][:valid]
+            trend_map[row0 : row0 + valid, cols] = block[1][:valid]
+        else:
+            pv_map[row0 : row0 + valid, cols] = block[:valid]
+        if progress and last and (kind == "pval" or not do_null):
+            print(f"significance rows {row0}..{row0 + valid} / {N}")
+
+    resumed_rows = N - sum(v for _, v in plan_chunks)
+    runner.run(plan_chunks, rho, drain)
+
+    if out_dir is not None:
+        for w in writers:
+            w.commit()
+        # Chunks durable from a prior run never re-drained: their counts
+        # come back from the assembled map (p_counts=None -> recount).
+        return _finalize_store(
+            cfg, sig, rho, conv_w=conv_w, trend_w=trend_w, pv_w=pv_w,
+            p_counts=None if resumed_rows else p_counts, progress=progress,
+        )
+
+    p_threshold, edges = 0.0, None
+    n_tests = int(p_counts.sum())
+    if do_null:
+        p_threshold, p_cut = _bh_cut(p_counts, m, sig.alpha)
+        edges = significance.assemble_edges(pv_map, rho, drho_map, trend_map, p_cut)
+        if progress:
+            print(f"BH-FDR alpha={sig.alpha}: p* = {p_threshold:.4g} over "
+                  f"{n_tests} tests -> {len(edges)} edges")
+    return SignificanceResult(
+        drho=drho_map, trend=trend_map, pvals=pv_map, edges=edges,
+        p_threshold=p_threshold, n_tests=n_tests,
+    )
+
+
+def _bh_cut(p_counts: np.ndarray, m: int, alpha: float) -> tuple[float, float]:
+    """(p_threshold, edge cut).  p-values in the map are float32 of
+    j/(m+1); the cut sits at the midpoint between discrete levels so the
+    threshold level itself is always included whatever the f32-vs-f64
+    rounding of the quotient."""
+    p_threshold, _ = significance.bh_threshold_discrete(p_counts, m, alpha)
+    p_cut = p_threshold + 0.5 / (m + 1) if p_threshold > 0 else 0.0
+    return p_threshold, p_cut
+
+
+def _finalize_store(
+    cfg: EDMConfig,
+    sig: SignificanceConfig,
+    rho: np.ndarray,
+    *,
+    conv_w: Optional[TileWriter],
+    trend_w: Optional[TileWriter],
+    pv_w: Optional[TileWriter],
+    p_counts: Optional[np.ndarray] = None,
+    progress: bool = False,
+) -> SignificanceResult:
+    """Assembly + exact discrete BH + edge list over store artifacts.
+    Idempotent; with ``p_counts=None`` the per-value histogram is
+    recovered by row-streaming the assembled p map (the resume path)."""
+    m = sig.n_surrogates
+    meta_common = {
+        "lib_sizes": list(sig.lib_sizes),
+        "n_surrogates": m,
+        "surrogate": sig.surrogate,
+        "seed": sig.seed,
+    }
+    drho_map = trend_map = pv_map = None
+    if conv_w is not None:
+        drho_map = conv_w.assemble(mmap_path=conv_w.dir / "data.npy")
+        trend_map = trend_w.assemble(mmap_path=trend_w.dir / "data.npy")
+        store.save_meta(
+            conv_w.dir, drho_map.shape, drho_map.dtype,
+            {**meta_common, "stat": "delta_rho", "trend": "../rho_trend"},
+        )
+        store.save_meta(
+            trend_w.dir, trend_map.shape, trend_map.dtype,
+            {**meta_common, "stat": "monotonic_trend"},
+        )
+
+    p_threshold, edges, n_tests = 0.0, None, 0
+    if pv_w is not None:
+        pv_map = pv_w.assemble(mmap_path=pv_w.dir / "data.npy")
+        if p_counts is None:
+            n_tests, p_counts = _recount_pvals(pv_map, m)
+        else:
+            n_tests = int(p_counts.sum())
+        p_threshold, p_cut = _bh_cut(p_counts, m, sig.alpha)
+        edges = significance.assemble_edges(pv_map, rho, drho_map, trend_map, p_cut)
+        sig_meta = {**meta_common, "alpha": sig.alpha,
+                    "p_threshold": p_threshold, "n_tests": n_tests}
+        store.save_meta(pv_w.dir, pv_map.shape, pv_map.dtype, sig_meta)
+        edir = pv_w.dir.parent / "edges"
+        edir.mkdir(parents=True, exist_ok=True)
+        store.save_npy_checksummed(edir / "data.npy", edges)
+        store.save_meta(
+            edir, edges.shape, edges.dtype.str,
+            {**sig_meta, "n_edges": int(edges.shape[0]),
+             "fields": list(edges.dtype.names)},
+        )
+        if progress:
+            print(f"BH-FDR alpha={sig.alpha}: p* = {p_threshold:.4g} over "
+                  f"{n_tests} tests -> {len(edges)} edges")
+
+    return SignificanceResult(
+        drho=drho_map, trend=trend_map, pvals=pv_map, edges=edges,
+        p_threshold=p_threshold, n_tests=n_tests,
+    )
+
+
+def _recount_pvals(pv_map: np.ndarray, m: int) -> tuple[int, np.ndarray]:
+    """Row-streamed per-value p counts (diagonal excluded) from a
+    (memmapped) p-value map — the resume path of the discrete BH pass."""
+    counts = np.zeros(m + 1, np.int64)
+    for i in range(pv_map.shape[0]):
+        row = np.asarray(pv_map[i])
+        idx = np.rint(np.delete(row, i) * (m + 1)).astype(np.int64) - 1
+        counts += np.bincount(idx, minlength=m + 1)
+    return int(counts.sum()), counts

@@ -28,6 +28,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 #: kernel name -> CUDA source
 KERNEL_SOURCES = {
     "knn_topk": _HERE / "knn_topk" / "csrc" / "knn_topk.cu",
+    "knn_topk_prefix": _HERE / "knn_topk" / "csrc" / "knn_topk_prefix.cu",
     "ccm_lookup": _HERE / "ccm_lookup" / "csrc" / "ccm_lookup.cu",
 }
 

@@ -25,3 +25,25 @@ def knn_topk_ref(
         Vq, Vc, k, exclude_self, Lc if tile_c is None else tile_c,
         tuple(select_Es), dist_dtype,
     )
+
+
+def knn_topk_prefix_ref(
+    Vq: torch.Tensor,
+    Vc: torch.Tensor,
+    k: int,
+    exclude_self: bool,
+    buckets,
+    lib_sizes,
+    col_ids: torch.Tensor | None = None,
+    tile_c: int | None = None,
+    dist_dtype="float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the knn_topk_prefix kernel: Vq (B, E_rows, Lq),
+    Vc (B, E_rows, Lc) -> (idx int32, dist float32), each
+    (B, len(lib_sizes), len(buckets), Lq, k).  ``tile_c`` None takes one
+    tile per library-size segment; every width gives the same tables."""
+    Lc = Vc.shape[-1]
+    return knn.knn_tables_prefix_streaming(
+        Vq, Vc, k, exclude_self, buckets, lib_sizes,
+        Lc if tile_c is None else tile_c, dist_dtype, col_ids,
+    )

@@ -3,18 +3,23 @@
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --synthetic 2048x1450 --e-max 20 --out /tmp/causal_map
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 2048x1450 --lib-sizes 100,200,400,800,1430 \\
+      --surrogates 20 --fdr 0.05 --seed 0 --out /tmp/causal_map
+  PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --dataset /path/to/store --out /tmp/causal_map --device cpu
 
 Runs phase 1 (simplex) and the bucketed, untiled phase 2 (CCM), streams
 the row blocks into the zarr-lite store at --out and assembles the
-causal map into <out>/causal_map/data.npy.  A rerun with the same --out
-resumes: only rows missing from the store are recomputed.  Runs on the
-CUDA card by default and exits with an error where there is none;
-``--device cpu`` runs the plain PyTorch versions on the CPU.
+causal map into <out>/causal_map/data.npy.  With ``--lib-sizes`` and/or
+``--surrogates`` the significance stage follows: convergence statistics
+(rho_conv/, rho_trend/), surrogate p-values (pvals/) and the BH-FDR edge
+list (edges/).  A rerun with the same --out resumes: only rows missing
+from the store are recomputed.  Runs on the CUDA card by default and
+exits with an error where there is none; ``--device cpu`` runs the plain
+PyTorch versions on the CPU.
 
-The flags of paths not ported yet (significance, the fleet, tiled or
-unbucketed phase 2, autotuning, platform tiers) exit with an error that
-names them.
+The flags of paths not ported yet (the fleet, tiled or unbucketed
+phase 2, autotuning, platform tiers) exit with an error that names them.
 """
 from __future__ import annotations
 
@@ -27,11 +32,10 @@ from repro_torch.core.pipeline import run_causal_inference
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.synthetic import dummy_brain
+from repro_torch.inference import SignificanceConfig, run_significance
 
 #: flag -> what it belongs to; each exits with an error naming it
 NOT_PORTED = {
-    "--lib-sizes": "the significance stage",
-    "--surrogates": "the significance stage",
     "--workers": "the elastic fleet",
     "--target-tile": "the tiled phase 2",
     "--no-bucketed": "the all-E phase 2",
@@ -62,6 +66,34 @@ def build_parser() -> argparse.ArgumentParser:
         help="phase-2 chunks in flight (2 = double buffering, 1 = synchronous)",
     )
     ap.add_argument(
+        "--lib-sizes", default="",
+        help="comma-separated ascending library sizes for the convergence "
+        "diagnostic, e.g. 100,200,400; writes rho_conv/ (delta-rho) and "
+        "rho_trend/ (monotonic-trend) store artifacts",
+    )
+    ap.add_argument(
+        "--surrogates", type=int, default=0,
+        help="surrogate-null draws per target (0 = skip significance): "
+        "writes per-pair p-values (pvals/) and the FDR-masked causal "
+        "edge list (edges/)",
+    )
+    ap.add_argument(
+        "--fdr", type=float, default=0.05,
+        help="Benjamini-Hochberg FDR level of the edge mask",
+    )
+    ap.add_argument(
+        "--surrogate-kind", default="phase", choices=("phase", "shuffle"),
+        help="null model: FFT phase-randomized (spectrum-preserving) or "
+        "random shuffle (amplitude-distribution only)",
+    )
+    ap.add_argument(
+        "--seed", type=int, default=0,
+        help="root seed of the significance stage: ONE threefry key "
+        "derived from it drives the convergence subsampling permutation "
+        "and every surrogate draw, as in the JAX package (recorded in "
+        "meta.json)",
+    )
+    ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="cuda (default; exits with an error without a card) or cpu "
         "(the plain PyTorch versions)",
@@ -75,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Parse ``argv`` (default: sys.argv), run, and return a summary:
     {"result": CausalMap, "N", "L", "wall_s", "phase1_s", "phase2_s",
-    "assemble_s", "cross_maps_per_s", "n_buckets", "device"}."""
+    "assemble_s", "cross_maps_per_s", "n_buckets", "device",
+    "significance": SignificanceResult | None, "significance_s", "edges"}
+    (the last three None without significance flags)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag in NOT_PORTED:
@@ -95,6 +129,13 @@ def main(argv=None) -> dict:
         E_max=args.e_max, tau=args.tau, lib_block=args.lib_block,
         stream_depth=args.stream_depth, knn_tile_c=args.knn_tile,
     )
+    lib_sizes = tuple(int(s) for s in args.lib_sizes.split(",") if s)
+    sig = None
+    if lib_sizes or args.surrogates:
+        sig = SignificanceConfig(
+            lib_sizes=lib_sizes, n_surrogates=args.surrogates,
+            alpha=args.fdr, surrogate=args.surrogate_kind, seed=args.seed,
+        )
     timings: dict = {}
     t0 = time.perf_counter()
     result = run_causal_inference(ts, cfg, device=args.device,
@@ -117,15 +158,31 @@ def main(argv=None) -> dict:
         "stream_depth": cfg.stream_depth,
         "target_tile": cfg.target_tile,
         "knn_tile_c": cfg.knn_tile_c,
+        "seed": args.seed,
     }
     # The pipeline assembled the map into <out>/causal_map/data.npy; only
     # the zarr-lite meta is missing.
     store.save_meta(args.out + "/causal_map", result.rho.shape,
                     result.rho.dtype, meta)
+    out = sig_s = None
+    if sig is not None:
+        t1 = time.perf_counter()
+        out = run_significance(ts, result.optE, result.rho, cfg, sig,
+                               device=args.device, out_dir=args.out,
+                               progress=True)
+        sig_s = time.perf_counter() - t1
+        stages = [s for s, on in (("convergence", sig.lib_sizes),
+                                  ("surrogates", sig.n_surrogates)) if on]
+        print(f"significance [{'+'.join(stages)}] in {sig_s:.1f}s"
+              + (f"; {len(out.edges)} edges at FDR {args.fdr} "
+                 f"(p* = {out.p_threshold:.4g}, {out.n_tests} tests)"
+                 if out.edges is not None else ""))
     return {
         "result": result, "N": N, "L": int(ts.shape[1]), "wall_s": dt,
         **timings, "cross_maps_per_s": N * N / dt,
         "n_buckets": int(n_buckets), "device": args.device,
+        "significance": out, "significance_s": sig_s,
+        "edges": None if out is None or out.edges is None else len(out.edges),
     }
 
 

@@ -24,7 +24,8 @@ def _card():
 
 def _lags(S, E, L, seed):
     x = np.random.default_rng(seed).standard_normal((S, E, L)).astype(np.float32)
-    x[0, :, 100:150] = x[0, :, :50]  # duplicated points -> ties
+    if L >= 150:
+        x[0, :, 100:150] = x[0, :, :50]  # duplicated points -> ties
     x[-1] = 0.25  # a dead series: every distance ties at 0
     return x
 
@@ -104,3 +105,77 @@ def test_cuda_engine_map_matches_torch_reference_on_the_card():
                                 device=dev)
     assert np.array_equal(got.optE, want.optE)
     assert np.abs(got.rho - want.rho).max() <= 1e-5
+
+
+@pytest.mark.parametrize("exclude_self,buckets,k,permuted,lib_sizes", [
+    (True, (3, 5, 8, 12), 13, True, (100, 200, 400)),
+    (True, tuple(range(1, 21)), 21, True, (22, 150, 400)),
+    (True, (3, 5, 8, 12), 13, False, (14, 399, 400)),
+    (False, (2, 7), 8, True, (8, 333)),
+])
+def test_knn_topk_prefix_kernel_equals_plain_version(exclude_self, buckets, k,
+                                                     permuted, lib_sizes):
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    x = torch.tensor(_lags(4, 20, 400, 3), device=dev)
+    col_ids = None
+    if permuted:
+        perm = np.random.default_rng(4).permutation(400).astype(np.int32)
+        col_ids = torch.tensor(perm, device=dev)
+    ki, kd = knn_topk_prefix(x, x, k, exclude_self, buckets, lib_sizes,
+                             col_ids=col_ids)
+    ri, rd = knn_topk_prefix_ref(x, x, k, exclude_self, buckets, lib_sizes,
+                                 col_ids=col_ids)
+    assert ki.shape == (4, len(lib_sizes), len(buckets), 400, k)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+def test_knn_topk_prefix_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+
+    x = torch.zeros((1, 4, 40), device=dev)
+    with pytest.raises(ValueError, match="float32 only"):
+        knn_topk_prefix(x, x, 3, True, (1,), (10, 40), dist_dtype="bfloat16")
+    with pytest.raises(ValueError, match="too small"):
+        knn_topk_prefix(x, x, 3, True, (1,), (3, 40))
+    with pytest.raises(ValueError, match="col_ids int32"):
+        knn_topk_prefix(x, x, 3, True, (1,), (10, 40),
+                        col_ids=torch.arange(40, device=dev))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        knn_topk_prefix(x, x.cpu(), 3, True, (1,), (10, 40))
+
+
+def test_prng_on_the_card_equals_the_cpu():
+    dev = _card()
+    from repro_torch.inference import prng
+
+    kc, kd = prng.prng_key(7), prng.prng_key(7, dev)
+    assert torch.equal(prng.permutation(kd, 8508).cpu(), prng.permutation(kc, 8508))
+    u = prng.uniform(prng.split(kd, 5), 726, 0.0, prng.TWO_PI_F32).cpu()
+    assert torch.equal(u.view(torch.int32), prng.uniform(
+        prng.split(kc, 5), 726, 0.0, prng.TWO_PI_F32).view(torch.int32))
+
+
+def test_cuda_engine_significance_matches_torch_reference_on_the_card():
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = dummy_brain(24, 500, seed=3)
+    cmap = run_causal_inference(ts, EDMConfig(E_max=10), device=dev)
+    sig = SignificanceConfig(lib_sizes=(50, 200, 490), n_surrogates=9, seed=0)
+    got = run_significance(ts, cmap.optE, cmap.rho, EDMConfig(E_max=10), sig,
+                           device=dev)
+    want = run_significance(ts, cmap.optE, cmap.rho,
+                            EDMConfig(E_max=10, engine="torch-reference"), sig,
+                            device=dev)
+    assert np.abs(got.drho - want.drho).max() <= 1e-5
+    # same tables, lookups equal as a rule: allow a flip only at a near-tie
+    assert (got.pvals != want.pvals).mean() <= 0.01
+    assert (got.trend != want.trend).mean() <= 0.01

@@ -71,6 +71,20 @@ def test_run_causal_inference_defaults_to_the_card():
             run_phase1(ts, cfg, **kw)
 
 
+def test_run_significance_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = np.random.default_rng(0).standard_normal((4, 120)).astype(np.float32)
+    sig = SignificanceConfig(lib_sizes=(20, 40), n_surrogates=3)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_significance(ts, np.full(4, 2, np.int32), np.zeros((4, 4)),
+                             EDMConfig(E_max=3), sig, **kw)
+
+
 def test_edm_run_cli_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -83,8 +97,7 @@ def test_edm_run_cli_defaults_to_the_card(tmp_path):
     assert not (tmp_path / "o" / "causal_map").exists()
 
 
-@pytest.mark.parametrize("flag", ["--lib-sizes 10,20", "--surrogates 5",
-                                  "--workers 2", "--target-tile 8",
+@pytest.mark.parametrize("flag", ["--workers 2", "--target-tile 8",
                                   "--no-bucketed", "--autotune",
                                   "--platform gpu"])
 def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
