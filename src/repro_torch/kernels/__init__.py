@@ -30,6 +30,7 @@ KERNEL_SOURCES = {
     "knn_topk": _HERE / "knn_topk" / "csrc" / "knn_topk.cu",
     "knn_topk_prefix": _HERE / "knn_topk" / "csrc" / "knn_topk_prefix.cu",
     "ccm_lookup": _HERE / "ccm_lookup" / "csrc" / "ccm_lookup.cu",
+    "flash_attn": _HERE / "flash_attn" / "csrc" / "flash_attn.cu",
 }
 
 #: ``--fmad=false`` keeps every multiply and add rounded on its own, the

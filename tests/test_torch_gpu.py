@@ -179,3 +179,67 @@ def test_cuda_engine_significance_matches_torch_reference_on_the_card():
     # same tables, lookups equal as a rule: allow a flip only at a near-tie
     assert (got.pvals != want.pvals).mean() <= 0.01
     assert (got.trend != want.trend).mean() <= 0.01
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,dh,causal,dtype", [
+    (4, 2048, 2048, 16, 2, 128, True, "bfloat16"),
+    (2, 1000, 1000, 9, 3, 64, True, "bfloat16"),
+    (1, 300, 333, 8, 2, 128, False, "float32"),
+    (2, 129, 129, 4, 4, 16, True, "float32"),
+    (1, 96, 96, 2, 1, 8, True, "float32"),
+])
+def test_flash_attn_kernel_equals_plain_version(B, Sq, Sk, H, K, dh, causal, dtype):
+    """float32 within 2e-5; bfloat16 within one bf16 step (docs/PORT.md)."""
+    dev = _card()
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+
+    rng = np.random.default_rng(Sq + dh)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev).to(dt)
+               for s in ((B, Sq, H, dh), (B, Sk, K, dh), (B, Sk, K, dh)))
+    got, want = flash_attn(q, k, v, causal), flash_attn_ref(q, k, v, causal)
+    atol, rtol = (2e-5, 2e-5) if dtype == "float32" else (1e-6, 2.0 ** -7)
+    assert got.dtype == dt and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+def test_flash_attn_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+
+    x = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="d_head up to 128"):
+        big = torch.zeros((1, 8, 2, 256), device=dev)
+        flash_attn(big, big, big)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attn(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 2, 8, 16), device=dev).transpose(1, 2)
+        flash_attn(t, t, t)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attn(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="divisible"):
+        flash_attn(torch.zeros((1, 8, 3, 16), device=dev), x, x)
+
+
+def test_lm_kernel_route_equals_plain_route_on_the_card():
+    """A smoke qwen2.5-3b in float32: chunked (the flash kernel, once per
+    layer in prefill) against xla (the dense version) within 1e-5."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), attn_impl="chunked")
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    before = flash_attn.LAUNCHES
+    got, _ = make_prefill_step(cfg, device=dev)(model, {"tokens": toks})
+    assert flash_attn.LAUNCHES - before == cfg.n_layers
+    want, _ = T.forward(model, {"tokens": toks}, dataclasses.replace(cfg, attn_impl="xla"))
+    assert float((got - want).abs().max()) <= 1e-5
