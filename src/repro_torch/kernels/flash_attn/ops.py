@@ -1,7 +1,11 @@
-"""Wrapper of the flash_attn CUDA kernel (``csrc/flash_attn.cu``).
+"""Wrapper of the flash_attn CUDA kernels (``csrc/flash_attn.cu``).
 
-For CUDA tensors it launches the kernel or raises; for CPU tensors it
-runs the plain version (``ref.py``).  No fallback from a failed launch.
+For CUDA tensors it launches a kernel or raises; for CPU tensors it runs
+the plain version (``ref.py``).  No fallback from a failed launch.  The
+kernel is chosen statically by :func:`flash_route`: bfloat16 at a head
+dim that is a multiple of 16 up to 128 goes to the tensor-core kernel
+(``flash_attn_wgmma_launch``), every other case to the CUDA-core kernel
+(``flash_attn_launch``).
 """
 from __future__ import annotations
 
@@ -15,8 +19,14 @@ from repro_torch.kernels.flash_attn.ref import flash_attn_ref
 #: kernel type codes of the C entry point
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_HEAD = 128
+#: query rows of one block of the tensor-core kernel (grid.y counts them)
+TC_BLOCK_ROWS = 128
+
+#: the kernel routes of a CUDA call
+ROUTES = ("tensor_core", "cuda_core")
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -24,7 +34,21 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attn_launch.argtypes is None:
         lib.flash_attn_launch.argtypes = _ARGTYPES
         lib.flash_attn_launch.restype = ctypes.c_int
+        lib.flash_attn_wgmma_launch.argtypes = _WGMMA_ARGTYPES
+        lib.flash_attn_wgmma_launch.restype = ctypes.c_int
     return lib
+
+
+def flash_route(device_type: str, dtype: torch.dtype, d_head: int) -> str:
+    """Which version computes a call: ``"plain"`` for CPU tensors,
+    ``"tensor_core"`` for bfloat16 with ``d_head`` a multiple of 16 up to
+    128, ``"cuda_core"`` for every other CUDA call (float32 -- the gate
+    route, which TF32 would break -- and other head dims)."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 and d_head % 16 == 0 and 16 <= d_head <= MAX_D_HEAD:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,22 +87,34 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if not 1 <= dh <= MAX_D_HEAD:
         raise ValueError(f"flash_attn kernel takes d_head up to {MAX_D_HEAD}, got {dh}")
-    if min(B, Sq, Sk) < 1 or B * H > 65535:
-        raise ValueError(f"flash_attn kernel cannot take B {B}, Sq {Sq}, Sk {Sk}, H {H}")
+    route = flash_route(q.device.type, q.dtype, dh)
+    # grid.y is B * H on the CUDA-core route, Sq / TC_BLOCK_ROWS on the
+    # tensor-core route; CUDA caps it at 65535
+    grid_y = B * H if route == "cuda_core" else -(-Sq // TC_BLOCK_ROWS)
+    if min(B, Sq, Sk) < 1 or grid_y > 65535:
+        raise ValueError(f"flash_attn kernel ({route}) cannot take B {B}, Sq {Sq}, "
+                         f"Sk {Sk}, H {H}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attn kernel takes contiguous q, k and v")
+    if route == "tensor_core" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attn tensor-core kernel reads q, k and v through "
+                         "TMA, which needs 16-byte aligned data pointers")
     o = torch.empty_like(q)
     lib = _lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
-        rc = lib.flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, Sq, Sk, H, K, dh, int(causal),
-            kernels.current_stream(q.device),
-        )
-    kernels.check_launch("flash_attn", rc, lib)
-    flash_attn.LAUNCHES += 1
+        stream = kernels.current_stream(q.device)
+        if route == "tensor_core":
+            rc = lib.flash_attn_wgmma_launch(*ptrs, B, Sq, Sk, H, K, dh,
+                                             int(causal), stream)
+        else:
+            rc = lib.flash_attn_launch(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, Sk,
+                                       H, K, dh, int(causal), stream)
+    kernels.check_launch(f"flash_attn ({route})", rc, lib)
+    flash_attn.ROUTE_LAUNCHES[route] += 1
     return o
 
 
-#: kernel launches since the last reset (chip_smoke.py resets and reads it)
-flash_attn.LAUNCHES = 0
+#: kernel launches since the last reset, by route (chip_smoke.py resets
+#: and reads them; their sum is the kernel's launch count)
+flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)

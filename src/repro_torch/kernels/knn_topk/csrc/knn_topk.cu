@@ -20,26 +20,50 @@
 // kernel does a subtract, a multiply and an add (3 fp32 operations) and
 // reads / writes only O(S * E * (Lq + Lc)) input and O(S * n_sel * Lq * k)
 // output bytes, so the fp32 rate (67 TFLOP/s on an H100 SXM) is the bound.
+// In practice the selection, not the arithmetic, sets the time: every
+// candidate is tested against n_sel lists, and about k (1 + ln(Lc / k))
+// candidates per list are inserted.
 //
-// Design (first version: right and simple, not yet fast):
-//  * grid = (query tiles, series); one thread per query row; the series
-//    batch is a grid dimension (the JAX side vmaps the Pallas call).
-//  * Each thread sweeps ALL candidates in ascending id order, so no
-//    partial lists are ever merged: a candidate enters a list only when
-//    its distance is strictly below the current k-th distance (an equal
-//    distance loses to the incumbent, whose id is lower).  That is the
-//    lowest-id-among-equals rule with no comparison on ids at all.
-//  * Candidate coordinates are staged tile by tile in shared memory and
-//    read by all threads of the block at the same address (broadcast).
-//  * The sorted lists, n_sel * k (distance, id) pairs per row, live in
-//    shared memory laid out [list][slot][row] so that neighbouring threads
-//    touch neighbouring words.  The k-th distance of every selected E is
-//    held in a register (the loops over E are unrolled), so the common
-//    case -- a candidate that does not enter -- costs one compare.
-//  * Known weakness: the lists take n_sel * k * 8 bytes per row (3,360 B
-//    at n_sel = 20, k = 21), so a block holds 32 or 64 rows and an SM one
-//    or two blocks: low occupancy, latency-bound.  Later work: split the
-//    candidate range across threads and merge on the (distance, id) key.
+// Design (warp-parallel selection):
+//  * grid = (query tiles of kWarps rows, series); one warp per query row.
+//    The block stages candidate coordinates tile by tile in shared memory
+//    ([e][kTileC]); lane l takes candidates c = c0 + 32 g + l of each
+//    32-wide group, groups in ascending order, so the lanes read
+//    consecutive words.  The query's coordinates are warp-uniform, kept
+//    in shared memory (a broadcast read), which leaves the registers to
+//    the lists.
+//  * Each lane runs the cumulative-E recurrence for its candidate with the
+//    pinned ops above; after each selected E it offers its key to that
+//    E's list.
+//  * Each selected E has one sorted list of k <= 32 (distance, id) pairs
+//    distributed over the warp: lane j holds slot j, in registers (the
+//    loops over E are unrolled, so the lists are register arrays indexed
+//    by E; MAXE, the template bound on E_hi, sizes them).  The k-th
+//    distance is read from lane k - 1 and is warp-uniform.
+//  * Offer: __ballot_sync(key < kth) marks the group's qualifiers; they are
+//    inserted one at a time in ascending lane order, that is ascending
+//    candidate id, and after each insert the mask is refreshed against the
+//    new k-th distance.  An insert counts the slots with distance <= key
+//    (a ballot: equal distances stay ahead, since they were visited
+//    earlier and so have lower ids), and the slots at and after that
+//    position move up one lane (__shfl_up_sync).  The new k-th distance
+//    is max(key, old slot k - 2), known before the shift lands, so the
+//    next qualifier's test does not wait for it.
+//  * Tie order: this is exactly the rule of one thread sweeping the
+//    candidates in id order.  Candidates reach each list in ascending id
+//    order; one enters only if
+//    its key is strictly below the k-th distance at its turn, and it goes
+//    behind every entry of equal distance.  So among equal distances the
+//    lower id wins and comes first, as lax.top_k's rule, with no
+//    comparison on ids; the tables are bit-identical to the plain version.
+//  * Occupancy: lists in shared memory would take n_sel * k * 8 bytes a
+//    query (3,360 B at n_sel 20, k 21), one 64-thread block an SM; in
+//    registers they take 2 * MAXE a lane, and blocks of 8 warps fill the
+//    card (phase 2 at Lq 1,430: 179 x 8 blocks).  The inserts are chains
+//    of dependent shuffles and ballots, so the kernel is latency-bound
+//    and occupancy pays: it is built for 3 blocks (24 warps) an SM, 80
+//    registers a lane (-Xptxas=-v: 64 at MAXE 8; 80 at 16 and 24; 80 with
+//    24 bytes of spill at 32).  Times against 2 blocks an SM: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,107 +71,121 @@
 namespace {
 
 constexpr int kMaxE = 32;     // selection set is a 32-bit mask over E-1
-constexpr int kMaxK = 32;     // neighbours per table row
-constexpr int kTileC = 128;   // candidates staged per shared-memory tile
+constexpr int kMaxK = 32;     // neighbours per table row = the warp width
+constexpr int kWarps = 8;     // query rows per block, one per warp
+constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
+constexpr int kTileC = 256;   // candidates staged per shared-memory tile
 constexpr float kBig = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
-// Insert (key, id) into the sorted list `l` (k entries, stride `rows`
-// between slots).  Entries with distance <= key stay ahead of it: they
-// were visited earlier, so they have lower ids.  Returns the new k-th
-// distance.
-__device__ __noinline__ float insert_sorted(float* ld, int* li, int rows, int k,
-                                            float key, int id) {
-  int j = k - 1;
-  while (j > 0) {
-    const float prev = ld[(j - 1) * rows];
-    if (prev <= key) break;
-    ld[j * rows] = prev;
-    li[j * rows] = li[(j - 1) * rows];
-    --j;
+// Offer the group's keys (one per lane, candidate id c_base + lane) to the
+// sorted list (ld, li) distributed over the warp, lane j holding slot j.
+// The new k-th distance after an insert is max(key, old slot k-2) -- the
+// key itself when it lands in slot k-1 -- so it is known without waiting
+// for the shift, and the next qualifier's test overlaps the insert.
+__device__ __forceinline__ void offer(float& ld, int& li, float key, int c_base,
+                                      int k, int lane) {
+  float kth = __shfl_sync(kFull, ld, k - 1);
+  unsigned qual = __ballot_sync(kFull, key < kth);
+  while (qual) {
+    const int src = __ffs(qual) - 1;
+    const float kk = __shfl_sync(kFull, key, src);
+    const float below = __shfl_sync(kFull, ld, k >= 2 ? k - 2 : 0);
+    const float up_d = __shfl_up_sync(kFull, ld, 1);
+    const int up_i = __shfl_up_sync(kFull, li, 1);
+    const int pos = __popc(__ballot_sync(kFull, lane < k && ld <= kk));
+    kth = k >= 2 ? fmaxf(kk, below) : kk;
+    qual &= (qual - 1) & __ballot_sync(kFull, key < kth);
+    if (lane == pos) {
+      ld = kk;
+      li = c_base + src;
+    } else if (lane > pos) {
+      ld = up_d;
+      li = up_i;
+    }
   }
-  ld[j * rows] = key;
-  li[j * rows] = id;
-  return ld[(k - 1) * rows];
 }
 
-__global__ void knn_topk_kernel(const float* __restrict__ vq,
-                                const float* __restrict__ vc,
-                                int32_t* __restrict__ out_idx,
-                                float* __restrict__ out_dist, int E_rows,
-                                int Lq, int Lc, int k, int E_hi,
-                                uint32_t sel_mask, int n_sel,
-                                int exclude_self) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  float* vc_t = smem;                                  // [E_hi][kTileC]
-  float* ld = vc_t + E_hi * kTileC;                    // [n_sel][k][rows]
-  int* li = reinterpret_cast<int*>(ld + n_sel * k * rows);
+template <int MAXE>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
+                int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
+                int n_sel, int exclude_self) {
+  __shared__ float vc_t[MAXE * kTileC];  // [e][kTileC]
+  __shared__ float qv_s[kWarps][MAXE];    // each warp's query coordinates
 
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
-  const int q = blockIdx.x * rows + tid;
-  const bool live = q < Lq;
+  const int lane = tid & 31;
+  const int q = blockIdx.x * kWarps + (tid >> 5);
+  const bool live = q < Lq;  // warp-uniform
   const float* vq_s = vq + (size_t)s * E_rows * Lq;
   const float* vc_s = vc + (size_t)s * E_rows * Lc;
 
-  for (int j = 0; j < n_sel * k; ++j) {
-    ld[j * rows + tid] = f_inf();
-    li[j * rows + tid] = 0x7fffffff;
-  }
-  float qv[kMaxE];
-  float thr[kMaxE];
+  float* qv = qv_s[tid >> 5];  // warp-uniform reads: broadcast
+  if (lane < MAXE) qv[lane] = (live && lane < E_hi) ? vq_s[(size_t)lane * Lq + q] : 0.f;
+  __syncwarp();
+  float ld[MAXE];
+  int li[MAXE];
 #pragma unroll
-  for (int e = 0; e < kMaxE; ++e) {
-    qv[e] = (live && e < E_hi) ? vq_s[(size_t)e * Lq + q] : 0.f;
-    thr[e] = f_inf();
+  for (int e = 0; e < MAXE; ++e) {
+    ld[e] = f_inf();
+    li[e] = 0x7fffffff;
   }
 
   for (int c0 = 0; c0 < Lc; c0 += kTileC) {
     const int width = min(kTileC, Lc - c0);
     __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < E_hi * kTileC; i += rows) {
+    for (int i = tid; i < E_hi * kTileC; i += kWarps * 32) {
       const int e = i / kTileC, j = i - e * kTileC;
       vc_t[i] = j < width ? vc_s[(size_t)e * Lc + c0 + j] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    for (int j = 0; j < width; ++j) {
+    for (int g = 0; g < width; g += 32) {
+      const int j = g + lane;  // < kTileC: g <= kTileC - 32
       const int cid = c0 + j;
+      const bool valid = j < width;
       const bool masked = exclude_self && cid == q;
       float D = 0.f;
 #pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
+      for (int e = 0; e < MAXE; ++e) {
         if (e >= E_hi) break;
         const float d = __fsub_rn(qv[e], vc_t[e * kTileC + j]);
         D = __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
         if ((sel_mask >> e) & 1u) {
-          const float key = masked ? kBig : D;
-          if (key < thr[e]) {
-            const int si = __popc(sel_mask & ((1u << e) - 1u));
-            thr[e] = insert_sorted(ld + si * k * rows + tid,
-                                   li + si * k * rows + tid, rows, k, key, cid);
-          }
+          const float key = !valid ? f_inf() : (masked ? kBig : D);
+          offer(ld[e], li[e], key, c0 + g, k, lane);
         }
       }
     }
   }
 
-  if (!live) return;
-  for (int si = 0; si < n_sel; ++si) {
-    const size_t o = (((size_t)s * n_sel + si) * Lq + q) * k;
-    for (int j = 0; j < k; ++j) {
-      const float dv = ld[(si * k + j) * rows + tid];
-      out_dist[o + j] = dv >= kBig ? f_inf() : dv;
-      out_idx[o + j] = li[(si * k + j) * rows + tid];
+  if (!live || lane >= k) return;
+  int si = 0;
+#pragma unroll
+  for (int e = 0; e < MAXE; ++e) {
+    if (e >= E_hi) break;
+    if ((sel_mask >> e) & 1u) {
+      const size_t o = (((size_t)s * n_sel + si) * Lq + q) * k + lane;
+      out_dist[o] = ld[e] >= kBig ? f_inf() : ld[e];
+      out_idx[o] = li[e];
+      ++si;
     }
   }
 }
 
-size_t smem_bytes(int rows, int E_hi, int n_sel, int k) {
-  return (size_t)E_hi * kTileC * sizeof(float) +
-         (size_t)n_sel * k * rows * (sizeof(float) + sizeof(int));
+template <int MAXE>
+int launch(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
+           int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
+           int n_sel, int exclude_self, cudaStream_t stream) {
+  dim3 grid((Lq + kWarps - 1) / kWarps, S);
+  knn_topk_kernel<MAXE><<<grid, kWarps * 32, 0, stream>>>(
+      vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -160,21 +198,6 @@ const char* kernel_error_string(int code) {
 
 int knn_topk_max_k() { return kMaxK; }
 int knn_topk_max_e() { return kMaxE; }
-
-// Rows per block the launch will use (0 = the lists do not fit).
-int knn_topk_rows_per_block(int E_hi, int n_sel, int k) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  const int candidates[2] = {64, 32};
-  for (int i = 0; i < 2; ++i) {
-    if (smem_bytes(candidates[i], E_hi, n_sel, k) <= (size_t)optin)
-      return candidates[i];
-  }
-  return 0;
-}
 
 // vq (S, E_rows, Lq), vc (S, E_rows, Lc) float32 contiguous; idx / dist
 // (S, popcount(sel_mask), Lq, k).  Bit e of sel_mask selects E = e + 1;
@@ -190,17 +213,18 @@ int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
   if (E_hi > E_rows || E_hi > kMaxE) return -4;
   if (exclude_self && Lq != Lc) return -5;
   const int n_sel = __builtin_popcount(sel_mask);
-  const int rows = knn_topk_rows_per_block(E_hi, n_sel, k);
-  if (rows == 0) return -6;
-  const size_t smem = smem_bytes(rows, E_hi, n_sel, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + rows - 1) / rows, S);
-  knn_topk_kernel<<<grid, rows, smem, static_cast<cudaStream_t>(stream)>>>(
-      vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
-      exclude_self);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E_hi <= 8)
+    return launch<8>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                     n_sel, exclude_self, st);
+  if (E_hi <= 16)
+    return launch<16>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                      n_sel, exclude_self, st);
+  if (E_hi <= 24)
+    return launch<24>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                      n_sel, exclude_self, st);
+  return launch<32>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                    n_sel, exclude_self, st);
 }
 
 }  // extern "C"

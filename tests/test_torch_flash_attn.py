@@ -16,7 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attn.ops import flash_attn as jflash  # noqa: E402
 from repro.kernels.flash_attn.ref import flash_attn_ref as jref  # noqa: E402
 from repro.models.layers import _sdpa_dense as jdense  # noqa: E402
-from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import flash_attn, flash_route  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attn_ref  # noqa: E402
 
 BF16_RTOL = 2.0 ** -7
@@ -132,6 +132,27 @@ def test_wrapper_refuses_tensors_on_mixed_devices():
 
 def test_wrapper_on_the_cpu_is_the_plain_version():
     q, k, v = (torch.tensor(a) for a in _qkv(1, 24, 24, 4, 2, 16, 5))
-    before = flash_attn.LAUNCHES
+    before = dict(flash_attn.ROUTE_LAUNCHES)
     assert torch.equal(flash_attn(q, k, v, True), flash_attn_ref(q, k, v, True))
-    assert flash_attn.LAUNCHES == before  # counts kernel launches only
+    assert flash_attn.ROUTE_LAUNCHES == before  # counts kernel launches only
+
+
+@pytest.mark.parametrize("device,dtype,dh,route", [
+    # bf16 at a head dim that is a multiple of 16 up to 128: the tensor cores
+    # (16, 64, 112 and 128 occur in configs/)
+    ("cuda", torch.bfloat16, 16, "tensor_core"),
+    ("cuda", torch.bfloat16, 64, "tensor_core"),
+    ("cuda", torch.bfloat16, 112, "tensor_core"),
+    ("cuda", torch.bfloat16, 128, "tensor_core"),
+    # every other CUDA call: the CUDA cores
+    ("cuda", torch.bfloat16, 8, "cuda_core"),
+    ("cuda", torch.bfloat16, 24, "cuda_core"),
+    ("cuda", torch.bfloat16, 144, "cuda_core"),
+    ("cuda", torch.float32, 128, "cuda_core"),
+    ("cuda", torch.float32, 16, "cuda_core"),
+    # CPU tensors: the plain version
+    ("cpu", torch.bfloat16, 128, "plain"),
+    ("cpu", torch.float32, 64, "plain"),
+])
+def test_route_is_static_on_device_dtype_and_head_dim(device, dtype, dh, route):
+    assert flash_route(device, dtype, dh) == route
