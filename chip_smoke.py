@@ -135,6 +135,21 @@ def lookup_bound_ms(S, B, Lq, Lp, k):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def segmented_bound_ms(S, blocks, Lq, Lp, k):
+    """Least time of a run of segmented launches: per launch the idx and w
+    rows of the distinct table rows it reads, its targets and its output,
+    against the memory rate; 2 operations per (table, target, point,
+    neighbour) against the fp32 peak."""
+    ops = nbytes = 0.0
+    for _, _, segs in blocks:
+        B = sum(c for _, c in segs)
+        ops += 2.0 * S * B * Lq * k
+        nbytes += (8.0 * S * Lq * k * len({r for r, _ in segs}) + 4.0 * B * Lp
+                   + 4.0 * S * B * Lq)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def prefix_bound_ms(B, E_hi, n_sel, Lq, P, S, k):
     """3 fp32 operations per (query, swept position, lag); bytes = the
     swept columns and the queries read once, col_ids once, the S table
@@ -277,19 +292,20 @@ def sig_near_ties(torch, ts, optE, rho, cfg, sig, dev):
     return trend_tie, p_tie
 
 
-def check_lookup(torch, name, idx, w, Y):
-    """Kernel vs plain version: |diff| <= 1e-6 * max|Y| (see docs/PORT.md)."""
+def check_lookup(torch, name, idx, w, Y, segs=None):
+    """Kernel vs plain version: |diff| <= 1e-6 * max|Y| (see docs/PORT.md);
+    ``segs`` ((table_row, count), ...) for the segmented form."""
     from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
     from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
 
-    got = ccm_lookup(idx, w, Y)
+    got = ccm_lookup(idx, w, Y, segs)
     torch.cuda.synchronize()
-    want = ccm_lookup_ref(idx, w, Y)
+    want = ccm_lookup_ref(idx, w, Y, segs)
     err = float((got - want).abs().max())
     tol = 1e-6 * float(Y.abs().max())
     emit("check_lookup", case=name, idx_shape=list(idx.shape), B=Y.shape[0],
-         Lp=Y.shape[1], max_abs_err=err, tol=tol,
-         bit_equal=same_bits(torch, got, want))
+         Lp=Y.shape[1], segments=None if segs is None else len(segs),
+         max_abs_err=err, tol=tol, bit_equal=same_bits(torch, got, want))
     if not err <= tol:
         raise AssertionError(f"ccm_lookup kernel != plain version ({name}): "
                              f"{err} > {tol}")
@@ -361,6 +377,55 @@ def profile_paths(torch, dev, n, smi):
         extra = timings if phase == "profile" else {
             "surrogates": SIG_M, "lib_sizes": list(SIG_LIB_SIZES)}
         emit(phase, N=n, L=FISH1_L, **extra, **busy, smi=smi)
+
+
+def profile_phase2(torch, dev, ts, optE, smi):
+    """Phase 2 of the main path at the smoke's N, traced with
+    torch.profiler (device activity only, so the host keeps its pace):
+    the device time of the lookup launches summed from the trace, beside
+    the kNN launches and everything else (the Pearson after each lookup
+    leads the rest), and the device's busy share of phase 2."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import ccm
+    from repro_torch.core.pipeline import run_phase2_chunks
+    from repro_torch.core.types import EDMConfig
+
+    cfg = EDMConfig(E_max=E_MAX)
+    N = ts.shape[0]
+    ts_fut = ccm.all_futures(torch.as_tensor(ts), cfg).numpy()
+    rho = np.zeros((N, N), np.float32)
+    plan = [(r, min(cfg.lib_block, N - r)) for r in range(0, N, cfg.lib_block)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_phase2_chunks(ts, ts_fut, optE, cfg, plan, rho=rho, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {"ccm_lookup": [0.0, 0], "knn_topk": [0.0, 0], "other": [0.0, 0]}
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        g = ("ccm_lookup" if "ccm_lookup_kernel" in ev.key else
+             "knn_topk" if "knn_topk_kernel" in ev.key else "other")
+        groups[g][0] += us / 1e6
+        groups[g][1] += ev.count
+        rows.append((us, ev.key, ev.count))
+    busy = sum(v[0] for v in groups.values())
+    if not (np.isfinite(rho).all() and groups["ccm_lookup"][1] > 0):
+        raise AssertionError("traced phase 2 ran no lookup or gave non-finite rho")
+    emit("profile_phase2", N=N, L=ts.shape[1], wall_s=wall, device_busy_s=busy,
+         device_busy_share=busy / wall,
+         device_s={g: v[0] for g, v in groups.items()},
+         kernels={g: v[1] for g, v in groups.items()},
+         top=[{"name": k[:90], "device_s": us / 1e6, "calls": c}
+              for us, k, c in sorted(rows, reverse=True)[:12]], smi=smi)
 
 
 # ---- the LM serving path --------------------------------------------------
@@ -773,12 +838,54 @@ def main(argv=None) -> int:
         check_lookup(torch, "ragged", idx8[:3, :1000].contiguous(),
                      w8[:3, :1000].contiguous(), Y[:777]),
     )
+    # the segmented form: a chunk's table sets at four buckets, segments of
+    # 1, G - 1, G and G + 1 targets for every group width G (8, 4, 2) and
+    # one long segment; ragged Lq; k = 1 and 32 with idx at 0 and Lp - 1;
+    # Subject11's series length and Lp = 16,384 (the stream kernel)
+    bsel = (3, 5, 8, 12)
+    idxb, sqdb = knn_topk(V8, V8, 13, True, bsel)
+    idxb, wb = tknn.tables_with_weights_bucketed(idxb, sqdb, bsel)  # (8, 4, 1430, 13)
+    counts = (1, 7, 8, 9, 0, 3, 4, 5, 2, 1, 17)
+    segs = tuple((i % 4, c) for i, c in enumerate(counts))
+    segs += ((3, TARGET_BLOCK - sum(counts)),)
+    lookup_err = max(
+        lookup_err,
+        check_lookup(torch, "segmented", idxb, wb, Y, segs),
+        check_lookup(torch, "segmented_ragged_Lq", idxb[:3, :, :1000].contiguous(),
+                     wb[:3, :, :1000].contiguous(), Y[:sum(counts)],
+                     tuple((i % 4, c) for i, c in enumerate(counts))),
+    )
+    rng = np.random.default_rng(7)
+    seg_small = tuple((i % 2, c) for i, c in enumerate(counts))
+    B_small = sum(counts)
+    for name, S_, Lq_, k_, Lp_ in (("k1", 8, 1430, 1, Lp), ("k32", 8, 1430, 32, Lp),
+                                   ("subject11_Lp", 2, 8508, 21, SUBJECT11_L),
+                                   ("Lp_16384", 2, 1430, 21, 16384),
+                                   ("stream_k1", 3, 8508, 1, SUBJECT11_L),
+                                   ("stream_k32_Lp_9001", 2, 1000, 32, 9001)):
+        ri = rng.integers(0, Lp_, (S_, 2, Lq_, k_)).astype(np.int32)
+        ri[:, :, 0], ri[:, :, -1] = 0, Lp_ - 1
+        rw = rng.uniform(0, 1, (S_, 2, Lq_, k_)).astype(np.float32)
+        rY = rng.standard_normal((B_small, Lp_)).astype(np.float32)
+        lookup_err = max(lookup_err, check_lookup(
+            torch, name, torch.as_tensor(ri).to(dev), torch.as_tensor(rw).to(dev),
+            torch.as_tensor(rY).to(dev), seg_small))
+    from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
+
+    max_lp = lookup_lib().ccm_lookup_max_lp()
+    try:
+        ccm_lookup(idxb[:1], wb[:1], torch.zeros((1, max_lp + 1), device=dev),
+                   ((0, 1),))
+    except ValueError as e:
+        emit("check_lookup", case="Lp_past_limit_refused", max_lp=max_lp,
+             refused=str(e))
+    else:
+        raise AssertionError(f"ccm_lookup took Lp = {max_lp + 1} past its limit")
 
     # ---- the prefix kernel against its plain version, significance shapes
     # col_ids: the pipeline's subsampling permutation at seed 0
     perm_key = prng.split(prng.prng_key(0, dev), 2)[0]
     col_ids = subsample_permutation(perm_key, Lp)
-    bsel = (3, 5, 8, 12)
     prefix_err = max(
         check_knn_prefix(torch, "sig_buckets", V8, V8, 13, True, bsel,
                          SIG_LIB_SIZES, col_ids),
@@ -792,6 +899,25 @@ def main(argv=None) -> int:
                          (E_MAX + 2, 100, Vt.shape[-1]),
                          subsample_permutation(perm_key, Vt.shape[-1])),
     )
+    # the warp-parallel selection's snapshot edges: library sizes ending
+    # inside a 32-wide group (1430 = 44 * 32 + 22), several in one group,
+    # few query rows, a constant series under the permuted sweep (every
+    # distance ties: the earliest position wins); with exclude_self the
+    # self column of some query lies on either side of each snapshot
+    Vc_const = lag_batch(torch, np.full((2, FISH1_L), 0.25, np.float32), Lp, dev)
+    for name, Vq, Vc, k, excl, sel, sizes, cids in (
+        ("mid_group_sizes", V8, V8, 13, True, bsel, (45, 100, Lp), col_ids),
+        ("sizes_in_one_group", V8, V8, 13, True, bsel, (40, 45, 60, Lp), col_ids),
+        ("mid_group_natural", V8, V8, 13, True, bsel, (45, 100, Lp), None),
+        ("Lq_5", V8[..., 700:705].contiguous(), V8, 13, False, bsel, (45, 100, Lp),
+         col_ids),
+        ("Lq_1", V8[..., 7:8].contiguous(), V8, E_MAX + 1, False, all_E,
+         (E_MAX + 1, 333, Lp), col_ids),
+        ("constant_permuted", Vc_const, Vc_const, E_MAX + 1, True, all_E,
+         (E_MAX + 2, 100, Lp), col_ids),
+    ):
+        prefix_err = max(prefix_err, check_knn_prefix(torch, name, Vq, Vc, k, excl,
+                                                      sel, sizes, cids))
     check_prng(torch, dev)
 
     # ---- the main path; the launch counts start at 0 here ---------------
@@ -815,6 +941,7 @@ def main(argv=None) -> int:
     if not (launches["knn_topk"] > 0 and launches["ccm_lookup"] > 0):
         raise AssertionError(f"main path missed a kernel: {launches}")
     buckets = tuple(int(b) for b in np.unique(result.optE))
+    main_optE = np.asarray(result.optE)
     emit("end_to_end", N=args.n, L=FISH1_L, E_max=E_MAX, lib_block=LIB_BLOCK,
          n_cut_from=53053, wall_s=summary["wall_s"],
          phase1_s=summary["phase1_s"], phase2_s=summary["phase2_s"],
@@ -825,6 +952,7 @@ def main(argv=None) -> int:
          rho_absmax=float(np.abs(rho).max()), smi=smi)
     del result, rho
     shutil.rmtree(out_dir, ignore_errors=True)
+    profile_phase2(torch, dev, dummy_brain(args.n, FISH1_L), main_optE, smi)
 
     # ---- the significance path; the launch counts start at 0 here -------
     sig_dir = ROOT / "build" / "smoke_sig"
@@ -919,26 +1047,77 @@ def main(argv=None) -> int:
 
     import torch.nn.functional as F
 
+    # the chunk's 8 tables at Subject11's Lp, where the stream kernel
+    # runs: real tables of Subject11-length series
+    V11x8 = lag_batch(torch, dummy_brain(LIB_BLOCK, SUBJECT11_L, seed=3), Lp11, dev)
+    idx11, sqd11 = knn_topk(V11x8, V11x8, E_MAX + 1, True, (E_MAX,))
+    idx11, w11 = tknn.tables_with_weights_bucketed(idx11, sqd11, (E_MAX,))
+    idx11, w11 = idx11[:, 0].contiguous(), w11[:, 0].contiguous()  # (8, 8508, 21)
+    Y11 = torch.as_tensor(dummy_brain(TARGET_BLOCK, SUBJECT11_L, seed=9)
+                          [:, E_MAX : E_MAX + Lp11]).to(dev).contiguous()
+    del V11x8, sqd11
+    lookup_err = max(lookup_err, check_lookup(torch, "subject11_chunk_tables",
+                                              idx11, w11, Y11))
     ltimes = {}
-    for case, (idx, w) in {"chunk_tables": (idx8, w8),
-                           "one_table": (idx8[0], w8[0])}.items():
-        S = 1 if idx.dim() == 2 else idx.shape[0]
-        ms = time_ms(torch, lambda: ccm_lookup(idx, w, Y), 50)
-        plain = time_ms(torch, lambda: ccm_lookup_ref(idx, w, Y), 5)
+    for case, (idx, w, Yc) in {"chunk_tables": (idx8, w8, Y),
+                               "one_table": (idx8[0], w8[0], Y),
+                               "subject11_chunk_tables": (idx11, w11, Y11)}.items():
+        S, Lq = (1, idx.shape[0]) if idx.dim() == 2 else idx.shape[:2]
+        ms = time_ms(torch, lambda: ccm_lookup(idx, w, Yc), 50)
+        plain = time_ms(torch, lambda: ccm_lookup_ref(idx, w, Yc), 5)
         # one library call computing the same function: embedding_bag
         # over the transposed targets (the transpose is set-up, untimed)
-        YT = Y.t().contiguous()
+        YT = Yc.t().contiguous()
         il, wl = idx.reshape(-1, idx.shape[-1]).long(), w.reshape(-1, w.shape[-1])
         lib_out = F.embedding_bag(il, YT, per_sample_weights=wl, mode="sum")
-        want = ccm_lookup_ref(idx, w, Y)
-        lib_pred = lib_out.reshape(S, Lp, -1).transpose(1, 2).reshape(want.shape)
+        want = ccm_lookup_ref(idx, w, Yc)
+        lib_pred = lib_out.reshape(S, Lq, -1).transpose(1, 2).reshape(want.shape)
         lib_err = float((lib_pred - want).abs().max())
+        del lib_out, want, lib_pred
         lib = time_ms(torch, lambda: F.embedding_bag(il, YT, per_sample_weights=wl,
                                                      mode="sum"), 50)
-        bound, by = lookup_bound_ms(S, Y.shape[0], Lp, Lp, idx.shape[-1])
+        bound, by = lookup_bound_ms(S, Yc.shape[0], Lq, Yc.shape[1], idx.shape[-1])
         ltimes[case] = dict(kernel_ms=ms, plain_ms=plain, library_ms=lib,
                             library_max_abs_diff=lib_err, bound_us=bound * 1e3,
-                            bound_by=by, S=S, B=Y.shape[0], Lq=Lp, k=idx.shape[-1])
+                            bound_by=by, S=S, B=Yc.shape[0], Lq=Lq, Lp=Yc.shape[1],
+                            k=idx.shape[-1])
+    del idx11, w11, Y11
+    # the segmented launches of one phase-2 chunk at the main path's real
+    # segment mix: the run's bucket plan cut into target blocks, the
+    # chunk's tables at its bucket set
+    from repro_torch.core import ccm as tccm
+
+    bplan, _ = tccm.make_bucket_plan(main_optE)
+    blocks = tccm.target_blocks(tuple(enumerate(bplan.counts)), TARGET_BLOCK)
+    idxm, sqdm = knn_topk(V8, V8, kb, True, buckets)
+    idxm, wm = tknn.tables_with_weights_bucketed(idxm, sqdm, buckets)
+    Ym = torch.as_tensor(dummy_brain(bplan.n_targets, FISH1_L, seed=8)
+                         [:, E_MAX : E_MAX + Lp]).to(dev).contiguous()
+
+    def chunk_lookups(fn):
+        return [fn(idxm, wm, Ym[b0:b1], segs) for b0, b1, segs in blocks]
+
+    # the kernel against its plain version on these very launches
+    got, want = chunk_lookups(ccm_lookup), chunk_lookups(ccm_lookup_ref)
+    seg_err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+    seg_tol = 1e-6 * float(Ym.abs().max())
+    emit("check_lookup", case="segmented_chunk_main_mix", idx_shape=list(idxm.shape),
+         B=Ym.shape[0], Lp=Ym.shape[1], launches=len(blocks),
+         segments=[len(sg) for _, _, sg in blocks], max_abs_err=seg_err, tol=seg_tol,
+         bit_equal=all(same_bits(torch, g, r) for g, r in zip(got, want)))
+    if not seg_err <= seg_tol:
+        raise AssertionError(f"ccm_lookup kernel != plain version "
+                             f"(segmented_chunk_main_mix): {seg_err} > {seg_tol}")
+    lookup_err = max(lookup_err, seg_err)
+    del got, want
+    ms = time_ms(torch, lambda: chunk_lookups(ccm_lookup), 10)
+    plain = time_ms(torch, lambda: chunk_lookups(ccm_lookup_ref), 1)
+    bound, by = segmented_bound_ms(LIB_BLOCK, blocks, Lp, Lp, kb)
+    ltimes["segmented_chunk"] = dict(
+        kernel_ms=ms, launches=len(blocks), kernel_ms_per_launch=ms / len(blocks),
+        plain_ms=plain, library_ms=None, bound_us=bound * 1e3, bound_by=by,
+        S=LIB_BLOCK, n_buckets=len(buckets), B=bplan.n_targets, Lq=Lp, k=kb,
+        segments_per_launch=[len(sg) for _, _, sg in blocks])
     emit("time_ccm_lookup", smi=smi, **ltimes)
 
     profile_paths(torch, dev, PROFILE_N, smi)
@@ -1015,6 +1194,11 @@ def main(argv=None) -> int:
          "ms": l8["kernel_ms"], "plain_ms": l8["plain_ms"],
          "bound_ms": l8["bound_us"] / 1e3,
          "bound_by": l8["bound_by"], "library_ms": l8["library_ms"],
+         "ms_segmented_chunk": ltimes["segmented_chunk"]["kernel_ms"],
+         "bound_ms_segmented_chunk": ltimes["segmented_chunk"]["bound_us"] / 1e3,
+         "ms_subject11_Lp": ltimes["subject11_chunk_tables"]["kernel_ms"],
+         "bound_ms_subject11_Lp":
+             ltimes["subject11_chunk_tables"]["bound_us"] / 1e3,
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",

@@ -8,7 +8,9 @@ tables only at the distinct optE values (the bucket set), and every
 bucket segment of targets streams through its ONE shared table in the
 batched lookup.  The chunk's series are a leading tensor dimension: one
 kNN launch builds the tables of the whole chunk, and one lookup launch
-per (bucket segment, target block) serves every table of the chunk.
+per target block serves every table of the chunk — a block of the
+bucket-sorted targets may cross segment boundaries, each of its segments
+going through its own table row (the segmented lookup).
 
 rho[i, j] = pearson(future of target j, cross-map prediction of j from
 library i's manifold).
@@ -16,6 +18,7 @@ library i's manifold).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -122,21 +125,27 @@ def ccm_row_tables_bucketed(
     return knn.tables_with_weights_bucketed(idx, sqd, plan.buckets)
 
 
-def _rho_for_table(eng, idx, w, seg, cfg: EDMConfig) -> torch.Tensor:
-    """rho of every target of one bucket segment against one table per
-    library series.
-
-    idx/w (S, Lp, k); seg (n, Lp) bucket-sorted target futures.  Targets
-    go through the lookup in blocks of ``cfg.target_block``; per-target
-    results are independent, so the blocking never shows in the values.
-    Returns (S, n)."""
-    n = seg.shape[0]
-    tb = min(cfg.target_block, n)
-    out = [
-        pearson(seg[b0 : b0 + tb], eng.ccm_lookup(idx, w, seg[b0 : b0 + tb]))
-        for b0 in range(0, n, tb)
-    ]
-    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+@functools.lru_cache(maxsize=64)
+def target_blocks(
+    seg_plan: tuple[tuple[int, int], ...], block: int
+) -> tuple[tuple[int, int, tuple[tuple[int, int], ...]], ...]:
+    """Cut the bucket-sorted targets of ``seg_plan`` ((table_row, count),
+    ...) into blocks of ``block`` that may cross segment boundaries:
+    ((b0, b1, segs), ...), segs the block's own ((table_row, count), ...).
+    Built once per plan: the plan is static for a run."""
+    if block < 1:
+        raise ValueError(f"target_block must be >= 1, got {block}")
+    spans, off = [], 0
+    for row, cnt in seg_plan:
+        spans.append((off, off + cnt, row))
+        off += cnt
+    out = []
+    for b0 in range(0, off, block):
+        b1 = min(b0 + block, off)
+        segs = tuple((row, min(e, b1) - max(s, b0)) for s, e, row in spans
+                     if min(e, b1) > max(s, b0))
+        out.append((b0, b1, segs))
+    return tuple(out)
 
 
 def ccm_row_lookup_bucketed(
@@ -146,18 +155,22 @@ def ccm_row_lookup_bucketed(
     """rho of the bucket-sorted targets against a chunk's tables.
 
     idx/w (S, len(buckets), Lp, k); fut_sorted (t, Lp); seg_plan
-    ((table_row, count), ...) with counts summing to t.  Returns (S, t)."""
-    eng = engines.get_engine(cfg.engine)
-    segs, off = [], 0
-    for b, cnt in seg_plan:
-        seg = fut_sorted[off : off + cnt]
-        segs.append(_rho_for_table(eng, idx[:, b], w[:, b], seg, cfg))
-        off += cnt
-    if fut_sorted.shape[0] != off:
+    ((table_row, count), ...) with counts summing to t.  Targets go
+    through the lookup in blocks of ``cfg.target_block`` that may cross
+    segment boundaries, one lookup and one pearson per block; per-target
+    results are independent, so the blocking never shows in the values.
+    Returns (S, t)."""
+    n = sum(cnt for _, cnt in seg_plan)
+    if fut_sorted.shape[0] != n:
         raise ValueError(
-            f"seg_plan covers {off} targets but tile has {fut_sorted.shape[0]}"
+            f"seg_plan covers {n} targets but tile has {fut_sorted.shape[0]}"
         )
-    return segs[0] if len(segs) == 1 else torch.cat(segs, dim=-1)
+    eng = engines.get_engine(cfg.engine)
+    out = [
+        pearson(fut_sorted[b0:b1], eng.ccm_lookup(idx, w, fut_sorted[b0:b1], segs))
+        for b0, b1, segs in target_blocks(tuple(seg_plan), cfg.target_block)
+    ]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 
 def ccm_block_bucketed(

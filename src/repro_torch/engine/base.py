@@ -12,7 +12,8 @@ take one series and are vmapped):
   knn_tables_prefix   same, per nested library size ->
                       (S, len(lib_sizes), len(buckets), Lq, k)
   simplex_forecast    idx, w (S, ..., Lq, k), fut_c (S, Lc) -> (S, ..., Lq)
-  ccm_lookup          idx, w ([S,] Lq, k), Y (B, Lp) -> ([S,] B, Lq)
+  ccm_lookup          idx, w (S, nb, Lq, k), Y (B, Lp), segs
+                      ((table_row, count), ...) -> (S, B, Lq)
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ class Engine:
         """Weighted neighbour-future average (paper Alg. 5)."""
         return knn.simplex_forecast(idx, w, fut_c)
 
-    def ccm_lookup(self, idx, w, Y_fut):
-        """Batched simplex lookup: targets sharing one table per series."""
+    def ccm_lookup(self, idx, w, Y_fut, segs):
+        """Batched simplex lookup: bucket segments ``segs`` of the
+        targets, each through its own row of every series' table set."""
         raise NotImplementedError
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid

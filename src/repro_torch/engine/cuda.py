@@ -31,5 +31,6 @@ class CudaEngine(Engine):
             lib_sizes, col_ids=col_ids, dist_dtype=cfg.dist_dtype,
         )
 
-    def ccm_lookup(self, idx, w, Y_fut):
-        return ccm_lookup(idx.contiguous(), w.contiguous(), Y_fut.contiguous())
+    def ccm_lookup(self, idx, w, Y_fut, segs):
+        return ccm_lookup(idx.contiguous(), w.contiguous(), Y_fut.contiguous(),
+                          segs)

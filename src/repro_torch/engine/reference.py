@@ -27,5 +27,5 @@ class ReferenceEngine(Engine):
             tile_c=tile, dist_dtype=cfg.dist_dtype,
         )
 
-    def ccm_lookup(self, idx, w, Y_fut):
-        return ccm_lookup_ref(idx, w, Y_fut)
+    def ccm_lookup(self, idx, w, Y_fut, segs):
+        return ccm_lookup_ref(idx, w, Y_fut, segs)

@@ -8,8 +8,9 @@ with library size.  As in the JAX package:
     card) yields tables for every library size in a single candidate
     sweep — libraries are nested prefixes of a seeded random permutation
     of the library points;
-  * per size, the rho rows come from the bucketed lookup path of phase 2,
-    so curves for all N targets of a chunk cost S lookups per bucket;
+  * the rho rows of every size come from the bucketed lookup path of
+    phase 2, with the sizes folded into its table dimension: one lookup
+    launch per target block serves the chunk's B series at all S sizes;
   * the (S,) curve per pair is reduced on the device to two statistics:
     drho = rho_max - rho_min and a Kendall-style monotonic-trend score.
 
@@ -77,12 +78,15 @@ def conv_block_tile(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(drho, trend), each (B, t), of one (row-chunk x col-tile) block:
     idx/w (B, S, nb, Lp, k) prefix tables, fut_tile (t, Lp) bucket-sorted
-    target futures.  The (S, B, t) curves never leave the device."""
-    curves = torch.stack([
-        ccm.ccm_row_lookup_bucketed(idx[:, s], w[:, s], fut_tile, cfg, seg_plan)
-        for s in range(idx.shape[1])
-    ])
-    return convergence_stats(curves)
+    target futures.  The S library sizes ride in the table dimension of
+    the lookup, (B * S, nb, Lp, k), so each target block is one launch
+    for every size.  The (S, B, t) curves never leave the device."""
+    B, S = idx.shape[:2]
+    rho = ccm.ccm_row_lookup_bucketed(
+        idx.reshape(B * S, *idx.shape[2:]), w.reshape(B * S, *w.shape[2:]),
+        fut_tile, cfg, seg_plan,
+    )
+    return convergence_stats(rho.reshape(B, S, -1).transpose(0, 1))
 
 
 def ccm_convergence_pair(

@@ -1,75 +1,404 @@
-// ccm_lookup: batched CCM lookup (paper Alg. 5) for targets that share a
-// library table.  Hand-written for Hopper (sm_90a), plain C entry point.
+// ccm_lookup: batched CCM lookup (paper Alg. 5) for bucket-sorted targets
+// against a chunk's table sets.  Hand-written for Hopper (sm_90a), plain C
+// entry point.
 //
 // Replaces: src/repro/kernels/ccm_lookup/ccm_lookup.py::ccm_lookup_kernel.
 //
-// Computes  out[s, b, t] = sum_j w[s, t, j] * Y[b, idx[s, t, j]]
-// for S tables (one per library series of a chunk; S = 1 is the JAX op's
-// signature), idx / w (S, Lq, k), Y (B, Lp) -> out (S, B, Lq), float32.
-// The sum runs over j in ascending order, each product and sum rounded on
-// its own (built with --fmad=false), which is the order of the plain
-// PyTorch version in ref.py.
+// Computes  out[s, b, t] = sum_j w[s, r(b), t, j] * Y[b, idx[s, r(b), t, j]]
+// for S tables (one per library series of a chunk, or per (series, library
+// size) on the significance path), each a set of nb tables (one per optE
+// bucket), idx / w (S, nb, Lq, k), Y (B, Lp) -> out (S, B, Lq), float32.
+// The targets come in segments: segment i is the next count_i rows of Y,
+// looked up through table row r = row_i (a bucket segment of phase 2, or
+// the part of one that a target block holds).  The JAX op's signature is
+// the case nb = 1 with one segment.  The sum runs over j in ascending
+// order, each product and sum rounded on its own (__fmul_rn / __fadd_rn,
+// built with --fmad=false): the order of the plain version in ref.py, so
+// the two agree to the bit.
 //
-// What bounds it on this card: bytes.  The function reads idx and w
-// (8 * S * Lq * k bytes) and Y (4 * B * Lp) and writes 4 * S * B * Lq;
-// it does 2 operations per (s, b, t, j).  At S = 1, B = 2048, Lq = Lp =
-// 1430, k = 21 that is 23.7 MB, about 7 us at 3.35 TB/s, against about
-// 1.8 us of fp32 arithmetic at 67 TFLOP/s.
+// What bounds it on this card: bytes.  The function reads the idx and w
+// rows its segments use (8 * S * Lq * k bytes per distinct table row), Y
+// (4 * B * Lp) and writes 4 * S * B * Lq; 2 operations per (s, b, t, j).
+// At S = 8, B = 2048, Lq = Lp = 1430, k = 21 that is about 107 MB, 0.032
+// ms at 3.35 TB/s, most of it the 93.7 MB output, against 0.015 ms of fp32
+// arithmetic at 67 TFLOP/s.
 //
-// Design (first version): grid = (time blocks of kT, target blocks of
-// kTargets, S).  A block stages its time block's idx and w in shared
-// memory once, then for each of its targets copies the target's Y row
-// into shared memory (coalesced) and lets each thread gather its k
-// neighbours from there -- the random gather never touches device memory.
-// Each Y row is read from device memory (or L2) once per time block; the
-// output is written coalesced along t.
+// Design of the staged kernel (Lp up to 7,168):
+//  * Work items are (group of G targets of one segment, time block of kT
+//    points).  A block owns a contiguous run of items, so it walks a few
+//    groups, each across its time blocks; the grid is as many blocks as
+//    fit on the card at once (persistent), so the ragged last time block
+//    and short groups spread over the run instead of idling a wave.
+//  * A group's G target rows are staged in shared memory interleaved
+//    [Lp][G]: one vector load (LDS.128 at G 4 and 8, LDS.64 at G 2)
+//    gathers the neighbour's value for all G targets, one shared-memory
+//    read per neighbour where the first version made three (index, weight,
+//    target value) per target.  The gather is random, so bank conflicts
+//    set its pace; at G = 8 the two 16-byte halves of a row swap where bit
+//    2 of the point is set (slot<8>), so a random row's half starts at any
+//    of the 8 bank quads, not 4: 8 lanes of a phase of an LDS.128 meet in
+//    about 2.5 wavefronts instead of about 3.6.
+//  * Staging overlaps the gather: the next group is copied while the
+//    current one is gathered, double-buffered with 4-byte cp.async (the
+//    [Lp][G] transpose happens in the copy: a warp reads 8 consecutive
+//    points of 4 rows, 32-byte sectors, and writes 32 words of one
+//    interleaved span).  Each group is staged once per block and serves
+//    its time blocks and all S tables.
+//  * One thread per (table, time point): the block loops over the S
+//    tables with the group in place; the thread holds its row of idx and w
+//    in registers (k <= MAXK, a template bound: 8, 16, 24 or 32) and
+//    keeps G sums.  Output rows are written coalesced along t.
+//  * G is the largest of 8, 4, 2 whose two stages (8 * Lp * G bytes)
+//    leave room for two blocks an SM (112 KB each).  Fish1_Normo's Lp =
+//    1430 runs at G = 8 (91.5 KB).
+//  * Occupancy (-Xptxas=-v, sm_90a, no spills): at G = 8, 105 / 94 / 78 /
+//    62 registers for MAXK 32 / 24 / 16 / 8, within __launch_bounds__(256,
+//    2); shared memory sets it: 2 blocks (16 warps) an SM at G = 8 and Lp
+//    = 1430 (91.5 KB a block).  The idx and w rows are read by __ldg, one
+//    row a thread: a variant with 16 warps a block that fetched them
+//    coalesced through shared memory took 128 registers and was no faster
+//    at the main path's segment mix.
+//
+// Past Lp = 7,168 not even G = 2 fits two blocks an SM, and one target a
+// stage would reload every idx / w row for each target (on an H100 80GB
+// HBM3 at 700 W: 30.65 ms at Subject11's Lp 8508, 8 tables, B 2048, k 21,
+// 0.6% of the bound and 4x F.embedding_bag; this kernel 2.98 ms).  There
+// the stream kernel takes over:
+//  * One thread per (table, time point) pair, kTS = 512 pairs a block; the
+//    pair's idx / w row stays in registers while the targets' table row
+//    does, reloaded only where a segment with another table row begins.
+//  * The block streams a run of consecutive targets through two staged
+//    rows (double-buffered cp.async, 16-byte copies where Lp % 4 == 0):
+//    each staged row serves 512 pairs.  Blocks of one run are launched
+//    together, so their rows come from L2.
+//  * Two stages of one row: up to Lp = optin / 8 (29,056 on an H100: 227
+//    KB of shared memory a block); Subject11's Lp = 8508 takes 68 KB.
+//  * Occupancy (-Xptxas=-v, sm_90a): 101 / 102 / 72 / 60 registers for
+//    MAXK 32 / 24 / 16 / 8, so one block (16 warps) an SM at k = 21.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kT = 256;        // time points per block, one per thread
-constexpr int kTargets = 32;   // targets (Y rows) per block
+constexpr int kT = 256;        // time points per item, one per thread
+constexpr int kTS = 512;       // (table, time point) pairs a stream block
+constexpr int kMaxK = 32;      // neighbours per table row (register bound)
+constexpr int kMaxSegs = 64;   // segments per launch (kernel parameter)
+constexpr size_t kTwoBlockBytes = 112 * 1024;  // shared memory for 2 blocks an SM
 
-__global__ void ccm_lookup_kernel(const int32_t* __restrict__ idx,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ Y,
-                                  float* __restrict__ out, int Lq, int k,
-                                  int B, int Lp) {
-  extern __shared__ float smem[];
-  int* sidx = reinterpret_cast<int*>(smem);  // [kT][k]
-  float* sw = smem + kT * k;                 // [kT][k]
-  float* yrow = sw + kT * k;                 // [Lp]
+struct Segs {
+  int n;                  // segments
+  int y0[kMaxSegs];       // first target of the segment (row of Y and of out)
+  int count[kMaxSegs];    // its targets
+  int row[kMaxSegs];      // its table row, in [0, nb)
+  int g0[kMaxSegs + 1];   // its first group; g0[n] = groups in all
+};
 
-  const int s = blockIdx.z;
-  const int t0 = blockIdx.x * kT;
-  const int b0 = blockIdx.y * kTargets;
-  const int tid = threadIdx.x;
-  const int nt = min(kT, Lq - t0);
-  const int32_t* idx_s = idx + ((size_t)s * Lq + t0) * k;
-  const float* w_s = w + ((size_t)s * Lq + t0) * k;
-  for (int i = tid; i < nt * k; i += blockDim.x) {
-    sidx[i] = idx_s[i];
-    sw[i] = w_s[i];
-  }
-  const int b1 = min(b0 + kTargets, B);
-  for (int b = b0; b < b1; ++b) {
-    __syncthreads();  // staging done / previous row consumed
-    const float* yb = Y + (size_t)b * Lp;
-    for (int i = tid; i < Lp; i += blockDim.x) yrow[i] = yb[i];
-    __syncthreads();
-    if (tid < nt) {
-      float acc = 0.f;
-      for (int j = 0; j < k; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(sw[tid * k + j], yrow[sidx[tid * k + j]]));
-      out[((size_t)s * B + b) * Lq + t0 + tid] = acc;
-    }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+struct Group {
+  int b0, cnt, row;
+};
+
+__device__ __forceinline__ Group group_of(const Segs& sg, int grp, int G) {
+  int i = 0;
+  while (grp >= sg.g0[i + 1]) ++i;  // block-uniform, at most n steps
+  Group out;
+  out.b0 = sg.y0[i] + (grp - sg.g0[i]) * G;
+  out.cnt = min(G, sg.y0[i] + sg.count[i] - out.b0);
+  out.row = sg.row[i];
+  return out;
+}
+
+// Word of target g at point p in a stage.  Rows are [Lp][G]; at G = 8 a
+// row is 32 bytes, whose two 16-byte halves could start at only 4 of the
+// 8 bank quads, so the halves swap where bit 2 of p is set: a random row's
+// first half then starts at any of the 8, and a warp's LDS.128 meets half
+// the bank conflicts.
+template <int G>
+__device__ __forceinline__ int slot(int p, int g) {
+  if constexpr (G == 8) return p * 8 + ((((g >> 2) ^ (p >> 2)) & 1) << 2) + (g & 3);
+  return p * G + g;
+}
+
+// The G targets' values at point p of a stage.
+template <int G>
+__device__ __forceinline__ void load_g(const float* ys, int p, float (&y)[G]) {
+  if constexpr (G == 8) {
+    const int h = (p >> 2) & 1;
+    const float4 a = *reinterpret_cast<const float4*>(ys + p * 8 + 4 * h);
+    const float4 b = *reinterpret_cast<const float4*>(ys + p * 8 + 4 - 4 * h);
+    y[0] = a.x; y[1] = a.y; y[2] = a.z; y[3] = a.w;
+    y[4] = b.x; y[5] = b.y; y[6] = b.z; y[7] = b.w;
+  } else if constexpr (G == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(ys + p * 4);
+    y[0] = a.x; y[1] = a.y; y[2] = a.z; y[3] = a.w;
+  } else {
+    static_assert(G == 2, "G is 8, 4 or 2");
+    const float2 a = *reinterpret_cast<const float2*>(ys + p * 2);
+    y[0] = a.x; y[1] = a.y;
   }
 }
 
-size_t smem_bytes(int k, int Lp) {
-  return (size_t)kT * k * (sizeof(int) + sizeof(float)) + (size_t)Lp * sizeof(float);
+// Copy rows b0 .. b0+cnt-1 of Y into buf as [Lp][G] (asynchronously).
+template <int G>
+__device__ __forceinline__ void stage(float* buf, const float* __restrict__ Y,
+                                      const Group& gr, int Lp) {
+  const int n = ((Lp + 7) >> 3) * 8 * G;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int c = i / (8 * G), r = i - c * (8 * G);
+    const int g = r >> 3, p = c * 8 + (r & 7);
+    if (p < Lp && g < gr.cnt)
+      cp_async4(buf + slot<G>(p, g), Y + (size_t)(gr.b0 + g) * Lp + p);
+  }
+}
+
+template <int G, int MAXK>
+__global__ void __launch_bounds__(kT, 2)
+ccm_lookup_kernel(const int32_t* __restrict__ idx, const float* __restrict__ w,
+                  const float* __restrict__ Y, float* __restrict__ out, int S,
+                  int nb, int Lq, int k, int B, int Lp, int n_tb, Segs sg) {
+  extern __shared__ __align__(16) float smem[];
+  const long long n_items = (long long)sg.g0[sg.n] * n_tb;
+  const int i0 = (int)(n_items * blockIdx.x / gridDim.x);
+  const int i1 = (int)(n_items * (blockIdx.x + 1) / gridDim.x);
+  if (i0 >= i1) return;
+  const int gfirst = i0 / n_tb, glast = (i1 - 1) / n_tb;
+
+  Group cur = group_of(sg, gfirst, G);
+  stage<G>(smem, Y, cur, Lp);
+  cp_async_commit();
+  for (int grp = gfirst; grp <= glast; ++grp) {
+    float* ys = smem + (size_t)((grp - gfirst) & 1) * Lp * G;
+    Group nxt = cur;
+    if (grp < glast) {
+      nxt = group_of(sg, grp + 1, G);
+      stage<G>(smem + (size_t)((grp + 1 - gfirst) & 1) * Lp * G, Y, nxt, Lp);
+      cp_async_commit();
+      cp_async_wait<1>();  // this group's copies have landed (ours)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // ... and everyone's
+
+    const int tb_lo = max(i0, grp * n_tb) - grp * n_tb;
+    const int tb_hi = min(i1, (grp + 1) * n_tb) - grp * n_tb;
+    for (int tb = tb_lo; tb < tb_hi; ++tb) {
+      const int t = tb * kT + threadIdx.x;
+      if (t >= Lq) continue;
+      for (int s = 0; s < S; ++s) {
+        const size_t base = (((size_t)s * nb + cur.row) * Lq + t) * k;
+        int ix[MAXK];
+        float wv[MAXK];
+#pragma unroll
+        for (int j = 0; j < MAXK; ++j) {
+          if (j >= k) break;
+          ix[j] = __ldg(idx + base + j);
+          wv[j] = __ldg(w + base + j);
+        }
+        float acc[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAXK; ++j) {
+          if (j >= k) break;
+          float y[G];
+          load_g<G>(ys, ix[j], y);
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[g] = __fadd_rn(acc[g], __fmul_rn(wv[j], y[g]));
+        }
+        float* o = out + ((size_t)s * B + cur.b0) * Lq + t;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (g < cur.cnt) o[(size_t)g * Lq] = acc[g];
+      }
+    }
+    __syncthreads();  // the buffer is refilled for the group after next
+    cur = nxt;
+  }
+}
+
+// Copy one target row of Lp floats into buf (asynchronously); vec: 16-byte
+// copies (Lp % 4 == 0 and Y 16-byte aligned).
+__device__ __forceinline__ void stage_row(float* buf, const float* __restrict__ src,
+                                          int Lp, bool vec) {
+  if (vec) {
+    for (int i = 4 * threadIdx.x; i < Lp; i += 4 * kTS) cp_async16(buf + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < Lp; i += kTS) cp_async4(buf + i, src + i);
+  }
+}
+
+template <int MAXK>
+__global__ void __launch_bounds__(kTS, 1)
+ccm_lookup_stream_kernel(const int32_t* __restrict__ idx, const float* __restrict__ w,
+                         const float* __restrict__ Y, float* __restrict__ out, int S,
+                         int nb, int Lq, int k, int B, int Lp, int n_tiles,
+                         int n_runs, bool vec, Segs sg) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = blockIdx.x % n_tiles, run = blockIdx.x / n_tiles;
+  const int b0 = (int)((long long)B * run / n_runs);
+  const int b1 = (int)((long long)B * (run + 1) / n_runs);
+  if (b0 >= b1) return;
+  const long long p = (long long)tile * kTS + threadIdx.x;
+  const bool live = p < (long long)S * Lq;  // a dead pair reads pair 0's row
+  const int s = live ? (int)(p / Lq) : 0;
+  const int t = live ? (int)(p - (long long)s * Lq) : 0;
+
+  int seg = 0, row = -1;
+  int ix[MAXK];
+  float wv[MAXK];
+  stage_row(smem, Y + (size_t)b0 * Lp, Lp, vec);
+  cp_async_commit();
+  for (int b = b0; b < b1; ++b) {
+    const float* ys = smem + (size_t)((b - b0) & 1) * Lp;
+    if (b + 1 < b1) {
+      stage_row(smem + (size_t)((b + 1 - b0) & 1) * Lp, Y + (size_t)(b + 1) * Lp, Lp,
+                vec);
+      cp_async_commit();
+      cp_async_wait<1>();  // this target's copies have landed (ours)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // ... and everyone's
+    while (b >= sg.y0[seg] + sg.count[seg]) ++seg;  // block-uniform
+    if (sg.row[seg] != row) {
+      row = sg.row[seg];
+      const size_t base = (((size_t)s * nb + row) * Lq + t) * k;
+#pragma unroll
+      for (int j = 0; j < MAXK; ++j) {
+        if (j >= k) break;
+        ix[j] = __ldg(idx + base + j);
+        wv[j] = __ldg(w + base + j);
+      }
+    }
+    if (live) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXK; ++j) {
+        if (j >= k) break;
+        acc = __fadd_rn(acc, __fmul_rn(wv[j], ys[ix[j]]));
+      }
+      out[((size_t)s * B + b) * Lq + t] = acc;
+    }
+    __syncthreads();  // the buffer is refilled for the target after next
+  }
+}
+
+int max_lp(int dev) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return optin / (2 * (int)sizeof(float));
+}
+
+// G of the staged kernel, or 1: the stream kernel.
+int choose_g(int Lp) {
+  for (int G = 8; G > 1; G >>= 1)
+    if (2 * (size_t)Lp * G * sizeof(float) <= kTwoBlockBytes) return G;
+  return 1;
+}
+
+template <int G, int MAXK>
+int launch(const int32_t* idx, const float* w, const float* Y, float* out,
+           int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+           int dev, cudaStream_t stream) {
+  // the smem attribute and the occupancy it gives, kept per instance
+  static int cached_dev = -1, blocks = 0;
+  static size_t cached_smem = 0;
+  const size_t smem = 2 * (size_t)Lp * G * sizeof(float);
+  auto kern = ccm_lookup_kernel<G, MAXK>;
+  cudaError_t err;
+  if (dev != cached_dev || smem != cached_smem) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, n_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kT, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return -8;
+    blocks = per_sm * n_sm;
+    cached_dev = dev;
+    cached_smem = smem;
+  }
+  const int n_tb = (Lq + kT - 1) / kT;
+  const long long n_items = (long long)sg.g0[sg.n] * n_tb;
+  if (n_items == 0) return 0;
+  const int grid = (int)(n_items < blocks ? n_items : blocks);
+  ccm_lookup_kernel<G, MAXK><<<grid, kT, smem, stream>>>(idx, w, Y, out, S, nb, Lq,
+                                                       k, B, Lp, n_tb, sg);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+int launch_k(const int32_t* idx, const float* w, const float* Y, float* out,
+             int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+             int dev, cudaStream_t st) {
+  if (k <= 8) return launch<G, 8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  if (k <= 16) return launch<G, 16>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  if (k <= 24) return launch<G, 24>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  return launch<G, 32>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+}
+
+template <int MAXK>
+int launch_stream(const int32_t* idx, const float* w, const float* Y, float* out,
+                  int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+                  int dev, cudaStream_t stream) {
+  static int cached_dev = -1, blocks = 0;
+  static size_t cached_smem = 0;
+  const size_t smem = 2 * (size_t)Lp * sizeof(float);
+  auto kern = ccm_lookup_stream_kernel<MAXK>;
+  cudaError_t err;
+  if (dev != cached_dev || smem != cached_smem) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, n_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kTS, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return -8;
+    blocks = per_sm * n_sm;
+    cached_dev = dev;
+    cached_smem = smem;
+  }
+  // every run of targets is read by all n_tiles blocks of it, so more runs
+  // cost no bytes: about four waves of blocks, for balance
+  const long long n_tiles = ((long long)S * Lq + kTS - 1) / kTS;
+  long long n_runs = (4LL * blocks + n_tiles - 1) / n_tiles;
+  if (n_runs > B) n_runs = B;
+  const bool vec = (Lp % 4 == 0) && (reinterpret_cast<uintptr_t>(Y) % 16 == 0);
+  kern<<<(int)(n_tiles * n_runs), kTS, smem, stream>>>(
+      idx, w, Y, out, S, nb, Lq, k, B, Lp, (int)n_tiles, (int)n_runs, vec, sg);
+  return (int)cudaGetLastError();
+}
+
+int launch_stream_k(const int32_t* idx, const float* w, const float* Y, float* out,
+                    int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+                    int dev, cudaStream_t st) {
+  if (k <= 8) return launch_stream<8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  if (k <= 16) return launch_stream<16>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  if (k <= 24) return launch_stream<24>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  return launch_stream<32>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
 }
 
 }  // namespace
@@ -80,29 +409,54 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// idx (S, Lq, k) int32, w (S, Lq, k) float32, Y (B, Lp) float32, all
-// contiguous; out (S, B, Lq).  Every idx entry must lie in [0, Lp).
-// Returns 0, a negative argument code, or the CUDA error of the launch.
+int ccm_lookup_max_k() { return kMaxK; }
+int ccm_lookup_max_segments() { return kMaxSegs; }
+
+// The longest target row (Lp) the kernel takes on the current device.
+int ccm_lookup_max_lp() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return max_lp(dev);
+}
+
+// idx / w (S, nb, Lq, k) int32 / float32, Y (B, Lp) float32, all
+// contiguous; out (S, B, Lq).  Segment i: the next seg_counts[i] targets,
+// through table row seg_rows[i]; the counts sum to B.  Every idx entry
+// must lie in [0, Lp).  Returns 0, a negative argument code, or the CUDA
+// error of the launch.
 int ccm_lookup_launch(const int32_t* idx, const float* w, const float* Y,
-                      float* out, int S, int Lq, int k, int B, int Lp,
+                      float* out, int S, int nb, int Lq, int k, int B, int Lp,
+                      const int* seg_rows, const int* seg_counts, int n_seg,
                       void* stream) {
-  if (S < 1 || S > 65535 || Lq < 1 || k < 1 || B < 1 || Lp < 1) return -1;
-  int dev = 0, optin = 0;
+  if (S < 1 || nb < 1 || Lq < 1 || B < 1 || Lp < 1) return -1;
+  if (k < 1 || k > kMaxK) return -2;
+  if (n_seg < 1 || n_seg > kMaxSegs) return -3;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(k, Lp);
-  if (smem > (size_t)optin) return -2;
-  const int tb = (B + kTargets - 1) / kTargets;
-  if (tb > 65535) return -3;
-  err = cudaFuncSetAttribute(ccm_lookup_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kT - 1) / kT, tb, S);
-  ccm_lookup_kernel<<<grid, kT, smem, static_cast<cudaStream_t>(stream)>>>(
-      idx, w, Y, out, Lq, k, B, Lp);
-  return (int)cudaGetLastError();
+  if (Lp > max_lp(dev)) return -4;
+  const int G = choose_g(Lp);
+  Segs sg;
+  sg.n = n_seg;
+  long long y = 0, groups = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    if (seg_rows[i] < 0 || seg_rows[i] >= nb || seg_counts[i] < 0) return -5;
+    sg.y0[i] = (int)y;
+    sg.count[i] = seg_counts[i];
+    sg.row[i] = seg_rows[i];
+    sg.g0[i] = (int)groups;
+    y += seg_counts[i];
+    groups += (seg_counts[i] + G - 1) / G;
+  }
+  if (y != B) return -6;
+  sg.g0[n_seg] = (int)groups;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (G) {
+    case 8: return launch_k<8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+    case 4: return launch_k<4>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+    case 2: return launch_k<2>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+    default: return launch_stream_k(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  }
 }
 
 }  // extern "C"

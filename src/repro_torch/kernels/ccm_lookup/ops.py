@@ -6,13 +6,17 @@ runs the plain version (``ref.py``).  No fallback from a failed launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+]
+_RC_LP = -4  # the entry point's code for a target row past the kernel's limit
 
 
 def _lib() -> ctypes.CDLL:
@@ -20,19 +24,38 @@ def _lib() -> ctypes.CDLL:
     if lib.ccm_lookup_launch.argtypes is None:
         lib.ccm_lookup_launch.argtypes = _ARGTYPES
         lib.ccm_lookup_launch.restype = ctypes.c_int
+        for fn in (lib.ccm_lookup_max_k, lib.ccm_lookup_max_segments,
+                   lib.ccm_lookup_max_lp):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
     return lib
 
 
-def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Batched simplex lookup for targets sharing a library table.
+@functools.lru_cache(maxsize=256)
+def _seg_arrays(segs: tuple[tuple[int, int], ...]):
+    """The (rows, counts) C arrays of a segment plan, built once per plan."""
+    n = len(segs)
+    return (ctypes.c_int * n)(*(r for r, _ in segs)), (ctypes.c_int * n)(
+        *(c for _, c in segs))
+
+
+def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor,
+               segs=None) -> torch.Tensor:
+    """Batched simplex lookup for targets sharing library tables.
 
     idx (Lq, k) int32, w (Lq, k) float32, Y (B, Lp) float32 -> (B, Lq);
     with a leading table dimension, idx / w (S, Lq, k) -> (S, B, Lq)
-    (every table of a chunk in one launch).  Every idx entry must lie in
-    [0, Lp): the kernel does not check it.
+    (every table of a chunk in one launch).  Segmented: idx / w
+    (S, nb, Lq, k), the table sets of a chunk, and ``segs``
+    ((table_row, count), ...), the counts summing to B: segment i is the
+    next count_i rows of Y, looked up through table row table_row ->
+    (S, B, Lq).  Every idx entry must lie in [0, Lp): the kernel does not
+    check it.
     """
+    if segs is not None:
+        segs = tuple((int(r), int(c)) for r, c in segs)
     if idx.device.type == "cpu" and w.device.type == "cpu" and Y.device.type == "cpu":
-        return ccm_lookup_ref(idx, w, Y)
+        return ccm_lookup_ref(idx, w, Y, segs)
     if not (idx.is_cuda and w.is_cuda and Y.is_cuda
             and idx.device == w.device == Y.device):
         raise ValueError(
@@ -44,24 +67,45 @@ def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor) -> torch.Ten
             f"ccm_lookup takes idx int32, w and Y float32; got {idx.dtype}, "
             f"{w.dtype}, {Y.dtype}"
         )
-    squeeze = idx.dim() == 2
-    if idx.dim() not in (2, 3) or w.shape != idx.shape or Y.dim() != 2:
+    if not (w.shape == idx.shape and Y.dim() == 2
+            and (idx.dim() == 4 if segs is not None else idx.dim() in (2, 3))):
         raise ValueError(
-            f"ccm_lookup takes idx / w ([S,] Lq, k) and Y (B, Lp), got "
-            f"{tuple(idx.shape)}, {tuple(w.shape)}, {tuple(Y.shape)}"
+            f"ccm_lookup takes idx / w ([S,] Lq, k), or (S, nb, Lq, k) with "
+            f"segments, and Y (B, Lp); got {tuple(idx.shape)}, {tuple(w.shape)}, "
+            f"{tuple(Y.shape)}" + ("" if segs is not None else " without segments")
         )
     if not (idx.is_contiguous() and w.is_contiguous() and Y.is_contiguous()):
         raise ValueError("ccm_lookup takes contiguous idx, w and Y")
-    idx3, w3 = (idx[None], w[None]) if squeeze else (idx, w)
-    S, Lq, k = idx3.shape
     B, Lp = Y.shape
-    out = torch.empty((S, B, Lq), dtype=torch.float32, device=Y.device)
+    squeeze = idx.dim() == 2
+    if segs is None:  # the nb = 1 case: one segment through the one table
+        idx, w = (idx[None, None], w[None, None]) if squeeze else (idx[:, None], w[:, None])
+        segs = ((0, B),)
+    S, nb, Lq, k = idx.shape
+    if sum(c for _, c in segs) != B or any(not 0 <= r < nb or c < 0 for r, c in segs):
+        raise ValueError(
+            f"ccm_lookup: segments {segs} must cover the B={B} targets with "
+            f"table rows in [0, {nb})"
+        )
     lib = _lib()
+    if k > lib.ccm_lookup_max_k():
+        raise ValueError(f"ccm_lookup: k={k} above the kernel's limit "
+                         f"{lib.ccm_lookup_max_k()}")
+    if len(segs) > lib.ccm_lookup_max_segments():
+        raise ValueError(f"ccm_lookup: {len(segs)} segments, at most "
+                         f"{lib.ccm_lookup_max_segments()} a launch")
+    out = torch.empty((S, B, Lq), dtype=torch.float32, device=Y.device)
+    rows, counts = _seg_arrays(segs)
     with torch.cuda.device(Y.device):
         rc = lib.ccm_lookup_launch(
-            idx3.data_ptr(), w3.data_ptr(), Y.data_ptr(), out.data_ptr(),
-            S, Lq, k, B, Lp, kernels.current_stream(Y.device),
+            idx.data_ptr(), w.data_ptr(), Y.data_ptr(), out.data_ptr(),
+            S, nb, Lq, k, B, Lp, rows, counts, len(segs),
+            kernels.current_stream(Y.device),
         )
+        if rc == _RC_LP:
+            raise ValueError(f"ccm_lookup: Lp={Lp} above the kernel's limit "
+                             f"{lib.ccm_lookup_max_lp()} (two staged target "
+                             "rows in shared memory)")
     kernels.check_launch("ccm_lookup", rc, lib)
     ccm_lookup.LAUNCHES += 1
     return out[0] if squeeze else out

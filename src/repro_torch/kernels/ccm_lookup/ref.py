@@ -10,10 +10,23 @@ from __future__ import annotations
 import torch
 
 
-def ccm_lookup_ref(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+def ccm_lookup_ref(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor,
+                   segs=None) -> torch.Tensor:
     """pred[..., b, t] = sum_j w[..., t, j] * Y[b, idx[..., t, j]].
 
-    idx / w (Lq, k) -> (B, Lq); or (S, Lq, k) -> (S, B, Lq)."""
+    idx / w (Lq, k) -> (B, Lq); or (S, Lq, k) -> (S, B, Lq).  Segmented:
+    idx / w (S, nb, Lq, k) with ``segs`` ((table_row, count), ...), the
+    counts summing to B -> (S, B, Lq); segment i is the next count_i
+    targets, looked up through table row table_row — the per-segment
+    calls, concatenated."""
+    if segs is not None:
+        parts, off = [], 0
+        for row, cnt in segs:
+            parts.append(ccm_lookup_ref(idx[:, row], w[:, row], Y[off : off + cnt]))
+            off += cnt
+        if off != Y.shape[0]:
+            raise ValueError(f"segments cover {off} targets but Y has {Y.shape[0]}")
+        return torch.cat(parts, dim=1)
     squeeze = idx.dim() == 2
     if squeeze:
         idx, w = idx[None], w[None]

@@ -23,26 +23,42 @@
 // with lib_sizes[0] >= k + 1 (validated by the wrapper) it never survives
 // to a snapshot.
 //
-// What bounds it on this card: operations.  Per (query, swept position,
-// lag) a subtract, a multiply and an add (3 fp32 operations) against
-// O(B * E * (Lq + Lc)) input and O(B * S * n_sel * Lq * k) output bytes,
-// so the fp32 rate (67 TFLOP/s on an H100 SXM) is the bound.
+// What bounds it on this card: bytes, at the significance path's shape.
+// The function reads the swept columns and the queries (4 * B * E_hi *
+// (Lq + P) bytes), col_ids (4 * P) and writes the S snapshots (8 * B * S
+// * n_sel * Lq * k bytes): at B 8, Lq = P = 1430, 13 buckets, k 17 and
+// five sizes about 0.10 GB, 0.031 ms at 3.35 TB/s; the 3 fp32 operations
+// per (query, swept position, lag) take less at 67 TFLOP/s.  In practice
+// the selection sets the time, as in knn_topk.cu.
 //
-// Design (first version: right and simple, not yet fast), knn_topk.cu's
-// with two changes:
-//  * grid = (query tiles, series); one thread per query row sweeps the
-//    positions 0 .. lib_sizes[S-1]-1 in order.  A candidate enters a list
-//    only when strictly below the current k-th distance, so an equal
-//    distance loses to the incumbent, which arrived earlier: that is the
-//    earliest-position tie rule with no comparison on positions.
-//  * Each tile stages the GATHERED columns vc[:, col_ids[p]] and their
-//    ids in shared memory (one gather per block per tile, broadcast reads
-//    after).  After position lib_sizes[s]-1 every thread copies its n_sel
-//    sorted lists to slot s of the output: the snapshot IS the table of
-//    that prefix, since the sweep up to there saw exactly its columns.
-//  * Known weakness, as knn_topk.cu: the lists (n_sel * k * 8 bytes per
-//    row) sit in shared memory, so a block holds 32 or 64 rows and an SM
-//    one or two blocks.
+// Design (warp-parallel selection, knn_topk.cu's, over sweep positions):
+//  * grid = (query tiles of kWarps rows, series); one warp per query row.
+//    The block stages the GATHERED columns vc[:, col_ids[p]] and their
+//    ids tile by tile in shared memory; lane l takes sweep positions
+//    p = p0 + 32 g + l of each 32-wide group, groups in ascending order.
+//  * Each selected E's sorted list of k <= 32 (distance, id) pairs is
+//    spread over the warp, lane j holding slot j in registers (MAXE, the
+//    template bound on E_hi, sizes the register arrays).
+//  * Offer: __ballot_sync(key < kth) marks the group's qualifiers; they
+//    are inserted one at a time in ascending lane order, that is ascending
+//    sweep position, the mask refreshed against each new k-th distance.
+//    An insert counts the slots with distance <= key, so an equal distance
+//    stays ahead: it was swept earlier.  That is knn_topk.cu's
+//    ascending-id rule with "id" read as "sweep position", so the lists
+//    see the sequence of one thread sweeping in order -- the earliest-
+//    sweep-position rule, with no comparison on positions.  The id kept
+//    is the lane's col_ids[p].
+//  * Snapshots inside a group: a library size Ls can end inside a 32-wide
+//    group.  Then, list by list, the qualifiers with p <= Ls - 1 are
+//    inserted, the snapshot is written (lane j writes slot j, so a row's
+//    k entries go out as one coalesced store), and the rest of the group
+//    is inserted; several sizes in one group repeat the step.
+//  * Occupancy (-Xptxas=-v, sm_90a): built, as knn_topk.cu, for 3 blocks
+//    (24 warps) an SM: 80 registers a lane at MAXE 32, 24 and 16 (112 and
+//    48 bytes of stack at 32 and 24, none at 16), 64 at MAXE 8; static
+//    shared memory 34.8 KB at MAXE 32.  The first version held the lists
+//    in shared memory, 32 or 64 rows a block, under 3 warps an SM at the
+//    significance path's shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,10 +66,13 @@
 namespace {
 
 constexpr int kMaxE = 32;     // selection set is a 32-bit mask over E-1
-constexpr int kMaxK = 32;     // neighbours per table row
+constexpr int kMaxK = 32;     // neighbours per table row = the warp width
 constexpr int kMaxS = 64;     // library sizes per launch
-constexpr int kTileC = 128;   // sweep positions staged per shared-memory tile
+constexpr int kWarps = 8;     // query rows per block, one per warp
+constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
+constexpr int kTileC = 256;   // sweep positions staged per shared-memory tile
 constexpr float kBig = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct LibSizes {
   int n;
@@ -62,112 +81,135 @@ struct LibSizes {
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
-// Insert (key, id) into the sorted list `l` (k entries, stride `rows`
-// between slots).  Entries with distance <= key stay ahead of it: they
-// arrived earlier.  Returns the new k-th distance.
-__device__ __noinline__ float insert_sorted(float* ld, int* li, int rows, int k,
-                                            float key, int id) {
-  int j = k - 1;
-  while (j > 0) {
-    const float prev = ld[(j - 1) * rows];
-    if (prev <= key) break;
-    ld[j * rows] = prev;
-    li[j * rows] = li[(j - 1) * rows];
-    --j;
-  }
-  ld[j * rows] = key;
-  li[j * rows] = id;
-  return ld[(k - 1) * rows];
+// Lanes lo .. hi-1 (0 <= lo < hi <= 32).
+__device__ __forceinline__ unsigned lane_range(int lo, int hi) {
+  const unsigned below_hi = hi >= 32 ? kFull : ((1u << hi) - 1u);
+  return below_hi & ~((1u << lo) - 1u);
 }
 
-__global__ void knn_topk_prefix_kernel(const float* __restrict__ vq,
-                                       const float* __restrict__ vc,
-                                       const int32_t* __restrict__ col_ids,
-                                       int32_t* __restrict__ out_idx,
-                                       float* __restrict__ out_dist,
-                                       int E_rows, int Lq, int Lc, int k,
-                                       int E_hi, uint32_t sel_mask, int n_sel,
-                                       int exclude_self, LibSizes sizes) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  float* vc_t = smem;                                        // [E_hi][kTileC]
-  int* ids_t = reinterpret_cast<int*>(vc_t + E_hi * kTileC); // [kTileC]
-  float* ld = reinterpret_cast<float*>(ids_t + kTileC);      // [n_sel][k][rows]
-  int* li = reinterpret_cast<int*>(ld + n_sel * k * rows);
+// Offer the keys of the lanes in `lanes` (one per lane, id `cid`) to the
+// sorted list (ld, li) distributed over the warp, lane j holding slot j,
+// in ascending lane order.  As knn_topk.cu's offer: the new k-th distance
+// after an insert is max(key, old slot k-2).
+__device__ __forceinline__ void offer(float& ld, int& li, float key, int cid,
+                                      unsigned lanes, int k, int lane) {
+  float kth = __shfl_sync(kFull, ld, k - 1);
+  unsigned qual = __ballot_sync(kFull, key < kth) & lanes;
+  while (qual) {
+    const int src = __ffs(qual) - 1;
+    const float kk = __shfl_sync(kFull, key, src);
+    const int ki = __shfl_sync(kFull, cid, src);
+    const float below = __shfl_sync(kFull, ld, k >= 2 ? k - 2 : 0);
+    const float up_d = __shfl_up_sync(kFull, ld, 1);
+    const int up_i = __shfl_up_sync(kFull, li, 1);
+    const int pos = __popc(__ballot_sync(kFull, lane < k && ld <= kk));
+    kth = k >= 2 ? fmaxf(kk, below) : kk;
+    qual &= (qual - 1) & __ballot_sync(kFull, key < kth);
+    if (lane == pos) {
+      ld = kk;
+      li = ki;
+    } else if (lane > pos) {
+      ld = up_d;
+      li = up_i;
+    }
+  }
+}
+
+template <int MAXE>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+knn_topk_prefix_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                       const int32_t* __restrict__ col_ids,
+                       int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
+                       int E_rows, int Lq, int Lc, int k, int E_hi,
+                       uint32_t sel_mask, int n_sel, int exclude_self,
+                       LibSizes sizes) {
+  __shared__ float vc_t[MAXE * kTileC];  // [e][kTileC], gathered columns
+  __shared__ int ids_t[kTileC];          // their column ids
+  __shared__ float qv_s[kWarps][MAXE];   // each warp's query coordinates
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int q = blockIdx.x * rows + tid;
-  const bool live = q < Lq;
+  const int lane = tid & 31;
+  const int q = blockIdx.x * kWarps + (tid >> 5);
+  const bool live = q < Lq;  // warp-uniform
   const int S = sizes.n;
   const int P = sizes.v[S - 1];
   const float* vq_b = vq + (size_t)b * E_rows * Lq;
   const float* vc_b = vc + (size_t)b * E_rows * Lc;
 
-  for (int j = 0; j < n_sel * k; ++j) {
-    ld[j * rows + tid] = f_inf();
-    li[j * rows + tid] = 0x7fffffff;
-  }
-  float qv[kMaxE];
-  float thr[kMaxE];
+  float* qv = qv_s[tid >> 5];  // warp-uniform reads: broadcast
+  if (lane < MAXE) qv[lane] = (live && lane < E_hi) ? vq_b[(size_t)lane * Lq + q] : 0.f;
+  __syncwarp();
+  float ld[MAXE];
+  int li[MAXE];
 #pragma unroll
-  for (int e = 0; e < kMaxE; ++e) {
-    qv[e] = (live && e < E_hi) ? vq_b[(size_t)e * Lq + q] : 0.f;
-    thr[e] = f_inf();
+  for (int e = 0; e < MAXE; ++e) {
+    ld[e] = f_inf();
+    li[e] = 0x7fffffff;
   }
 
-  int s = 0;                 // next snapshot slot
-  int next = sizes.v[0];     // its library size
+  int s_next = 0;  // first library size not yet snapshot
   for (int c0 = 0; c0 < P; c0 += kTileC) {
     const int width = min(kTileC, P - c0);
     __syncthreads();  // previous tile fully consumed
-    for (int j = tid; j < width; j += rows) {
+    for (int j = tid; j < width; j += kWarps * 32)
       ids_t[j] = col_ids != nullptr ? col_ids[c0 + j] : c0 + j;
-    }
     __syncthreads();
-    for (int i = tid; i < E_hi * kTileC; i += rows) {
+    for (int i = tid; i < E_hi * kTileC; i += kWarps * 32) {
       const int e = i / kTileC, j = i - e * kTileC;
       vc_t[i] = j < width ? vc_b[(size_t)e * Lc + ids_t[j]] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    for (int j = 0; j < width; ++j) {
-      const int cid = ids_t[j];
-      const bool masked = exclude_self && cid == q;
+    for (int g = 0; g < width; g += 32) {
+      const int j = g + lane;  // < kTileC: g <= kTileC - 32
+      const bool valid = j < width;
+      const int cid = valid ? ids_t[j] : 0;
+      const bool masked = exclude_self && valid && cid == q;
+      const int base = c0 + g;  // sweep position of lane 0
+      int s_end = s_next;       // sizes ending in this group: s_next .. s_end-1
+      while (s_end < S && sizes.v[s_end] <= base + 32) ++s_end;
       float D = 0.f;
 #pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
+      for (int e = 0; e < MAXE; ++e) {
         if (e >= E_hi) break;
         const float d = __fsub_rn(qv[e], vc_t[e * kTileC + j]);
         D = __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
-        if ((sel_mask >> e) & 1u) {
-          const float key = masked ? kBig : D;
-          if (key < thr[e]) {
-            const int si = __popc(sel_mask & ((1u << e) - 1u));
-            thr[e] = insert_sorted(ld + si * k * rows + tid,
-                                   li + si * k * rows + tid, rows, k, key, cid);
-          }
+        if (!((sel_mask >> e) & 1u)) continue;
+        const float key = !valid ? f_inf() : (masked ? kBig : D);
+        if (s_end == s_next) {
+          offer(ld[e], li[e], key, cid, kFull, k, lane);
+          continue;
         }
-      }
-      if (c0 + j + 1 == next) {  // the sweep has seen exactly prefix s
-        for (int si = 0; si < n_sel; ++si) {
-          const size_t o = ((((size_t)b * S + s) * n_sel + si) * Lq + q) * k;
-          for (int jj = 0; jj < k; ++jj) {
-            const float dv = ld[(si * k + jj) * rows + tid];
-            out_dist[o + jj] = dv >= kBig ? f_inf() : dv;
-            out_idx[o + jj] = li[(si * k + jj) * rows + tid];
+        const int si = __popc(sel_mask & ((1u << e) - 1u));
+        int lo = 0;
+        for (int s = s_next; s < s_end; ++s) {
+          const int hi = sizes.v[s] - base;  // positions base .. Ls-1
+          offer(ld[e], li[e], key, cid, lane_range(lo, hi), k, lane);
+          if (lane < k) {
+            const size_t o = ((((size_t)b * S + s) * n_sel + si) * Lq + q) * k + lane;
+            out_dist[o] = ld[e] >= kBig ? f_inf() : ld[e];
+            out_idx[o] = li[e];
           }
+          lo = hi;
         }
-        ++s;
-        next = s < S ? sizes.v[s] : -1;
+        if (lo < 32) offer(ld[e], li[e], key, cid, lane_range(lo, 32), k, lane);
       }
+      s_next = s_end;
     }
   }
 }
 
-size_t smem_bytes(int rows, int E_hi, int n_sel, int k) {
-  return (size_t)E_hi * kTileC * sizeof(float) + (size_t)kTileC * sizeof(int) +
-         (size_t)n_sel * k * rows * (sizeof(float) + sizeof(int));
+template <int MAXE>
+int launch(const float* vq, const float* vc, const int32_t* col_ids,
+           int32_t* idx, float* dist, int B, int E_rows, int Lq, int Lc, int k,
+           int E_hi, uint32_t sel_mask, int n_sel, int exclude_self,
+           const LibSizes& sizes, cudaStream_t stream) {
+  dim3 grid((Lq + kWarps - 1) / kWarps, B);
+  knn_topk_prefix_kernel<MAXE><<<grid, kWarps * 32, 0, stream>>>(
+      vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
+      exclude_self, sizes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -181,21 +223,6 @@ const char* kernel_error_string(int code) {
 int knn_topk_prefix_max_k() { return kMaxK; }
 int knn_topk_prefix_max_e() { return kMaxE; }
 int knn_topk_prefix_max_s() { return kMaxS; }
-
-// Rows per block the launch will use (0 = the lists do not fit).
-int knn_topk_prefix_rows_per_block(int E_hi, int n_sel, int k) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  const int candidates[2] = {64, 32};
-  for (int i = 0; i < 2; ++i) {
-    if (smem_bytes(candidates[i], E_hi, n_sel, k) <= (size_t)optin)
-      return candidates[i];
-  }
-  return 0;
-}
 
 // vq (B, E_rows, Lq), vc (B, E_rows, Lc) float32 contiguous; col_ids
 // (>= lib_sizes[S-1],) int32 with entries in [0, Lc) (not checked), or
@@ -222,19 +249,18 @@ int knn_topk_prefix_launch(const float* vq, const float* vc,
     sizes.v[s] = lib_sizes[s];
   }
   const int n_sel = __builtin_popcount(sel_mask);
-  const int rows = knn_topk_prefix_rows_per_block(E_hi, n_sel, k);
-  if (rows == 0) return -7;
-  const size_t smem = smem_bytes(rows, E_hi, n_sel, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_topk_prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + rows - 1) / rows, B);
-  knn_topk_prefix_kernel<<<grid, rows, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
-      exclude_self, sizes);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E_hi <= 8)
+    return launch<8>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                     sel_mask, n_sel, exclude_self, sizes, st);
+  if (E_hi <= 16)
+    return launch<16>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                      sel_mask, n_sel, exclude_self, sizes, st);
+  if (E_hi <= 24)
+    return launch<24>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                      sel_mask, n_sel, exclude_self, sizes, st);
+  return launch<32>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                    sel_mask, n_sel, exclude_self, sizes, st);
 }
 
 }  // extern "C"

@@ -136,6 +136,64 @@ def test_ccm_lookup_kernel_equals_plain_version(S, Lq, k, B, Lp):
     assert float((got - want).abs().max()) <= 1e-6 * float(Y.abs().max())
 
 
+# segment counts around every group width G of the staged kernel (8, 4, 2:
+# G - 1, G and G + 1 targets), single targets and an empty segment; past
+# Lp = 7,168 the stream kernel takes one target at a time
+LOOKUP_SEG_COUNTS = (1, 7, 8, 9, 0, 3, 4, 5, 2, 1, 17)
+
+
+@pytest.mark.parametrize("S,nb,Lq,k,Lp", [
+    (8, 3, 1430, 21, 1430),   # the main path's shape, G = 8
+    (2, 4, 257, 1, 300),      # ragged Lq, k = 1
+    (3, 2, 1000, 32, 2000),   # k = 32, G = 4
+    (2, 3, 300, 13, 5000),    # G = 2
+    (2, 2, 700, 21, 8528),    # Subject11's series length: the stream kernel
+    (1, 2, 129, 8, 16384),    # the stream kernel at Lp = 16,384
+    (3, 2, 8508, 1, 8528),    # stream, k = 1, blocks of pairs across tables
+    (2, 3, 1000, 32, 9001),   # stream, k = 32, Lp % 4 != 0 (4-byte copies)
+])
+def test_ccm_lookup_segmented_kernel_equals_plain_version(S, nb, Lq, k, Lp):
+    dev = _card()
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+
+    rng = np.random.default_rng(Lp)
+    segs = tuple((i % nb, c) for i, c in enumerate(LOOKUP_SEG_COUNTS))
+    B = sum(c for _, c in segs)
+    idx = rng.integers(0, Lp, (S, nb, Lq, k)).astype(np.int32)
+    idx[:, :, 0] = 0          # the first and the last target point
+    idx[:, :, -1] = Lp - 1
+    idx = torch.tensor(idx, device=dev)
+    w = torch.tensor(rng.uniform(0, 1, (S, nb, Lq, k)).astype(np.float32), device=dev)
+    Y = torch.tensor(rng.standard_normal((B, Lp)).astype(np.float32), device=dev)
+    got, want = ccm_lookup(idx, w, Y, segs), ccm_lookup_ref(idx, w, Y, segs)
+    assert got.shape == want.shape == (S, B, Lq)
+    assert float((got - want).abs().max()) <= 1e-6 * float(Y.abs().max())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ccm_lookup_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.ccm_lookup.ops import _lib, ccm_lookup
+
+    max_lp = _lib().ccm_lookup_max_lp()
+    assert max_lp >= 16384
+    idx = torch.zeros((1, 1, 4, 3), dtype=torch.int32, device=dev)
+    w = torch.ones((1, 1, 4, 3), device=dev)
+    with pytest.raises(ValueError, match=f"limit {max_lp}"):
+        ccm_lookup(idx, w, torch.zeros((2, max_lp + 1), device=dev), ((0, 2),))
+    Y = torch.zeros((2, 10), device=dev)
+    with pytest.raises(ValueError, match="k=33"):
+        ccm_lookup(torch.zeros((1, 1, 4, 33), dtype=torch.int32, device=dev),
+                   torch.ones((1, 1, 4, 33), device=dev), Y, ((0, 2),))
+    with pytest.raises(ValueError, match="must cover"):
+        ccm_lookup(idx, w, Y, ((0, 1),))
+    with pytest.raises(ValueError, match="must cover"):
+        ccm_lookup(idx, w, Y, ((1, 2),))
+    with pytest.raises(ValueError, match="at most 64"):
+        ccm_lookup(idx, w, torch.zeros((65, 10), device=dev), ((0, 1),) * 65)
+
+
 def test_cuda_engine_map_matches_torch_reference_on_the_card():
     dev = _card()
     from repro_torch.core.pipeline import run_causal_inference
@@ -172,6 +230,48 @@ def test_knn_topk_prefix_kernel_equals_plain_version(exclude_self, buckets, k,
     ri, rd = knn_topk_prefix_ref(x, x, k, exclude_self, buckets, lib_sizes,
                                  col_ids=col_ids)
     assert ki.shape == (4, len(lib_sizes), len(buckets), 400, k)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("Lq,Lc,k,exclude_self,buckets,lib_sizes,order", [
+    # library sizes ending inside 32-wide groups of the sweep
+    (1430, 1430, 13, True, (3, 5, 8, 12), (45, 100, 1430), "permuted"),
+    # several sizes inside one group; the self column of the query at
+    # sweep position 44 / 45 lies on either side of a snapshot
+    (400, 400, 13, True, (3, 5, 8, 12), (40, 45, 60, 400), "permuted"),
+    (400, 400, 13, True, (3, 5, 8, 12), (14, 100, 400), "permuted"),  # k + 1
+    (5, 400, 9, False, (2, 8), (40, 77, 400), "permuted"),      # Lq below 8
+    (1, 400, 21, False, tuple(range(1, 21)), (21, 333), "permuted"),  # Lq 1
+    (400, 400, 21, True, tuple(range(1, 21)), (22, 50, 300), "constant"),
+    (400, 400, 13, True, (3, 5, 8, 12), (45, 100, 400), "natural"),
+])
+def test_knn_topk_prefix_kernel_snapshot_edges(Lq, Lc, k, exclude_self, buckets,
+                                               lib_sizes, order):
+    """The warp-parallel prefix selection's edges, bit-equal to the plain
+    version; "constant" is a constant series under a permuted sweep, so
+    every distance ties and the earliest sweep position must win."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    x = _lags(3, 20, Lc + (0 if exclude_self else Lq), 6)
+    if order == "constant":
+        x[:] = 0.25
+    if exclude_self:
+        Vq = Vc = torch.tensor(x[..., :Lc], device=dev)
+    else:
+        Vq = torch.tensor(x[..., Lc:Lc + Lq].copy(), device=dev)
+        Vc = torch.tensor(x[..., :Lc].copy(), device=dev)
+    col_ids = None
+    if order != "natural":
+        perm = np.random.default_rng(Lq).permutation(Lc).astype(np.int32)
+        col_ids = torch.tensor(perm, device=dev)
+    ki, kd = knn_topk_prefix(Vq, Vc, k, exclude_self, buckets, lib_sizes,
+                             col_ids=col_ids)
+    ri, rd = knn_topk_prefix_ref(Vq, Vc, k, exclude_self, buckets, lib_sizes,
+                                 col_ids=col_ids)
+    assert ki.shape == (3, len(lib_sizes), len(buckets), Lq, k)
     assert torch.equal(ki, ri)
     assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
 

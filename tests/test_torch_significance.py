@@ -219,6 +219,31 @@ def _port_curves_and_null(ts, cfg, optE, rho, sig):
     return curves, null
 
 
+@pytest.mark.parametrize("target_block", [2, 5, 12])
+def test_conv_block_tile_folded_sizes_equal_the_per_size_loop(sig_system,
+                                                            target_block):
+    """conv_block_tile with the S library sizes folded into the lookup's
+    table dimension equals the per-size loop of lookups, bit for bit,
+    with target blocks that cross segment boundaries."""
+    from repro_torch.inference import convergence
+    from repro_torch.inference.pipeline import SignificanceChunkRunner
+
+    ts, jcfg, optE, rho = sig_system
+    cfg = dataclasses.replace(_tcfg(jcfg), target_block=target_block)
+    sig = SignificanceConfig(lib_sizes=(60, 300, 570), n_surrogates=3, seed=0)
+    r = SignificanceChunkRunner(ts, optE, cfg, sig, device="cpu")
+    cidx, cw = convergence.conv_block_tables(r.ts_d, cfg, r.plan, sig.lib_sizes,
+                                             r.col_ids)
+    seg = tuple(enumerate(r.plan.counts))
+    drho, trend = convergence.conv_block_tile(cidx, cw, r.fut_sorted, cfg, seg)
+    curves = torch.stack([
+        tccm.ccm_row_lookup_bucketed(cidx[:, s], cw[:, s], r.fut_sorted, cfg, seg)
+        for s in range(len(sig.lib_sizes))
+    ])
+    want_drho, want_trend = convergence.convergence_stats(curves)
+    assert torch.equal(drho, want_drho) and torch.equal(trend, want_trend)
+
+
 @pytest.mark.parametrize("kind", ["phase", "shuffle"])
 def test_run_significance_matches_jax_end_to_end(sig_system, kind, record_property):
     from repro.inference import SignificanceConfig as JSig

@@ -90,3 +90,61 @@ def test_synthetic_copy_matches_jax_package():
     for a, b in zip(tsynthetic.logistic_network(4, 60, seed=1),
                     jsynthetic.logistic_network(4, 60, seed=1)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("target_block", [1, 3, 7, None])
+def test_row_lookup_bucketed_same_at_every_target_block(target_block):
+    """Target blocks cross segment boundaries (segments of 1 to 9
+    targets); every block width gives the width-N values bit for bit on
+    the CPU, within tolerance of JAX's ccm_row_lookup_bucketed."""
+    ts = dummy_brain(23, 300, seed=7)
+    jcfg = JaxConfig(E_max=5, lib_block=4, target_block=5)
+    optE = np.array([1, 3, 3, 2, 5, 5, 5, 5, 5, 5, 5, 5, 5, 2, 4, 4, 1, 3, 2, 2,
+                     4, 4, 4], np.int32)
+    plan, order = jccm.make_bucket_plan(optE)
+    seg_plan = tuple(enumerate(plan.counts))
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    rows = torch.tensor(ts[:4])
+    fut = tccm.all_futures(torch.tensor(ts), cfg)[torch.as_tensor(order)]
+    idx, w = tccm.ccm_row_tables_bucketed(rows, cfg, tccm.make_bucket_plan(optE)[0])
+    n = fut.shape[0]
+    full = tccm.ccm_row_lookup_bucketed(
+        idx, w, fut, dataclasses.replace(cfg, target_block=n), seg_plan)
+    got = tccm.ccm_row_lookup_bucketed(
+        idx, w, fut, dataclasses.replace(cfg, target_block=target_block or n), seg_plan)
+    assert got.shape == (4, n)
+    assert torch.equal(got, full)
+    jidx, jw = (jnp.asarray(a.numpy()) for a in (idx, w))
+    want = np.stack([
+        np.asarray(jccm.ccm_row_lookup_bucketed(jidx[s], jw[s], jnp.asarray(fut.numpy()),
+                                                jcfg, seg_plan))
+        for s in range(4)
+    ])
+    assert np.abs(got.numpy() - want).max() <= TOL
+
+
+@pytest.mark.parametrize("target_block", [1, 3, 7, 16])
+def test_phase2_map_matches_jax_at_every_target_block(target_block):
+    """The port's bucketed map at any target block stays within TOL of
+    the JAX untiled ccm_matrix; optE (phase 1) equal."""
+    ts = dummy_brain(16, 300, seed=5)
+    jcfg = JaxConfig(E_max=5, lib_block=3, target_block=5)
+    _, j_optE = jsimplex.simplex_batch(jnp.asarray(ts), jcfg)
+    j_optE = np.asarray(j_optE)
+    cfg = dataclasses.replace(config_from_jax(dataclasses.asdict(jcfg)),
+                              target_block=target_block)
+    _, t_optE = tsimplex.simplex_batch(torch.tensor(ts), cfg)
+    assert np.array_equal(t_optE.numpy(), j_optE)
+    want = np.asarray(jccm.ccm_matrix(jnp.asarray(ts), jnp.asarray(j_optE), jcfg))
+    got = tccm.ccm_matrix(torch.tensor(ts), j_optE, cfg).numpy()
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_target_blocks_cut_across_segments():
+    blocks = tccm.target_blocks(((0, 2), (1, 5), (2, 1)), 3)
+    assert blocks == ((0, 3, ((0, 2), (1, 1))), (3, 6, ((1, 3),)),
+                      (6, 8, ((1, 1), (2, 1))))
+    assert tccm.target_blocks(((0, 2), (1, 5), (2, 1)), 8) == (
+        (0, 8, ((0, 2), (1, 5), (2, 1))),)
+    with pytest.raises(ValueError, match="target_block"):
+        tccm.target_blocks(((0, 2),), 0)
