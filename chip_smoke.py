@@ -14,11 +14,16 @@ plain PyTorch version on the card at the shapes of the paths that run
 it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
 main path (the causal map) and the significance path (map, convergence
-statistics, surrogate p-values and BH-FDR edges) — each with the kernel
-launch counts set to 0 just before it and read just after, checks both
-against the plain-version engine, and times every kernel with CUDA
-events beside its bound, its plain version and (where one exists) one
-PyTorch library call computing the same function.
+statistics, surrogate p-values and BH-FDR edges) — and then each again
+in column tiles (``--target-tile``: the tiled map and store byte for
+byte the untiled ones, with peak device memory beside them), the all-E
+phase 2 (``--no-bucketed``, untiled and tiled) and the map with the
+bfloat16 distance accumulator — each path with the kernel launch counts
+set to 0 just before it and read just after, checks them against the
+plain-version engine, and times every kernel (both accumulators of the
+kNN kernels) with CUDA events beside its bound, its plain version and
+(where one exists) one PyTorch library call computing the same
+function.
 
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
@@ -62,6 +67,14 @@ PROFILE_N = 512  # series of the profiled runs of both paths
 SIG_LIB_SIZES = (100, 200, 400, 800, 1430)
 SIG_M, SIG_CHECK_M = 20, 9
 NEAR_TIE = 1e-6  # |difference| below which a comparison may round either way
+# The tiled and all-E phase 2 and the tiled significance stage: the main
+# path's map again in column tiles of 4,096 targets; the all-E layout
+# (--no-bucketed) at N = 2,048, untiled and in tiles of 512; the
+# significance path in tiles of 512; the bfloat16 accumulator's map at
+# N = 2,048.  Subject11: N = 101,729 series.
+MAIN_TILE, SIG_TILE = 4096, 512
+ALL_E_N, ALL_E_TILE, BF16_N = 2048, 512, 2048
+SUBJECT11_N = 101729
 
 # The LM serving path: qwen2.5-3b at full width (36 layers, d 2048, 16 / 2
 # heads of 128, d_ff 11008, vocab 151,936 padded to 152,064), random
@@ -178,20 +191,23 @@ def lag_batch(torch, ts_np, Lp, dev):
     return embedding.lag_matrix(x, E_MAX, 1, Lp).contiguous()
 
 
-def check_knn(torch, name, Vq, Vc, k, exclude_self, select_Es):
-    """Kernel vs plain version on the card: idx equal, dist bit-equal."""
+def check_knn(torch, name, Vq, Vc, k, exclude_self, select_Es,
+              dist_dtype="float32"):
+    """Kernel vs plain version on the card: idx equal, dist bit-equal
+    (both with the float32 or the bfloat16 accumulator)."""
     from repro_torch.kernels.knn_topk.ops import knn_topk
     from repro_torch.kernels.knn_topk.ref import knn_topk_ref
 
-    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype)
     torch.cuda.synchronize()
-    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype)
     idx_eq = bool(torch.equal(ki, ri))
     bits_eq = same_bits(torch, kd, rd)
     err = finite_max_abs(torch, kd, rd)
     emit("check_knn", case=name, shape=list(Vq.shape) + [Vc.shape[-1]], k=k,
          exclude_self=exclude_self, select_Es=list(select_Es),
-         idx_equal=idx_eq, dist_bits_equal=bits_eq, max_abs_err=err)
+         dist_dtype=dist_dtype, idx_equal=idx_eq, dist_bits_equal=bits_eq,
+         max_abs_err=err)
     if not (idx_eq and bits_eq):
         bad = (ki != ri).nonzero()[:5].tolist()
         raise AssertionError(f"knn_topk kernel != plain version ({name}); first "
@@ -200,29 +216,79 @@ def check_knn(torch, name, Vq, Vc, k, exclude_self, select_Es):
 
 
 def check_knn_prefix(torch, name, Vq, Vc, k, exclude_self, buckets, lib_sizes,
-                     col_ids):
+                     col_ids, dist_dtype="float32"):
     """Prefix kernel vs plain version on the card: idx equal, dist
-    bit-equal."""
+    bit-equal (float32 or bfloat16 accumulator)."""
     from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
     from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
 
     ki, kd = knn_topk_prefix(Vq, Vc, k, exclude_self, buckets, lib_sizes,
-                             col_ids=col_ids)
+                             col_ids=col_ids, dist_dtype=dist_dtype)
     torch.cuda.synchronize()
     ri, rd = knn_topk_prefix_ref(Vq, Vc, k, exclude_self, buckets, lib_sizes,
-                                 col_ids=col_ids)
+                                 col_ids=col_ids, dist_dtype=dist_dtype)
     idx_eq = bool(torch.equal(ki, ri))
     bits_eq = same_bits(torch, kd, rd)
     err = finite_max_abs(torch, kd, rd)
     emit("check_knn_prefix", case=name, shape=list(Vq.shape) + [Vc.shape[-1]],
          k=k, exclude_self=exclude_self, buckets=list(buckets),
          lib_sizes=list(lib_sizes), permuted=col_ids is not None,
-         idx_equal=idx_eq, dist_bits_equal=bits_eq, max_abs_err=err)
+         dist_dtype=dist_dtype, idx_equal=idx_eq, dist_bits_equal=bits_eq,
+         max_abs_err=err)
     if not (idx_eq and bits_eq):
         bad = (ki != ri).nonzero()[:5].tolist()
         raise AssertionError(f"knn_topk_prefix kernel != plain version ({name}); "
                              f"first differing idx positions {bad}")
     return err
+
+
+def same_npy_bits(a_path, b_path, rows=1024) -> bool:
+    """Two stored float arrays (memmapped) equal bit for bit."""
+    import numpy as np
+
+    a, b = np.load(a_path, mmap_mode="r"), np.load(b_path, mmap_mode="r")
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.names is not None:  # the edge list: a structured array
+        return a.tobytes() == b.tobytes()
+    return all(np.array_equal(a[r : r + rows].view(np.uint32),
+                              b[r : r + rows].view(np.uint32))
+               for r in range(0, a.shape[0], rows))
+
+
+def tied_lags(torch, dev, S, L, seed):
+    """(S, E_MAX, L) lags quantised to quarter steps: many equal
+    distances, and more once bfloat16 rounds them."""
+    import numpy as np
+
+    x = np.random.default_rng(seed).standard_normal((S, E_MAX, L))
+    return torch.as_tensor((np.round(x * 4) / 4).astype(np.float32)).to(dev)
+
+
+def run_cli(torch, dev, argv):
+    """One run of the port's CLI with its progress lines kept off
+    stdout (their last two are printed): (summary, launches by kernel,
+    peak device bytes), the launch counts and the peak set to 0 just
+    before it."""
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+    from repro_torch.launch import edm_run
+
+    knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        summary = edm_run.main(argv)
+    for ln in log.getvalue().strip().splitlines()[-2:]:
+        print(ln, flush=True)
+    launches = {"knn_topk": knn_topk.LAUNCHES,
+                "knn_topk_prefix": knn_topk_prefix.LAUNCHES,
+                "ccm_lookup": ccm_lookup.LAUNCHES}
+    return summary, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def phase_walls(summary) -> dict:
+    return {k: summary[k] for k in ("wall_s", "phase1_s", "phase2_s", "assemble_s")}
 
 
 def check_prng(torch, dev):
@@ -274,7 +340,7 @@ def sig_near_ties(torch, ts, optE, rho, cfg, sig, dev):
     trend_tie = np.zeros((r.N, r.N), bool)
     p_tie = np.zeros((r.N, r.N), bool)
     for row0 in range(0, r.N, cfg.lib_block):
-        rows = r.ts_d[row0 : row0 + cfg.lib_block]
+        rows = r.rows(row0, cfg.lib_block)
         cidx, cw = convergence.conv_block_tables(rows, cfg, r.plan, sig.lib_sizes,
                                                  r.col_ids)
         curves = torch.stack([
@@ -426,6 +492,116 @@ def profile_phase2(torch, dev, ts, optE, smi):
          kernels={g: v[1] for g, v in groups.items()},
          top=[{"name": k[:90], "device_s": us / 1e6, "calls": c}
               for us, k, c in sorted(rows, reverse=True)[:12]], smi=smi)
+
+
+def all_e_phase(torch, dev, smi):
+    """The all-E phase 2 (--no-bucketed) at ALL_E_N x 1450, E_max 20,
+    through the CLI untiled and in tiles of ALL_E_TILE (each with its
+    launch counts set to 0 just before it): tiled == untiled byte for
+    byte, and the cuda engine's map against torch-reference's on the
+    card (optE equal, rho within 1e-5)."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+
+    n = ALL_E_N
+    base = ["--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX), "--no-bucketed"]
+    runs = {}
+    for name, extra in (("untiled", []), ("tiled", ["--target-tile", str(ALL_E_TILE)])):
+        d = ROOT / "build" / f"smoke_all_e_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        summary, launches, peak = run_cli(torch, dev, base + extra + ["--out", str(d)])
+        runs[name] = dict(dir=d, launches=launches, peak_device_bytes=peak,
+                          **phase_walls(summary))
+        if min(launches["knn_topk"], launches["ccm_lookup"]) < 1:
+            raise AssertionError(f"all-E {name} run missed a kernel: {launches}")
+    got = np.load(runs["untiled"]["dir"] / "causal_map" / "data.npy")
+    byte_equal = same_npy_bits(runs["untiled"]["dir"] / "causal_map" / "data.npy",
+                               runs["tiled"]["dir"] / "causal_map" / "data.npy")
+    t0 = time.perf_counter()
+    want = run_causal_inference(dummy_brain(n, FISH1_L),
+                                EDMConfig(E_max=E_MAX, bucketed=False,
+                                          engine="torch-reference"), device=dev)
+    ref_s = time.perf_counter() - t0
+    optE = json.loads((runs["untiled"]["dir"] / "causal_map" / "meta.json")
+                      .read_text())["optE"]
+    optE_eq = optE == want.optE.tolist()
+    err = float(np.abs(got - want.rho).max())
+    for r in runs.values():
+        shutil.rmtree(r.pop("dir"), ignore_errors=True)
+    out = dict(N=n, L=FISH1_L, E_max=E_MAX, tile=ALL_E_TILE, runs=runs,
+               tiled_byte_equal=byte_equal, reference_device=str(dev),
+               reference_wall_s=ref_s, optE_equal=optE_eq, rho_max_abs_err=err,
+               tol=1e-5, smi=smi)
+    emit("all_e", **out)
+    if not (byte_equal and optE_eq and err <= 1e-5 and np.isfinite(got).all()):
+        raise AssertionError("all-E phase 2: tiled != untiled or cuda != "
+                             f"torch-reference ({byte_equal}, {optE_eq}, {err})")
+    return out
+
+
+def bf16_map_phase(torch, dev, smi):
+    """The map with the bfloat16 accumulator (EDMConfig(dist_dtype=
+    "bfloat16")) at BF16_N x 1450, E_max 20: the cuda engine (its launch
+    counts set to 0 just before it; the kNN kernel must run) against
+    torch-reference on the card — the first chunk's phase-1 and phase-2
+    kNN tables bit-equal, optE equal, rho within 1e-5."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch import engine
+    from repro_torch.core import ccm, embedding
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    ts = dummy_brain(BF16_N, FISH1_L, seed=14)
+    cfg = EDMConfig(E_max=E_MAX, dist_dtype="bfloat16")
+    ref_cfg = dc.replace(cfg, engine="torch-reference")
+    knn_topk.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = run_causal_inference(ts, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {"knn_topk": knn_topk.LAUNCHES, "ccm_lookup": ccm_lookup.LAUNCHES}
+    want = run_causal_inference(ts, ref_cfg, device=dev)
+    optE_eq = bool(np.array_equal(got.optE, want.optE))
+    err = float(np.abs(got.rho - want.rho).max())
+    f32 = run_causal_inference(ts, EDMConfig(E_max=E_MAX), device=dev)
+    # the first chunk's tables from both engines
+    rows = torch.as_tensor(ts[:LIB_BLOCK]).to(dev)
+    Lp = cfg.n_points(FISH1_L)
+    V = embedding.lag_matrix(rows, E_MAX, 1, Lp).contiguous()
+    plan, _ = ccm.make_bucket_plan(got.optE)
+    kb = plan.buckets[-1] + 1
+    Lh = Lp // 2
+    tables_equal = {}
+    for name, args, kw in (
+        ("phase1", (V[..., Lh:].contiguous(), V[..., :Lh].contiguous(), E_MAX + 1),
+         dict(exclude_self=False)),
+        ("phase2", (V, V, kb), dict(buckets=plan.buckets, exclude_self=True)),
+    ):
+        pair = []
+        for c in (cfg, ref_cfg):
+            eng = engine.get_engine(c.engine)
+            fn = eng.knn_tables if name == "phase1" else eng.knn_tables_bucketed
+            pair.append(fn(*args, cfg=c, **kw))
+        (ki, kd), (ri, rd) = pair
+        tables_equal[name] = bool(torch.equal(ki, ri)) and same_bits(torch, kd, rd)
+    out = dict(N=BF16_N, L=FISH1_L, E_max=E_MAX, dist_dtype="bfloat16", wall_s=wall,
+               launches=launches, tables_bit_equal=tables_equal,
+               optE_equal=optE_eq, rho_max_abs_err=err, tol=1e-5,
+               optE_equal_f32=bool(np.array_equal(got.optE, f32.optE)),
+               rho_max_abs_diff_f32=float(np.abs(got.rho - f32.rho).max()), smi=smi)
+    emit("bf16_map", **out)
+    if not (all(tables_equal.values()) and optE_eq and err <= 1e-5
+            and launches["knn_topk"] > 0 and np.isfinite(got.rho).all()):
+        raise AssertionError(f"bf16 map: cuda != torch-reference ({out})")
+    return out
 
 
 # ---- the LM serving path --------------------------------------------------
@@ -920,6 +1096,31 @@ def main(argv=None) -> int:
                                                       sel, sizes, cids))
     check_prng(torch, dev)
 
+    # ---- the bfloat16 accumulator: both kernels against the plain bf16
+    # version, bit for bit, at the paths' shapes and on tie-heavy lags
+    Vq1, Vc1 = V8[..., Lh:].contiguous(), V8[..., :Lh].contiguous()
+    Vtie = tied_lags(torch, dev, 3, 400, 12)
+    perm400 = subsample_permutation(perm_key, 400)
+    b13 = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16)
+    knn_bf16_err = max(
+        check_knn(torch, "phase2_17E_bf16", V8, V8, 18, True, tuple(range(1, 18)),
+                  "bfloat16"),
+        check_knn(torch, "phase1_bf16", Vq1, Vc1, E_MAX + 1, False, all_E,
+                  "bfloat16"),
+        check_knn(torch, "tied_bf16", Vtie, Vtie, E_MAX + 1, True, all_E,
+                  "bfloat16"),
+        check_knn(torch, "tied_k32_bf16", Vtie, Vtie, 32, True, (4, 11, 20),
+                  "bfloat16"),
+    )
+    prefix_bf16_err = max(
+        check_knn_prefix(torch, "sig_shape_bf16", V8, V8, 17, True, b13,
+                         SIG_LIB_SIZES, col_ids, "bfloat16"),
+        check_knn_prefix(torch, "tied_mid_group_bf16", Vtie, Vtie, 13, True, bsel,
+                         (40, 45, 60, 400), perm400, "bfloat16"),
+        check_knn_prefix(torch, "tied_natural_bf16", Vtie, Vtie, E_MAX + 1, True,
+                         all_E, (22, 100, 400), None, "bfloat16"),
+    )
+
     # ---- the main path; the launch counts start at 0 here ---------------
     out_dir = ROOT / "build" / "smoke_out"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -951,7 +1152,31 @@ def main(argv=None) -> int:
          launches=launches, rho_mean=float(rho.mean()),
          rho_absmax=float(np.abs(rho).max()), smi=smi)
     del result, rho
+
+    # ---- the tiled main path: the same map in column tiles ---------------
+    tiled_dir = ROOT / "build" / "smoke_tiled"
+    shutil.rmtree(tiled_dir, ignore_errors=True)
+    tsum, tiled_launches, peak_tiled = run_cli(torch, dev, [
+        "--synthetic", f"{args.n}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--target-tile", str(MAIN_TILE), "--out", str(tiled_dir)])
+    tiled_equal = same_npy_bits(out_dir / "causal_map" / "data.npy",
+                                tiled_dir / "causal_map" / "data.npy")
+    emit("tiled_main_path", N=args.n, L=FISH1_L, E_max=E_MAX, tile=MAIN_TILE,
+         **phase_walls(tsum), launches=tiled_launches,
+         peak_device_bytes=peak_tiled,
+         tiles_written=len(list(tiled_dir.glob("tile_*.npy"))),
+         untiled={"wall_s": summary["wall_s"], "phase1_s": summary["phase1_s"],
+                  "phase2_s": summary["phase2_s"],
+                  "assemble_s": summary["assemble_s"], "launches": launches,
+                  "peak_device_bytes": peak_mem},
+         byte_equal_to_untiled=tiled_equal, smi=smi)
+    if not tiled_equal:
+        raise AssertionError("tiled main-path map != untiled map")
+    if min(tiled_launches["knn_topk"], tiled_launches["ccm_lookup"]) < 1:
+        raise AssertionError(f"tiled main path missed a kernel: {tiled_launches}")
+    del summary, tsum
     shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(tiled_dir, ignore_errors=True)
     profile_phase2(torch, dev, dummy_brain(args.n, FISH1_L), main_optE, smi)
 
     # ---- the significance path; the launch counts start at 0 here -------
@@ -999,11 +1224,49 @@ def main(argv=None) -> int:
          drho_mean=float(np.asarray(out.drho).mean()),
          trend_mean=float(np.asarray(out.trend).mean()), smi=smi)
     del summary, out, maps
+
+    # ---- the tiled significance stage: the same store in column tiles ----
+    sig_tiled_dir = ROOT / "build" / "smoke_sig_tiled"
+    shutil.rmtree(sig_tiled_dir, ignore_errors=True)
+    stsum, sig_tiled_launches, peak_sig_tiled = run_cli(torch, dev, [
+        "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+        "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+        "--fdr", "0.05", "--seed", "0", "--target-tile", str(SIG_TILE),
+        "--out", str(sig_tiled_dir)])
+    sig_equal = {a: same_npy_bits(sig_dir / a / "data.npy",
+                                  sig_tiled_dir / a / "data.npy")
+                 for a in ("causal_map", "rho_conv", "rho_trend", "pvals", "edges")}
+    Lp11 = SUBJECT11_L - (E_MAX - 1) - 1  # 8508
+    emit("significance_tiled", N=args.sig_n, L=FISH1_L, tile=SIG_TILE,
+         surrogates=SIG_M, wall_s=stsum["wall_s"] + stsum["significance_s"],
+         significance_s=stsum["significance_s"], launches=sig_tiled_launches,
+         peak_device_bytes=peak_sig_tiled, peak_device_bytes_untiled=peak_sig,
+         byte_equal_to_untiled=sig_equal,
+         surrogate_bytes={"untiled": args.sig_n * SIG_M * Lp * 4,
+                          "tiled": SIG_TILE * SIG_M * Lp * 4},
+         subject11_surrogate_bytes_arithmetic={
+             "untiled": SUBJECT11_N * SIG_M * Lp11 * 4,
+             "tiled": SIG_TILE * SIG_M * Lp11 * 4},
+         edges=stsum["edges"], smi=smi)
+    if not all(sig_equal.values()):
+        raise AssertionError(f"tiled significance != untiled: {sig_equal}")
+    if min(sig_tiled_launches.values()) < 1:
+        raise AssertionError(f"tiled significance missed a kernel: "
+                             f"{sig_tiled_launches}")
+    if not peak_sig_tiled < peak_sig:
+        raise AssertionError(f"tiled significance peak {peak_sig_tiled} B not "
+                             f"below the untiled {peak_sig} B")
+    del stsum
     shutil.rmtree(sig_dir, ignore_errors=True)
+    shutil.rmtree(sig_tiled_dir, ignore_errors=True)
+
+    # ---- the all-E phase 2 and the bfloat16 map, each path's counts at 0
+    all_e = all_e_phase(torch, dev, smi)
+    bf16_map = bf16_map_phase(torch, dev, smi)
 
     # ---- times with CUDA events at the main path's shapes ---------------
     kb = buckets[-1] + 1
-    Vq1, Vc1 = V8[..., Lh:].contiguous(), V8[..., :Lh].contiguous()
     times = {}
     for case, (Vq, Vc, k, excl, sel, it, it_plain) in {
         "phase2": (V8, V8, kb, True, buckets, 20, 2),
@@ -1011,9 +1274,17 @@ def main(argv=None) -> int:
     }.items():
         ms = time_ms(torch, lambda: knn_topk(Vq, Vc, k, excl, sel), it)
         plain = time_ms(torch, lambda: knn_topk_ref(Vq, Vc, k, excl, sel), it_plain)
+        # the bfloat16 accumulator at the same shape, checked there first
+        knn_bf16_err = max(knn_bf16_err, check_knn(
+            torch, f"{case}_path_buckets_bf16", Vq, Vc, k, excl, sel, "bfloat16"))
+        ms_bf16 = time_ms(torch, lambda: knn_topk(Vq, Vc, k, excl, sel,
+                                                  dist_dtype="bfloat16"), it)
+        plain_bf16 = time_ms(torch, lambda: knn_topk_ref(
+            Vq, Vc, k, excl, sel, dist_dtype="bfloat16"), it_plain)
         bound, by = knn_bound_ms(Vq.shape[0], sel[-1], len(sel), Vq.shape[-1],
                                  Vc.shape[-1], k)
-        times[case] = dict(kernel_ms=ms, plain_ms=plain,
+        times[case] = dict(kernel_ms=ms, plain_ms=plain, kernel_ms_bf16=ms_bf16,
+                           plain_ms_bf16=plain_bf16,
                            bound_us=bound * 1e3, bound_by=by, S=Vq.shape[0],
                            Lq=Vq.shape[-1], Lc=Vc.shape[-1], k=k,
                            select_Es=list(sel))
@@ -1038,9 +1309,19 @@ def main(argv=None) -> int:
                                                 SIG_LIB_SIZES, col_ids=col_ids), 20)
     plain = time_ms(torch, lambda: knn_topk_prefix_ref(
         V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES, col_ids=col_ids), 2)
+    prefix_bf16_err = max(prefix_bf16_err, check_knn_prefix(
+        torch, "sig_path_buckets_bf16", V8, V8, kp, True, sig_buckets,
+        SIG_LIB_SIZES, col_ids, "bfloat16"))
+    ms_bf16 = time_ms(torch, lambda: knn_topk_prefix(
+        V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES, col_ids=col_ids,
+        dist_dtype="bfloat16"), 20)
+    plain_bf16 = time_ms(torch, lambda: knn_topk_prefix_ref(
+        V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES, col_ids=col_ids,
+        dist_dtype="bfloat16"), 2)
     bound, by = prefix_bound_ms(V8.shape[0], sig_buckets[-1], len(sig_buckets), Lp,
                                 SIG_LIB_SIZES[-1], len(SIG_LIB_SIZES), kp)
-    ptimes = dict(kernel_ms=ms, plain_ms=plain, bound_us=bound * 1e3, bound_by=by,
+    ptimes = dict(kernel_ms=ms, plain_ms=plain, kernel_ms_bf16=ms_bf16,
+                  plain_ms_bf16=plain_bf16, bound_us=bound * 1e3, bound_by=by,
                   B=V8.shape[0], Lq=Lp, P=SIG_LIB_SIZES[-1],
                   lib_sizes=list(SIG_LIB_SIZES), k=kp, buckets=list(sig_buckets))
     emit("time_knn_topk_prefix", smi=smi, **ptimes)
@@ -1184,7 +1465,16 @@ def main(argv=None) -> int:
          "bound_by": k2["bound_by"], "library_ms": None,
          "ms_phase1": k1["kernel_ms"],
          "plain_ms_phase1": k1["plain_ms"], "bound_ms_phase1": k1["bound_us"] / 1e3,
-         "checked": True},
+         "ms_bf16": k2["kernel_ms_bf16"], "plain_ms_bf16": k2["plain_ms_bf16"],
+         "ms_phase1_bf16": k1["kernel_ms_bf16"],
+         "plain_ms_phase1_bf16": k1["plain_ms_bf16"],
+         "max_abs_err_bf16": knn_bf16_err,
+         "launches_tiled_main_path": tiled_launches["knn_topk"],
+         "launches_significance_tiled": sig_tiled_launches["knn_topk"],
+         "launches_all_e": {k: v["launches"]["knn_topk"]
+                            for k, v in all_e["runs"].items()},
+         "launches_bf16_map": bf16_map["launches"]["knn_topk"],
+         "checked": True, "checked_bf16": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
          "replaces": "src/repro/kernels/ccm_lookup/ccm_lookup.py:24",
@@ -1199,6 +1489,10 @@ def main(argv=None) -> int:
          "ms_subject11_Lp": ltimes["subject11_chunk_tables"]["kernel_ms"],
          "bound_ms_subject11_Lp":
              ltimes["subject11_chunk_tables"]["bound_us"] / 1e3,
+         "launches_tiled_main_path": tiled_launches["ccm_lookup"],
+         "launches_significance_tiled": sig_tiled_launches["ccm_lookup"],
+         "launches_all_e": {k: v["launches"]["ccm_lookup"]
+                            for k, v in all_e["runs"].items()},
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
@@ -1207,7 +1501,11 @@ def main(argv=None) -> int:
          "launches_significance": sig_launches["knn_topk_prefix"],
          "max_abs_err": prefix_err, "ms": ptimes["kernel_ms"],
          "plain_ms": ptimes["plain_ms"], "bound_ms": ptimes["bound_us"] / 1e3,
-         "bound_by": ptimes["bound_by"], "library_ms": None, "checked": True},
+         "bound_by": ptimes["bound_by"], "library_ms": None,
+         "ms_bf16": ptimes["kernel_ms_bf16"], "plain_ms_bf16": ptimes["plain_ms_bf16"],
+         "max_abs_err_bf16": prefix_bf16_err,
+         "launches_significance_tiled": sig_tiled_launches["knn_topk_prefix"],
+         "checked": True, "checked_bf16": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:26",

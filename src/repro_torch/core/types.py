@@ -34,14 +34,14 @@ class EDMConfig:
       engine: port engine key: "cuda" (default) or "torch-reference".
       bucketed: phase-2 CCM with optE-bucketed tables.
       stream_depth: phase-2 chunks in flight (2 = double buffering).
-      target_tile: phase-2 column tile width; only 0 (untiled) is ported.
+      target_tile: phase-2 and significance column tile width (0 = untiled).
       use_kernels: DEPRECATED alias — True selects engine="cuda", False
         engine="torch-reference".
       knn_impl: accumulation variant of the JAX dense oracle; kept so the
         two configs carry the same fields (the port's dense oracle has one
         cumulative form).
-      dist_dtype: distance accumulator of the plain kNN version; the CUDA
-        kernel takes float32 only.
+      dist_dtype: distance accumulator of the kNN tables, "float32" or
+        "bfloat16" (both kNN kernels take either).
       knn_tile_c: candidate-tile width of the plain streaming kNN
         table functions: 0 = calibrated (``core/knn.py``), > 0 = forced.  Every
         width gives the same tables.

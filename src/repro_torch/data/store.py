@@ -2,9 +2,10 @@
 format: ``<name>/meta.json`` + ``<name>/data.npy``, blocks listed with
 their crc32 in a self-checksummed ``blocks.json`` manifest — full-width
 causal-map row blocks ``rows_<row0>.npy`` (``"row0": [nrows, crc32]``)
-and the significance stage's column tiles ``tile_<row0>_<col0>.npy``
-(``"row0,col0": [nrows, ncols, crc32]``, columns in the bucket-sorted
-order recorded in ``col_order.npy``) — and a ``.crc32`` sidecar beside
+and the column tiles ``tile_<row0>_<col0>.npy`` of the tiled phase 2 and
+the significance stage (``"row0,col0": [nrows, ncols, crc32]``, columns
+in the bucket-sorted order recorded in ``col_order.npy``, or natural
+where there is none) — and a ``.crc32`` sidecar beside
 every standalone array, so ``repro``'s ``edm_fleet fsck`` verifies a
 port store.
 
@@ -123,16 +124,28 @@ def load_dataset(path: str | pathlib.Path, mmap: bool = True) -> np.ndarray:
     return np.load(pathlib.Path(path) / "data.npy", mmap_mode="r" if mmap else None)
 
 
+def _union_covers(intervals: list[tuple[int, int]], width: int) -> bool:
+    """True when the union of [a, b) intervals covers [0, width)."""
+    reach = 0
+    for a, b in sorted(intervals):
+        if a > reach:
+            return False
+        reach = max(reach, b)
+        if reach >= width:
+            return True
+    return reach >= width
+
+
 class TileWriter:
     """Streamed (N, N) output in blocks + the ``blocks.json`` manifest,
-    the resume unit of the pipeline.  Phase 2 writes full-width row
-    blocks in natural column order (:meth:`write_block`); the
-    significance stage writes (row-chunk x col-tile) tiles in the
-    bucket-sorted column order declared by :meth:`ensure_col_order`
-    (:meth:`write_tile`), undone at :meth:`assemble`.  Both are full
-    width: the port has no tiled phase 2.  Coverage is per row, so a
-    rerun with another ``lib_block`` resumes exactly where the last run
-    stopped."""
+    the resume unit of the pipeline: full-width row blocks in natural
+    column order (:meth:`write_block`, the untiled phase 2) and
+    (row-chunk x col-tile) tiles (:meth:`write_tile`, the tiled phase 2
+    and the significance stage), in the column order declared by
+    :meth:`ensure_col_order` (the bucket-sorted one, or natural), undone
+    at :meth:`assemble`.  Coverage is per row: a row is covered once its
+    blocks union to the full width, so a rerun with another ``lib_block``
+    or ``target_tile`` resumes exactly where the last run stopped."""
 
     def __init__(self, path: str | pathlib.Path, N: int):
         self.dir = pathlib.Path(path)
@@ -164,13 +177,29 @@ class TileWriter:
                 yield False, int(key), 0, int(val), self.N, None
 
     def covered(self) -> np.ndarray:
-        """(N,) bool: rows held by a full-width block or tile (a partial
-        tile, which only the unported tiled path writes, covers
-        nothing: its rows are recomputed)."""
+        """(N,) bool: rows whose blocks union to the full column width
+        (a row missing one tile is recomputed whole).  Tiles are grouped
+        by their (row0, nrows) span, whose column intervals are merged
+        once for all its rows; only rows under spans that do not cover on
+        their own (tiles of two geometries, from a resume with another
+        chunk or tile size) fall back to a per-row union."""
         cov = np.zeros(self.N, bool)
+        spans: dict[tuple[int, int], list[tuple[int, int]]] = {}
         for _tiled, row0, col0, nr, nc, _crc in self._blocks():
             if col0 == 0 and nc >= self.N:
                 cov[row0 : row0 + nr] = True
+            else:
+                spans.setdefault((row0, nr), []).append((col0, col0 + nc))
+        per_row: dict[int, list[tuple[int, int]]] = {}
+        for (row0, nr), ivals in spans.items():
+            if _union_covers(ivals, self.N):
+                cov[row0 : row0 + nr] = True
+                continue
+            for r in range(row0, min(row0 + nr, self.N)):
+                per_row.setdefault(r, []).extend(ivals)
+        for r, ivals in per_row.items():
+            if not cov[r] and _union_covers(ivals, self.N):
+                cov[r] = True
         return cov
 
     def chunk_plan(
@@ -198,21 +227,34 @@ class TileWriter:
         """Rewrite the manifest (atomic); flushes deferred tile entries."""
         atomic_write_text(self.manifest, manifest_with_crc(self.done))
 
-    def ensure_col_order(self, order: np.ndarray) -> None:
+    def ensure_col_order(self, order: np.ndarray | None) -> None:
         """Declare (and persist, checksummed) the on-disk column
-        permutation of tile writes; raises if it conflicts with a prior
-        run's layout."""
-        order = np.asarray(order)
+        permutation of tile writes, ``None`` for natural order (which
+        needs no file); raises if it conflicts with a prior run's
+        layout."""
+        want = np.arange(self.N) if order is None else np.asarray(order)
         f = self.dir / "col_order.npy"
-        if not f.exists():
-            save_npy_checksummed(f, order)
-        elif not np.array_equal(np.load(f), order):
+        if f.exists():
+            have = np.load(f)
+            if not np.array_equal(have, want):
+                raise ValueError(
+                    f"resume column-order mismatch in {self.dir}: the store "
+                    "was written under a different target permutation "
+                    "(different optE/bucketing?); use a fresh --out dir"
+                )
+            self._col_order = None if order is None else have
+            return
+        if order is None:
+            return
+        # full-width row blocks are natural order and mix with any tile
+        # order; only tiles already on disk pin the layout
+        if self.has_tiles and not np.array_equal(want, np.arange(self.N)):
             raise ValueError(
-                f"resume column-order mismatch in {self.dir}: the store "
-                "was written under a different target permutation "
-                "(different optE/bucketing?); use a fresh --out dir"
+                f"store {self.dir} already holds natural-order tiles; "
+                "cannot add column-permuted tiles (use a fresh --out dir)"
             )
-        self._col_order = order
+        save_npy_checksummed(f, want)
+        self._col_order = want
 
     def write_block(self, row0: int, rho_rows: np.ndarray) -> None:
         """One full-width row block, then the manifest entry."""

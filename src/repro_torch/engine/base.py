@@ -33,6 +33,11 @@ class Engine:
         (``cfg.knn_tile_c``; 0 = calibrated).  Invisible in the output."""
         return knn.resolve_stream_tile(rows, Lc, cfg)
 
+    def check_limits(self, cfg, device) -> None:
+        """Raise ``ValueError`` where this engine cannot run ``cfg`` on
+        ``device`` (None = the card); entry points call it before any
+        work.  The plain versions take any config."""
+
     def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
         raise NotImplementedError
 

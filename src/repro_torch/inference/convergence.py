@@ -75,16 +75,20 @@ def conv_block_tile(
     fut_tile: torch.Tensor,
     cfg: EDMConfig,
     seg_plan: tuple[tuple[int, int], ...],
+    *,
+    col0: int = 0,
+    width: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(drho, trend), each (B, t), of one (row-chunk x col-tile) block:
     idx/w (B, S, nb, Lp, k) prefix tables, fut_tile (t, Lp) bucket-sorted
-    target futures.  The S library sizes ride in the table dimension of
+    target futures, sorted columns [col0, col0 + t) of ``width`` (default:
+    the whole axis).  The S library sizes ride in the table dimension of
     the lookup, (B * S, nb, Lp, k), so each target block is one launch
     for every size.  The (S, B, t) curves never leave the device."""
     B, S = idx.shape[:2]
     rho = ccm.ccm_row_lookup_bucketed(
         idx.reshape(B * S, *idx.shape[2:]), w.reshape(B * S, *w.shape[2:]),
-        fut_tile, cfg, seg_plan,
+        fut_tile, cfg, seg_plan, col0=col0, width=width,
     )
     return convergence_stats(rho.reshape(B, S, -1).transpose(0, 1))
 

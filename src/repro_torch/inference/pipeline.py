@@ -1,28 +1,31 @@
 """Significance driver of the port: rho maps -> validated causal graphs,
 on one device.
 
-Runs the two statistical stages over the phase-2 decomposition (row
-chunks of ``lib_block`` library series; one column tile of all N
-targets, since the tiled phase 2 is not ported), with phase 2's
-ChunkStreamer and TileWriter store:
+Runs the two statistical stages over the phase-2 decomposition — row
+chunks of ``lib_block`` library series, column tiles of
+``cfg.target_tile`` targets (one tile of all N when it is 0) — with
+phase 2's ChunkStreamer and TileWriter store:
 
   * CONVERGENCE — per row chunk, ONE prefix-snapshot table build yields
     bucketed kNN tables for every library size (nested prefixes of the
-    seeded subsampling permutation); the rho-vs-library-size curves
-    reduce on the device to the drho and monotonic-trend maps.
+    seeded subsampling permutation); per tile, the rho-vs-library-size
+    curves reduce on the device to the drho and monotonic-trend maps.
   * SURROGATE NULLS — per row chunk the full-library tables are rebuilt
     (phase 2's tables, so the null matches the observed statistic);
-    every target contributes m surrogate futures batched along the
-    target axis, and the per-pair p-value (1 + #{null >= obs}) / (m + 1)
-    is computed on the device.
+    every target of a tile contributes m surrogate futures batched along
+    the target axis, and the per-pair p-value (1 + #{null >= obs}) /
+    (m + 1) is computed on the device.
   * FDR + ASSEMBLY — p-values take only m+1 distinct values, so the
     Benjamini–Hochberg threshold is computed exactly from streamed
     per-value counts, and the edge list is assembled row by row.
 
-The surrogate futures depend only on the seed and the global series id,
-so the untiled port builds them ONCE per run, (N * m, Lp) float32 on the
-device, where the JAX runner regenerates its one tile's batch for every
-row chunk; the values are the same.
+The surrogate futures depend only on the seed and the global series id.
+Untiled, they are built ONCE per run, (N * m, Lp) float32 on the device;
+tiled, each (chunk, tile) builds its tile's (T * m, Lp) batch, as the
+JAX runner does, and the target futures and series are uploaded per
+tile: the device holds nothing of size N * m or N * Lp.  Both build in
+batches of one size (:meth:`SignificanceChunkRunner.surrogates`), so the
+values, and every map, are the same byte for byte.
 
 With ``out_dir`` set, blocks stream through TileWriters into
 ``rho_conv/`` (drho), ``rho_trend/``, ``pvals/`` and ``edges/``, and a
@@ -39,18 +42,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import ccm
-from repro_torch.core.pipeline import _check_main_path
+from repro_torch.core.pipeline import check_run
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference import convergence, prng, significance, surrogates
 from repro_torch.inference.types import SignificanceConfig, SignificanceResult
 from repro_torch.runtime import integrity
-from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime.stream import ChunkStreamer
+from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
-# Surrogate values drawn per block of the once-per-run build: bounds the
-# int64 words and complex spectra the generators hold at once.
+# Surrogate values drawn per batch of the build: bounds the int64 words
+# and complex spectra the generators hold at once.
 SURR_BUILD_VALUES = 1 << 22
 
 
@@ -61,13 +63,18 @@ class SignificanceChunkRunner:
     shared inputs only: the bucket plan and column order from phase-1
     optE, the subsampling permutation and surrogate keys from sig.seed
     (per-target fold_in).  ``run`` computes any subset of row chunks and
-    drains blocks through the caller's sink."""
+    drains blocks through the caller's sink.
+
+    Untiled (``cfg.target_tile`` 0, T = N) the sorted target futures
+    ``fut_sorted`` (N, Lp) and surrogate futures ``fut_surr`` (N * m, Lp)
+    live on the device for the run; tiled both are None and every tile
+    uploads or builds its own."""
 
     def __init__(self, ts: np.ndarray, optE: np.ndarray, cfg: EDMConfig,
                  sig: SignificanceConfig, device=None):
-        _check_main_path(cfg)
-        self.dev = dev = resolve_device(device)
+        self.dev = dev = check_run(cfg, device)
         self.cfg, self.sig = cfg, sig
+        ts = np.asarray(ts, np.float32)
         N, L = ts.shape
         self.N = N
         Lp = cfg.n_points(L)
@@ -81,31 +88,46 @@ class SignificanceChunkRunner:
             )
         self.m = sig.n_surrogates
         self.chunk = cfg.lib_block
-        self.T = N
+        self.T = cfg.target_tile or N
         self.plan, self.order = ccm.make_bucket_plan(np.asarray(optE, np.int32))
         self.tile_plans = ccm.make_tile_plans(self.plan, self.T)
-        self.ts_d = torch.as_tensor(np.asarray(ts, np.float32)).to(dev)
-        order_d = torch.as_tensor(self.order).to(dev)
-        self.fut_sorted = ccm.all_futures(self.ts_d, cfg)[order_d]
+        self.order_d = torch.as_tensor(self.order).to(dev)
+        self.ts_h = upload_source(ts, dev)
+        self.ts_sorted_h = upload_source(ts[self.order], dev)
+        fut = ccm.all_futures(torch.from_numpy(ts), cfg).numpy()
+        self.fut_sorted_h = upload_source(fut[self.order], dev)
+        # one batch size for every surrogate build, tiled or not
+        self.surr_step = max(1, min(N, SURR_BUILD_VALUES // (max(self.m, 1) * L)))
 
         perm_key, self.surr_key = prng.split(prng.prng_key(sig.seed, dev), 2)
         self.col_ids = convergence.subsample_permutation(perm_key, Lp)
-        self.fut_surr = self._build_surrogates(order_d) if self.do_null else None
+        self.fut_sorted = self.fut_surr = None
+        if not cfg.target_tile:
+            self.fut_sorted = self.fut_sorted_h.to(dev)
+            if self.do_null:
+                self.fut_surr = self.surrogates(0, N)
 
-    def _build_surrogates(self, order_d: torch.Tensor) -> torch.Tensor:
-        """(N * m, Lp) surrogate futures of the bucket-sorted targets, in
-        blocks of targets; each target's draws depend only on its global
-        id, so the blocking never shows in the values."""
-        m, L = self.m, self.ts_d.shape[-1]
-        step = max(1, SURR_BUILD_VALUES // (m * L))
-        parts = []
-        for t0 in range(0, self.N, step):
-            ids = order_d[t0 : t0 + step]
-            parts.append(surrogates.surrogate_futures(
-                self.surr_key, self.ts_d[ids], ids, n=m,
+    def rows(self, row0: int, n: int) -> torch.Tensor:
+        """Library series [row0, row0 + n) on the device."""
+        return self.ts_h[row0 : row0 + n].to(self.dev, non_blocking=True)
+
+    def surrogates(self, c0: int, c1: int) -> torch.Tensor:
+        """((c1 - c0) * m, Lp) surrogate futures of the sorted targets
+        [c0, c1).  Built in batches of exactly ``surr_step`` targets (the
+        last one filled up with copies of its last target, dropped
+        after), so every FFT call has one batch size, tiled or not; each
+        target's draws depend only on its global id."""
+        m, step, parts = self.m, self.surr_step, []
+        for b0 in range(c0, c1, step):
+            b1 = min(b0 + step, c1)
+            pos = torch.arange(step, device=self.dev).clamp_max_(b1 - b0 - 1)
+            rows = self.ts_sorted_h[b0:b1].to(self.dev, non_blocking=True)[pos]
+            fut = surrogates.surrogate_futures(
+                self.surr_key, rows, self.order_d[b0 + pos], n=m,
                 kind=self.sig.surrogate, cfg=self.cfg,
-            ))
-        return torch.cat(parts)
+            )
+            parts.append(fut[: (b1 - b0) * m])
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def run(self, plan_chunks, rho, drain, on_chunk=None) -> None:
         """Compute the given (row0, valid) chunks, draining ("conv"|
@@ -113,12 +135,12 @@ class SignificanceChunkRunner:
 
         rho: the observed causal map (memmap fine; read only when the
         null stage is active).  on_chunk(row0) fires before each chunk."""
-        N, T, m, cfg = self.N, self.T, self.m, self.cfg
+        N, T, m, cfg, dev = self.N, self.T, self.m, self.cfg, self.dev
         with ChunkStreamer(drain, depth=cfg.stream_depth) as streamer:
             for row0, valid in plan_chunks:
                 if on_chunk is not None:
                     on_chunk(row0)
-                rows = self.ts_d[row0 : row0 + valid]
+                rows = self.rows(row0, valid)
                 if self.do_conv:
                     cidx, cw = convergence.conv_block_tables(
                         rows, cfg, self.plan, self.sig.lib_sizes, self.col_ids
@@ -129,21 +151,30 @@ class SignificanceChunkRunner:
                 for c0, seg_plan in self.tile_plans:
                     c1 = min(c0 + T, N)
                     if self.do_conv:
+                        fut_tile = (
+                            self.fut_sorted[c0:c1] if self.fut_sorted is not None
+                            else self.fut_sorted_h[c0:c1].to(dev, non_blocking=True)
+                        )
                         drho, trend = convergence.conv_block_tile(
-                            cidx, cw, self.fut_sorted[c0:c1], cfg, seg_plan
+                            cidx, cw, fut_tile, cfg, seg_plan, col0=c0, width=N
                         )
                         streamer.submit(("conv", row0, c0, valid),
                                         torch.stack([drho, trend]))
                     if self.do_null:
-                        rho_obs = torch.as_tensor(
-                            np.ascontiguousarray(rho_chunk[:, self.order[c0:c1]])
-                        ).to(self.dev)
+                        fut_surr = (
+                            self.fut_surr[c0 * m : c1 * m]
+                            if self.fut_surr is not None
+                            else self.surrogates(c0, c1)
+                        )
+                        rho_obs = upload_source(
+                            rho_chunk[:, self.order[c0:c1]], dev
+                        ).to(dev, non_blocking=True)
                         seg_plan_m = tuple((b, cnt * m) for b, cnt in seg_plan)
                         streamer.submit(
                             ("pval", row0, c0, valid),
                             significance.null_block_pvals(
-                                fidx, fw, self.fut_surr[c0 * m : c1 * m],
-                                rho_obs, cfg, seg_plan_m, m,
+                                fidx, fw, fut_surr, rho_obs, cfg, seg_plan_m,
+                                m, col0=c0 * m, width=N * m,
                             ),
                         )
 

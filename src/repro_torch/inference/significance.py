@@ -22,18 +22,24 @@ def null_block_pvals(
     cfg: EDMConfig,
     seg_plan_m: tuple[tuple[int, int], ...],
     m: int,
+    *,
+    col0: int = 0,
+    width: int | None = None,
 ) -> torch.Tensor:
     """Per-pair surrogate p-values of one (row-chunk x col-tile) block.
 
     idx/w (B, nb, Lp, k): the full-library bucketed tables (phase 2's, so
     the null matches the observed statistic); fut_surr (t*m, Lp) in
-    ``surrogate_futures`` layout; rho_obs (B, t); seg_plan_m the tile's
-    seg_plan with every count scaled by m.  Returns (B, t) float32
+    ``surrogate_futures`` layout, rows [col0, col0 + t*m) of a
+    ``width``-row surrogate axis (default: the whole axis); rho_obs
+    (B, t); seg_plan_m the tile's seg_plan with every count scaled by m.
+    Returns (B, t) float32
     p = (1 + #{null >= obs}) / (m + 1), taken as a product with the
     float32 reciprocal of m + 1: XLA rewrites the JAX package's division
     by that constant so, and the product keeps the p-value bits equal
     (36/40 is 0.90000004 there, not float32(0.9))."""
-    null = ccm.ccm_row_lookup_bucketed(idx, w, fut_surr, cfg, seg_plan_m)
+    null = ccm.ccm_row_lookup_bucketed(idx, w, fut_surr, cfg, seg_plan_m,
+                                       col0=col0, width=width)
     null = null.reshape(null.shape[0], -1, m)
     exceed = (null >= rho_obs[..., None]).sum(dim=-1)
     inv = torch.tensor(1.0 / (m + 1.0), dtype=torch.float32, device=null.device)

@@ -11,6 +11,9 @@
 //   d = vq - vc;  D = D + max(d * d, 0)      (each op rounded on its own,
 // built with --fmad=false and written with __fsub_rn/__fmul_rn/__fadd_rn),
 // which is the float sequence of the JAX reference (core/knn.py::_acc_sq).
+// With bf16 set (the JAX dist_dtype="bfloat16" branch) the square and the
+// sum are each rounded to bfloat16 (acc_sq below): the float sequence of
+// the plain version's eager bf16 ops.
 // Output: idx (S, n_sel, Lq, k) int32 and dist (S, n_sel, Lq, k) float32,
 // sorted ascending by (distance, candidate id) -- the lax.top_k tie rule.
 // Masked candidates (the self column under exclude_self) take the finite
@@ -65,6 +68,7 @@
 //    registers a lane (-Xptxas=-v: 64 at MAXE 8; 80 at 16 and 24; 80 with
 //    24 bytes of spill at 32).  Times against 2 blocks an SM: PERF.md.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +83,23 @@ constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
+
+// One cumulative-E distance update of D by the lag difference of q and c.
+// f32: D + max(d * d, 0), each op rounded on its own.  BF16: the square
+// rounded to bfloat16, then the sum taken in f32 and rounded to bfloat16
+// -- how eager PyTorch adds two bf16 tensors (never a native bf16 add,
+// which rounds once and can differ where the exponents are far apart).
+// D then holds a bfloat16 value in an f32 register, and the selection key
+// is that value, as in the f32 route.
+template <bool BF16>
+__device__ __forceinline__ float acc_sq(float D, float q, float c) {
+  const float d = __fsub_rn(q, c);
+  if (BF16) {
+    const float sq = __bfloat162float(__float2bfloat16_rn(__fmul_rn(d, d)));
+    return __bfloat162float(__float2bfloat16_rn(__fadd_rn(D, fmaxf(sq, 0.f))));
+  }
+  return __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
+}
 
 // Offer the group's keys (one per lane, candidate id c_base + lane) to the
 // sorted list (ld, li) distributed over the warp, lane j holding slot j.
@@ -108,7 +129,7 @@ __device__ __forceinline__ void offer(float& ld, int& li, float key, int c_base,
   }
 }
 
-template <int MAXE>
+template <int MAXE, bool BF16>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
                 int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
@@ -154,8 +175,7 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
 #pragma unroll
       for (int e = 0; e < MAXE; ++e) {
         if (e >= E_hi) break;
-        const float d = __fsub_rn(qv[e], vc_t[e * kTileC + j]);
-        D = __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
+        D = acc_sq<BF16>(D, qv[e], vc_t[e * kTileC + j]);
         if ((sel_mask >> e) & 1u) {
           const float key = !valid ? f_inf() : (masked ? kBig : D);
           offer(ld[e], li[e], key, c0 + g, k, lane);
@@ -181,10 +201,14 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
 template <int MAXE>
 int launch(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
            int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
-           int n_sel, int exclude_self, cudaStream_t stream) {
+           int n_sel, int exclude_self, int bf16, cudaStream_t stream) {
   dim3 grid((Lq + kWarps - 1) / kWarps, S);
-  knn_topk_kernel<MAXE><<<grid, kWarps * 32, 0, stream>>>(
-      vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
+  if (bf16)
+    knn_topk_kernel<MAXE, true><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
+  else
+    knn_topk_kernel<MAXE, false><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
   return (int)cudaGetLastError();
 }
 
@@ -201,11 +225,13 @@ int knn_topk_max_e() { return kMaxE; }
 
 // vq (S, E_rows, Lq), vc (S, E_rows, Lc) float32 contiguous; idx / dist
 // (S, popcount(sel_mask), Lq, k).  Bit e of sel_mask selects E = e + 1;
-// E_hi = highest selected E.  Returns 0, a negative argument code, or the
-// CUDA error of the launch.
+// E_hi = highest selected E.  bf16 != 0 accumulates the distance in
+// bfloat16.  Returns 0, a negative argument code, or the CUDA error of the
+// launch.
 int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
                     float* dist, int S, int E_rows, int Lq, int Lc, int k,
-                    unsigned int sel_mask, int exclude_self, void* stream) {
+                    unsigned int sel_mask, int exclude_self, int bf16,
+                    void* stream) {
   if (S < 1 || Lq < 1 || Lc < 1 || S > 65535) return -1;
   if (k < 1 || k > kMaxK || k > Lc) return -2;
   if (sel_mask == 0u) return -3;
@@ -216,15 +242,15 @@ int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E_hi <= 8)
     return launch<8>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                     n_sel, exclude_self, st);
+                     n_sel, exclude_self, bf16, st);
   if (E_hi <= 16)
     return launch<16>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                      n_sel, exclude_self, st);
+                      n_sel, exclude_self, bf16, st);
   if (E_hi <= 24)
     return launch<24>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                      n_sel, exclude_self, st);
+                      n_sel, exclude_self, bf16, st);
   return launch<32>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                    n_sel, exclude_self, st);
+                    n_sel, exclude_self, bf16, st);
 }
 
 }  // extern "C"

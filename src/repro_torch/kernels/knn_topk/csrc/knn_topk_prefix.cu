@@ -14,6 +14,8 @@
 // accumulated with the pinned rounding of knn_topk.cu
 //   d = vq - vc;  D = D + max(d * d, 0)      (__fsub_rn/__fmul_rn/__fadd_rn,
 // built with --fmad=false), the float sequence of the JAX _acc_sq.
+// With bf16 set (the JAX dist_dtype="bfloat16" branch) the square and the
+// sum are each rounded to bfloat16, as knn_topk.cu's acc_sq does.
 // Output: idx / dist (B, S, n_sel, Lq, k), int32 / float32, sorted by
 // (distance, sweep position); ids are original column ids col_ids[p].
 // Equal distances go to the EARLIEST SWEEP POSITION (the JAX prefix
@@ -60,6 +62,7 @@
 //    in shared memory, 32 or 64 rows a block, under 3 warps an SM at the
 //    significance path's shape.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +83,18 @@ struct LibSizes {
 };
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
+
+// One cumulative-E distance update, knn_topk.cu's acc_sq: f32, or the
+// square and the f32 sum each rounded to bfloat16.
+template <bool BF16>
+__device__ __forceinline__ float acc_sq(float D, float q, float c) {
+  const float d = __fsub_rn(q, c);
+  if (BF16) {
+    const float sq = __bfloat162float(__float2bfloat16_rn(__fmul_rn(d, d)));
+    return __bfloat162float(__float2bfloat16_rn(__fadd_rn(D, fmaxf(sq, 0.f))));
+  }
+  return __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
+}
 
 // Lanes lo .. hi-1 (0 <= lo < hi <= 32).
 __device__ __forceinline__ unsigned lane_range(int lo, int hi) {
@@ -115,7 +130,7 @@ __device__ __forceinline__ void offer(float& ld, int& li, float key, int cid,
   }
 }
 
-template <int MAXE>
+template <int MAXE, bool BF16>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 knn_topk_prefix_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
                        const int32_t* __restrict__ col_ids,
@@ -173,8 +188,7 @@ knn_topk_prefix_kernel(const float* __restrict__ vq, const float* __restrict__ v
 #pragma unroll
       for (int e = 0; e < MAXE; ++e) {
         if (e >= E_hi) break;
-        const float d = __fsub_rn(qv[e], vc_t[e * kTileC + j]);
-        D = __fadd_rn(D, fmaxf(__fmul_rn(d, d), 0.f));
+        D = acc_sq<BF16>(D, qv[e], vc_t[e * kTileC + j]);
         if (!((sel_mask >> e) & 1u)) continue;
         const float key = !valid ? f_inf() : (masked ? kBig : D);
         if (s_end == s_next) {
@@ -203,12 +217,17 @@ knn_topk_prefix_kernel(const float* __restrict__ vq, const float* __restrict__ v
 template <int MAXE>
 int launch(const float* vq, const float* vc, const int32_t* col_ids,
            int32_t* idx, float* dist, int B, int E_rows, int Lq, int Lc, int k,
-           int E_hi, uint32_t sel_mask, int n_sel, int exclude_self,
+           int E_hi, uint32_t sel_mask, int n_sel, int exclude_self, int bf16,
            const LibSizes& sizes, cudaStream_t stream) {
   dim3 grid((Lq + kWarps - 1) / kWarps, B);
-  knn_topk_prefix_kernel<MAXE><<<grid, kWarps * 32, 0, stream>>>(
-      vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
-      exclude_self, sizes);
+  if (bf16)
+    knn_topk_prefix_kernel<MAXE, true><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
+        exclude_self, sizes);
+  else
+    knn_topk_prefix_kernel<MAXE, false><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel,
+        exclude_self, sizes);
   return (int)cudaGetLastError();
 }
 
@@ -228,12 +247,12 @@ int knn_topk_prefix_max_s() { return kMaxS; }
 // (>= lib_sizes[S-1],) int32 with entries in [0, Lc) (not checked), or
 // null for natural order; lib_sizes (S,) host ints, ascending, the last
 // <= Lc; idx / dist (B, S, popcount(sel_mask), Lq, k).  Bit e of sel_mask
-// selects E = e + 1.  Returns 0, a negative argument code, or the CUDA
-// error of the launch.
+// selects E = e + 1; bf16 != 0 accumulates the distance in bfloat16.
+// Returns 0, a negative argument code, or the CUDA error of the launch.
 int knn_topk_prefix_launch(const float* vq, const float* vc,
                            const int32_t* col_ids, int32_t* idx, float* dist,
                            int B, int E_rows, int Lq, int Lc, int k,
-                           unsigned int sel_mask, int exclude_self,
+                           unsigned int sel_mask, int exclude_self, int bf16,
                            const int* lib_sizes, int S, void* stream) {
   if (B < 1 || Lq < 1 || Lc < 1 || B > 65535) return -1;
   if (k < 1 || k > kMaxK || k > Lc) return -2;
@@ -252,15 +271,15 @@ int knn_topk_prefix_launch(const float* vq, const float* vc,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E_hi <= 8)
     return launch<8>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                     sel_mask, n_sel, exclude_self, sizes, st);
+                     sel_mask, n_sel, exclude_self, bf16, sizes, st);
   if (E_hi <= 16)
     return launch<16>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                      sel_mask, n_sel, exclude_self, sizes, st);
+                      sel_mask, n_sel, exclude_self, bf16, sizes, st);
   if (E_hi <= 24)
     return launch<24>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                      sel_mask, n_sel, exclude_self, sizes, st);
+                      sel_mask, n_sel, exclude_self, bf16, sizes, st);
   return launch<32>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                    sel_mask, n_sel, exclude_self, sizes, st);
+                    sel_mask, n_sel, exclude_self, bf16, sizes, st);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ the main path's tables) and ``knn_topk_prefix``
 
 For a CUDA tensor each launches its kernel or raises; for a CPU tensor it
 runs the plain version (``ref.py``).  There is no other route: no
-fallback from a failed launch to the plain version.
+fallback from a failed launch to the plain version.  Both kernels take
+``dist_dtype`` float32 or bfloat16 (the accumulator of the distance; the
+output distances are float32 either way).
 """
 from __future__ import annotations
 
@@ -16,12 +18,19 @@ from repro_torch import kernels
 from repro_torch.core import knn
 from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
 
+#: the kernels' table width and E bound (kMaxK, kMaxE of both sources; the
+#: ccm_lookup kernel's kMaxK too): the engine checks a config against them
+#: before any work (``CudaEngine.check_limits``)
+MAX_K, MAX_E = 32, 32
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-    ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _PREFIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-    ctypes.c_uint, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p,
 ]
+_DIST_DTYPES = {"float32": 0, "bfloat16": 1}
 
 
 def _lib() -> ctypes.CDLL:
@@ -55,16 +64,18 @@ def select_mask(select_Es) -> int:
     return m
 
 
-def _check_cuda_pair(name: str, Vq, Vc, dist_dtype) -> None:
+def _check_cuda_pair(name: str, Vq, Vc, dist_dtype) -> int:
+    """Validate a launch's inputs; returns the kernel's bf16 flag."""
     if not (Vq.is_cuda and Vc.is_cuda and Vq.device == Vc.device):
         raise ValueError(
             f"{name}: Vq on {Vq.device} and Vc on {Vc.device}; both must "
             "be on one CUDA device (or both on the CPU for the plain version)"
         )
-    if str(dist_dtype) not in ("float32", "torch.float32"):
+    bf16 = _DIST_DTYPES.get(str(dist_dtype).removeprefix("torch."))
+    if bf16 is None:
         raise ValueError(
-            f"{name} kernel accumulates in float32 only (dist_dtype="
-            f"{dist_dtype}); the bfloat16 accumulator is in the plain version"
+            f"{name} kernel accumulates in float32 or bfloat16, not "
+            f"dist_dtype={dist_dtype}"
         )
     if Vq.dtype != torch.float32 or Vc.dtype != torch.float32:
         raise ValueError(f"{name} takes float32, got {Vq.dtype} / {Vc.dtype}")
@@ -75,6 +86,7 @@ def _check_cuda_pair(name: str, Vq, Vc, dist_dtype) -> None:
         )
     if not (Vq.is_contiguous() and Vc.is_contiguous()):
         raise ValueError(f"{name} takes contiguous Vq and Vc")
+    return bf16
 
 
 def knn_topk(
@@ -96,7 +108,7 @@ def knn_topk(
     if Vq.device.type == "cpu" and Vc.device.type == "cpu":
         return knn_topk_ref(Vq, Vc, k, exclude_self, select_Es,
                             dist_dtype=dist_dtype)
-    _check_cuda_pair("knn_topk", Vq, Vc, dist_dtype)
+    bf16 = _check_cuda_pair("knn_topk", Vq, Vc, dist_dtype)
     S, E_rows, Lq = Vq.shape
     Lc = Vc.shape[2]
     knn.check_select_Es(select_Es, E_rows)
@@ -117,7 +129,7 @@ def knn_topk(
         rc = lib.knn_topk_launch(
             Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
             S, E_rows, Lq, Lc, k, select_mask(select_Es), int(exclude_self),
-            kernels.current_stream(Vq.device),
+            bf16, kernels.current_stream(Vq.device),
         )
     kernels.check_launch("knn_topk", rc, lib)
     knn_topk.LAUNCHES += 1
@@ -153,7 +165,7 @@ def knn_topk_prefix(
             col_ids is None or col_ids.device.type == "cpu"):
         return knn_topk_prefix_ref(Vq, Vc, k, exclude_self, buckets, lib_sizes,
                                    col_ids=col_ids, dist_dtype=dist_dtype)
-    _check_cuda_pair("knn_topk_prefix", Vq, Vc, dist_dtype)
+    bf16 = _check_cuda_pair("knn_topk_prefix", Vq, Vc, dist_dtype)
     B, E_rows, Lq = Vq.shape
     Lc = Vc.shape[2]
     knn._check_prefix_args(Lq, Lc, k, exclude_self, buckets, lib_sizes, E_rows,
@@ -187,7 +199,7 @@ def knn_topk_prefix(
             Vq.data_ptr(), Vc.data_ptr(),
             None if col_ids is None else col_ids.data_ptr(),
             idx.data_ptr(), dist.data_ptr(), B, E_rows, Lq, Lc, k,
-            select_mask(buckets), int(exclude_self), sizes, S,
+            select_mask(buckets), int(exclude_self), bf16, sizes, S,
             kernels.current_stream(Vq.device),
         )
     kernels.check_launch("knn_topk_prefix", rc, lib)

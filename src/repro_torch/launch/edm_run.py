@@ -3,23 +3,29 @@
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --synthetic 2048x1450 --e-max 20 --out /tmp/causal_map
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 16384x1450 --e-max 20 --target-tile 4096 --out /tmp/cm
+  PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --synthetic 2048x1450 --lib-sizes 100,200,400,800,1430 \\
-      --surrogates 20 --fdr 0.05 --seed 0 --out /tmp/causal_map
+      --surrogates 20 --fdr 0.05 --seed 0 --target-tile 512 --out /tmp/cm
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --dataset /path/to/store --out /tmp/causal_map --device cpu
 
-Runs phase 1 (simplex) and the bucketed, untiled phase 2 (CCM), streams
-the row blocks into the zarr-lite store at --out and assembles the
-causal map into <out>/causal_map/data.npy.  With ``--lib-sizes`` and/or
-``--surrogates`` the significance stage follows: convergence statistics
-(rho_conv/, rho_trend/), surrogate p-values (pvals/) and the BH-FDR edge
-list (edges/).  A rerun with the same --out resumes: only rows missing
-from the store are recomputed.  Runs on the CUDA card by default and
+Runs phase 1 (simplex) and phase 2 (CCM) — bucketed by optE, or with
+tables at every E under ``--no-bucketed``; untiled, or in column tiles
+of ``--target-tile`` targets that bound the device memory — streams the
+blocks into the zarr-lite store at --out and assembles the causal map
+into <out>/causal_map/data.npy.  With ``--lib-sizes`` and/or
+``--surrogates`` the significance stage follows, in the same tiles:
+convergence statistics (rho_conv/, rho_trend/), surrogate p-values
+(pvals/) and the BH-FDR edge list (edges/).  A rerun with the same --out
+resumes: only rows missing from the store are recomputed, whatever the
+new --lib-block or --target-tile.  Runs on the CUDA card by default and
 exits with an error where there is none; ``--device cpu`` runs the plain
 PyTorch versions on the CPU.
 
-The flags of paths not ported yet (the fleet, tiled or unbucketed
-phase 2, autotuning, platform tiers) exit with an error that names them.
+The flags of paths not ported yet (the fleet, engine selection,
+telemetry, autotuning, platform tiers) exit with an error that names
+them.
 """
 from __future__ import annotations
 
@@ -37,9 +43,14 @@ from repro_torch.inference import SignificanceConfig, run_significance
 #: flag -> what it belongs to; each exits with an error naming it
 NOT_PORTED = {
     "--workers": "the elastic fleet",
-    "--target-tile": "the tiled phase 2",
-    "--no-bucketed": "the all-E phase 2",
+    "--unit-rows": "the elastic fleet",
+    "--unit-retries": "the elastic fleet",
+    "--max-worker-restarts": "the elastic fleet",
+    "--engine": "engine selection",
+    "--use-kernels": "engine selection",
+    "--no-telemetry": "telemetry",
     "--autotune": "the autotuner",
+    "--tune-from": "the autotuner",
     "--platform": "the platform tiers",
 }
 
@@ -60,6 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--knn-tile", type=int, default=0,
         help="candidate-tile width of the plain kNN table functions (0 = "
         "calibrated); every width gives the same tables",
+    )
+    ap.add_argument(
+        "--target-tile", type=int, default=0,
+        help="phase-2 column tile width (0 = untiled); > 0 streams the "
+        "targets in tiles so the device holds O(tile x Lp) of them; the "
+        "output is the untiled one byte for byte",
+    )
+    ap.add_argument(
+        "--no-bucketed", action="store_true",
+        help="disable optE-bucketed phase 2 (all-E tables; A/B baseline)",
     )
     ap.add_argument(
         "--stream-depth", type=int, default=2,
@@ -128,6 +149,7 @@ def main(argv=None) -> dict:
     cfg = EDMConfig(
         E_max=args.e_max, tau=args.tau, lib_block=args.lib_block,
         stream_depth=args.stream_depth, knn_tile_c=args.knn_tile,
+        target_tile=args.target_tile, bucketed=not args.no_bucketed,
     )
     lib_sizes = tuple(int(s) for s in args.lib_sizes.split(",") if s)
     sig = None
@@ -146,7 +168,9 @@ def main(argv=None) -> dict:
     n_buckets = len(np.unique(result.optE))
     print(f"causal map {N}x{N} in {dt:.1f}s ({N * N / dt:.0f} cross-maps/s); "
           f"optE mean {result.optE.mean():.2f}; engine {cfg.engine} on "
-          f"{args.device}; buckets {n_buckets}/{cfg.E_max}; phase 1 "
+          f"{args.device}; buckets {n_buckets}/{cfg.E_max}"
+          f"{'' if cfg.bucketed else ' (all-E tables)'}; tile "
+          f"{cfg.target_tile or 'none'}; phase 1 "
           f"{timings['phase1_s']:.2f}s, phase 2 {timings['phase2_s']:.2f}s")
     meta = {
         "optE": result.optE.tolist(),

@@ -10,6 +10,10 @@ next chunk is already queued on the card while the previous one is
 copied out and written.  Drains run in submission order, which the
 store's resume manifest needs.  CPU tensors and numpy arrays pass
 through without a copy.
+
+:func:`upload_source` is the other direction: a host array from which
+slices go to the card as asynchronous copies (a copy from pageable host
+memory would wait for the stream's queued work first).
 """
 from __future__ import annotations
 
@@ -18,6 +22,14 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+
+def upload_source(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a host tensor whose slices ``.to(device,
+    non_blocking=True)`` upload asynchronously: in pinned memory when
+    ``device`` is a card, else ``a`` itself (the slices are views)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 class _HostCopy:

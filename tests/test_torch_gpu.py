@@ -6,6 +6,8 @@ Marked ``gpu``; run on a machine with a card:
 
 Without a card every test here skips from inside its body (never at
 collection, so every pytest worker collects the same tests)."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -108,8 +110,8 @@ def test_knn_topk_kernel_refuses_what_it_does_not_take():
     from repro_torch.kernels.knn_topk.ops import knn_topk
 
     x = torch.zeros((1, 4, 40), device=dev)
-    with pytest.raises(ValueError, match="float32 only"):
-        knn_topk(x, x, 3, True, (1,), dist_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        knn_topk(x, x, 3, True, (1,), dist_dtype="float16")
     with pytest.raises(ValueError, match="k="):
         knn_topk(x, x, 33, True, (1,))
     with pytest.raises(ValueError, match="contiguous"):
@@ -281,8 +283,8 @@ def test_knn_topk_prefix_kernel_refuses_what_it_does_not_take():
     from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
 
     x = torch.zeros((1, 4, 40), device=dev)
-    with pytest.raises(ValueError, match="float32 only"):
-        knn_topk_prefix(x, x, 3, True, (1,), (10, 40), dist_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        knn_topk_prefix(x, x, 3, True, (1,), (10, 40), dist_dtype="float16")
     with pytest.raises(ValueError, match="too small"):
         knn_topk_prefix(x, x, 3, True, (1,), (3, 40))
     with pytest.raises(ValueError, match="col_ids int32"):
@@ -322,6 +324,129 @@ def test_cuda_engine_significance_matches_torch_reference_on_the_card():
     # same tables, lookups equal as a rule: allow a flip only at a near-tie
     assert (got.pvals != want.pvals).mean() <= 0.01
     assert (got.trend != want.trend).mean() <= 0.01
+
+
+# ------------------------------------------- the bfloat16 accumulator
+def _tied(S, E, L, seed):
+    """Lags quantised to quarter steps: many equal distances, and more
+    once bfloat16 rounds them."""
+    x = np.random.default_rng(seed).standard_normal((S, E, L))
+    return (np.round(x * 4) / 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("case,S,Lq,Lc,k,exclude_self,select_Es", [
+    ("phase2", 8, 1430, 1430, 18, True, (3, 5, 8, 12, 17)),
+    ("phase1", 8, 715, 715, 21, False, tuple(range(1, 21))),
+    ("tied", 3, 400, 400, 21, True, tuple(range(1, 21))),
+    ("k_32", 2, 300, 300, 32, True, (4, 11, 20)),
+])
+def test_knn_topk_kernel_bf16_equals_plain_version(case, S, Lq, Lc, k,
+                                                   exclude_self, select_Es):
+    """The bf16 accumulator, bit-equal to the plain bf16 version (eager
+    PyTorch's bf16 ops), ties included."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    make = _tied if case == "tied" else _lags
+    x = make(S, 20, Lq + (0 if exclude_self else Lc), 9)
+    if exclude_self:
+        Vq = Vc = torch.tensor(x, device=dev)
+    else:
+        Vq = torch.tensor(x[..., Lc:].copy(), device=dev)
+        Vc = torch.tensor(x[..., :Lc].copy(), device=dev)
+    before = knn_topk.LAUNCHES
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es, dist_dtype="bfloat16")
+    assert knn_topk.LAUNCHES == before + 1
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es, dist_dtype="bfloat16")
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+    f32 = knn_topk(Vq, Vc, k, exclude_self, select_Es)[1]
+    assert not torch.equal(kd, f32)  # the branch really rounds to bf16
+
+
+@pytest.mark.parametrize("case,Lq,k,buckets,lib_sizes,permuted", [
+    ("sig_shape", 1430, 17, (3, 5, 8, 12, 16), (100, 200, 400, 800, 1430), True),
+    ("tied_mid_group", 400, 13, (3, 5, 8, 12), (40, 45, 60, 400), True),
+    ("tied_natural", 400, 21, tuple(range(1, 21)), (22, 100, 400), False),
+])
+def test_knn_topk_prefix_kernel_bf16_equals_plain_version(case, Lq, k, buckets,
+                                                          lib_sizes, permuted):
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    make = _tied if case.startswith("tied") else _lags
+    x = torch.tensor(make(4, 20, Lq, 11), device=dev)
+    col_ids = None
+    if permuted:
+        col_ids = torch.tensor(
+            np.random.default_rng(5).permutation(Lq).astype(np.int32), device=dev)
+    ki, kd = knn_topk_prefix(x, x, k, True, buckets, lib_sizes, col_ids=col_ids,
+                             dist_dtype="bfloat16")
+    ri, rd = knn_topk_prefix_ref(x, x, k, True, buckets, lib_sizes,
+                                 col_ids=col_ids, dist_dtype="bfloat16")
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+def test_kernel_limits_are_the_libraries():
+    _card()
+    from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
+    from repro_torch.kernels.knn_topk.ops import MAX_E, MAX_K, _lib, _prefix_lib
+
+    assert (_lib().knn_topk_max_k(), _lib().knn_topk_max_e()) == (MAX_K, MAX_E)
+    assert (_prefix_lib().knn_topk_prefix_max_k(),
+            _prefix_lib().knn_topk_prefix_max_e()) == (MAX_K, MAX_E)
+    assert lookup_lib().ccm_lookup_max_k() == MAX_K
+
+
+# ------------------------------------------------ tiled and all-E phase 2
+@pytest.mark.parametrize("bucketed", [True, False])
+@pytest.mark.parametrize("dist_dtype", ["float32", "bfloat16"])
+def test_tiled_map_equals_untiled_on_the_card(bucketed, dist_dtype):
+    """Tiled == untiled byte for byte with the kernels, at tile widths
+    that cut target blocks (of 64) anywhere, odd ones included; and the
+    cuda engine's map equals torch-reference's within 1e-5."""
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+
+    ts = dummy_brain(150, 500, seed=3)
+    cfg = EDMConfig(E_max=10, bucketed=bucketed, target_block=64,
+                    dist_dtype=dist_dtype)
+    base = run_causal_inference(ts, cfg, device=dev)
+    for tile in (7, 33, 64, 100):
+        got = run_causal_inference(ts, dataclasses.replace(cfg, target_tile=tile),
+                                   device=dev)
+        np.testing.assert_array_equal(got.rho, base.rho, err_msg=f"tile {tile}")
+    want = run_causal_inference(ts, dataclasses.replace(cfg, engine="torch-reference"),
+                                device=dev)
+    assert np.array_equal(base.optE, want.optE)
+    assert np.abs(base.rho - want.rho).max() <= 1e-5
+
+
+def test_tiled_significance_equals_untiled_on_the_card():
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = dummy_brain(70, 500, seed=3)
+    cfg = EDMConfig(E_max=10, target_block=64)
+    cmap = run_causal_inference(ts, cfg, device=dev)
+    sig = SignificanceConfig(lib_sizes=(50, 200, 490), n_surrogates=9, seed=0)
+    base = run_significance(ts, cmap.optE, cmap.rho, cfg, sig, device=dev)
+    for tile in (9, 32):
+        got = run_significance(ts, cmap.optE, cmap.rho,
+                               dataclasses.replace(cfg, target_tile=tile), sig,
+                               device=dev)
+        for a in ("drho", "trend", "pvals"):
+            np.testing.assert_array_equal(getattr(got, a), getattr(base, a),
+                                          err_msg=f"{a}, tile {tile}")
+        np.testing.assert_array_equal(got.edges, base.edges)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,K,dh,causal,dtype", [

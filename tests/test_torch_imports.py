@@ -97,14 +97,21 @@ def test_edm_run_cli_defaults_to_the_card(tmp_path):
     assert not (tmp_path / "o" / "causal_map").exists()
 
 
-@pytest.mark.parametrize("flag", ["--workers 2", "--target-tile 8",
-                                  "--no-bucketed", "--autotune",
-                                  "--platform gpu"])
+@pytest.mark.parametrize("flag", [
+    "--workers 2", "--unit-rows 4", "--unit-retries 2", "--max-worker-restarts 1",
+    "--engine cuda", "--use-kernels", "--no-telemetry", "--autotune",
+    "--tune-from t.json", "--platform gpu"])
 def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
+    """Each flag of a path not ported yet exits naming itself and the
+    path it belongs to (``--target-tile`` and ``--no-bucketed`` are
+    ported: tests/test_torch_tiling.py)."""
     from repro_torch.launch import edm_run
 
     with pytest.raises(SystemExit) as e:
         edm_run.main(["--synthetic", "4x120", "--out", str(tmp_path),
                       "--device", "cpu", *flag.split()])
     assert e.value.code != 0
-    assert flag.split()[0] in capsys.readouterr().err
+    err = capsys.readouterr().err
+    name = flag.split()[0]
+    assert f"{name} is not ported" in err
+    assert f"({edm_run.NOT_PORTED[name]})" in err

@@ -204,14 +204,14 @@ def _port_curves_and_null(ts, cfg, optE, rho, sig):
 
     r = SignificanceChunkRunner(ts, optE, cfg, sig, device="cpu")
     inv = np.argsort(r.order)
-    cidx, cw = convergence.conv_block_tables(r.ts_d, cfg, r.plan, sig.lib_sizes,
+    cidx, cw = convergence.conv_block_tables(r.rows(0, r.N), cfg, r.plan, sig.lib_sizes,
                                              r.col_ids)
     seg = tuple(enumerate(r.plan.counts))
     curves = torch.stack([
         tccm.ccm_row_lookup_bucketed(cidx[:, s], cw[:, s], r.fut_sorted, cfg, seg)
         for s in range(len(sig.lib_sizes))
     ]).numpy()[..., inv]
-    fidx, fw = tccm.ccm_row_tables_bucketed(r.ts_d, cfg, r.plan)
+    fidx, fw = tccm.ccm_row_tables_bucketed(r.rows(0, r.N), cfg, r.plan)
     m = sig.n_surrogates
     null = tccm.ccm_row_lookup_bucketed(
         fidx, fw, r.fut_surr, cfg, tuple((b, c * m) for b, c in seg)
@@ -232,7 +232,7 @@ def test_conv_block_tile_folded_sizes_equal_the_per_size_loop(sig_system,
     cfg = dataclasses.replace(_tcfg(jcfg), target_block=target_block)
     sig = SignificanceConfig(lib_sizes=(60, 300, 570), n_surrogates=3, seed=0)
     r = SignificanceChunkRunner(ts, optE, cfg, sig, device="cpu")
-    cidx, cw = convergence.conv_block_tables(r.ts_d, cfg, r.plan, sig.lib_sizes,
+    cidx, cw = convergence.conv_block_tables(r.rows(0, r.N), cfg, r.plan, sig.lib_sizes,
                                              r.col_ids)
     seg = tuple(enumerate(r.plan.counts))
     drho, trend = convergence.conv_block_tile(cidx, cw, r.fut_sorted, cfg, seg)
@@ -279,6 +279,101 @@ def test_run_significance_matches_jax_end_to_end(sig_system, kind, record_proper
     if not p_tie[~np.eye(4, dtype=bool)].any():
         assert pairs(got.edges) == pairs(want.edges)
         assert got.p_threshold == want.p_threshold
+
+
+def test_tiled_significance_matches_jax_untiled(sig_system):
+    """The tiled stage (tile 3 of 4 targets) against JAX's untiled stage,
+    with the tolerances of the untiled comparison."""
+    from repro.inference import SignificanceConfig as JSig
+    from repro.inference import run_significance as jrun
+    from repro_torch.inference import run_significance
+
+    ts, jcfg, optE, rho = sig_system
+    jsig_cfg = JSig(lib_sizes=(60, 300, 570), n_surrogates=19, alpha=0.5, seed=0,
+                    surrogate="shuffle")
+    cfg = dataclasses.replace(_tcfg(jcfg), target_tile=3)
+    sig = sig_config_from_jax(dataclasses.asdict(jsig_cfg))
+    want = jrun(ts, optE, rho, jcfg, jsig_cfg)
+    got = run_significance(ts, optE, rho, cfg, sig, device="cpu")
+    assert np.abs(got.drho - want.drho).max() <= 1e-5
+    curves, null = _port_curves_and_null(ts, _tcfg(jcfg), optE, rho, sig)
+    S = curves.shape[0]
+    gaps = np.abs(curves[:, None] - curves[None, :])
+    trend_tie = (gaps[np.triu_indices(S, 1)] <= NEAR_TIE).any(0)
+    p_tie = (np.abs(null - rho[..., None]) <= NEAR_TIE).any(-1)
+    np.testing.assert_array_equal(got.trend[~trend_tie], want.trend[~trend_tie])
+    np.testing.assert_array_equal(got.pvals[~p_tie], want.pvals[~p_tie])
+
+
+@pytest.fixture(scope="module")
+def sig_map():
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.data.synthetic import dummy_brain
+
+    ts = dummy_brain(13, 300, seed=2)
+    cfg = EDMConfig(E_max=4, lib_block=3)
+    cmap = run_causal_inference(ts, cfg, device="cpu")
+    sig = SignificanceConfig(lib_sizes=(40, 120, 290), n_surrogates=7, alpha=0.4,
+                             seed=1)
+    return ts, cfg, cmap.optE, cmap.rho, sig
+
+
+@pytest.mark.parametrize("tile", [1, 3, 5, 13])
+def test_tiled_significance_equals_untiled_bytes(sig_map, tile, monkeypatch):
+    """At every tile width drho, trend, p-values and edges equal the
+    untiled stage's byte for byte, and the largest surrogate tensor the
+    tiled stage builds is one tile's T * m rows: no (N * m, Lp) tensor."""
+    from repro_torch.inference import pipeline as ipipe
+    from repro_torch.inference import run_significance
+
+    ts, cfg, optE, rho, sig = sig_map
+    base = run_significance(ts, optE, rho, cfg, sig, device="cpu")
+    tiled = dataclasses.replace(cfg, target_tile=tile)
+    built = []
+    surrogates = ipipe.SignificanceChunkRunner.surrogates
+
+    def spy(self, c0, c1):
+        out = surrogates(self, c0, c1)
+        built.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(ipipe.SignificanceChunkRunner, "surrogates", spy)
+    r = ipipe.SignificanceChunkRunner(ts, optE, tiled, sig, device="cpu")
+    assert r.T == tile and r.fut_surr is None and r.fut_sorted is None
+    got = run_significance(ts, optE, rho, tiled, sig, device="cpu")
+    m, N = sig.n_surrogates, ts.shape[0]
+    assert max(built) == min(tile, N) * m
+    assert len(built) == -(-N // cfg.lib_block) * -(-N // tile)
+    for a in ("drho", "trend", "pvals"):
+        np.testing.assert_array_equal(getattr(got, a), getattr(base, a), err_msg=a)
+    np.testing.assert_array_equal(got.edges, base.edges)
+    assert (got.p_threshold, got.n_tests) == (base.p_threshold, base.n_tests)
+
+
+def test_tiled_significance_store_resumes_to_the_untiled_bytes(sig_map, tmp_path):
+    from repro_torch.inference import run_significance
+
+    ts, cfg, optE, rho, sig = sig_map
+    mem = run_significance(ts, optE, rho, cfg, sig, device="cpu")
+    tiled = dataclasses.replace(cfg, target_tile=4)
+    disk = run_significance(ts, optE, rho, tiled, sig, device="cpu",
+                            out_dir=str(tmp_path))
+    np.testing.assert_array_equal(np.asarray(disk.pvals), mem.pvals)
+    np.testing.assert_array_equal(np.asarray(disk.drho), mem.drho)
+    from repro_torch.runtime.integrity import manifest_with_crc
+
+    for a in ("rho_conv", "rho_trend", "pvals"):
+        man = json.loads((tmp_path / a / "blocks.json").read_text())
+        man.pop("__crc__")
+        assert "3,4" in man and len(man) == 5 * 4
+        man.pop("3,4")
+        (tmp_path / a / "tile_00000003_00000004.npy").unlink()
+        (tmp_path / a / "blocks.json").write_text(manifest_with_crc(man))
+    again = run_significance(ts, optE, rho, dataclasses.replace(cfg, target_tile=6),
+                             sig, device="cpu", out_dir=str(tmp_path))
+    np.testing.assert_array_equal(np.asarray(again.pvals), mem.pvals)
+    np.testing.assert_array_equal(np.asarray(again.trend), mem.trend)
+    np.testing.assert_array_equal(again.edges, mem.edges)
 
 
 def test_ccm_convergence_pair_matches_jax(coupled_pair):
@@ -381,15 +476,25 @@ def test_fsck_reads_a_port_significance_store_as_a_jax_one(sig_system, tmp_path)
 
 
 def test_phase2_refuses_a_store_of_column_tiles(tmp_path):
+    """The tiled phase 2 resumes a store of column tiles only in the
+    column order they were written in: natural-order tiles, or tiles
+    under another permutation, are refused before any is written."""
     from repro_torch.core.pipeline import run_causal_inference
     from repro_torch.data.store import TileWriter
 
     ts = np.random.default_rng(0).standard_normal((4, 120)).astype(np.float32)
-    w = TileWriter(tmp_path, 4)
-    w.write_tile(0, 0, np.zeros((4, 4), np.float32))
-    with pytest.raises(ValueError, match="column tiles"):
-        run_causal_inference(ts, EDMConfig(E_max=3), device="cpu",
-                             out_dir=str(tmp_path))
+    cfg = EDMConfig(E_max=3, target_tile=2)
+    w = TileWriter(tmp_path / "natural", 4)
+    w.write_tile(0, 0, np.zeros((4, 2), np.float32))
+    with pytest.raises(ValueError, match="natural-order tiles"):
+        run_causal_inference(ts, cfg, device="cpu", out_dir=str(tmp_path / "natural"))
+    w = TileWriter(tmp_path / "permuted", 4)
+    w.ensure_col_order(np.array([3, 2, 1, 0]))
+    w.write_tile(0, 0, np.zeros((4, 2), np.float32))
+    with pytest.raises(ValueError, match="column-order mismatch"):
+        run_causal_inference(ts, cfg, device="cpu", out_dir=str(tmp_path / "permuted"))
+    assert sorted(p.name for p in (tmp_path / "permuted").glob("tile_*")) == [
+        "tile_00000000_00000000.npy"]
 
 
 # ------------------------------------------------------------------ the CLI
