@@ -25,6 +25,28 @@ kNN kernels) with CUDA events beside its bound, its plain version and
 (where one exists) one PyTorch library call computing the same
 function.
 
+Last, the fleet (``edm_run --workers``, ``launch/edm_fleet.py``): W
+worker processes share the card, each with its own CUDA context (the
+card's compute mode is printed; what this process holds on the card is
+released first).  Phases ``fleet_main`` (the main path with two
+workers, its map byte-equal to the single-process map of
+``end_to_end``, the card's busy share sampled beside the single
+process's), ``fleet_significance`` (two workers at the significance
+path's N, all five artifacts byte-equal to the single-process store),
+``fleet_kill`` (three workers, units of 5 rows, ``w0`` SIGKILLed once a
+block is durable and relaunched under its id) and ``fleet_faults``
+(``--workers 3 --unit-rows 5`` with ``EDM_FAULTS=tile_pre_rename:crash@2``
+armed in every first-generation worker; the supervisor relaunches each
+without it): each store byte-equal to the single-process one, complete
+by ``edm_fleet status``, clean by ``fsck``, no lease left.  The launch
+counts are per process: each worker's last line carries its own, and
+the summed counts must equal the single-process ones where no process
+died; each worker's phase-2 seconds and peak device memory are printed
+beside them.  The kernels line's ``launches_fleet`` holds each run's sum,
+the kill and fault runs' under ``kill_survivors`` / ``faults_survivors``:
+the sums of the processes that finished, since one that was killed or
+crashed prints no done line.  The fleets' logs go to ``build/smoke_fleet_logs/``.
+
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -456,7 +478,7 @@ def profile_phase2(torch, dev, ts, optE, smi):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import ccm
-    from repro_torch.core.pipeline import run_phase2_chunks
+    from repro_torch.core.pipeline import Phase2Runner
     from repro_torch.core.types import EDMConfig
 
     cfg = EDMConfig(E_max=E_MAX)
@@ -467,7 +489,7 @@ def profile_phase2(torch, dev, ts, optE, smi):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_phase2_chunks(ts, ts_fut, optE, cfg, plan, rho=rho, device=dev)
+        Phase2Runner(ts, ts_fut, optE, cfg, dev).run(plan, rho=rho)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups = {"ccm_lookup": [0.0, 0], "knn_topk": [0.0, 0], "other": [0.0, 0]}
@@ -904,6 +926,361 @@ def lm_check(torch, dev, smi):
     return out
 
 
+# ------------------------------------------------------------------ fleet
+FLEET_ARTIFACTS = ("causal_map", "rho_conv", "rho_trend", "pvals", "edges")
+FLEET_TIMEOUT_S = 900  # the limit of every wait on a fleet or a worker
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+class BusySampler:
+    """The card's busy share over a run, sampled: ``nvidia-smi``'s
+    utilization.gpu (the share of each sample period in which a kernel
+    ran) every 200 ms in a process of its own; ``stop()`` returns the
+    mean and the sample count."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> dict:
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        return {"mean_pct": sum(vals) / len(vals) if vals else None,
+                "samples": len(vals), "period_ms": 200}
+
+
+def worker_done_lines(text: str) -> dict:
+    """{worker: its ``[wid] done in <s>s {json}`` records} from a fleet's
+    log: launches, peak device bytes and stage seconds of each process
+    that finished (a killed process prints none).  Found wherever they
+    sit in the log, since several processes write to it."""
+    import re
+
+    done, dec = {}, json.JSONDecoder()
+    for m in re.finditer(r"\] done in [0-9.]+s ", text):
+        rec, _ = dec.raw_decode(text, m.end())
+        done.setdefault(rec["worker"], []).append(rec)
+    return done
+
+
+def summed_launches(done: dict) -> dict:
+    total: dict = {}
+    for recs in done.values():
+        for rec in recs:
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def per_worker(done: dict) -> dict:
+    return {wid: [{"phase2_s": r["stages_s"].get("phase2"),
+                   "sig_s": r["stages_s"].get("sig"),
+                   "stages_s": r["stages_s"],
+                   "peak_device_bytes": r["peak_device_bytes"],
+                   "launches": r["launches"]} for r in recs]
+            for wid, recs in sorted(done.items())}
+
+
+def run_fleet_cli(argv, log_path, env_extra=None):
+    """``python -m repro_torch.launch.edm_run ... --workers W`` in a
+    process group of its own (on a timeout the whole group, workers
+    included, is killed), its log (the supervisor's and every worker's
+    lines) kept in ``log_path``: (wall s, log text)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.edm_run",
+                             *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=FLEET_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    log_path.write_text(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet run {argv} exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    return wall, out
+
+
+def supervisor_line(text: str) -> dict:
+    """restarts / failed of the supervisor's ``fleet[W] ...`` line."""
+    for ln in text.splitlines():
+        if ln.startswith("fleet[") and "restarts " in ln:
+            rest = ln.split("restarts ", 1)[1]
+            restarts, failed = rest.split("; failed ")
+            wall = float(ln.split(" in ", 1)[1].split("s ", 1)[0])
+            return {"line": ln, "wall_s": wall, "restarts": json.loads(restarts),
+                    "failed": json.loads(failed)}
+    raise AssertionError("no supervisor summary line in the fleet log")
+
+
+def span_split(out) -> dict:
+    """Seconds and count of every (stage, span name) in the workers'
+    telemetry, summed over workers, with the waits the spans record
+    (``gather_s``: a drain's wait for the chunk's result; ``fsync_s``: a
+    block write's fsync): where a fleet's time went.  ``chunk`` spans
+    dispatch the kernels; ``drain`` spans wait for a result and write it
+    (``write_block`` / ``write_tile``, ``manifest_commit``); the
+    ``queue_*`` spans are the queue's claims, lease renewals, done
+    markers and barrier waits.  ``<stage>/unattributed`` is each stage
+    span less the union of the spans inside it (nested spans counted
+    once), summed over workers: time no span covers."""
+    from repro_torch.runtime import telemetry
+
+    split: dict = {}
+    # (worker, stage) -> stage spans and inner spans as (start, end)
+    stage_iv: dict = {}
+    inner_iv: dict = {}
+    for stem, rec in telemetry.iter_store_records(out):
+        if rec.get("kind") != "span":
+            continue
+        acc = split.setdefault(f"{rec['stage']}/{rec['name']}", {"s": 0.0, "n": 0})
+        acc["s"] += rec["dur_s"]
+        acc["n"] += 1
+        for attr in ("gather_s", "fsync_s"):
+            if attr in rec["attrs"]:
+                acc[attr] = acc.get(attr, 0.0) + rec["attrs"][attr]
+        iv = (rec["mono"] - rec["dur_s"], rec["mono"])
+        key = (stem, rec["pid"], rec["stage"])
+        (stage_iv if rec["name"] == "stage" else inner_iv).setdefault(
+            key, []).append(iv)
+    for key, stages in stage_iv.items():
+        inner = sorted(inner_iv.get(key, []))
+        for lo, hi in stages:
+            covered, end = 0.0, lo
+            for a, b in inner:
+                a, b = max(a, end), min(b, hi)
+                if b > a:
+                    covered += b - a
+                    end = b
+            acc = split.setdefault(f"{key[2]}/unattributed", {"s": 0.0, "n": 0})
+            acc["s"] += (hi - lo) - covered
+            acc["n"] += 1
+    return dict(sorted(split.items()))
+
+
+def check_fleet_store(out, ref, artifacts, expect_complete=True):
+    """Byte equality with the single-process store, status, fsck, leases."""
+    from repro_torch.launch import edm_fleet
+    from repro_torch.runtime import integrity
+
+    equal = {a: same_npy_bits(ref / a / "data.npy", out / a / "data.npy")
+             for a in artifacts}
+    st = edm_fleet.fleet_status(out)
+    rep = integrity.fsck_store(out)
+    leases = sorted(p.name for p in (out / "queue").glob("*.lease"))
+    res = {"byte_equal": equal, "status_complete": st["complete"],
+           "fsck_clean": rep["clean"], "fsck_problems": rep["problems"],
+           "stale_leases": leases,
+           "telemetry_violations": st["telemetry"]["violations"]}
+    if not all(equal.values()):
+        raise AssertionError(f"fleet store {out} != single-process: {equal}")
+    if not (st["complete"] == expect_complete and rep["clean"] and not leases):
+        raise AssertionError(f"fleet store {out}: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def stdout_fd_to(path):
+    """Point file descriptor 1 at ``path`` (processes started inside
+    inherit it), then back."""
+    import os
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "ab") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def fleet_phases(torch, smi, n, sig_n, main_dir, main_launches, sig_dir,
+                 sig_launches, wall_single, busy_single):
+    """The fleet on the card: W worker processes, each with its own CUDA
+    context, over one store.  main (--workers 2 at n), significance
+    (--workers 2 at sig_n), kill (3 workers, units of 5 rows, w0
+    SIGKILLed once a block is durable and relaunched under its id) and
+    faults (--workers 3 --unit-rows 5 with EDM_FAULTS armed in the first
+    generation of every worker; the supervisor relaunches each without
+    it).  Each store byte-equal to the single-process one; the summed
+    launches equal the single-process counts where no process died."""
+    import os
+    import signal
+
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data import store
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig
+    from repro_torch.launch import edm_fleet
+
+    mode = compute_mode()
+    emit("fleet_card", compute_mode=mode, smi=smi,
+         device_bytes_held_by_smoke=torch.cuda.memory_allocated(),
+         device_bytes_reserved_by_smoke=torch.cuda.memory_reserved())
+    logs = ROOT / "build" / "smoke_fleet_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    sig_argv = ["--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+                "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+                "--fdr", "0.05", "--seed", "0"]
+    results = {}
+
+    # ---- main path, two workers ------------------------------------------
+    out = ROOT / "build" / "smoke_fleet_main"
+    shutil.rmtree(out, ignore_errors=True)
+    busy = BusySampler()
+    try:
+        wall, text = run_fleet_cli(["--synthetic", f"{n}x{FISH1_L}", "--e-max",
+                                    str(E_MAX), "--workers", "2", "--out",
+                                    str(out)], logs / "main.log")
+    finally:
+        busy = busy.stop()
+    done = worker_done_lines(text)
+    sums = summed_launches(done)
+    chk = check_fleet_store(out, main_dir, ("causal_map",))
+    sup = supervisor_line(text)
+    equal_counts = all(sums.get(k) == v for k, v in main_launches.items())
+    emit("fleet_main", N=n, L=FISH1_L, E_max=E_MAX, workers=2, wall_s=wall,
+         supervisor_wall_s=sup["wall_s"], supervisor=sup["line"],
+         card_busy_sampled=busy, single_process_card_busy_sampled=busy_single,
+         restarts=sup["restarts"], failed=sup["failed"],
+         workers_done=per_worker(done), launches_summed=sums,
+         launches_single_process=main_launches,
+         launches_equal_single_process=equal_counts,
+         single_process_wall_s=wall_single["main"], spans=span_split(out),
+         smi=smi, **chk)
+    if not equal_counts or sup["failed"] or any(sup["restarts"].values()):
+        raise AssertionError(f"fleet main path: launches {sums} vs "
+                             f"{main_launches}, supervisor {sup}")
+    results["main"] = sums
+    shutil.rmtree(out, ignore_errors=True)
+
+    # ---- significance path, two workers ----------------------------------
+    out = ROOT / "build" / "smoke_fleet_sig"
+    shutil.rmtree(out, ignore_errors=True)
+    wall, text = run_fleet_cli(["--synthetic", f"{sig_n}x{FISH1_L}", "--e-max",
+                                str(E_MAX), *sig_argv, "--workers", "2",
+                                "--out", str(out)], logs / "significance.log")
+    done = worker_done_lines(text)
+    sums = summed_launches(done)
+    chk = check_fleet_store(out, sig_dir, FLEET_ARTIFACTS)
+    sup = supervisor_line(text)
+    equal_counts = all(sums.get(k) == v for k, v in sig_launches.items())
+    emit("fleet_significance", N=sig_n, L=FISH1_L, workers=2, wall_s=wall,
+         supervisor_wall_s=sup["wall_s"], supervisor=sup["line"],
+         restarts=sup["restarts"], failed=sup["failed"],
+         workers_done=per_worker(done), launches_summed=sums,
+         launches_single_process=sig_launches,
+         launches_equal_single_process=equal_counts,
+         single_process_wall_s=wall_single["significance"],
+         spans=span_split(out), smi=smi, **chk)
+    if not equal_counts or sup["failed"] or any(sup["restarts"].values()):
+        raise AssertionError(f"fleet significance: launches {sums} vs "
+                             f"{sig_launches}, supervisor {sup}")
+    results["significance"] = sums
+    shutil.rmtree(out, ignore_errors=True)
+
+    # ---- kill: three workers by hand, w0 SIGKILLed and relaunched --------
+    out = ROOT / "build" / "smoke_fleet_kill"
+    shutil.rmtree(out, ignore_errors=True)
+    store.save_dataset(out / "dataset", dummy_brain(sig_n, FISH1_L),
+                       {"synthetic": f"{sig_n}x{FISH1_L}"})
+    sig = SignificanceConfig(lib_sizes=SIG_LIB_SIZES, n_surrogates=SIG_M,
+                             alpha=0.05, surrogate="phase", seed=0)
+    edm_fleet.init_fleet(out, out / "dataset", EDMConfig(E_max=E_MAX), sig,
+                         unit_rows=5)
+    log = logs / "kill.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("EDM_FAULTS", None)
+    t0 = time.perf_counter()
+    with stdout_fd_to(log):
+        procs = {f"w{i}": edm_fleet.spawn_worker(out, f"w{i}", env=env)
+                 for i in range(3)}
+    try:
+        while not list(out.glob("rows_*.npy")):
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                raise AssertionError("kill run: no phase-2 block became durable")
+            if any(p.poll() is not None for p in procs.values()):
+                raise AssertionError("kill run: a worker exited before the kill")
+            time.sleep(0.05)
+        victim = procs["w0"]
+        os.kill(victim.pid, signal.SIGKILL)
+        rc_killed = victim.wait(timeout=60)
+        t_kill = time.perf_counter() - t0
+        blocks_at_kill = len(list(out.glob("rows_*.npy")))
+        with stdout_fd_to(log):
+            procs["w0"] = edm_fleet.spawn_worker(out, "w0", env=env)
+        rcs = {wid: p.wait(timeout=max(1.0, FLEET_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+               for wid, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(rcs.values()) or rc_killed != -signal.SIGKILL:
+        raise AssertionError(f"kill run: exit codes {rcs}, killed {rc_killed}")
+    done = worker_done_lines(log.read_text())
+    chk = check_fleet_store(out, sig_dir, FLEET_ARTIFACTS)
+    sums = summed_launches(done)
+    emit("fleet_kill", N=sig_n, workers=3, unit_rows=5, wall_s=wall,
+         killed="w0", killed_at_s=t_kill, killed_rc=rc_killed,
+         blocks_durable_at_kill=blocks_at_kill, exit_codes=rcs,
+         workers_done=per_worker(done), launches_summed_done_lines=sums,
+         launches_single_process=sig_launches,
+         note="the killed process printed no done line: its launches are "
+         "in no sum", smi=smi, **chk)
+    results["kill_survivors"] = sums
+    shutil.rmtree(out, ignore_errors=True)
+
+    # ---- faults: the supervisor absorbs an armed crash -------------------
+    out = ROOT / "build" / "smoke_fleet_faults"
+    shutil.rmtree(out, ignore_errors=True)
+    fault = "tile_pre_rename:crash@2"
+    wall, text = run_fleet_cli(["--synthetic", f"{sig_n}x{FISH1_L}", "--e-max",
+                                str(E_MAX), *sig_argv, "--workers", "3",
+                                "--unit-rows", "5", "--out", str(out)],
+                               logs / "faults.log", {"EDM_FAULTS": fault})
+    done = worker_done_lines(text)
+    sup = supervisor_line(text)
+    chk = check_fleet_store(out, sig_dir, FLEET_ARTIFACTS)
+    sums = summed_launches(done)
+    emit("fleet_faults", N=sig_n, workers=3, unit_rows=5, faults=fault,
+         wall_s=wall, supervisor_wall_s=sup["wall_s"], supervisor=sup["line"],
+         restarts=sup["restarts"], failed=sup["failed"],
+         workers_done=per_worker(done), launches_summed_done_lines=sums,
+         launches_single_process=sig_launches,
+         note="a crashed process printed no done line: its launches are "
+         "in no sum", smi=smi, **chk)
+    if sup["failed"] or not any(sup["restarts"].values()):
+        raise AssertionError(f"fault run: the armed crash was not absorbed "
+                             f"by a restart: {sup}")
+    results["faults_survivors"] = sums
+    shutil.rmtree(out, ignore_errors=True)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=16384,
@@ -1128,9 +1505,13 @@ def main(argv=None) -> int:
     ccm_lookup.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats(dev)
     log = io.StringIO()  # one progress line per chunk: keep it off stdout
-    with contextlib.redirect_stdout(log):
-        summary = edm_run.main(["--synthetic", f"{args.n}x{FISH1_L}", "--e-max",
-                                str(E_MAX), "--out", str(out_dir)])
+    busy_single = BusySampler()
+    try:
+        with contextlib.redirect_stdout(log):
+            summary = edm_run.main(["--synthetic", f"{args.n}x{FISH1_L}",
+                                    "--e-max", str(E_MAX), "--out", str(out_dir)])
+    finally:
+        busy_single = busy_single.stop()
     print(log.getvalue().strip().splitlines()[-1], flush=True)
     launches = {"knn_topk": knn_topk.LAUNCHES, "ccm_lookup": ccm_lookup.LAUNCHES}
     peak_mem = torch.cuda.max_memory_allocated(dev)
@@ -1149,7 +1530,8 @@ def main(argv=None) -> int:
          assemble_s=summary["assemble_s"],
          cross_maps_per_s=summary["cross_maps_per_s"],
          peak_device_bytes=peak_mem, buckets=list(buckets),
-         launches=launches, rho_mean=float(rho.mean()),
+         launches=launches, card_busy_sampled=busy_single,
+         rho_mean=float(rho.mean()),
          rho_absmax=float(np.abs(rho).max()), smi=smi)
     del result, rho
 
@@ -1174,9 +1556,9 @@ def main(argv=None) -> int:
         raise AssertionError("tiled main-path map != untiled map")
     if min(tiled_launches["knn_topk"], tiled_launches["ccm_lookup"]) < 1:
         raise AssertionError(f"tiled main path missed a kernel: {tiled_launches}")
+    wall_single = {"main": summary["wall_s"]}
     del summary, tsum
-    shutil.rmtree(out_dir, ignore_errors=True)
-    shutil.rmtree(tiled_dir, ignore_errors=True)
+    shutil.rmtree(tiled_dir, ignore_errors=True)  # out_dir: the fleet's reference
     profile_phase2(torch, dev, dummy_brain(args.n, FISH1_L), main_optE, smi)
 
     # ---- the significance path; the launch counts start at 0 here -------
@@ -1213,6 +1595,7 @@ def main(argv=None) -> int:
     if min(sig_launches.values()) < 1:
         raise AssertionError(f"significance path missed a kernel: {sig_launches}")
     sig_buckets = tuple(int(b) for b in np.unique(summary["result"].optE))
+    wall_single["significance"] = summary["wall_s"] + summary["significance_s"]
     emit("significance", N=n, L=FISH1_L, E_max=E_MAX, lib_block=LIB_BLOCK,
          lib_sizes=list(SIG_LIB_SIZES), surrogates=SIG_M, surrogate="phase",
          fdr=0.05, seed=0, n_cut_from=53053, wall_s=summary["wall_s"]
@@ -1258,8 +1641,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"tiled significance peak {peak_sig_tiled} B not "
                              f"below the untiled {peak_sig} B")
     del stsum
-    shutil.rmtree(sig_dir, ignore_errors=True)
-    shutil.rmtree(sig_tiled_dir, ignore_errors=True)
+    shutil.rmtree(sig_tiled_dir, ignore_errors=True)  # sig_dir: the fleet's
 
     # ---- the all-E phase 2 and the bfloat16 map, each path's counts at 0
     all_e = all_e_phase(torch, dev, smi)
@@ -1451,6 +1833,19 @@ def main(argv=None) -> int:
     if not (drho_err <= 1e-5 and trend_bad == 0 and p_bad == 0):
         raise AssertionError("cuda engine != torch-reference (significance)")
 
+    # ---- the fleet: W worker processes on the card, each with its own
+    # context; what this process still holds on the card is released first
+    import gc
+
+    del V8, V11, idx8, w8, Y, idxb, wb, Ym, idxm, wm, Vt, Vq1, Vc1, Vtie, Vconst
+    del Vc_const, ts8, got, want, cmap
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = fleet_phases(torch, smi, args.n, args.sig_n, out_dir, launches,
+                         sig_dir, sig_launches, wall_single, busy_single)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(sig_dir, ignore_errors=True)
+
     # ---- the kernels line --------------------------------------------------
     k2, k1 = times["phase2"], times["phase1"]
     l8 = ltimes["chunk_tables"]
@@ -1474,6 +1869,7 @@ def main(argv=None) -> int:
          "launches_all_e": {k: v["launches"]["knn_topk"]
                             for k, v in all_e["runs"].items()},
          "launches_bf16_map": bf16_map["launches"]["knn_topk"],
+         "launches_fleet": {k: v["knn_topk"] for k, v in fleet.items()},
          "checked": True, "checked_bf16": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
@@ -1493,6 +1889,7 @@ def main(argv=None) -> int:
          "launches_significance_tiled": sig_tiled_launches["ccm_lookup"],
          "launches_all_e": {k: v["launches"]["ccm_lookup"]
                             for k, v in all_e["runs"].items()},
+         "launches_fleet": {k: v["ccm_lookup"] for k, v in fleet.items()},
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
@@ -1505,6 +1902,7 @@ def main(argv=None) -> int:
          "ms_bf16": ptimes["kernel_ms_bf16"], "plain_ms_bf16": ptimes["plain_ms_bf16"],
          "max_abs_err_bf16": prefix_bf16_err,
          "launches_significance_tiled": sig_tiled_launches["knn_topk_prefix"],
+         "launches_fleet": {k: v["knn_topk_prefix"] for k, v in fleet.items()},
          "checked": True, "checked_bf16": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
@@ -1514,7 +1912,9 @@ def main(argv=None) -> int:
          "ms": ftimes["kernel_ms"],
          "plain_ms": ftimes["plain_ms"],
          "bound_ms": ftimes["bound_ms"], "bound_by": ftimes["bound_by"],
-         "library_ms": ftimes["library_ms"], "checked": True},
+         "library_ms": ftimes["library_ms"],
+         "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
+         "checked": True},
     ]}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(line), flush=True)

@@ -25,7 +25,9 @@ chunk serve every column tile (:func:`ccm_block_tile_bucketed`,
 on the device.  Tiled and untiled maps are equal byte for byte: target
 blocks are cut at the same global grid of ``cfg.target_block`` columns
 whatever the tile, and each block's Pearson sees the rows of the
-untiled block it belongs to (:func:`pearson_layout`).
+untiled block it belongs to (:func:`pearson_layout`), in a buffer laid
+out so that neither the chunk size nor a library row's place in its
+chunk shows either: a fleet's units of any height give the same bytes.
 
 rho[i, j] = pearson(future of target j, cross-map prediction of j from
 library i's manifold).
@@ -188,24 +190,21 @@ def target_blocks(
     return tuple(out)
 
 
-def pearson_layout(col0: int, n: int, block: int, width: int) -> tuple[int, int]:
+def pearson_layout(col0: int, n: int, block: int) -> tuple[int, int]:
     """(pad, rows): where the n targets of a target block starting at
-    column ``col0`` sit in the buffer its Pearson reduces.
+    column ``col0`` sit in the (S, rows, Lq) buffer its Pearson reduces.
 
     PyTorch's CUDA reduction sums a row in an order set by the row's
-    16-byte alignment and, below 16 rows, by the row count; so the
-    block's targets are placed, row by row, at the alignment they have in
-    the untiled path's block (the extent of the global grid cell holding
-    them), in a buffer of at least 16 rows.  The untiled block's own
-    layout is (0, its extent).  Below 16 rows the buffer is that whole
-    extent."""
-    g0 = col0 - col0 % block
-    off, extent = col0 - g0, min(block, width - g0)
-    if n == extent or extent <= 16:
-        return off, extent
-    pad = off % 4
+    16-byte alignment and, below 16 rows, by the row count.  So the
+    buffer has at least 16 rows and a multiple of 4: every row then has
+    the alignment of its target's place in its global grid cell of
+    ``block`` columns (pad = that place's offset mod 4), whatever the
+    tile that cut the block, the library row s it belongs to and the
+    chunk size S.  Tiled, untiled and fleet runs (chunks of any size)
+    then sum every row in one order."""
+    pad = (col0 % block) % 4
     rows = max(16, pad + n)
-    return pad, rows + (extent - rows) % 4
+    return pad, rows + (-rows) % 4
 
 
 def _pad_rows(x: torch.Tensor, pad: int, rows: int) -> torch.Tensor:
@@ -240,7 +239,7 @@ def ccm_row_lookup_bucketed(
     out = []
     for b0, b1, segs in target_blocks(tuple(seg_plan), cfg.target_block,
                                       col0, width):
-        pad, rows = pearson_layout(col0 + b0, b1 - b0, cfg.target_block, width)
+        pad, rows = pearson_layout(col0 + b0, b1 - b0, cfg.target_block)
         Y = _pad_rows(fut_tile[b0:b1], pad, rows)
         segs = list(segs)
         segs[0] = (segs[0][0], segs[0][1] + pad)
@@ -278,7 +277,7 @@ def ccm_row_lookup(
     out = []
     for b0, b1, _ in target_blocks(((0, t),), cfg.target_block, col0, width):
         n = b1 - b0
-        pad, rows = pearson_layout(col0 + b0, n, cfg.target_block, width)
+        pad, rows = pearson_layout(col0 + b0, n, cfg.target_block)
         perm = np.argsort(e_idx[b0:b1], kind="stable")
         tab, cnt = np.unique(e_idx[b0:b1][perm], return_counts=True)
         segs = tuple((int(r), int(c)) for r, c in zip(tab, cnt))

@@ -3,19 +3,19 @@
   phase 1 (simplex projection): the series in chunks of ``lib_block``,
     each chunk one batched kNN-table build + forecast + rho; optE comes
     back to the host once (N int32 — the one whole-run broadcast).
-  phase 2 (CCM): per chunk of ``lib_block`` library series, one kNN
-    launch builds every table of the chunk — at the bucket E values
-    (bucketed, the default) or at every E (``bucketed=False``) — and the
-    targets stream through the segmented lookup.  Untiled
-    (``target_tile=0``), a chunk's rho rows are full width and the
-    targets' futures live on the device for the whole run; tiled, the
-    tables of a chunk serve every column tile of ``target_tile``
-    targets, whose futures are uploaded per tile from the host, so the
-    device holds O(chunk x buckets x Lp x k + tile x Lp).  Finished
-    blocks go through a :class:`ChunkStreamer` (the next one is queued on
-    the card while the last is copied out) into the :class:`TileWriter`
-    store, which doubles as the resume manifest.  Tiled and untiled maps
-    are equal byte for byte.
+  phase 2 (CCM, :class:`Phase2Runner`): per chunk of ``lib_block``
+    library series, one kNN launch builds every table of the chunk — at
+    the bucket E values (bucketed, the default) or at every E
+    (``bucketed=False``) — and the targets stream through the segmented
+    lookup.  Untiled (``target_tile=0``), a chunk's rho rows are full
+    width and the targets' futures live on the device for the whole
+    run; tiled, the tables of a chunk serve every column tile of
+    ``target_tile`` targets, whose futures are uploaded per tile from
+    the host, so the device holds O(chunk x buckets x Lp x k + tile x
+    Lp).  Finished blocks go through a :class:`ChunkStreamer` (the next
+    one is queued on the card while the last is copied out) into the
+    :class:`TileWriter` store, which doubles as the resume manifest.
+    Tiled and untiled maps are equal byte for byte.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise (``runtime/device.py``).  Splitting chunks
@@ -33,7 +33,7 @@ from repro_torch import engine as engines
 from repro_torch.core import ccm, simplex
 from repro_torch.core.types import CausalMap, EDMConfig
 from repro_torch.data.store import TileWriter
-from repro_torch.runtime import integrity
+from repro_torch.runtime import integrity, telemetry
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
@@ -56,7 +56,10 @@ def run_phase1(
     for row0 in range(0, ts_d.shape[0], cfg.lib_block):
         if on_chunk is not None:
             on_chunk(row0)
-        rhos_c, optE_c = simplex.simplex_batch(ts_d[row0 : row0 + cfg.lib_block], cfg)
+        with telemetry.span("phase1", "chunk", row0=row0,
+                            chunk_rows=cfg.lib_block):
+            rhos_c, optE_c = simplex.simplex_batch(
+                ts_d[row0 : row0 + cfg.lib_block], cfg)
         rhos_parts.append(rhos_c)
         optE_parts.append(optE_c)
     simplex_rhos = torch.cat(rhos_parts).cpu().numpy()
@@ -64,119 +67,135 @@ def run_phase1(
     return simplex_rhos, optE
 
 
-def _phase2_untiled(ts_d, ts_fut, optE, cfg, dev):
-    """Full-width (chunk, N) rho rows in natural column order:
-    ``compute(rows) -> (S, N)``, the targets' futures on the device for
-    the whole run."""
-    if not cfg.bucketed:
-        fut = torch.as_tensor(ts_fut).to(dev)
-        return lambda rows: ccm.ccm_block(rows, fut, optE, cfg)
-    plan, order = ccm.make_bucket_plan(optE)
-    fut_sorted = torch.as_tensor(np.ascontiguousarray(ts_fut[order])).to(dev)
-    inv = torch.as_tensor(np.argsort(order)).to(dev)
-    return lambda rows: ccm.ccm_block_bucketed(rows, fut_sorted, cfg, plan)[:, inv]
+class Phase2Runner:
+    """Phase 2 over any (row0, nrows) chunk plans, untiled or tiled
+    (``cfg.target_tile``), bucketed or all-E (``cfg.bucketed``), its
+    per-run state set up once: the bucket plan and, untiled, the
+    targets' futures on the device; tiled, pinned host copies of the
+    series and of the futures (in tile order), from which a chunk's rows
+    and a tile's futures are uploaded when used, so the device holds no
+    (N, L) or (N, Lp) array.  A fleet worker keeps one runner and calls
+    :meth:`run` per claimed unit.  Values do not depend on the plan or
+    the tiles: tables are per library row, targets per column."""
 
+    def __init__(self, ts: np.ndarray, ts_fut: np.ndarray, optE: np.ndarray,
+                 cfg: EDMConfig, device=None):
+        self.dev = dev = check_run(cfg, device)
+        self.cfg = cfg
+        ts = np.asarray(ts, np.float32)
+        self.N = N = ts.shape[0]
+        self.optE = np.asarray(optE)
+        self.order = self.plan = None
+        if cfg.bucketed:
+            self.plan, self.order = ccm.make_bucket_plan(self.optE)
+        fut = ts_fut if self.order is None else ts_fut[self.order]
+        if cfg.target_tile:
+            T = cfg.target_tile
+            self.tile_plans = (
+                ccm.make_tile_plans(self.plan, T) if cfg.bucketed
+                else [(c0, None) for c0 in range(0, N, T)]
+            )
+            self.ts_h = upload_source(ts, dev)
+            self.fut_h = upload_source(fut, dev)
+            return
+        self.ts_d = torch.as_tensor(ts).to(dev)
+        self.fut_d = torch.as_tensor(np.ascontiguousarray(fut)).to(dev)
+        if cfg.bucketed:
+            self.inv = torch.as_tensor(np.argsort(self.order)).to(dev)
 
-def run_phase2_chunks(
-    ts: np.ndarray,
-    ts_fut: np.ndarray,
-    optE: np.ndarray,
-    cfg: EDMConfig,
-    chunk_plan: list[tuple[int, int]],
-    writer: Optional[TileWriter] = None,
-    rho: Optional[np.ndarray] = None,
-    progress: bool = False,
-    device=None,
-    on_chunk=None,
-) -> None:
-    """Phase 2 over an explicit (row0, nrows) chunk plan, untiled or tiled
-    (``cfg.target_tile``), bucketed or all-E (``cfg.bucketed``).  Blocks go
-    to ``writer`` or, without one, into the host map ``rho``.  Values do
-    not depend on the plan or the tiles: tables are per library row,
-    targets per column."""
-    dev = check_run(cfg, device)
-    N = ts.shape[0]
-    ts = np.asarray(ts, np.float32)
-    if cfg.target_tile:
-        _phase2_tiled(ts, ts_fut, optE, cfg, chunk_plan, writer, rho,
-                      progress, dev, on_chunk)
-        return
-    ts_d = torch.as_tensor(ts).to(dev)
-    compute = _phase2_untiled(ts_d, ts_fut, optE, cfg, dev)
+    def _rows_untiled(self, rows: torch.Tensor) -> torch.Tensor:
+        """Full-width (S, N) rho rows in natural column order."""
+        if not self.cfg.bucketed:
+            return ccm.ccm_block(rows, self.fut_d, self.optE, self.cfg)
+        return ccm.ccm_block_bucketed(rows, self.fut_d, self.cfg,
+                                      self.plan)[:, self.inv]
 
-    def drain(tag, rho_rows):
-        row0, valid = tag
-        if writer is not None:
-            writer.write_block(row0, rho_rows[:valid])
-        else:
-            rho[row0 : row0 + valid] = rho_rows[:valid]
-        if progress:
-            print(f"ccm rows {row0}..{row0 + valid} / {N}")
+    def run(self, chunk_plan: list[tuple[int, int]],
+            writer: Optional[TileWriter] = None,
+            rho: Optional[np.ndarray] = None, progress: bool = False,
+            on_chunk=None) -> None:
+        """Compute the chunks; blocks go to ``writer`` or, without one,
+        into the host map ``rho``.  Returns once every block is drained
+        (and, with a writer, committed to its manifest).  ``on_chunk(row0)``
+        fires before each chunk."""
+        if self.cfg.target_tile:
+            self._run_tiled(chunk_plan, writer, rho, progress, on_chunk)
+            return
+        N = self.N
 
-    with ChunkStreamer(drain, depth=cfg.stream_depth) as streamer:
-        for row0, valid in chunk_plan:
-            if on_chunk is not None:
-                on_chunk(row0)
-            streamer.submit((row0, valid), compute(ts_d[row0 : row0 + valid]))
-
-
-def _phase2_tiled(ts, ts_fut, optE, cfg, chunk_plan, writer, rho, progress,
-                  dev, on_chunk):
-    """(row-chunk x col-tile) phase 2: tables once per chunk, targets in
-    column tiles of ``cfg.target_tile``, blocks streamed with (row0, col0,
-    valid) tags.  A chunk's rows and a tile's futures are uploaded when
-    they are used, as asynchronous copies from one pinned host copy each
-    (the futures in tile order), so the device holds no (N, L) or
-    (N, Lp) array.  Bucketed tiles are in the sorted column order
-    (``col_order.npy`` in the store), all-E tiles in the natural one."""
-    N, T = ts.shape[0], cfg.target_tile
-    if cfg.bucketed:
-        plan, order = ccm.make_bucket_plan(optE)
-        tile_plans = ccm.make_tile_plans(plan, T)
-    else:
-        order = None
-        tile_plans = [(c0, None) for c0 in range(0, N, T)]
-        e_idx = optE.astype(np.int64) - 1
-    if writer is not None:
-        writer.ensure_col_order(order)
-    ts_h = upload_source(ts, dev)
-    fut_h = upload_source(ts_fut if order is None else ts_fut[order], dev)
-
-    def drain(tag, block):
-        row0, col0, valid = tag
-        blk = block[:valid]
-        last_tile = col0 + blk.shape[1] >= N
-        if writer is not None:
-            # one manifest commit per row chunk: drains run in order, so
-            # when the last tile lands every tile of the chunk is durable
-            writer.write_tile(row0, col0, blk, commit=last_tile)
-        elif order is not None:
-            rho[row0 : row0 + valid][:, order[col0 : col0 + blk.shape[1]]] = blk
-        else:
-            rho[row0 : row0 + valid, col0 : col0 + blk.shape[1]] = blk
-        if progress and last_tile:
-            print(f"ccm rows {row0}..{row0 + valid} / {N} (tiles of {T})")
-
-    with ChunkStreamer(drain, depth=cfg.stream_depth) as streamer:
-        for row0, valid in chunk_plan:
-            if on_chunk is not None:
-                on_chunk(row0)
-            rows = ts_h[row0 : row0 + valid].to(dev, non_blocking=True)
-            if order is not None:
-                idx, w = ccm.ccm_row_tables_bucketed(rows, cfg, plan)
+        def drain(tag, rho_rows):
+            row0, valid = tag
+            if writer is not None:
+                writer.write_block(row0, rho_rows[:valid])
             else:
-                idx, w = ccm.ccm_row_tables(rows, cfg)
-            for c0, seg_plan in tile_plans:
-                fut_tile = fut_h[c0 : c0 + T].to(dev, non_blocking=True)
-                if order is not None:
-                    block = ccm.ccm_block_tile_bucketed(idx, w, fut_tile, cfg,
-                                                        seg_plan, c0, N)
-                else:
-                    block = ccm.ccm_block_tile(idx, w, fut_tile, e_idx[c0 : c0 + T],
-                                               cfg, c0, N)
-                streamer.submit((row0, c0, valid), block)
-    if writer is not None:
-        writer.commit()  # no deferred entry is left behind
+                rho[row0 : row0 + valid] = rho_rows[:valid]
+            if progress:
+                print(f"ccm rows {row0}..{row0 + valid} / {N}")
+
+        with ChunkStreamer(drain, depth=self.cfg.stream_depth,
+                           stage="phase2") as streamer:
+            for row0, valid in chunk_plan:
+                if on_chunk is not None:
+                    on_chunk(row0)
+                with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
+                                    tiled=False):
+                    block = self._rows_untiled(self.ts_d[row0 : row0 + valid])
+                streamer.submit((row0, valid), block)
+
+    def _run_tiled(self, chunk_plan, writer, rho, progress, on_chunk):
+        """(row-chunk x col-tile) phase 2: tables once per chunk, targets
+        in column tiles of ``cfg.target_tile``, blocks streamed with (row0,
+        col0, valid) tags.  Bucketed tiles are in the sorted column order
+        (``col_order.npy`` in the store), all-E tiles in the natural one."""
+        cfg, dev, N, order = self.cfg, self.dev, self.N, self.order
+        T = cfg.target_tile
+        if writer is not None:
+            writer.ensure_col_order(order)
+
+        def drain(tag, block):
+            row0, col0, valid = tag
+            blk = block[:valid]
+            last_tile = col0 + blk.shape[1] >= N
+            if writer is not None:
+                # one manifest commit per row chunk: drains run in order,
+                # so when the last tile lands every tile of the chunk is
+                # durable
+                writer.write_tile(row0, col0, blk, commit=last_tile)
+            elif order is not None:
+                rho[row0 : row0 + valid][:, order[col0 : col0 + blk.shape[1]]] = blk
+            else:
+                rho[row0 : row0 + valid, col0 : col0 + blk.shape[1]] = blk
+            if progress and last_tile:
+                print(f"ccm rows {row0}..{row0 + valid} / {N} (tiles of {T})")
+
+        with ChunkStreamer(drain, depth=cfg.stream_depth,
+                           stage="phase2") as streamer:
+            for row0, valid in chunk_plan:
+                if on_chunk is not None:
+                    on_chunk(row0)
+                with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
+                                    tiled=True, tile=T,
+                                    n_tiles=len(self.tile_plans)):
+                    with telemetry.span("phase2", "device_put", row0=row0):
+                        rows = self.ts_h[row0 : row0 + valid].to(
+                            dev, non_blocking=True)
+                    if order is not None:
+                        idx, w = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
+                    else:
+                        idx, w = ccm.ccm_row_tables(rows, cfg)
+                    for c0, seg_plan in self.tile_plans:
+                        fut_tile = self.fut_h[c0 : c0 + T].to(dev,
+                                                               non_blocking=True)
+                        if order is not None:
+                            block = ccm.ccm_block_tile_bucketed(
+                                idx, w, fut_tile, cfg, seg_plan, c0, N)
+                        else:
+                            block = ccm.ccm_block_tile(
+                                idx, w, fut_tile, self.optE[c0 : c0 + T] - 1,
+                                cfg, c0, N)
+                        streamer.submit((row0, c0, valid), block)
+        if writer is not None:
+            writer.commit()  # no deferred entry is left behind
 
 
 def run_causal_inference(
@@ -212,8 +231,8 @@ def run_causal_inference(
         chunk_plan = writer.chunk_plan(cfg.lib_block)
     else:
         chunk_plan = [(r, min(cfg.lib_block, N - r)) for r in range(0, N, cfg.lib_block)]
-    run_phase2_chunks(ts, ts_fut, optE, cfg, chunk_plan, writer, rho,
-                      progress, dev)
+    Phase2Runner(ts, ts_fut, optE, cfg, dev).run(chunk_plan, writer, rho,
+                                                 progress)
     t2 = _perf()
     if writer is not None:
         rho = writer.assemble(mmap_path=writer.dir / "causal_map" / "data.npy")

@@ -12,8 +12,13 @@ port store.
 Every write is write-temp + fsync + os.replace: a process killed at any
 point leaves the old file or the new one, never a torn mix.  The
 manifest doubles as the resume record: a rerun recomputes only the rows
-it does not cover.  Writer shards (``blocks.<writer>.json``, the fleet)
-and fault points are not ported.
+it does not cover.  Fleet workers each commit to a manifest shard of
+their own (``blocks.<writer>.json``), and every reader merges all
+shards, so no two processes ever write one file.  The writes carry the
+JAX package's named fault points (``runtime/faultpoints.py``:
+``tile_pre_fsync``, ``tile_pre_rename``, ``manifest_pre_rename``, ...)
+and telemetry spans (``write_tile``, ``write_block``,
+``manifest_commit``).
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ import time
 
 import numpy as np
 
+# telemetry and faultpoints import nothing of the store at module scope
+# (the JSONL sink borrows atomic_write_text lazily), so this is acyclic.
+from repro_torch.runtime import faultpoints, telemetry
 from repro_torch.runtime.integrity import (
     Crc32,
     IntegrityError,
@@ -67,8 +75,13 @@ def _classify_write_error(e: OSError, path: pathlib.Path,
     return e
 
 
-def atomic_write_text(path: str | pathlib.Path, text: str) -> None:
-    """write-temp + fsync + os.replace."""
+def atomic_write_text(
+    path: str | pathlib.Path, text: str, fault: str | None = None
+) -> None:
+    """write-temp + fsync + os.replace, the one durability primitive of
+    the store and the work queue.  ``fault`` names the write's fault
+    point prefix: ``<fault>_pre_rename`` fires with the temp durable and
+    not yet visible."""
     path = pathlib.Path(path)
     tmp = _unique_tmp(path)
     try:
@@ -78,34 +91,47 @@ def atomic_write_text(path: str | pathlib.Path, text: str) -> None:
             os.fsync(f.fileno())
     except OSError as e:
         raise _classify_write_error(e, path, tmp) from e
+    if fault is not None:
+        faultpoints.fire(f"{fault}_pre_rename")
     os.replace(tmp, path)
     _fsync_dir(path.parent)
 
 
-def atomic_save_npy(path: pathlib.Path, arr: np.ndarray) -> dict:
+def atomic_save_npy(
+    path: pathlib.Path, arr: np.ndarray, fault: str | None = None
+) -> dict:
     """Atomic np.save; the crc32 is accumulated while the bytes stream
-    out.  Returns {bytes, fsync_s, crc32}."""
+    out.  Duplicate writers of one block (a stolen lease) replace each
+    other with the same bytes.  ``fault`` arms ``<fault>_pre_fsync`` and
+    ``<fault>_pre_rename``.  Returns {bytes, fsync_s, crc32}."""
     tmp = _unique_tmp(path)
     try:
         with open(tmp, "wb") as f:
             tee = Crc32(f)
             np.save(tee, arr)
             f.flush()
+            if fault is not None:
+                faultpoints.fire(f"{fault}_pre_fsync")
             t0 = time.perf_counter()
             os.fsync(f.fileno())
             fsync_s = time.perf_counter() - t0
     except OSError as e:
         raise _classify_write_error(e, path, tmp) from e
+    if fault is not None:
+        faultpoints.fire(f"{fault}_pre_rename")
     os.replace(tmp, path)
     _fsync_dir(path.parent)
     return {"bytes": int(arr.nbytes), "fsync_s": fsync_s, "crc32": tee.hex}
 
 
-def save_npy_checksummed(path: pathlib.Path, arr: np.ndarray) -> dict:
+def save_npy_checksummed(
+    path: pathlib.Path, arr: np.ndarray, fault: str | None = None
+) -> dict:
     """atomic_save_npy + ``<path>.crc32`` sidecar, for standalone .npy
-    artifacts with no manifest to carry their checksum (col_order,
-    edges).  The sidecar lands after the data."""
-    stats = atomic_save_npy(path, arr)
+    artifacts with no manifest to carry their checksum (dataset,
+    col_order, phase-1 outputs, edges).  The sidecar lands after the
+    data."""
+    stats = atomic_save_npy(path, arr, fault=fault)
     write_sidecar(path, stats["crc32"])
     return stats
 
@@ -118,6 +144,17 @@ def save_meta(path: str | pathlib.Path, shape, dtype, meta: dict | None = None) 
         p / "meta.json",
         json.dumps({"shape": list(shape), "dtype": str(dtype), **(meta or {})}),
     )
+
+
+def save_dataset(path: str | pathlib.Path, ts: np.ndarray,
+                 meta: dict | None = None) -> None:
+    """A zarr-lite dataset (``data.npy`` with its sidecar, then
+    ``meta.json``), atomic, so a driver killed mid-save leaves nothing a
+    resume would trust."""
+    p = pathlib.Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    save_npy_checksummed(p / "data.npy", ts, fault="dataset")
+    save_meta(p, ts.shape, ts.dtype, meta)
 
 
 def load_dataset(path: str | pathlib.Path, mmap: bool = True) -> np.ndarray:
@@ -145,19 +182,56 @@ class TileWriter:
     :meth:`ensure_col_order` (the bucket-sorted one, or natural), undone
     at :meth:`assemble`.  Coverage is per row: a row is covered once its
     blocks union to the full width, so a rerun with another ``lib_block``
-    or ``target_tile`` resumes exactly where the last run stopped."""
+    or ``target_tile`` resumes exactly where the last run stopped.
 
-    def __init__(self, path: str | pathlib.Path, N: int):
+    ``writer_id``: a fleet worker commits its entries to a shard of its
+    own, ``blocks.<writer_id>.json``; every writer (and a reader, with
+    ``writer_id=None``) loads the union of all shards, so coverage,
+    chunk plans and assembly see every durable block whoever wrote it."""
+
+    def __init__(self, path: str | pathlib.Path, N: int,
+                 writer_id: str | None = None, stage: str = "store"):
         self.dir = pathlib.Path(path)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.N = N
-        self.manifest = self.dir / "blocks.json"
-        self.done: dict[str, list] = (
+        # telemetry label only: the pipeline stage of this writer's blocks
+        self.stage = stage
+        if writer_id is not None and not writer_id.isidentifier():
+            raise ValueError(f"writer_id={writer_id!r} must be identifier-like")
+        self.writer_id = writer_id
+        self.manifest = self.dir / (
+            "blocks.json" if writer_id is None else f"blocks.{writer_id}.json"
+        )
+        # _own: the entries this writer commits (its shard); done: the
+        # merge of every shard, for coverage and assembly.  A torn own
+        # shard reads as {}: its blocks are recomputed.
+        self._own: dict[str, list] = (
             read_manifest_shard(self.manifest) or {}
             if self.manifest.exists() else {}
         )
+        self.done: dict[str, list] = {}
+        self.refresh()
         co = self.dir / "col_order.npy"
         self._col_order: np.ndarray | None = np.load(co) if co.exists() else None
+
+    def _manifest_shards(self):
+        """blocks.json and every blocks.<writer>.json (the .tmp residue
+        of a killed writer does not count)."""
+        for p in sorted(self.dir.glob("blocks*.json")):
+            if p.suffix == ".json":
+                yield p
+
+    def refresh(self) -> "TileWriter":
+        """Re-merge every manifest shard from disk (a fleet worker sees
+        the blocks other processes committed); this writer's uncommitted
+        entries are kept.  A torn or corrupt shard is skipped: its blocks
+        read as uncovered and are recomputed."""
+        merged: dict[str, list] = {}
+        for p in self._manifest_shards():
+            merged.update(read_manifest_shard(p) or {})
+        merged.update(self._own)
+        self.done = merged
+        return self
 
     @property
     def has_tiles(self) -> bool:
@@ -202,6 +276,10 @@ class TileWriter:
                 cov[r] = True
         return cov
 
+    def next_uncovered(self, start: int = 0) -> int | None:
+        idx = np.nonzero(~self.covered()[start:])[0]
+        return int(idx[0]) + start if idx.size else None
+
     def chunk_plan(
         self, chunk: int, covered: np.ndarray | None = None
     ) -> list[tuple[int, int]]:
@@ -224,8 +302,12 @@ class TileWriter:
         return plan
 
     def commit(self) -> None:
-        """Rewrite the manifest (atomic); flushes deferred tile entries."""
-        atomic_write_text(self.manifest, manifest_with_crc(self.done))
+        """Rewrite this writer's manifest shard (atomic) with its own
+        entries only; flushes deferred tile entries."""
+        with telemetry.span(self.stage, "manifest_commit",
+                            entries=len(self._own)):
+            atomic_write_text(self.manifest, manifest_with_crc(self._own),
+                              fault="manifest")
 
     def ensure_col_order(self, order: np.ndarray | None) -> None:
         """Declare (and persist, checksummed) the on-disk column
@@ -253,14 +335,19 @@ class TileWriter:
                 f"store {self.dir} already holds natural-order tiles; "
                 "cannot add column-permuted tiles (use a fresh --out dir)"
             )
-        save_npy_checksummed(f, want)
+        # workers race this benignly: all derive the same permutation
+        save_npy_checksummed(f, want, fault="col_order")
         self._col_order = want
 
     def write_block(self, row0: int, rho_rows: np.ndarray) -> None:
         """One full-width row block, then the manifest entry."""
         rho_rows = rho_rows[: max(0, self.N - row0)]
-        stats = atomic_save_npy(self.dir / f"rows_{row0:08d}.npy", rho_rows)
-        self.done[str(row0)] = [int(rho_rows.shape[0]), stats["crc32"]]
+        with telemetry.span(self.stage, "write_block", row0=row0) as t:
+            stats = atomic_save_npy(self.dir / f"rows_{row0:08d}.npy",
+                                    rho_rows, fault="tile")
+            t.update(stats)
+        entry = [int(rho_rows.shape[0]), stats["crc32"]]
+        self.done[str(row0)] = self._own[str(row0)] = entry
         self.commit()
 
     def write_tile(self, row0: int, col0: int, block: np.ndarray,
@@ -269,10 +356,15 @@ class TileWriter:
         ``commit=False`` defers the manifest rewrite to :meth:`commit`
         (an uncommitted tile is merely recomputed on resume)."""
         block = block[: max(0, self.N - row0), : max(0, self.N - col0)]
-        stats = atomic_save_npy(self.dir / f"tile_{row0:08d}_{col0:08d}.npy",
-                                block)
-        self.done[f"{row0},{col0}"] = [int(block.shape[0]), int(block.shape[1]),
-                                       stats["crc32"]]
+        with telemetry.span(self.stage, "write_tile", row0=row0,
+                            col0=col0) as t:
+            stats = atomic_save_npy(
+                self.dir / f"tile_{row0:08d}_{col0:08d}.npy", block,
+                fault="tile",
+            )
+            t.update(stats)
+        entry = [int(block.shape[0]), int(block.shape[1]), stats["crc32"]]
+        self.done[f"{row0},{col0}"] = self._own[f"{row0},{col0}"] = entry
         if commit:
             self.commit()
 

@@ -2,7 +2,8 @@
 statistically validated causal graphs — one-sweep convergence CCM over
 prefix-snapshot kNN tables, batched surrogate null models, and
 FDR-controlled significance masking — on one device.  The counterpart of
-``repro.inference`` less the fleet's ``finalize_significance``."""
+``repro.inference``; ``finalize_significance`` is the fleet's finalize
+unit."""
 from repro_torch.inference.convergence import (
     ccm_convergence_pair,
     convergence_stats,
@@ -10,6 +11,7 @@ from repro_torch.inference.convergence import (
 )
 from repro_torch.inference.pipeline import (
     SignificanceChunkRunner,
+    finalize_significance,
     run_significance,
 )
 from repro_torch.inference.significance import (
@@ -40,6 +42,7 @@ __all__ = [
     "bh_threshold_discrete",
     "ccm_convergence_pair",
     "convergence_stats",
+    "finalize_significance",
     "phase_randomized",
     "random_shuffle",
     "run_significance",

@@ -48,7 +48,7 @@ from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference import convergence, prng, significance, surrogates
 from repro_torch.inference.types import SignificanceConfig, SignificanceResult
-from repro_torch.runtime import integrity
+from repro_torch.runtime import integrity, telemetry
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
 # Surrogate values drawn per batch of the build: bounds the int64 words
@@ -136,52 +136,58 @@ class SignificanceChunkRunner:
         rho: the observed causal map (memmap fine; read only when the
         null stage is active).  on_chunk(row0) fires before each chunk."""
         N, T, m, cfg, dev = self.N, self.T, self.m, self.cfg, self.dev
-        with ChunkStreamer(drain, depth=cfg.stream_depth) as streamer:
+        with ChunkStreamer(drain, depth=cfg.stream_depth,
+                           stage="sig") as streamer:
             for row0, valid in plan_chunks:
                 if on_chunk is not None:
                     on_chunk(row0)
-                rows = self.rows(row0, valid)
-                if self.do_conv:
-                    cidx, cw = convergence.conv_block_tables(
-                        rows, cfg, self.plan, self.sig.lib_sizes, self.col_ids
-                    )
-                if self.do_null:
-                    fidx, fw = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
-                    rho_chunk = np.asarray(rho[row0 : row0 + valid], np.float32)
-                for c0, seg_plan in self.tile_plans:
-                    c1 = min(c0 + T, N)
+                with telemetry.span("sig", "chunk", row0=row0, rows=valid,
+                                    chunk_rows=self.chunk, tile=T,
+                                    conv=self.do_conv, null=self.do_null):
+                    with telemetry.span("sig", "device_put", row0=row0):
+                        rows = self.rows(row0, valid)
                     if self.do_conv:
-                        fut_tile = (
-                            self.fut_sorted[c0:c1] if self.fut_sorted is not None
-                            else self.fut_sorted_h[c0:c1].to(dev, non_blocking=True)
+                        cidx, cw = convergence.conv_block_tables(
+                            rows, cfg, self.plan, self.sig.lib_sizes, self.col_ids
                         )
-                        drho, trend = convergence.conv_block_tile(
-                            cidx, cw, fut_tile, cfg, seg_plan, col0=c0, width=N
-                        )
-                        streamer.submit(("conv", row0, c0, valid),
-                                        torch.stack([drho, trend]))
                     if self.do_null:
-                        fut_surr = (
-                            self.fut_surr[c0 * m : c1 * m]
-                            if self.fut_surr is not None
-                            else self.surrogates(c0, c1)
-                        )
-                        rho_obs = upload_source(
-                            rho_chunk[:, self.order[c0:c1]], dev
-                        ).to(dev, non_blocking=True)
-                        seg_plan_m = tuple((b, cnt * m) for b, cnt in seg_plan)
-                        streamer.submit(
-                            ("pval", row0, c0, valid),
-                            significance.null_block_pvals(
-                                fidx, fw, fut_surr, rho_obs, cfg, seg_plan_m,
-                                m, col0=c0 * m, width=N * m,
-                            ),
-                        )
+                        fidx, fw = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
+                        rho_chunk = np.asarray(rho[row0 : row0 + valid], np.float32)
+                    for c0, seg_plan in self.tile_plans:
+                        c1 = min(c0 + T, N)
+                        if self.do_conv:
+                            fut_tile = (
+                                self.fut_sorted[c0:c1] if self.fut_sorted is not None
+                                else self.fut_sorted_h[c0:c1].to(dev, non_blocking=True)
+                            )
+                            drho, trend = convergence.conv_block_tile(
+                                cidx, cw, fut_tile, cfg, seg_plan, col0=c0, width=N
+                            )
+                            streamer.submit(("conv", row0, c0, valid),
+                                            torch.stack([drho, trend]))
+                        if self.do_null:
+                            fut_surr = (
+                                self.fut_surr[c0 * m : c1 * m]
+                                if self.fut_surr is not None
+                                else self.surrogates(c0, c1)
+                            )
+                            rho_obs = upload_source(
+                                rho_chunk[:, self.order[c0:c1]], dev
+                            ).to(dev, non_blocking=True)
+                            seg_plan_m = tuple((b, cnt * m) for b, cnt in seg_plan)
+                            streamer.submit(
+                                ("pval", row0, c0, valid),
+                                significance.null_block_pvals(
+                                    fidx, fw, fut_surr, rho_obs, cfg, seg_plan_m,
+                                    m, col0=c0 * m, width=N * m,
+                                ),
+                            )
 
 
 # ------------------------------------------------------------------- driver
-def _writer(out_dir, name: str, N: int, order) -> TileWriter:
-    w = TileWriter(f"{out_dir}/{name}", N)
+def _writer(out_dir, name: str, N: int, order,
+            writer_id: str | None = None) -> TileWriter:
+    w = TileWriter(f"{out_dir}/{name}", N, writer_id=writer_id, stage="sig")
     w.ensure_col_order(order)
     return w
 
@@ -189,7 +195,9 @@ def _writer(out_dir, name: str, N: int, order) -> TileWriter:
 def make_store_drain(N: int, conv_w, trend_w, pv_w):
     """Tile-store sink for :meth:`SignificanceChunkRunner.run` blocks:
     the block routing (conv stacks [drho; trend], pval is flat) and one
-    manifest commit per chunk (at its last tile)."""
+    manifest commit per chunk (at its last tile).  The single-process
+    driver and the fleet's workers share it, so their stores have one
+    layout."""
 
     def drain(tag, block):
         kind, row0, c0, valid = tag
@@ -352,56 +360,85 @@ def _finalize_store(
     progress: bool = False,
 ) -> SignificanceResult:
     """Assembly + exact discrete BH + edge list over store artifacts.
-    Idempotent; with ``p_counts=None`` the per-value histogram is
-    recovered by row-streaming the assembled p map (the resume path)."""
-    m = sig.n_surrogates
-    meta_common = {
-        "lib_sizes": list(sig.lib_sizes),
-        "n_surrogates": m,
-        "surrogate": sig.surrogate,
-        "seed": sig.seed,
-    }
-    drho_map = trend_map = pv_map = None
-    if conv_w is not None:
-        drho_map = conv_w.assemble(mmap_path=conv_w.dir / "data.npy")
-        trend_map = trend_w.assemble(mmap_path=trend_w.dir / "data.npy")
-        store.save_meta(
-            conv_w.dir, drho_map.shape, drho_map.dtype,
-            {**meta_common, "stat": "delta_rho", "trend": "../rho_trend"},
-        )
-        store.save_meta(
-            trend_w.dir, trend_map.shape, trend_map.dtype,
-            {**meta_common, "stat": "monotonic_trend"},
+    Idempotent, and runnable by a process that computed none of the
+    chunks (the fleet's ``finalize`` unit): with ``p_counts=None`` the
+    per-value histogram is recovered by row-streaming the assembled p
+    map (the resume path, and always the fleet's)."""
+    with telemetry.span("finalize", "store"):
+        m = sig.n_surrogates
+        meta_common = {
+            "lib_sizes": list(sig.lib_sizes),
+            "n_surrogates": m,
+            "surrogate": sig.surrogate,
+            "seed": sig.seed,
+        }
+        drho_map = trend_map = pv_map = None
+        if conv_w is not None:
+            drho_map = conv_w.assemble(mmap_path=conv_w.dir / "data.npy")
+            trend_map = trend_w.assemble(mmap_path=trend_w.dir / "data.npy")
+            store.save_meta(
+                conv_w.dir, drho_map.shape, drho_map.dtype,
+                {**meta_common, "stat": "delta_rho", "trend": "../rho_trend"},
+            )
+            store.save_meta(
+                trend_w.dir, trend_map.shape, trend_map.dtype,
+                {**meta_common, "stat": "monotonic_trend"},
+            )
+
+        p_threshold, edges, n_tests = 0.0, None, 0
+        if pv_w is not None:
+            pv_map = pv_w.assemble(mmap_path=pv_w.dir / "data.npy")
+            if p_counts is None:
+                n_tests, p_counts = _recount_pvals(pv_map, m)
+            else:
+                n_tests = int(p_counts.sum())
+            p_threshold, p_cut = _bh_cut(p_counts, m, sig.alpha)
+            edges = significance.assemble_edges(pv_map, rho, drho_map, trend_map, p_cut)
+            sig_meta = {**meta_common, "alpha": sig.alpha,
+                        "p_threshold": p_threshold, "n_tests": n_tests}
+            store.save_meta(pv_w.dir, pv_map.shape, pv_map.dtype, sig_meta)
+            edir = pv_w.dir.parent / "edges"
+            edir.mkdir(parents=True, exist_ok=True)
+            store.save_npy_checksummed(edir / "data.npy", edges, fault="edges")
+            store.save_meta(
+                edir, edges.shape, edges.dtype.str,
+                {**sig_meta, "n_edges": int(edges.shape[0]),
+                 "fields": list(edges.dtype.names)},
+            )
+            if progress:
+                print(f"BH-FDR alpha={sig.alpha}: p* = {p_threshold:.4g} over "
+                      f"{n_tests} tests -> {len(edges)} edges")
+
+        return SignificanceResult(
+            drho=drho_map, trend=trend_map, pvals=pv_map, edges=edges,
+            p_threshold=p_threshold, n_tests=n_tests,
         )
 
-    p_threshold, edges, n_tests = 0.0, None, 0
-    if pv_w is not None:
-        pv_map = pv_w.assemble(mmap_path=pv_w.dir / "data.npy")
-        if p_counts is None:
-            n_tests, p_counts = _recount_pvals(pv_map, m)
-        else:
-            n_tests = int(p_counts.sum())
-        p_threshold, p_cut = _bh_cut(p_counts, m, sig.alpha)
-        edges = significance.assemble_edges(pv_map, rho, drho_map, trend_map, p_cut)
-        sig_meta = {**meta_common, "alpha": sig.alpha,
-                    "p_threshold": p_threshold, "n_tests": n_tests}
-        store.save_meta(pv_w.dir, pv_map.shape, pv_map.dtype, sig_meta)
-        edir = pv_w.dir.parent / "edges"
-        edir.mkdir(parents=True, exist_ok=True)
-        store.save_npy_checksummed(edir / "data.npy", edges)
-        store.save_meta(
-            edir, edges.shape, edges.dtype.str,
-            {**sig_meta, "n_edges": int(edges.shape[0]),
-             "fields": list(edges.dtype.names)},
-        )
-        if progress:
-            print(f"BH-FDR alpha={sig.alpha}: p* = {p_threshold:.4g} over "
-                  f"{n_tests} tests -> {len(edges)} edges")
 
-    return SignificanceResult(
-        drho=drho_map, trend=trend_map, pvals=pv_map, edges=edges,
-        p_threshold=p_threshold, n_tests=n_tests,
-    )
+def finalize_significance(
+    out_dir: str,
+    rho: np.ndarray,
+    cfg: EDMConfig,
+    sig: SignificanceConfig,
+    progress: bool = False,
+) -> SignificanceResult:
+    """The fleet's ``finalize`` work unit: assemble the (multi-writer)
+    significance store, recount the p-value histogram and write the
+    BH-FDR edge list, by whichever worker claims the unit.  Idempotent
+    (a finalizer killed midway reruns it); raises if any artifact's
+    coverage is incomplete."""
+    N = rho.shape[0]
+    conv_w = TileWriter(f"{out_dir}/rho_conv", N) if sig.lib_sizes else None
+    trend_w = TileWriter(f"{out_dir}/rho_trend", N) if sig.lib_sizes else None
+    pv_w = TileWriter(f"{out_dir}/pvals", N) if sig.n_surrogates > 0 else None
+    for w in (conv_w, trend_w, pv_w):
+        if w is not None and not w.covered().all():
+            raise ValueError(
+                f"{w.dir} is incomplete ({int((~w.covered()).sum())} rows "
+                "uncovered): finalize ran before every sig unit was done"
+            )
+    return _finalize_store(cfg, sig, rho, conv_w=conv_w, trend_w=trend_w,
+                           pv_w=pv_w, p_counts=None, progress=progress)
 
 
 def _recount_pvals(pv_map: np.ndarray, m: int) -> tuple[int, np.ndarray]:

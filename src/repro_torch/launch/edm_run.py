@@ -9,6 +9,9 @@
       --surrogates 20 --fdr 0.05 --seed 0 --target-tile 512 --out /tmp/cm
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --dataset /path/to/store --out /tmp/causal_map --device cpu
+  # the masterless fleet: W worker processes share the card
+  PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 16384x1450 --e-max 20 --workers 2 --out /tmp/fleet
 
 Runs phase 1 (simplex) and phase 2 (CCM) — bucketed by optE, or with
 tables at every E under ``--no-bucketed``; untiled, or in column tiles
@@ -23,13 +26,22 @@ new --lib-block or --target-tile.  Runs on the CUDA card by default and
 exits with an error where there is none; ``--device cpu`` runs the plain
 PyTorch versions on the CPU.
 
-The flags of paths not ported yet (the fleet, engine selection,
+``--workers W`` runs the same stages across W worker processes that
+claim row-span units from a lease queue in the store
+(``launch/edm_fleet.py``), under a supervisor that relaunches a crashed
+worker under its id; every artifact is byte-identical to the
+single-process run for any W and ``--unit-rows``.
+
+The flags of paths not ported yet (engine selection, the driver's
 telemetry, autotuning, platform tiers) exit with an error that names
 them.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import pathlib
 import time
 
 import numpy as np
@@ -42,10 +54,6 @@ from repro_torch.inference import SignificanceConfig, run_significance
 
 #: flag -> what it belongs to; each exits with an error naming it
 NOT_PORTED = {
-    "--workers": "the elastic fleet",
-    "--unit-rows": "the elastic fleet",
-    "--unit-retries": "the elastic fleet",
-    "--max-worker-restarts": "the elastic fleet",
     "--engine": "engine selection",
     "--use-kernels": "engine selection",
     "--no-telemetry": "telemetry",
@@ -119,6 +127,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="cuda (default; exits with an error without a card) or cpu "
         "(the plain PyTorch versions)",
     )
+    ap.add_argument(
+        "--workers", type=int, default=0,
+        help="run a local fleet of this many masterless worker processes "
+        "over the output store (0 = in this process); any W gives the "
+        "same bytes",
+    )
+    ap.add_argument(
+        "--unit-rows", type=int, default=0,
+        help="fleet work-unit height in rows (claim granularity); 0 = one "
+        "chunk (--lib-block)",
+    )
+    ap.add_argument(
+        "--unit-retries", type=int, default=3,
+        help="failed compute attempts (fleet-wide) before a work unit is "
+        "poisoned and the fleet exits nonzero with its id",
+    )
+    ap.add_argument(
+        "--max-worker-restarts", type=int, default=2,
+        help="times the fleet supervisor relaunches a crashed worker under "
+        "the same id before leaving its units to the others",
+    )
     for flag, what in NOT_PORTED.items():
         ap.add_argument(flag, default=None, nargs="?", const=True,
                         help=f"not ported yet ({what})")
@@ -130,7 +159,8 @@ def main(argv=None) -> dict:
     {"result": CausalMap, "N", "L", "wall_s", "phase1_s", "phase2_s",
     "assemble_s", "cross_maps_per_s", "n_buckets", "device",
     "significance": SignificanceResult | None, "significance_s", "edges"}
-    (the last three None without significance flags)."""
+    (the last three None without significance flags); with ``--workers``
+    the fleet's summary (:func:`_run_fleet`)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag in NOT_PORTED:
@@ -158,6 +188,8 @@ def main(argv=None) -> dict:
             lib_sizes=lib_sizes, n_surrogates=args.surrogates,
             alpha=args.fdr, surrogate=args.surrogate_kind, seed=args.seed,
         )
+    if args.workers > 0:
+        return _run_fleet(args, ts, cfg, sig)
     timings: dict = {}
     t0 = time.perf_counter()
     result = run_causal_inference(ts, cfg, device=args.device,
@@ -208,6 +240,131 @@ def main(argv=None) -> dict:
         "significance": out, "significance_s": sig_s,
         "edges": None if out is None or out.edges is None else len(out.edges),
     }
+
+
+def _run_fleet(args, ts, cfg, sig) -> dict:
+    """``--workers W``: a local masterless fleet over ``--out``.
+
+    The supervisor prepares the store (dataset + fleet.json, the
+    engine's limits checked on the device, the kernels built once on the
+    card) and spawns, watches and relaunches workers; it schedules
+    nothing.  A worker that exits non-zero is relaunched under the same
+    id (it reclaims its own leases at once) up to --max-worker-restarts
+    times; a relaunched worker runs without EDM_FAULTS, so one armed
+    fault kills one process generation.  A poisoned unit ends the fleet
+    with its id.  Success is the queue's completion witnesses and every
+    requested artifact.  Returns {"fleet", "N", "L", "workers",
+    "wall_s", "cross_maps_per_s", "n_buckets", "device", "restarts",
+    "failed", "edges"}."""
+    from repro_torch.launch import edm_fleet
+
+    out = pathlib.Path(args.out)
+    dataset = args.dataset
+    if args.synthetic:
+        dataset = out / "dataset"
+        meta_f = dataset / "meta.json"
+        if meta_f.exists():
+            have = json.loads(meta_f.read_text()).get("synthetic")
+            if have != args.synthetic:
+                raise SystemExit(
+                    f"--out {out} holds a --synthetic {have} dataset but "
+                    f"this run asks for {args.synthetic}; use a fresh --out dir"
+                )
+        else:
+            store.save_dataset(dataset, ts, {"synthetic": args.synthetic})
+    edm_fleet.init_fleet(out, dataset, cfg, sig, unit_rows=args.unit_rows,
+                         seed=args.seed, device=args.device)
+    if args.device == "cuda":
+        from repro_torch import kernels
+
+        kernels.build_all()
+    t0 = time.perf_counter()
+
+    def spawn(wid, relaunch=False):
+        env = dict(os.environ)
+        if relaunch:
+            env.pop("EDM_FAULTS", None)
+        return edm_fleet.spawn_worker(out, wid, env=env,
+                                      unit_retries=args.unit_retries)
+
+    procs = {f"w{i}": spawn(f"w{i}") for i in range(args.workers)}
+    restarts = dict.fromkeys(procs, 0)
+    failed = {}
+    try:
+        while procs:
+            poison = sorted((out / "queue").glob("*.poison"))
+            if poison:
+                info = json.loads(poison[0].read_text())
+                raise SystemExit(
+                    f"fleet failed: work unit {info.get('uid')} failed "
+                    f"permanently after {info.get('attempts')} attempt(s): "
+                    f"{info.get('error')}"
+                )
+            for wid in list(procs):
+                rc = procs[wid].poll()
+                if rc is None:
+                    continue
+                del procs[wid]
+                if rc == 0:
+                    continue
+                if restarts[wid] < args.max_worker_restarts:
+                    restarts[wid] += 1
+                    print(f"worker {wid} exited {rc}; relaunching "
+                          f"({restarts[wid]}/{args.max_worker_restarts})",
+                          flush=True)
+                    procs[wid] = spawn(wid, relaunch=True)
+                else:
+                    failed[wid] = rc
+                    print(f"warning: worker {wid} exited {rc} with restarts "
+                          "exhausted (the other workers cover its units)",
+                          flush=True)
+            if procs:
+                time.sleep(0.25)
+    finally:
+        for p in procs.values():
+            p.terminate()
+        for p in procs.values():
+            p.wait()
+    # done markers land strictly after the store commit they certify; a
+    # bare data.npy may be a torn memmap of a fleet that died assembling
+    required = [out / "queue" / "assemble.done",
+                out / "causal_map" / "data.npy",
+                out / "causal_map" / "meta.json"]
+    if sig is not None:
+        required.append(out / "queue" / "finalize.done")
+        if sig.lib_sizes:
+            required += [out / "rho_conv" / "data.npy",
+                         out / "rho_trend" / "data.npy"]
+        if sig.n_surrogates:
+            required += [out / "pvals" / "data.npy", out / "edges" / "data.npy"]
+    missing = [str(p) for p in required if not p.exists()]
+    if missing:
+        raise SystemExit(
+            f"fleet failed: missing completion witness(es) {missing} "
+            f"(worker failures: {failed or 'none reported'})"
+        )
+    meta = json.loads((out / "causal_map" / "meta.json").read_text())
+    N = meta["shape"][0]
+    dt = time.perf_counter() - t0
+    summary = {
+        "fleet": True, "N": N, "L": int(ts.shape[1]), "workers": args.workers,
+        "wall_s": dt, "cross_maps_per_s": N * N / dt,
+        "n_buckets": meta["n_buckets"], "device": args.device,
+        "restarts": restarts, "failed": failed, "edges": None,
+    }
+    print(f"fleet[{args.workers}] causal map {N}x{N} in {dt:.1f}s "
+          f"({N * N / dt:.0f} cross-maps/s); engine {cfg.engine} on "
+          f"{args.device}; buckets {meta['n_buckets']}/{cfg.E_max}; tile "
+          f"{cfg.target_tile or 'none'}; restarts {json.dumps(restarts)}; "
+          f"failed {json.dumps(failed)}", flush=True)
+    emeta_f = out / "edges" / "meta.json"
+    if sig is not None and emeta_f.exists():
+        emeta = json.loads(emeta_f.read_text())
+        summary["edges"] = emeta["n_edges"]
+        print(f"significance: {emeta['n_edges']} edges at FDR {emeta['alpha']} "
+              f"(p* = {emeta['p_threshold']:.4g}, {emeta['n_tests']} tests)",
+              flush=True)
+    return summary
 
 
 if __name__ == "__main__":

@@ -18,10 +18,13 @@ memory would wait for the stream's queued work first).
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import telemetry
 
 
 def upload_source(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -55,13 +58,17 @@ class _HostCopy:
 
 
 class ChunkStreamer:
-    """Bounded queue of in-flight chunks with ordered drains."""
+    """Bounded queue of in-flight chunks with ordered drains; each drain
+    is a telemetry span (``stage``, "drain") whose ``gather_s`` is the
+    wait for the chunk's result."""
 
-    def __init__(self, drain: Callable[[Any, np.ndarray], None], depth: int = 2):
+    def __init__(self, drain: Callable[[Any, np.ndarray], None], depth: int = 2,
+                 stage: str = "stream"):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.drain = drain
         self.depth = depth
+        self.stage = stage  # telemetry label only
         self._pending: collections.deque[tuple[Any, _HostCopy]] = collections.deque()
 
     def submit(self, tag: Any, value: Any) -> None:
@@ -73,7 +80,12 @@ class ChunkStreamer:
 
     def _drain_one(self) -> None:
         tag, copy = self._pending.popleft()
-        self.drain(tag, copy.wait())
+        with telemetry.span(self.stage, "drain", in_flight=len(self._pending),
+                            depth=self.depth) as t:
+            t0 = time.perf_counter()
+            host = copy.wait()  # the chunk's compute and copy-out
+            t["gather_s"] = time.perf_counter() - t0
+            self.drain(tag, host)
 
     def flush(self) -> None:
         """Drain everything still in flight."""

@@ -546,3 +546,40 @@ def test_lm_kernel_route_equals_plain_route_on_the_card():
     assert sum(flash_attn.ROUTE_LAUNCHES.values()) - before == cfg.n_layers
     want, _ = T.forward(model, {"tokens": toks}, dataclasses.replace(cfg, attn_impl="xla"))
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------------------------ fleet
+@pytest.mark.parametrize("unit_rows", [5, 8])
+def test_fleet_of_three_workers_equals_one_process_on_the_card(tmp_path, unit_rows):
+    """Three worker processes sharing the card, units of 5 or 8 rows
+    (chunks of 5, 3, 2, ... library rows at lib_block 8), give the
+    single-process store byte for byte: map, drho, trend, p-values,
+    edges.  Lp 491 and a last target block of 6 put the Pearson buffers'
+    rows at every alignment and below 16 rows."""
+    dev = _card()
+    from repro_torch import kernels
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data import store
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig, run_significance
+    from repro_torch.launch import edm_fleet
+
+    ts = dummy_brain(70, 501, seed=3)
+    cfg = EDMConfig(E_max=10, target_block=64)
+    sig = SignificanceConfig(lib_sizes=(50, 200, 491), n_surrogates=9, seed=0)
+    base = tmp_path / "base"
+    res = run_causal_inference(ts, cfg, device=dev, out_dir=str(base))
+    run_significance(ts, res.optE, np.asarray(res.rho), cfg, sig, device=dev,
+                     out_dir=str(base))
+    kernels.build_all()
+    store.save_dataset(tmp_path / "dataset", ts)
+    out = tmp_path / "fleet"
+    edm_fleet.init_fleet(out, tmp_path / "dataset", cfg, sig, unit_rows=unit_rows)
+    procs = [edm_fleet.spawn_worker(out, f"w{i}") for i in range(3)]
+    for p in procs:
+        assert p.wait(timeout=600) == 0
+    for a in ("causal_map", "rho_conv", "rho_trend", "pvals", "edges"):
+        assert ((out / a / "data.npy").read_bytes()
+                == (base / a / "data.npy").read_bytes()), a
+    assert edm_fleet.fleet_status(out)["complete"]

@@ -97,14 +97,28 @@ def test_edm_run_cli_defaults_to_the_card(tmp_path):
     assert not (tmp_path / "o" / "causal_map").exists()
 
 
+def test_edm_run_fleet_defaults_to_the_card(tmp_path):
+    """``--workers`` without ``--device``: the supervisor refuses before it
+    spawns a worker (the engine's limits are checked on the card)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import edm_run
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        edm_run.main(["--synthetic", "4x120", "--e-max", "3", "--workers", "2",
+                      "--out", str(tmp_path / "o")])
+    assert not (tmp_path / "o" / "fleet.json").exists()
+    assert not (tmp_path / "o" / "queue").exists()
+
+
 @pytest.mark.parametrize("flag", [
-    "--workers 2", "--unit-rows 4", "--unit-retries 2", "--max-worker-restarts 1",
     "--engine cuda", "--use-kernels", "--no-telemetry", "--autotune",
     "--tune-from t.json", "--platform gpu"])
 def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
     """Each flag of a path not ported yet exits naming itself and the
     path it belongs to (``--target-tile`` and ``--no-bucketed`` are
-    ported: tests/test_torch_tiling.py)."""
+    ported: tests/test_torch_tiling.py; the fleet's flags:
+    tests/test_torch_fleet.py)."""
     from repro_torch.launch import edm_run
 
     with pytest.raises(SystemExit) as e:

@@ -116,20 +116,24 @@ def test_target_blocks_follow_the_global_grid():
     assert tccm.target_blocks(segs, 4) == tccm.target_blocks(segs, 4, 0, 8)
 
 
-@pytest.mark.parametrize("col0,n,block,width,want", [
-    (0, 2048, 2048, 16384, (0, 2048)),   # a full untiled block
-    (512, 512, 2048, 2048, (0, 512)),    # 512 at offset 512: alignment 0 mod 4
-    (513, 100, 2048, 4096, (1, 104)),    # offset 1 mod 4; 104 = 2048 mod 4
-    (3, 5, 2048, 14, (3, 14)),           # an extent of 14 <= 16: the whole extent
-    (17, 2, 24, 40, (1, 16)),            # at least 16 rows
+@pytest.mark.parametrize("col0,n,block,want", [
+    (0, 2048, 2048, (0, 2048)),    # a full untiled block
+    (512, 512, 2048, (0, 512)),    # 512 at offset 512: alignment 0 mod 4
+    (513, 100, 2048, (1, 104)),    # offset 1 mod 4, rows a multiple of 4
+    (3, 5, 2048, (3, 16)),         # a short block: at least 16 rows
+    (17, 2, 24, (1, 16)),          # offset 17 in its cell of 24
+    (0, 10, 2048, (0, 16)),        # an untiled block of 10 is padded too
+    (0, 2050, 4096, (0, 2052)),    # ... and one of 2050 to a multiple of 4
 ])
-def test_pearson_layout(col0, n, block, width, want):
-    pad, rows = tccm.pearson_layout(col0, n, block, width)
-    g0 = col0 - col0 % block
-    extent = min(block, width - g0)
-    assert pad + n <= rows <= extent
-    assert (pad - (col0 - g0)) % 4 == 0 and (rows - extent) % 4 == 0
-    assert rows >= min(16, extent)
+def test_pearson_layout(col0, n, block, want):
+    """Every row of the buffer sits at its target's alignment in its grid
+    cell (pad = offset mod 4, rows a multiple of 4, so the (S, rows, Lq)
+    buffer keeps it for every library row s) and the buffer has at least
+    16 rows, whatever the chunk size S."""
+    pad, rows = tccm.pearson_layout(col0, n, block)
+    assert pad + n <= rows
+    assert (pad - col0 % block) % 4 == 0 and rows % 4 == 0
+    assert rows >= 16
     assert (pad, rows) == want
 
 
