@@ -25,6 +25,20 @@ kNN kernels) with CUDA events beside its bound, its plain version and
 (where one exists) one PyTorch library call computing the same
 function.
 
+Before the fleet, the kNN selection bench's path: the slab kernel
+(``kernels/knn_slab``, the port of the bench's dense-slab Pallas kernel)
+against its plain version bit for bit (ragged Lq and Lc, both
+``exclude_self`` settings, tied and constant series, k above the valid
+candidates with its 3.0e38 entries, k 64) and against ``knn_topk``
+where k fits; phase ``bench_knn``, the port's ``knn`` bench
+(``repro_torch.bench.run``) at Lq 128, E_max 20, k 21 and Lc up to
+64,000 on both engines, every launch count set to 0 just before it, with
+each kernel's CUDA-event time beside the slab's plain version and bound;
+and phase ``dryrun``, ``repro_torch.launch.edm_dryrun`` for Fish1_Normo
+and Subject11 at their own N and L (one chunk each: peak device memory,
+seconds, roofline terms, the whole run extrapolated; JSONs in
+``build/dryrun/``).
+
 Last, the fleet (``edm_run --workers``, ``launch/edm_fleet.py``): W
 worker processes share the card, each with its own CUDA context (the
 card's compute mode is printed; what this process holds on the card is
@@ -58,6 +72,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import pathlib
@@ -67,14 +82,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores and HBM3 bandwidth.  The card's power limit is printed
-# beside every number, since a card set below 700 W runs slower.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# bf16 dense tensor-core peak: the least time of an attention forward.
-PEAK_BF16_FLOPS = 989e12
 
 # Fish1_Normo (the paper's smallest recording): L = 1450, E_max = 20.
 FISH1_L, E_MAX = 1450, 20
@@ -128,14 +135,6 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0].strip()
-
-
 def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
     for _ in range(warmup):
@@ -149,50 +148,6 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
-
-
-def knn_bound_ms(S, E_hi, n_sel, Lq, Lc, k):
-    """Least time on the card: 3 fp32 operations per (query, candidate,
-    lag) against the fp32 peak, or the input + output bytes against the
-    memory rate, whichever is larger."""
-    ops = 3.0 * S * Lq * Lc * E_hi
-    nbytes = 4.0 * S * E_hi * (Lq + Lc) + 8.0 * S * n_sel * Lq * k
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def lookup_bound_ms(S, B, Lq, Lp, k):
-    """2 operations per (table, target, point, neighbour); bytes = idx + w
-    read once, Y read once, the predictions written once."""
-    ops = 2.0 * S * B * Lq * k
-    nbytes = 8.0 * S * Lq * k + 4.0 * B * Lp + 4.0 * S * B * Lq
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def segmented_bound_ms(S, blocks, Lq, Lp, k):
-    """Least time of a run of segmented launches: per launch the idx and w
-    rows of the distinct table rows it reads, its targets and its output,
-    against the memory rate; 2 operations per (table, target, point,
-    neighbour) against the fp32 peak."""
-    ops = nbytes = 0.0
-    for _, _, segs in blocks:
-        B = sum(c for _, c in segs)
-        ops += 2.0 * S * B * Lq * k
-        nbytes += (8.0 * S * Lq * k * len({r for r, _ in segs}) + 4.0 * B * Lp
-                   + 4.0 * S * B * Lq)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def prefix_bound_ms(B, E_hi, n_sel, Lq, P, S, k):
-    """3 fp32 operations per (query, swept position, lag); bytes = the
-    swept columns and the queries read once, col_ids once, the S table
-    snapshots written once."""
-    ops = 3.0 * B * Lq * P * E_hi
-    nbytes = 4.0 * B * E_hi * (Lq + P) + 4.0 * P + 8.0 * B * S * n_sel * Lq * k
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def same_bits(torch, a, b) -> bool:
@@ -262,6 +217,149 @@ def check_knn_prefix(torch, name, Vq, Vc, k, exclude_self, buckets, lib_sizes,
         raise AssertionError(f"knn_topk_prefix kernel != plain version ({name}); "
                              f"first differing idx positions {bad}")
     return err
+
+
+def check_slab(torch, name, Vq, Vc, k, exclude_self, against_topk=False,
+               expect_big=None):
+    """Slab kernel vs its plain version on the card: idx equal, dist bit-equal,
+    the 3.0e38 entries of a k above the valid candidates and their padding
+    and self ids included; with ``against_topk`` also against the knn_topk
+    kernel at every E (k <= the valid candidates there).  ``expect_big``:
+    the number of 3.0e38 entries the case must return."""
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ref import BIG, knn_slab_ref
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    ki, kd = knn_slab(Vq, Vc, k, exclude_self)
+    torch.cuda.synchronize()
+    ri, rd = knn_slab_ref(Vq, Vc, k, exclude_self)
+    idx_eq = bool(torch.equal(ki, ri))
+    bits_eq = same_bits(torch, kd, rd)
+    err = finite_max_abs(torch, kd, rd)
+    n_big = int((kd == BIG).sum())
+    topk_eq = None
+    if against_topk:
+        ti, td = knn_topk(Vq[None], Vc[None], k, exclude_self,
+                          tuple(range(1, Vq.shape[0] + 1)))
+        topk_eq = bool(torch.equal(ki, ti[0])) and same_bits(torch, kd, td[0])
+    emit("check_slab", case=name, E_max=Vq.shape[0], Lq=Vq.shape[1],
+         Lc=Vc.shape[1], k=k, exclude_self=exclude_self, idx_equal=idx_eq,
+         dist_bits_equal=bits_eq, max_abs_err=err, big_entries=n_big,
+         padding_ids=int((ki >= Vc.shape[1]).sum()), equal_to_knn_topk=topk_eq)
+    if not (idx_eq and bits_eq and topk_eq in (None, True)
+            and expect_big in (None, n_big)):
+        raise AssertionError(f"knn_slab kernel != plain version or knn_topk "
+                             f"({name})")
+    return err
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+
+    knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    knn_slab.LAUNCHES = 0
+    flash_attn.ROUTE_LAUNCHES = dict.fromkeys(flash_attn.ROUTE_LAUNCHES, 0)
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.launch.edm_fleet import launch_counts
+
+    return {**launch_counts(), "knn_slab": knn_slab.LAUNCHES}
+
+
+def bench_knn(torch, dev, smi):
+    """The port's kNN selection bench (``python -m repro_torch.bench.run
+    knn``) at its card sizes, every launch count set to 0 just before it
+    and read just after: both engines' streaming and slab tables at each
+    Lc, paired repetitions, the slab == stream spot checks, the working
+    sets.  Then at each Lc the slab kernel against its plain version
+    (bit-equal) and, with CUDA events, both kernels' times beside the
+    slab's plain version and bound."""
+    from repro_torch.bench import run as brun
+    from repro_torch.core import embedding
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ref import knn_slab_ref
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.launch.roofline import bound_ms, knn_counts, slab_counts
+
+    sizes = brun.SIZES["knn"]["card"]
+    reset_launches()
+    t0 = time.perf_counter()
+    log = io.StringIO()  # the bench's CSV rows
+    with contextlib.redirect_stdout(log):
+        res = brun.knn_selection_bench(brun.Bench(dev, ROOT / "build" / "bench"),
+                                       **sizes)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if not (launches["knn_slab"] > 0 and launches["knn_topk"] > 0):
+        raise AssertionError(f"the knn bench missed a kernel: {launches}")
+    if not (res["spot_check_cuda"] and res["spot_check_torch_reference"]):
+        raise AssertionError("knn bench: slab == stream spot check missing")
+    E, Lq, k = sizes["E_max"], sizes["Lq"], sizes["k"]
+    pair = torch.as_tensor(dummy_brain(2, max(sizes["Lc_sweep"]) + E + 1,
+                                       seed=3)).to(dev)
+    Vq = embedding.lag_matrix(pair[0], E, 1, Lq).contiguous()
+    all_E = tuple(range(1, E + 1))
+    kernel_times = {}
+    err = 0.0
+    for Lc in sizes["Lc_sweep"]:
+        Vc = embedding.lag_matrix(pair[1], E, 1, Lc).contiguous()
+        err = max(err, check_slab(torch, f"bench_Lc{Lc}", Vq, Vc, k, False))
+        ms = time_ms(torch, lambda: knn_slab(Vq, Vc, k, False), 10)
+        plain = time_ms(torch, lambda: knn_slab_ref(Vq, Vc, k, False), 3)
+        stream = time_ms(torch, lambda: knn_topk(Vq[None], Vc[None], k, False,
+                                                 all_E), 10)
+        bound, by = bound_ms(*slab_counts(E, Lq, Lc, k))
+        kernel_times[str(Lc)] = dict(
+            kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            share_of_bound=bound / ms, knn_topk_ms=stream,
+            knn_topk_bound_ms=bound_ms(*knn_counts(1, E, E, Lq, Lc, k))[0])
+    out = dict(wall_s=wall, launches=launches, E_max=E, Lq=Lq, k=k,
+               engines=res["engines"], phase1=res["phase1"],
+               kernel_times=kernel_times, max_abs_err=err)
+    emit("bench_knn", smi=smi, **out)
+    return out
+
+
+def dryrun_phase(torch, dev, smi):
+    """``python -m repro_torch.launch.edm_dryrun`` for Fish1_Normo and
+    Subject11 at their own N and L, one timed chunk each, the launch
+    counts set to 0 just before each and read just after; the JSONs go to
+    build/dryrun/ (the ``roofline`` bench reads them there)."""
+    from repro_torch.configs.edm_datasets import DATASETS
+    from repro_torch.launch import edm_dryrun
+
+    out = {}
+    d = ROOT / "build" / "dryrun"
+    d.mkdir(parents=True, exist_ok=True)
+    for name in ("fish1_normo", "subject11"):
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = edm_dryrun.dryrun(DATASETS[name], dev, chunks=1, seed=0)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        (d / f"{name}.json").write_text(json.dumps(rep, indent=1))
+        keep = {k: rep[k] for k in (
+            "N", "L", "chunk_rows", "n_chunks", "n_buckets",
+            "lookup_launches_per_chunk", "setup_s", "chunk_s", "memory",
+            "roofline", "roofline_whole_run", "whole_run_extrapolated_s",
+            "chunk_share_of_bound", "rho_finite")}
+        emit("dryrun", dataset=name, smi=smi, wall_s=wall, launches=launches,
+             **keep)
+        if not (rep["rho_finite"] and launches["knn_topk"] > 0
+                and launches["ccm_lookup"] > 0):
+            raise AssertionError(f"dry run of {name}: rho finite "
+                                 f"{rep['rho_finite']}, launches {launches}")
+        out[name] = dict(rep, launches=launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def same_npy_bits(a_path, b_path, rows=1024) -> bool:
@@ -711,16 +809,6 @@ def check_flash(torch, dev):
     return worst
 
 
-def flash_bound_ms(B, S, H, K, dh, nbytes_el):
-    """4 operations per (query, key, head dim) under the causal triangle
-    against the bf16 tensor-core peak; bytes = q, k, v read once and o
-    written once."""
-    ops = 4.0 * B * H * dh * S * (S + 1) / 2
-    nbytes = nbytes_el * B * S * dh * (2 * H + 2 * K)
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def time_flash(torch, dev, smi):
     """CUDA-event means at the serve shape: kernel (the tensor-core
     route), plain version, and one library call (SDPA in (B, H, S, dh),
@@ -729,6 +817,7 @@ def time_flash(torch, dev, smi):
 
     from repro_torch.kernels.flash_attn.ops import flash_attn, flash_route
     from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS, bound_ms, flash_counts
 
     cfg = lm_config()
     B, S, H, K, dh = SERVE_B, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -745,7 +834,7 @@ def time_flash(torch, dev, smi):
     lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     err = float((flash_attn(q, k, v, True).float() - want).abs().max())
     lib = time_ms(torch, sdpa, 20)
-    bound, by = flash_bound_ms(B, S, H, K, dh, 2)
+    bound, by = bound_ms(*flash_counts(B, S, H, K, dh, 2), PEAK_BF16_FLOPS)
     out = dict(kernel_ms=ms, plain_ms=plain,
                library_ms=lib, max_abs_err=err, library_max_abs_err=lib_err,
                bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
@@ -1307,7 +1396,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     # ---- the card --------------------------------------------------------
-    smi = nvidia_smi()
+    from repro_torch.runtime.device import card_line
+
+    smi = card_line(dev)
     print(smi, flush=True)
     emit("card", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -1337,6 +1428,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
     from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
     from repro_torch.launch import edm_run
+    from repro_torch.launch.roofline import (
+        bound_ms,
+        knn_counts,
+        lookup_counts,
+        prefix_counts,
+        segmented_counts,
+    )
 
     # ---- kernels against their plain versions, main-path shapes ---------
     Lp = FISH1_L - (E_MAX - 1) - 1  # 1430
@@ -1497,6 +1595,36 @@ def main(argv=None) -> int:
         check_knn_prefix(torch, "tied_natural_bf16", Vtie, Vtie, E_MAX + 1, True,
                          all_E, (22, 100, 400), None, "bfloat16"),
     )
+
+    # ---- the slab kernel of the kNN bench against its plain version ------
+    # ragged Lq (130) and Lc (777), both exclude_self settings (self =
+    # column q), the tied and constant series above, k above the valid
+    # candidates (3.0e38 entries, self and padding ids), k 64 > 32; and
+    # the knn_topk kernel's tables wherever k fits the valid candidates
+    v = [V8[i] for i in range(LIB_BLOCK)]  # (20, 1430) each
+    slab_err = max(
+        check_slab(torch, "Lq128_Lc1000", v[0][:, :128].contiguous(),
+                   v[1][:, :1000].contiguous(), E_MAX + 1, False, True),
+        check_slab(torch, "Lq130_Lc1430_self", v[2][:, :130].contiguous(), v[2],
+                   E_MAX + 1, True),
+        check_slab(torch, "Lq1430_Lc1430_self", v[3], v[3], E_MAX + 1, True, True),
+        check_slab(torch, "Lq128_Lc777_self", v[4][:, :128].contiguous(),
+                   v[4][:, :777].contiguous(), E_MAX + 1, True),
+        check_slab(torch, "Lq130_Lc777", v[5][:, :130].contiguous(),
+                   v[5][:, :777].contiguous(), E_MAX + 1, False, True),
+        check_slab(torch, "tied_rows", Vt[1], Vt[1], E_MAX + 1, True, True),
+        check_slab(torch, "repeated_points", Vt[2], Vt[2], E_MAX + 1, True, True),
+        check_slab(torch, "constant_series", Vconst[0], Vconst[0], E_MAX + 1,
+                   True, True),
+        check_slab(torch, "constant_series_k32", Vconst[0][:, :100].contiguous(),
+                   Vconst[1], 32, False, True),
+        check_slab(torch, "k_above_valid", v[6][:2, :10].contiguous(),
+                   v[6][:2, :10].contiguous(), 12, True, expect_big=2 * 10 * 3),
+        check_slab(torch, "k64", v[7][:, :128].contiguous(),
+                   v[7][:, :1000].contiguous(), 64, False),
+        check_slab(torch, "k64_self", v[7], v[7], 64, True),
+    )
+    del v
 
     # ---- the main path; the launch counts start at 0 here ---------------
     out_dir = ROOT / "build" / "smoke_out"
@@ -1663,8 +1791,8 @@ def main(argv=None) -> int:
                                                   dist_dtype="bfloat16"), it)
         plain_bf16 = time_ms(torch, lambda: knn_topk_ref(
             Vq, Vc, k, excl, sel, dist_dtype="bfloat16"), it_plain)
-        bound, by = knn_bound_ms(Vq.shape[0], sel[-1], len(sel), Vq.shape[-1],
-                                 Vc.shape[-1], k)
+        bound, by = bound_ms(*knn_counts(Vq.shape[0], sel[-1], len(sel),
+                                         Vq.shape[-1], Vc.shape[-1], k))
         times[case] = dict(kernel_ms=ms, plain_ms=plain, kernel_ms_bf16=ms_bf16,
                            plain_ms_bf16=plain_bf16,
                            bound_us=bound * 1e3, bound_by=by, S=Vq.shape[0],
@@ -1675,7 +1803,7 @@ def main(argv=None) -> int:
     ms = time_ms(torch, lambda: knn_topk(V11, V11, E_MAX + 1, True, all_E), 3)
     plain = time_ms(torch, lambda: knn_topk_ref(V11, V11, E_MAX + 1, True,
                                                 all_E, tile_c=2048), 1, warmup=0)
-    bound, by = knn_bound_ms(1, E_MAX, E_MAX, Lp11, Lp11, E_MAX + 1)
+    bound, by = bound_ms(*knn_counts(1, E_MAX, E_MAX, Lp11, Lp11, E_MAX + 1))
     times["subject11_one_series"] = dict(kernel_ms=ms, plain_ms=plain,
                                          bound_us=bound * 1e3, bound_by=by, S=1,
                                          Lq=Lp11, Lc=Lp11, k=E_MAX + 1,
@@ -1700,8 +1828,9 @@ def main(argv=None) -> int:
     plain_bf16 = time_ms(torch, lambda: knn_topk_prefix_ref(
         V8, V8, kp, True, sig_buckets, SIG_LIB_SIZES, col_ids=col_ids,
         dist_dtype="bfloat16"), 2)
-    bound, by = prefix_bound_ms(V8.shape[0], sig_buckets[-1], len(sig_buckets), Lp,
-                                SIG_LIB_SIZES[-1], len(SIG_LIB_SIZES), kp)
+    bound, by = bound_ms(*prefix_counts(V8.shape[0], sig_buckets[-1],
+                                        len(sig_buckets), Lp, SIG_LIB_SIZES[-1],
+                                        len(SIG_LIB_SIZES), kp))
     ptimes = dict(kernel_ms=ms, plain_ms=plain, kernel_ms_bf16=ms_bf16,
                   plain_ms_bf16=plain_bf16, bound_us=bound * 1e3, bound_by=by,
                   B=V8.shape[0], Lq=Lp, P=SIG_LIB_SIZES[-1],
@@ -1739,7 +1868,8 @@ def main(argv=None) -> int:
         del lib_out, want, lib_pred
         lib = time_ms(torch, lambda: F.embedding_bag(il, YT, per_sample_weights=wl,
                                                      mode="sum"), 50)
-        bound, by = lookup_bound_ms(S, Yc.shape[0], Lq, Yc.shape[1], idx.shape[-1])
+        bound, by = bound_ms(*lookup_counts(S, Yc.shape[0], Lq, Yc.shape[1],
+                                            idx.shape[-1]))
         ltimes[case] = dict(kernel_ms=ms, plain_ms=plain, library_ms=lib,
                             library_max_abs_diff=lib_err, bound_us=bound * 1e3,
                             bound_by=by, S=S, B=Yc.shape[0], Lq=Lq, Lp=Yc.shape[1],
@@ -1775,7 +1905,7 @@ def main(argv=None) -> int:
     del got, want
     ms = time_ms(torch, lambda: chunk_lookups(ccm_lookup), 10)
     plain = time_ms(torch, lambda: chunk_lookups(ccm_lookup_ref), 1)
-    bound, by = segmented_bound_ms(LIB_BLOCK, blocks, Lp, Lp, kb)
+    bound, by = bound_ms(*segmented_counts(LIB_BLOCK, blocks, Lp, Lp, kb))
     ltimes["segmented_chunk"] = dict(
         kernel_ms=ms, launches=len(blocks), kernel_ms_per_launch=ms / len(blocks),
         plain_ms=plain, library_ms=None, bound_us=bound * 1e3, bound_by=by,
@@ -1833,10 +1963,13 @@ def main(argv=None) -> int:
     if not (drho_err <= 1e-5 and trend_bad == 0 and p_bad == 0):
         raise AssertionError("cuda engine != torch-reference (significance)")
 
+    # ---- the port's kNN bench (the slab kernel's path) and the dry runs
+    # of Fish1_Normo and Subject11 at their own N and L
+    bknn = bench_knn(torch, dev, smi)
+    dry = dryrun_phase(torch, dev, smi)
+
     # ---- the fleet: W worker processes on the card, each with its own
     # context; what this process still holds on the card is released first
-    import gc
-
     del V8, V11, idx8, w8, Y, idxb, wb, Ym, idxm, wm, Vt, Vq1, Vc1, Vtie, Vconst
     del Vc_const, ts8, got, want, cmap
     gc.collect()
@@ -1849,6 +1982,8 @@ def main(argv=None) -> int:
     # ---- the kernels line --------------------------------------------------
     k2, k1 = times["phase2"], times["phase1"]
     l8 = ltimes["chunk_tables"]
+    slab64 = bknn["kernel_times"][str(max(int(lc) for lc in bknn["kernel_times"]))]
+    dry_launches = {name: r["launches"] for name, r in dry.items()}
     line = {"kernels": [
         {"name": "knn_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
@@ -1870,6 +2005,8 @@ def main(argv=None) -> int:
                             for k, v in all_e["runs"].items()},
          "launches_bf16_map": bf16_map["launches"]["knn_topk"],
          "launches_fleet": {k: v["knn_topk"] for k, v in fleet.items()},
+         "launches_dryrun": {k: v["knn_topk"] for k, v in dry_launches.items()},
+         "launches_bench_knn": bknn["launches"]["knn_topk"],
          "checked": True, "checked_bf16": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
@@ -1890,6 +2027,7 @@ def main(argv=None) -> int:
          "launches_all_e": {k: v["launches"]["ccm_lookup"]
                             for k, v in all_e["runs"].items()},
          "launches_fleet": {k: v["ccm_lookup"] for k, v in fleet.items()},
+         "launches_dryrun": {k: v["ccm_lookup"] for k, v in dry_launches.items()},
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
@@ -1915,10 +2053,20 @@ def main(argv=None) -> int:
          "library_ms": ftimes["library_ms"],
          "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
          "checked": True},
+        {"name": "knn_slab", "route": "cuda",
+         "source": "src/repro_torch/kernels/knn_slab/csrc/knn_slab.cu",
+         "replaces": "benchmarks/run.py:476",
+         "launches": bknn["launches"]["knn_slab"],
+         "max_abs_err": max(slab_err, bknn["max_abs_err"]),
+         "ms": slab64["kernel_ms"], "plain_ms": slab64["plain_ms"],
+         "bound_ms": slab64["bound_ms"], "bound_by": slab64["bound_by"],
+         "library_ms": None,
+         "ms_by_Lc": {lc: t["kernel_ms"] for lc, t in bknn["kernel_times"].items()},
+         "checked": True},
     ]}
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(line), flush=True)
-    print(nvidia_smi(), flush=True)
+    print(card_line(dev), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

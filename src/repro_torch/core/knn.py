@@ -28,6 +28,10 @@ The prefix-snapshot tables of the convergence diagnostic
 permutation and snapshot the running lists at each library size; there
 equal distances go to the earliest sweep position, as in the JAX
 prefix builders.
+
+:func:`knn_table_single_E` rebuilds one E's table from scratch, the
+naive baseline's (``core/baseline.py``); :func:`streaming_bytes` is the
+JAX package's working-set formula, which the kNN bench reports.
 """
 from __future__ import annotations
 
@@ -80,6 +84,31 @@ def resolve_stream_tile(rows: int, Lc: int, cfg) -> int:
             "path) is deprecated: use 0 (calibrated) or a positive width"
         )
     return calibrate_knn_tile(rows, Lc)
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def streaming_bytes(
+    Lq: int, k: int, tile_c: int, n_sel: int, dist_dtype=torch.float32
+) -> int:
+    """Peak distance-working-set bytes of the JAX package's streaming
+    selection (its formula, kept so the kNN bench reports the same
+    column): one (Lq, tile_c) tile (accumulator + int32 ids), the tile's
+    (Lq, k) partial top-k, the doubled (Lq, 2 K) merge-network buffers
+    (K = next power of two >= k; distance, id, rank) and the (n_sel, Lq,
+    k) running tables.  Independent of Lc."""
+    it = torch.empty((), dtype=_dtype(dist_dtype)).element_size()
+    K = _next_pow2(k)
+    tile = Lq * tile_c * (it + 4)
+    tile_topk = Lq * k * (4 + 4)
+    merge = Lq * 2 * K * (4 + 4 + 4)
+    carry = n_sel * Lq * k * (4 + 4)
+    return tile + tile_topk + merge + carry
 
 
 def _acc_sq(D, vq, vc, dist_dtype):
@@ -367,6 +396,58 @@ def knn_tables_dense(
         torch.stack([o[0] for o in outs], dim=1),
         torch.stack([o[1] for o in outs], dim=1),
     )
+
+
+def _matmul_sq_dists(dq: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
+    """|q - c|^2 = |q|^2 + |c|^2 - 2 q.c, the matrix-product form; dq
+    (..., E, Lq), dc (..., E, Lc) -> (..., Lq, Lc).  The product runs in
+    full float32: TF32 is switched off around it on the card."""
+    sq = (dq * dq).sum(dim=-2)[..., :, None] + (dc * dc).sum(dim=-2)[..., None, :]
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prod = dq.transpose(-1, -2) @ dc
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    return torch.clamp_min(sq - 2.0 * prod, 0.0)
+
+
+def knn_table_single_E(
+    Vq: torch.Tensor,
+    Vc: torch.Tensor,
+    E: int,
+    k: int,
+    exclude_self: bool,
+    *,
+    matmul_form: bool = False,
+    candidate_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-E kNN table computed from scratch (cppEDM / Alg. 3): the
+    naive baseline's table and an oracle.  Vq (..., E_rows, Lq), Vc (...,
+    E_rows, Lc) -> (idx int32, dist float32), each (..., Lq, k).
+
+    ``matmul_form=False`` accumulates the lag terms one by one with
+    :func:`_acc_sq`, bit-identical to the cumulative tables;
+    ``matmul_form=True`` uses |q|^2 + |c|^2 - 2 q.c (:func:`_matmul_sq_dists`),
+    equal to it only up to rounding.  ``candidate_mask`` (Lc,) bool keeps
+    the columns where it is True (library subsampling); excluded columns
+    and, with ``exclude_self``, the diagonal get +inf.  Ties go to the
+    lowest column (a stable sort: the ``lax.top_k`` rule)."""
+    dq, dc = Vq[..., :E, :], Vc[..., :E, :]
+    Lq, Lc = Vq.shape[-1], Vc.shape[-1]
+    if matmul_form:
+        D = _matmul_sq_dists(dq, dc)
+    else:
+        D = torch.zeros(Vq.shape[:-2] + (Lq, Lc), dtype=torch.float32,
+                        device=Vq.device)
+        for e in range(E):
+            D = _acc_sq(D, dq[..., e, :], dc[..., e, :], torch.float32)
+    if exclude_self:
+        D = D.masked_fill(torch.eye(Lq, Lc, dtype=torch.bool, device=D.device), INF)
+    if candidate_mask is not None:
+        D = D.masked_fill(~candidate_mask.to(D.device)[None, :], INF)
+    d_sorted, pos = torch.sort(D, dim=-1, stable=True)
+    return pos[..., :k].to(torch.int32), d_sorted[..., :k]
 
 
 def tables_with_weights(indices, sq_dists):

@@ -583,3 +583,66 @@ def test_fleet_of_three_workers_equals_one_process_on_the_card(tmp_path, unit_ro
         assert ((out / a / "data.npy").read_bytes()
                 == (base / a / "data.npy").read_bytes()), a
     assert edm_fleet.fleet_status(out)["complete"]
+
+
+# ------------------------------------------------------- the slab kernel
+@pytest.mark.parametrize("E,Lq,Lc,k,exclude_self,kind", [
+    (20, 128, 1000, 21, False, "normal"),
+    (20, 130, 1430, 21, True, "normal"),     # ragged Lq, square set
+    (20, 128, 777, 21, True, "normal"),      # ragged Lc; self = column q
+    (20, 300, 300, 21, True, "ties"),        # duplicated points
+    (20, 100, 300, 32, False, "constant"),   # every distance ties at 0
+    (2, 10, 10, 12, True, "normal"),         # k above the valid candidates
+    (20, 128, 1000, 64, True, "normal"),     # k above the stream kernel's 32
+    (3, 40, 40, 128, False, "normal"),       # k == Lc_pad: every padding id
+])
+def test_knn_slab_kernel_equals_plain_version(E, Lq, Lc, k, exclude_self, kind):
+    dev = _card()
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ref import knn_slab_ref
+
+    x = _lags(1, E, max(Lq, Lc) + Lc, 3)[0]
+    if kind == "ties":
+        x[:, 150:200] = x[:, :50]
+    elif kind == "constant":
+        x[:] = 0.25
+    if exclude_self and Lq == Lc:
+        Vq = Vc = torch.tensor(x[:, :Lq], device=dev)
+    else:
+        Vq = torch.tensor(x[:, :Lq].copy(), device=dev)
+        Vc = torch.tensor(x[:, Lq:Lq + Lc].copy(), device=dev)
+    ki, kd = knn_slab(Vq, Vc, k, exclude_self)
+    ri, rd = knn_slab_ref(Vq, Vc, k, exclude_self)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+def test_knn_slab_kernel_equals_knn_topk_where_k_fits():
+    dev = _card()
+    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    V = torch.tensor(_lags(1, 20, 1430, 4)[0], device=dev)
+    for excl, Vq, Vc in ((True, V, V),
+                         (False, V[:, :128].contiguous(), V[:, 128:].contiguous())):
+        si, sd = knn_slab(Vq, Vc, 21, excl)
+        ti, td = knn_topk(Vq[None], Vc[None], 21, excl, tuple(range(1, 21)))
+        assert torch.equal(si, ti[0])
+        assert torch.equal(sd.view(torch.int32), td[0].view(torch.int32))
+
+
+def test_knn_slab_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.knn_slab.ops import _lib, knn_slab
+    from repro_torch.kernels.knn_slab.ref import PAD
+
+    assert _lib().knn_slab_pad() == PAD
+    V = torch.zeros((4, 100), device=dev)
+    with pytest.raises(ValueError, match="Lc_pad=128"):
+        knn_slab(V, V, 129, True)
+    with pytest.raises(ValueError, match="float32"):
+        knn_slab(V.double(), V.double(), 4, True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        knn_slab(V, V.cpu(), 4, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_slab(V[:, ::2], V[:, ::2], 4, True)

@@ -582,8 +582,24 @@ def test_run_stage_records_the_queues_time_as_spans(tmp_path):
         qb = LeaseQueue(tmp_path, "wb", ttl=60, poll=0.01)
         assert qb.try_claim(units[2])  # held elsewhere: qa's barrier waits
 
+        def spans_named(name):
+            return [r for r in list(mem.records)
+                    if r["kind"] == "span" and r["name"] == name]
+
         def finish_b():
-            time.sleep(0.1)
+            # Handshake, not a blind head start: qa's barrier starts only
+            # after its second unit is done, and under load its two
+            # fsynced claims and done markers can eat any fixed head
+            # start.  From there units[2] is held a fixed 0.3 s, of which
+            # the barrier's recorded waits must make up 0.05 s: each of its
+            # polls sleeps in a queue_wait span and scans in a queue_claim
+            # span.  The deadline only keeps a broken span from hanging
+            # the test.
+            deadline = time.monotonic() + 30.0
+            while (len(spans_named("queue_done")) < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            time.sleep(0.3)
             qb.mark_done(units[2])
 
         t = threading.Thread(target=finish_b)
