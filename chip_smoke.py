@@ -30,10 +30,15 @@ Before the fleet, the kNN selection bench's path: the slab kernel
 against its plain version bit for bit (ragged Lq and Lc, both
 ``exclude_self`` settings, tied and constant series, k above the valid
 candidates with its 3.0e38 entries, k 64) and against ``knn_topk``
-where k fits; phase ``bench_knn``, the port's ``knn`` bench
+where k fits, then a case for each of its routes (the threshold filter
+with the row in shared memory and with its tail in the device
+workspace; the exact search where the candidates overflow, k above the
+buffer, k == Lc_pad), each case's route counts read from the kernel's
+device counters; phase ``bench_knn``, the port's ``knn`` bench
 (``repro_torch.bench.run``) at Lq 128, E_max 20, k 21 and Lc up to
-64,000 on both engines, every launch count set to 0 just before it, with
-each kernel's CUDA-event time beside the slab's plain version and bound;
+64,000 on both engines, every launch and route count set to 0 just
+before it, with each kernel's CUDA-event time and the slab's routes
+beside the slab's plain version and bound;
 and phase ``dryrun``, ``repro_torch.launch.edm_dryrun`` for Fish1_Normo
 and Subject11 at their own N and L (one chunk each: peak device memory,
 seconds, roofline terms, the whole run extrapolated; JSONs in
@@ -220,18 +225,23 @@ def check_knn_prefix(torch, name, Vq, Vc, k, exclude_self, buckets, lib_sizes,
 
 
 def check_slab(torch, name, Vq, Vc, k, exclude_self, against_topk=False,
-               expect_big=None):
+               expect_big=None, expect_route=None):
     """Slab kernel vs its plain version on the card: idx equal, dist bit-equal,
     the 3.0e38 entries of a k above the valid candidates and their padding
     and self ids included; with ``against_topk`` also against the knn_topk
     kernel at every E (k <= the valid candidates there).  ``expect_big``:
-    the number of 3.0e38 entries the case must return."""
-    from repro_torch.kernels.knn_slab.ops import knn_slab
+    the number of 3.0e38 entries the case must return; ``expect_route``:
+    the route ("filter" or "search") every (row, lag) selection must take.
+    Returns (max_abs_err, the route counts of its launch)."""
+    from repro_torch.kernels.knn_slab.ops import (knn_slab, reset_route_counts,
+                                                  route_counts)
     from repro_torch.kernels.knn_slab.ref import BIG, knn_slab_ref
     from repro_torch.kernels.knn_topk.ops import knn_topk
 
+    reset_route_counts()
     ki, kd = knn_slab(Vq, Vc, k, exclude_self)
     torch.cuda.synchronize()
+    routes = route_counts()
     ri, rd = knn_slab_ref(Vq, Vc, k, exclude_self)
     idx_eq = bool(torch.equal(ki, ri))
     bits_eq = same_bits(torch, kd, rd)
@@ -245,23 +255,28 @@ def check_slab(torch, name, Vq, Vc, k, exclude_self, against_topk=False,
     emit("check_slab", case=name, E_max=Vq.shape[0], Lq=Vq.shape[1],
          Lc=Vc.shape[1], k=k, exclude_self=exclude_self, idx_equal=idx_eq,
          dist_bits_equal=bits_eq, max_abs_err=err, big_entries=n_big,
-         padding_ids=int((ki >= Vc.shape[1]).sum()), equal_to_knn_topk=topk_eq)
+         padding_ids=int((ki >= Vc.shape[1]).sum()), equal_to_knn_topk=topk_eq,
+         routes=routes, expect_route=expect_route)
+    selections = Vq.shape[0] * Vq.shape[1]
+    routed = (routes["filter"] + routes["search"] == selections
+              and (expect_route is None or routes[expect_route] == selections))
     if not (idx_eq and bits_eq and topk_eq in (None, True)
-            and expect_big in (None, n_big)):
-        raise AssertionError(f"knn_slab kernel != plain version or knn_topk "
-                             f"({name})")
-    return err
+            and expect_big in (None, n_big) and routed):
+        raise AssertionError(f"knn_slab kernel != plain version or knn_topk, "
+                             f"or a selection off its route ({name}): {routes}")
+    return err, routes
 
 
 def reset_launches():
     """Every kernel's launch count to 0."""
     from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
     from repro_torch.kernels.flash_attn.ops import flash_attn
-    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ops import knn_slab, reset_route_counts
     from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
 
     knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
     knn_slab.LAUNCHES = 0
+    reset_route_counts()
     flash_attn.ROUTE_LAUNCHES = dict.fromkeys(flash_attn.ROUTE_LAUNCHES, 0)
 
 
@@ -277,13 +292,14 @@ def bench_knn(torch, dev, smi):
     knn``) at its card sizes, every launch count set to 0 just before it
     and read just after: both engines' streaming and slab tables at each
     Lc, paired repetitions, the slab == stream spot checks, the working
-    sets.  Then at each Lc the slab kernel against its plain version
-    (bit-equal) and, with CUDA events, both kernels' times beside the
-    slab's plain version and bound."""
+    sets, the slab kernel's route counts.  Then at each Lc the slab kernel
+    against its plain version (bit-equal, its routes) and, with CUDA
+    events, both kernels' times beside the slab's plain version and
+    bound."""
     from repro_torch.bench import run as brun
     from repro_torch.core import embedding
     from repro_torch.data.synthetic import dummy_brain
-    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ops import knn_slab, route_counts
     from repro_torch.kernels.knn_slab.ref import knn_slab_ref
     from repro_torch.kernels.knn_topk.ops import knn_topk
     from repro_torch.launch.roofline import bound_ms, knn_counts, slab_counts
@@ -297,6 +313,7 @@ def bench_knn(torch, dev, smi):
                                        **sizes)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    routes = route_counts()
     if not (launches["knn_slab"] > 0 and launches["knn_topk"] > 0):
         raise AssertionError(f"the knn bench missed a kernel: {launches}")
     if not (res["spot_check_cuda"] and res["spot_check_torch_reference"]):
@@ -310,7 +327,8 @@ def bench_knn(torch, dev, smi):
     err = 0.0
     for Lc in sizes["Lc_sweep"]:
         Vc = embedding.lag_matrix(pair[1], E, 1, Lc).contiguous()
-        err = max(err, check_slab(torch, f"bench_Lc{Lc}", Vq, Vc, k, False))
+        e, lc_routes = check_slab(torch, f"bench_Lc{Lc}", Vq, Vc, k, False)
+        err = max(err, e)
         ms = time_ms(torch, lambda: knn_slab(Vq, Vc, k, False), 10)
         plain = time_ms(torch, lambda: knn_slab_ref(Vq, Vc, k, False), 3)
         stream = time_ms(torch, lambda: knn_topk(Vq[None], Vc[None], k, False,
@@ -319,8 +337,9 @@ def bench_knn(torch, dev, smi):
         kernel_times[str(Lc)] = dict(
             kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
             share_of_bound=bound / ms, knn_topk_ms=stream,
-            knn_topk_bound_ms=bound_ms(*knn_counts(1, E, E, Lq, Lc, k))[0])
-    out = dict(wall_s=wall, launches=launches, E_max=E, Lq=Lq, k=k,
+            knn_topk_bound_ms=bound_ms(*knn_counts(1, E, E, Lq, Lc, k))[0],
+            routes=lc_routes)
+    out = dict(wall_s=wall, launches=launches, routes=routes, E_max=E, Lq=Lq, k=k,
                engines=res["engines"], phase1=res["phase1"],
                kernel_times=kernel_times, max_abs_err=err)
     emit("bench_knn", smi=smi, **out)
@@ -1600,9 +1619,16 @@ def main(argv=None) -> int:
     # ragged Lq (130) and Lc (777), both exclude_self settings (self =
     # column q), the tied and constant series above, k above the valid
     # candidates (3.0e38 entries, self and padding ids), k 64 > 32; and
-    # the knn_topk kernel's tables wherever k fits the valid candidates
+    # the knn_topk kernel's tables wherever k fits the valid candidates.
+    # Then each route of the kernel: the threshold filter with the row in
+    # shared memory (Lc 16,000) and with its tail in the workspace (Lc
+    # 60,000), value ties at Lc 16,000; the exact search where the
+    # candidates overflow the buffer (k 2,000), k above its capacity
+    # (2,100) and k == Lc_pad (5,120)
     v = [V8[i] for i in range(LIB_BLOCK)]  # (20, 1430) each
-    slab_err = max(
+    Vl = lag_batch(torch, dummy_brain(2, 60000 + E_MAX, seed=7), 60000, dev)
+    Vl_const = torch.full((E_MAX, 16000), 0.25, device=dev)
+    slab_cases = [
         check_slab(torch, "Lq128_Lc1000", v[0][:, :128].contiguous(),
                    v[1][:, :1000].contiguous(), E_MAX + 1, False, True),
         check_slab(torch, "Lq130_Lc1430_self", v[2][:, :130].contiguous(), v[2],
@@ -1623,8 +1649,30 @@ def main(argv=None) -> int:
         check_slab(torch, "k64", v[7][:, :128].contiguous(),
                    v[7][:, :1000].contiguous(), 64, False),
         check_slab(torch, "k64_self", v[7], v[7], 64, True),
-    )
-    del v
+        check_slab(torch, "Lc16000_on_chip", Vl[0][:, :128].contiguous(),
+                   Vl[1][:, :16000].contiguous(), E_MAX + 1, False,
+                   expect_route="filter"),
+        check_slab(torch, "Lc60000_workspace", Vl[0][:, :128].contiguous(), Vl[1],
+                   E_MAX + 1, False, expect_route="filter"),
+        check_slab(torch, "Lc16000_constant_self", Vl_const[:, :64].contiguous(),
+                   Vl_const, E_MAX + 1, True, expect_route="filter"),
+        check_slab(torch, "k2000_overflow", Vl[0][:, :64].contiguous(),
+                   Vl[1][:, :16000].contiguous(), 2000, False,
+                   expect_route="search"),
+        check_slab(torch, "k2100_above_capacity", Vl[1][:, :16].contiguous(),
+                   Vl[1][:, :16000].contiguous(), 2100, True,
+                   expect_route="search"),
+        check_slab(torch, "k_eq_Lc_pad", Vl[0][:, :8].contiguous(),
+                   Vl[0][:, :5000].contiguous(), 5120, True,
+                   expect_big=E_MAX * 8 * 121, expect_route="search"),
+    ]
+    slab_err = max(err for err, _ in slab_cases)
+    slab_check_routes = {r: sum(routes[r] for _, routes in slab_cases)
+                         for r in slab_cases[0][1]}
+    if not (slab_check_routes["filter"] > 0 and slab_check_routes["search"] > 0):
+        raise AssertionError(f"knn_slab: a route never taken across the checks: "
+                             f"{slab_check_routes}")
+    del v, Vl, Vl_const
 
     # ---- the main path; the launch counts start at 0 here ---------------
     out_dir = ROOT / "build" / "smoke_out"
@@ -2062,6 +2110,9 @@ def main(argv=None) -> int:
          "bound_ms": slab64["bound_ms"], "bound_by": slab64["bound_by"],
          "library_ms": None,
          "ms_by_Lc": {lc: t["kernel_ms"] for lc, t in bknn["kernel_times"].items()},
+         "routes": bknn["routes"],
+         "routes_by_Lc": {lc: t["routes"] for lc, t in bknn["kernel_times"].items()},
+         "routes_checks": slab_check_routes,
          "checked": True},
     ]}
     emit("done", seconds=time.perf_counter() - t_start)

@@ -240,7 +240,8 @@ def fig9_multiE_kernel(b: Bench, L, E_max):
 # ----------------------------------------------------- kNN selection bench
 def slab_bytes(engine: str, Lq: int, Lc: int) -> int:
     """Distance working set of the slab layout: the cuda kernel's (Lq,
-    Lc_pad) float32 workspace; the dense oracle's (Lq, Lc) float32
+    Lc_pad) float32 slab (each row in shared memory as far as it fits,
+    its tail in a device workspace); the dense oracle's (Lq, Lc) float32
     distances, their sorted copy and its int64 positions."""
     if engine == "cuda":
         return Lq * padded_width(Lc) * 4

@@ -586,22 +586,36 @@ def test_fleet_of_three_workers_equals_one_process_on_the_card(tmp_path, unit_ro
 
 
 # ------------------------------------------------------- the slab kernel
-@pytest.mark.parametrize("E,Lq,Lc,k,exclude_self,kind", [
-    (20, 128, 1000, 21, False, "normal"),
-    (20, 130, 1430, 21, True, "normal"),     # ragged Lq, square set
-    (20, 128, 777, 21, True, "normal"),      # ragged Lc; self = column q
-    (20, 300, 300, 21, True, "ties"),        # duplicated points
-    (20, 100, 300, 32, False, "constant"),   # every distance ties at 0
-    (2, 10, 10, 12, True, "normal"),         # k above the valid candidates
-    (20, 128, 1000, 64, True, "normal"),     # k above the stream kernel's 32
-    (3, 40, 40, 128, False, "normal"),       # k == Lc_pad: every padding id
+@pytest.mark.parametrize("E,Lq,Lc,k,exclude_self,kind,route", [
+    (20, 128, 1000, 21, False, "normal", "filter"),
+    (20, 130, 1430, 21, True, "normal", "filter"),     # ragged Lq, square set
+    (20, 128, 777, 21, True, "normal", "filter"),      # ragged Lc; self = column q
+    (20, 300, 300, 21, True, "ties", "filter"),        # duplicated points
+    (20, 100, 300, 32, False, "constant", "filter"),   # every distance ties at 0
+    (2, 10, 10, 12, True, "normal", "filter"),         # k above the valid candidates
+    (20, 128, 1000, 64, True, "normal", "filter"),     # k above the stream kernel's 32
+    (3, 40, 40, 128, False, "normal", "filter"),       # k == Lc_pad: every padding id
+    (20, 128, 16000, 21, False, "normal", "filter"),   # the row in shared memory
+    (20, 128, 60000, 21, False, "normal", "filter"),   # the row's tail in the workspace
+    (20, 64, 16000, 21, True, "constant", "filter"),   # value ties: the column decides
+    (20, 64, 16000, 2000, False, "normal", "search"),  # the candidate buffer overflows
+    (5, 16, 16000, 2100, True, "normal", "search"),    # k above the buffer's capacity
+    (3, 8, 5000, 5120, True, "ties", "search"),        # k == Lc_pad, three chunks
 ])
-def test_knn_slab_kernel_equals_plain_version(E, Lq, Lc, k, exclude_self, kind):
+def test_knn_slab_kernel_equals_plain_version(E, Lq, Lc, k, exclude_self, kind,
+                                              route):
+    """Bit-equal to the plain version, and every (row, lag) selection took
+    the expected route (the kernel's device counters): ``filter`` where
+    the threshold's candidates fit the buffer of ``knn_slab_capacity()``
+    keys, ``search`` where they overflow it or k exceeds it."""
     dev = _card()
-    from repro_torch.kernels.knn_slab.ops import knn_slab
+    from repro_torch.kernels.knn_slab.ops import (_lib, knn_slab,
+                                                  reset_route_counts,
+                                                  route_counts)
     from repro_torch.kernels.knn_slab.ref import knn_slab_ref
 
-    x = _lags(1, E, max(Lq, Lc) + Lc, 3)[0]
+    assert _lib().knn_slab_capacity() == 2048
+    x = _lags(2, E, max(Lq, Lc) + Lc, 3)[0]  # series 1 is the constant one
     if kind == "ties":
         x[:, 150:200] = x[:, :50]
     elif kind == "constant":
@@ -611,10 +625,15 @@ def test_knn_slab_kernel_equals_plain_version(E, Lq, Lc, k, exclude_self, kind):
     else:
         Vq = torch.tensor(x[:, :Lq].copy(), device=dev)
         Vc = torch.tensor(x[:, Lq:Lq + Lc].copy(), device=dev)
+    knn_slab(Vq, Vc, k, exclude_self)  # builds the library, sets up the counters
+    reset_route_counts()
     ki, kd = knn_slab(Vq, Vc, k, exclude_self)
+    routes = route_counts()
     ri, rd = knn_slab_ref(Vq, Vc, k, exclude_self)
     assert torch.equal(ki, ri)
     assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+    assert routes[route] == E * Lq, routes
+    assert routes["filter"] + routes["search"] == E * Lq, routes
 
 
 def test_knn_slab_kernel_equals_knn_topk_where_k_fits():
@@ -622,7 +641,7 @@ def test_knn_slab_kernel_equals_knn_topk_where_k_fits():
     from repro_torch.kernels.knn_slab.ops import knn_slab
     from repro_torch.kernels.knn_topk.ops import knn_topk
 
-    V = torch.tensor(_lags(1, 20, 1430, 4)[0], device=dev)
+    V = torch.tensor(_lags(2, 20, 1430, 4)[0], device=dev)
     for excl, Vq, Vc in ((True, V, V),
                          (False, V[:, :128].contiguous(), V[:, 128:].contiguous())):
         si, sd = knn_slab(Vq, Vc, 21, excl)

@@ -117,3 +117,136 @@ def test_slab_takes_k_up_to_the_padded_width_and_refuses_more():
             knn_slab(V, V, bad, True)
         with pytest.raises(ValueError, match="Lc_pad=128"):
             knn_slab_ref(V, V, bad, True)
+
+
+# --------------------------------------------- the kernel's selection, modelled
+def _keys(vals, cols):
+    """The kernel's keys: float bits << 32 | column (values are >= +0 or
+    3.0e38, so the unsigned order is (value, column))."""
+    return ((vals.astype(np.float32).view(np.uint32).astype(np.uint64)
+             << np.uint64(32)) | cols.astype(np.uint64))
+
+
+def _nth_key(keys, floor, t, colbits):
+    """The least K with t keys in [floor, K]: the kernel's bitwise search
+    over the 31 value bits, then the column bits."""
+    ans = 0
+    for b in list(range(62, 31, -1)) + list(range(colbits - 1, -1, -1)):
+        trial = np.uint64(ans | ((1 << b) - 1))
+        if int(((keys >= np.uint64(floor)) & (keys <= trial)).sum()) < t:
+            ans |= 1 << b
+    return ans
+
+
+def _model_slab(Vq, Vc, k, exclude_self, cap):
+    """A numpy model of ``csrc/knn_slab.cu``'s selection with a candidate
+    buffer of ``cap`` keys.  Per lag: a threshold key tau -- the k-th least
+    lag-e key of lag e-1's candidates (k <= 32) or of its k winners, at or
+    above the k-th least of all keys since these are k distinct columns,
+    tightened by the k-th least key of a
+    strided sample of ``cap`` distinct columns at lag 1 and wherever the
+    winners' bound passes over 2k keys of the sample or, scaled to the
+    row, over a quarter of the buffer --; the keys <= tau filtered and
+    sorted, the first k kept
+    ("filter"); past ``cap`` candidates, or k > cap, the k least keys in
+    chunks of ``cap``, each chunk's last key found by the bitwise search
+    ("search").  Returns (idx, dist, counters)."""
+    E, Lq = Vq.shape
+    Lc = Vc.shape[1]
+    Lc_pad = -(-Lc // 128) * 128
+    colbits = (Lc_pad - 1).bit_length()
+    cols = np.arange(Lc_pad)
+    sample = np.arange(cap, dtype=np.int64) * Lc_pad // cap
+    big = np.float32(BIG)
+    idx = np.empty((E, Lq, k), np.int32)
+    dist = np.empty((E, Lq, k), np.float32)
+    counts = dict(filter=0, search=0, sample=0)
+    for q in range(Lq):
+        D = np.zeros(Lc, np.float32)
+        prev = None  # the columns that bound the next lag's threshold
+        for e in range(E):
+            d = np.float32(Vq[e, q]) - Vc[e]
+            D = D + np.maximum(d * d, np.float32(0))
+            vals = np.full(Lc_pad, big, np.float32)
+            vals[:Lc] = D
+            if exclude_self and q < Lc:
+                vals[q] = big
+            keys = _keys(vals, cols)
+            tau = np.uint64(2**64 - 1)
+            if k <= cap:
+                if e > 0:  # the k-th least lag-e key of lag e-1's candidates
+                    tau = np.sort(keys[prev])[k - 1]
+                if Lc_pad > cap:
+                    s = keys[sample]
+                    ns = int((s <= tau).sum())
+                    if e == 0 or ns > 2 * k or ns * Lc_pad > cap * (cap // 4):
+                        tau = min(tau, np.sort(s)[k - 1])
+                        counts["sample"] += 1
+                # the invariant the filter rests on: no winner lies above tau
+                assert np.sort(keys)[k - 1] <= tau
+            cand = keys[keys <= tau]
+            if k <= cap and cand.size <= cap:
+                top = np.sort(cand)[:k]
+                counts["filter"] += 1
+                # up to 32 neighbours a warp selection also takes the next
+                # threshold from all the candidates; else from the winners
+                prev = (cand if k <= 32 else top) & np.uint64(0xFFFFFFFF)
+            else:
+                chunks, floor = [], 0
+                while sum(c.size for c in chunks) < k:
+                    t = min(cap, k - sum(c.size for c in chunks))
+                    last = _nth_key(keys, floor, t, colbits)
+                    chunk = np.sort(keys[(keys >= np.uint64(floor))
+                                         & (keys <= np.uint64(last))])
+                    assert chunk.size == t
+                    chunks.append(chunk)
+                    floor = last + 1
+                top = np.concatenate(chunks)
+                counts["search"] += 1
+                prev = top & np.uint64(0xFFFFFFFF)
+            idx[e, q] = (top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            dist[e, q] = (top >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    return idx, dist, counts
+
+
+@pytest.mark.parametrize("E,Lq,Lc,k,exclude_self,kind,cap,route", [
+    (4, 6, 500, 7, False, "normal", 128, "filter"),    # sampled thresholds
+    (4, 6, 500, 7, True, "normal", 2048, "filter"),    # the kernel's capacity
+    (5, 8, 300, 9, True, "ties", 128, "filter"),       # duplicated points
+    (4, 6, 500, 6, False, "constant", 128, "filter"),  # every key ties in value
+    (3, 10, 10, 12, True, "normal", 64, "filter"),     # k above the valid candidates
+    (4, 6, 500, 7, False, "normal", 64, "both"),       # some lags overflow
+    (3, 4, 500, 64, False, "normal", 64, "search"),    # the buffer overflows
+    (3, 4, 300, 80, True, "normal", 64, "search"),     # k above the capacity
+    (2, 3, 100, 128, True, "ties", 64, "search"),      # k == Lc_pad
+])
+def test_kernel_selection_model_equals_plain_version(E, Lq, Lc, k, exclude_self,
+                                                     kind, cap, route):
+    """The design of the kernel's selection, at a small buffer: the
+    threshold never drops a winner, and filter-then-sort (or the exact
+    search) gives the plain version's tables bit for bit."""
+    Vq, Vc = _pair(E, Lq, Lc, exclude_self, 1, kind)
+    mi, md, counts = _model_slab(Vq, Vc, k, exclude_self, cap)
+    ri, rd = knn_slab_ref(torch.as_tensor(Vq), torch.as_tensor(Vc), k,
+                          exclude_self)
+    _same(mi, md, ri, rd)
+    assert counts["filter"] + counts["search"] == E * Lq
+    if route == "both":
+        assert counts["filter"] > 0 and counts["search"] > 0, counts
+    else:
+        assert counts[route] == E * Lq, counts
+    if route == "filter" and -(-Lc // 128) * 128 > cap:
+        assert counts["sample"] >= Lq  # lag 1 always samples
+
+
+def test_slab_ab_refuses_to_run_without_a_card(tmp_path):
+    """The A/B timing of two kernel designs measures on a card or not at
+    all: without one it exits before building or timing anything."""
+    from repro_torch.bench import slab_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal is for machines without one")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        slab_ab.main(["--parent-source", str(tmp_path / "knn_slab.cu"),
+                      "--out", str(tmp_path / "ab.json")])
+    assert not (tmp_path / "ab.json").exists()
