@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --multi-card   # only the phases across cards
 
 Builds the port's CUDA kernels from the sources in the checkout.  First
 the LM serving path: the flash-attention kernel against its plain
@@ -65,6 +66,24 @@ beside them.  The kernels line's ``launches_fleet`` holds each run's sum,
 the kill and fault runs' under ``kill_survivors`` / ``faults_survivors``:
 the sums of the processes that finished, since one that was killed or
 crashed prints no done line.  The fleets' logs go to ``build/smoke_fleet_logs/``.
+
+Several device slots and the library-sharded kNN (``runtime/platform.py``,
+``core/pipeline.py``): ``check_knn`` cases of ``knn_topk``'s column range
+(a shard at an offset, a padded last shard, a shard wholly past Lc,
+exclude_self across three shards whose merge equals the unsharded
+table; both accumulators); ``multi_device_main`` (the main path over
+``EDM_LOCAL_DEVICE_IDS=0,0``, two row slots on card 0, and over every
+visible card where there are several: data.npy byte-equal to
+``end_to_end``'s, fsck clean, the same launches, each card's sampled busy
+share; a speedup only where two cards ran); ``multi_device_significance``
+(two slots, the five artifacts byte-equal to ``significance``'s);
+``sharded_knn`` (Subject11's length, L 8,528: 1, 2, 4 and 8 simulated
+shards and one a visible card, each bit-equal to the unsharded kernel
+table, with build and merge times); ``distributed`` (two ranks joined
+through the EDM_* contract, each with a time limit: on gloo with both on
+card 0, the tables staged through host memory; NCCL's refusal of two
+ranks on one card; NCCL with a card a rank where two are visible, else
+said so on the line).
 
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
@@ -174,22 +193,27 @@ def lag_batch(torch, ts_np, Lp, dev):
 
 
 def check_knn(torch, name, Vq, Vc, k, exclude_self, select_Es,
-              dist_dtype="float32"):
+              dist_dtype="float32", col_offset=0, col_hi=None):
     """Kernel vs plain version on the card: idx equal, dist bit-equal
-    (both with the float32 or the bfloat16 accumulator)."""
+    (both with the float32 or the bfloat16 accumulator; with a column
+    range, one library shard's tables)."""
     from repro_torch.kernels.knn_topk.ops import knn_topk
     from repro_torch.kernels.knn_topk.ref import knn_topk_ref
 
-    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype)
+    rng = dict(col_offset=col_offset, col_hi=col_hi)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype,
+                      **rng)
     torch.cuda.synchronize()
-    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es,
+                          dist_dtype=dist_dtype, **rng)
     idx_eq = bool(torch.equal(ki, ri))
     bits_eq = same_bits(torch, kd, rd)
     err = finite_max_abs(torch, kd, rd)
     emit("check_knn", case=name, shape=list(Vq.shape) + [Vc.shape[-1]], k=k,
          exclude_self=exclude_self, select_Es=list(select_Es),
-         dist_dtype=dist_dtype, idx_equal=idx_eq, dist_bits_equal=bits_eq,
-         max_abs_err=err)
+         dist_dtype=dist_dtype, col_offset=col_offset, col_hi=col_hi,
+         masked_entries=int(torch.isinf(kd).sum()), idx_equal=idx_eq,
+         dist_bits_equal=bits_eq, max_abs_err=err)
     if not (idx_eq and bits_eq):
         bad = (ki != ri).nonzero()[:5].tolist()
         raise AssertionError(f"knn_topk kernel != plain version ({name}); first "
@@ -1047,26 +1071,6 @@ def compute_mode() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-class BusySampler:
-    """The card's busy share over a run, sampled: ``nvidia-smi``'s
-    utilization.gpu (the share of each sample period in which a kernel
-    ran) every 200 ms in a process of its own; ``stop()`` returns the
-    mean and the sample count."""
-
-    def __init__(self):
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=utilization.gpu",
-             "--format=csv,noheader,nounits", "-lms", "200"],
-            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-
-    def stop(self) -> dict:
-        self.proc.terminate()
-        out, _ = self.proc.communicate(timeout=30)
-        vals = [float(v) for v in out.split() if v.strip().isdigit()]
-        return {"mean_pct": sum(vals) / len(vals) if vals else None,
-                "samples": len(vals), "period_ms": 200}
-
-
 def worker_done_lines(text: str) -> dict:
     """{worker: its ``[wid] done in <s>s {json}`` records} from a fleet's
     log: launches, peak device bytes and stage seconds of each process
@@ -1241,6 +1245,7 @@ def fleet_phases(torch, smi, n, sig_n, main_dir, main_launches, sig_dir,
     from repro_torch.data.synthetic import dummy_brain
     from repro_torch.inference import SignificanceConfig
     from repro_torch.launch import edm_fleet
+    from repro_torch.runtime.device import BusySampler
 
     mode = compute_mode()
     emit("fleet_card", compute_mode=mode, smi=smi,
@@ -1389,12 +1394,367 @@ def fleet_phases(torch, smi, n, sig_n, main_dir, main_launches, sig_dir,
     return results
 
 
+# ---------------------------------------------------------------------------
+# Several device slots, library-sharded kNN, the torch.distributed merge.
+def pad_shard(torch, V, lo, hi, width):
+    """Columns [lo, min(hi, Lc)) of V, padded with zeros to ``width``: one
+    library shard as the sharded builders hand it to the kernel."""
+    part = V[..., lo:max(lo, min(hi, V.shape[-1]))]
+    return torch.nn.functional.pad(part, (0, width - part.shape[-1])).contiguous()
+
+
+def check_knn_ranges(torch, V8, smi):
+    """The knn_topk kernel's column range against its plain version, bit
+    for bit, with both accumulators: a shard at an offset, a padded last
+    shard, a shard wholly past Lc, and exclude_self across three shards
+    whose tree merge equals the unsharded kernel table.  Returns the max
+    abs errors (f32, bf16)."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    all_E = tuple(range(1, E_MAX + 1))
+    k = E_MAX + 1
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    Lc = V8.shape[-1]
+    for dt in errs:
+        sfx = "" if dt == "float32" else "_bf16"
+        for name, lo, hi, width in (("shard_offset", 400, 800, 400),
+                                    ("padded_last_shard", 1200, Lc, 300),
+                                    ("shard_past_Lc", 1500, Lc, 100)):
+            errs[dt] = max(errs[dt], check_knn(
+                torch, name + sfx, V8, pad_shard(torch, V8, lo, hi, width), k,
+                True, all_E, dt, col_offset=lo, col_hi=hi))
+        shard = -(-Lc // 3)
+        parts = []
+        for s in range(3):
+            lo, hi = s * shard, min((s + 1) * shard, Lc)
+            Vc = pad_shard(torch, V8, lo, hi, shard)
+            errs[dt] = max(errs[dt], check_knn(
+                torch, f"exclude_self_shard{s}_of_3{sfx}", V8, Vc, k, True,
+                all_E, dt, col_offset=lo, col_hi=hi))
+            parts.append(knn_topk(V8, Vc, k, True, all_E, dist_dtype=dt,
+                                  col_offset=lo, col_hi=hi))
+        mi, md = tknn.merge_topk_tree([p[0] for p in parts], [p[1] for p in parts], k)
+        ui, ud = knn_topk(V8, V8, k, True, all_E, dist_dtype=dt)
+        eq = bool(torch.equal(mi, ui)) and same_bits(torch, md, ud)
+        emit("check_knn", case="exclude_self_across_shards" + sfx,
+             shape=list(V8.shape), shards=3, k=k, dist_dtype=dt,
+             merged_equal_to_unsharded_kernel_table=eq, smi=smi)
+        if not eq:
+            raise AssertionError(f"three shards merged != unsharded ({dt})")
+    return errs["float32"], errs["bfloat16"]
+
+
+def sharded_knn_phase(torch, dev, smi):
+    """Library-sharded tables at Subject11's length (L 8,528: Lp 8,508,
+    E_max 20, k 21, exclude_self, one series): the sim path at 1, 2, 4 and
+    8 shards and the local-device path over every visible card, each
+    bit-equal to the unsharded kernel table; CUDA-event times of the
+    unsharded build, each shard count's builds, its tree merge alone and
+    the whole; the knn_topk launches of one pass of each."""
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.pipeline import (
+        _shard_table,
+        knn_tables_library_sharded,
+        knn_tables_library_sharded_sim,
+    )
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.runtime.platform import local_devices
+
+    Lp11 = SUBJECT11_L - (E_MAX - 1) - 1
+    V = lag_batch(torch, dummy_brain(1, SUBJECT11_L, seed=3), Lp11, dev)
+    cfg, k, all_E = EDMConfig(E_max=E_MAX), E_MAX + 1, tuple(range(1, E_MAX + 1))
+    ui, ud = knn_topk(V, V, k, True, all_E)
+    unsharded_ms = time_ms(torch, lambda: knn_topk(V, V, k, True, all_E), 5)
+    runs = {}
+
+    def record(name, fn, S, parts_fn=None):
+        knn_topk.LAUNCHES = 0
+        gi, gd = fn()
+        torch.cuda.synchronize()
+        launches = knn_topk.LAUNCHES
+        eq = bool(torch.equal(gi, ui)) and same_bits(torch, gd, ud)
+        r = {"shards": S, "bit_equal": eq, "launches": launches,
+             "build_merge_ms": time_ms(torch, fn, 3)}
+        if parts_fn is not None:
+            parts = parts_fn()
+            r["build_ms"] = time_ms(torch, parts_fn, 3)
+            r["merge_ms"] = time_ms(torch, lambda: tknn.merge_topk_tree(
+                [p[0] for p in parts], [p[1] for p in parts], k), 5)
+        runs[name] = r
+        if not (eq and launches == S):
+            raise AssertionError(f"sharded kNN {name}: bit_equal {eq}, "
+                                 f"{launches} knn_topk launches for {S} shards")
+
+    for S in (1, 2, 4, 8):
+        record(f"sim{S}", lambda S=S: knn_tables_library_sharded_sim(
+            V, V, k, cfg, exclude_self=True, shards=S), S,
+            lambda S=S: [_shard_table(V, V, k, cfg, True, s, S, dev)
+                         for s in range(S)])
+    devs = local_devices("cuda")
+    record(f"devices{len(devs)}", lambda: knn_tables_library_sharded(
+        V, V, k, cfg, exclude_self=True, devices=devs), len(devs))
+    emit("sharded_knn", L=SUBJECT11_L, Lp=Lp11, E_max=E_MAX, k=k,
+         exclude_self=True, unsharded_ms=unsharded_ms, runs=runs,
+         devices=[str(d) for d in devs],
+         note=None if len(devs) > 1 else
+         "one card visible: the local-device path is one shard on cuda:0",
+         smi=smi)
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def with_device_ids(ids, fn):
+    """``fn()`` with EDM_LOCAL_DEVICE_IDS set to ``ids`` (None: unset), the
+    variable put back after."""
+    import os
+
+    old = os.environ.pop("EDM_LOCAL_DEVICE_IDS", None)
+    if ids is not None:
+        os.environ["EDM_LOCAL_DEVICE_IDS"] = ids
+    try:
+        return fn()
+    finally:
+        os.environ.pop("EDM_LOCAL_DEVICE_IDS", None)
+        if old is not None:
+            os.environ["EDM_LOCAL_DEVICE_IDS"] = old
+
+
+def multi_device_main(torch, dev, smi, n, ref_dir, one):
+    """The main path over two row slots on card 0 (EDM_LOCAL_DEVICE_IDS=0,0)
+    and, where several cards are visible, over all of them: data.npy equal
+    byte for byte to the one-device run's (``ref_dir``), the store
+    fsck-clean by the port's ``edm_fleet fsck``, the launches equal to the
+    one-device run's; wall, launches and the busy share of each card.  The
+    speedup is printed only where two cards or more ran."""
+    from repro_torch.runtime import integrity
+    from repro_torch.runtime.device import BusySampler
+
+    n_cards = torch.cuda.device_count()
+    runs = [("two_slots_card0", "0,0")]
+    if n_cards > 1:
+        runs.append((f"all_{n_cards}_cards", None))
+    out = {}
+    for name, ids in runs:
+        d = ROOT / "build" / f"smoke_multi_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        busy = BusySampler(n_cards)
+        try:
+            summ, launches, peak = with_device_ids(ids, lambda: run_cli(torch, dev, [
+                "--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX),
+                "--out", str(d)]))
+        finally:
+            busy = busy.stop()
+        equal = same_npy_bits(ref_dir / "causal_map" / "data.npy",
+                              d / "causal_map" / "data.npy")
+        fsck = integrity.fsck_store(d)
+        same_launches = all(launches[k] == one["launches"][k]
+                            for k in ("knn_topk", "ccm_lookup"))
+        out[name] = dict(devices=summ["devices"], **phase_walls(summ),
+                         launches=launches, peak_device_bytes_card0=peak,
+                         card_busy_sampled=busy, byte_equal_to_one_device=equal,
+                         fsck_clean=fsck["clean"], launches_equal=same_launches)
+        shutil.rmtree(d, ignore_errors=True)
+        if not (equal and fsck["clean"] and same_launches):
+            raise AssertionError(f"multi_device_main {name}: byte_equal {equal}, "
+                                 f"fsck {fsck['clean']}, launches {launches}")
+    speedup = None
+    if n_cards > 1:
+        speedup = one["wall_s"] / out[f"all_{n_cards}_cards"]["wall_s"]
+    emit("multi_device_main", N=n, L=FISH1_L, E_max=E_MAX, lib_block=LIB_BLOCK,
+         one_device=one, runs=out, visible_cards=n_cards, speedup=speedup,
+         note=None if n_cards > 1 else
+         "one card visible: the all-cards run is end_to_end; no speedup "
+         "(two slots on one card measure the decomposition's overhead)",
+         smi=smi)
+    return out
+
+
+def multi_device_significance(torch, dev, smi, n, ref_dir, one_launches):
+    """The significance path over two row slots on card 0: all five
+    artifacts byte-equal to the one-slot store (``ref_dir``), fsck-clean."""
+    from repro_torch.runtime import integrity
+
+    d = ROOT / "build" / "smoke_multi_sig"
+    shutil.rmtree(d, ignore_errors=True)
+    summ, launches, peak = with_device_ids("0,0", lambda: run_cli(torch, dev, [
+        "--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+        "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+        "--fdr", "0.05", "--seed", "0", "--out", str(d)]))
+    equal = {a: same_npy_bits(ref_dir / a / "data.npy", d / a / "data.npy")
+             for a in FLEET_ARTIFACTS}
+    fsck = integrity.fsck_store(d)
+    emit("multi_device_significance", N=n, L=FISH1_L, slots=summ["devices"],
+         wall_s=summ["wall_s"] + summ["significance_s"],
+         significance_s=summ["significance_s"], launches=launches,
+         launches_one_slot=one_launches, peak_device_bytes=peak,
+         byte_equal_to_one_slot=equal, fsck_clean=fsck["clean"],
+         edges=summ["edges"], smi=smi)
+    shutil.rmtree(d, ignore_errors=True)
+    if not (all(equal.values()) and fsck["clean"]):
+        raise AssertionError(f"multi_device_significance: {equal}, fsck "
+                             f"{fsck['clean']}")
+    return launches
+
+
+RANK_TIMEOUT_S = 240  # the limit of each rank process of the distributed phase
+RANK_CODE = r"""
+import json, pathlib, sys
+import torch
+import torch.distributed as dist
+from repro_torch.core import embedding, pipeline
+from repro_torch.core.types import EDMConfig
+from repro_torch.data.synthetic import dummy_brain
+from repro_torch.kernels.knn_topk.ops import knn_topk
+from repro_torch.runtime import platform
+
+backend, out, L = sys.argv[1] or None, pathlib.Path(sys.argv[2]), int(sys.argv[3])
+rank = int(__import__("os").environ["EDM_PROCESS_ID"])
+try:
+    info = platform.init_distributed(backend=backend)
+except RuntimeError as e:  # two NCCL ranks on one card: refused
+    (out / f"rank{rank}.json").write_text(json.dumps({"refused": str(e)}))
+    sys.exit(0)
+dev = torch.device(info["device"])
+Lp = L - 20
+V = embedding.lag_matrix(torch.as_tensor(dummy_brain(1, L, seed=3)).to(dev),
+                         20, 1, Lp).contiguous()
+cfg, all_E = EDMConfig(E_max=20), tuple(range(1, 21))
+ui, ud = knn_topk(V, V, 21, True, all_E)
+fn = lambda: pipeline.knn_tables_library_sharded(
+    V, V, 21, cfg, exclude_self=True, group=dist.group.WORLD)
+knn_topk.LAUNCHES = 0
+si, sd = fn()
+torch.cuda.synchronize(dev)
+launches = knn_topk.LAUNCHES
+eq = bool(torch.equal(si, ui)) and bool(torch.equal(sd.view(torch.int32),
+                                                     ud.view(torch.int32)))
+ms = []
+for _ in range(3):
+    dist.barrier()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize(dev)
+    ms.append(a.elapsed_time(b))
+(out / f"rank{rank}.json").write_text(json.dumps({
+    "info": info, "bit_equal": eq, "launches": launches,
+    "build_merge_ms": sorted(ms)[1], "shape": list(si.shape)}))
+dist.destroy_process_group()
+"""
+
+
+def run_ranks(world, backend, ids, L, tag):
+    """``world`` rank processes of RANK_CODE joined through the EDM_*
+    contract on localhost (rank r's EDM_LOCAL_DEVICE_IDS = ids[r]); each
+    has RANK_TIMEOUT_S, after which it is killed.  Returns the ranks'
+    records and return codes."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = ROOT / "build" / f"smoke_dist_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "EDM_COORDINATOR": f"localhost:{port}",
+               "EDM_NUM_PROCESSES": str(world), "EDM_PROCESS_ID": str(r),
+               "EDM_LOCAL_DEVICE_IDS": str(ids[r])}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CODE, backend or "", str(out), str(L)],
+            env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+    t_end = time.time() + RANK_TIMEOUT_S
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, t_end - time.time())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in logs:
+        f.close()
+    recs = []
+    for r in range(world):
+        f = out / f"rank{r}.json"
+        recs.append(json.loads(f.read_text()) if f.exists() else
+                    {"log_tail": (out / f"rank{r}.log").read_text()[-2000:]})
+    return recs, rcs
+
+
+def distributed_phase(torch, smi):
+    """``knn_tables_library_sharded`` across the ranks of a two-rank
+    ``torch.distributed`` world joined through the EDM_* contract, at
+    Subject11's length, tables bit-equal to the unsharded kernel table
+    on every rank: on gloo with both ranks on card 0 (the merge stages
+    its tables through host memory); on NCCL with one card a rank where
+    two cards are visible (else said so); and the NCCL refusal of two
+    ranks on one card, which must name the gloo route."""
+    n_cards = torch.cuda.device_count()
+    runs = {}
+    cases = [("gloo_one_card", "gloo", (0, 0)),
+             ("nccl_shared_card_refused", None, (0, 0))]
+    if n_cards > 1:
+        cases.append(("nccl_two_cards", "nccl", (0, 1)))
+    for name, backend, ids in cases:
+        recs, rcs = run_ranks(2, backend, ids, SUBJECT11_L, name)
+        runs[name] = {"backend": backend or "nccl (default on cards)",
+                      "rcs": rcs, "ranks": recs}
+        if name == "nccl_shared_card_refused":
+            ok = rcs == [0, 0] and all("gloo" in r.get("refused", "") for r in recs)
+        else:
+            ok = rcs == [0, 0] and all(r.get("bit_equal") for r in recs)
+        runs[name]["ok"] = ok
+        if not ok:
+            emit("distributed", runs=runs, smi=smi)
+            raise AssertionError(f"distributed phase {name} failed: {rcs} {recs}")
+    emit("distributed", L=SUBJECT11_L, world=2, runs=runs,
+         nccl_two_cards=("ran" if n_cards > 1 else
+                         f"not run: {n_cards} card visible (NCCL needs a card "
+                         "a rank)"), smi=smi)
+    return {name: sum(r.get("launches", 0) for r in v["ranks"])
+            for name, v in runs.items()}
+
+
+def multi_card_only(torch, dev, smi, n) -> int:
+    """``--multi-card``: the main path at ``n`` series on card 0 alone
+    (EDM_LOCAL_DEVICE_IDS=0, the reference), then ``multi_device_main``
+    (two slots on card 0, every visible card), ``sharded_knn`` and
+    ``distributed`` (NCCL with a card a rank where two are visible)."""
+    ref = ROOT / "build" / "smoke_out_card0"
+    shutil.rmtree(ref, ignore_errors=True)
+    summ, launches, _ = with_device_ids("0", lambda: run_cli(torch, dev, [
+        "--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX), "--out", str(ref)]))
+    emit("end_to_end_card0", N=n, **phase_walls(summ), launches=launches, smi=smi)
+    multi_device_main(torch, dev, smi, n, ref, {"wall_s": summ["wall_s"],
+                                                "launches": launches})
+    shutil.rmtree(ref, ignore_errors=True)
+    sharded_knn_phase(torch, dev, smi)
+    distributed_phase(torch, smi)
+    print(smi, flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=16384,
                     help="series in the main-path run (Fish1_Normo has 53,053)")
     ap.add_argument("--sig-n", type=int, default=2048,
                     help="series in the significance-path run")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="only the phases across cards and ranks, for a "
+                    "machine with several cards: the main path on card 0, "
+                    "then multi_device_main, sharded_knn and distributed")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -1416,6 +1776,7 @@ def main(argv=None) -> int:
 
     # ---- the card --------------------------------------------------------
     from repro_torch.runtime.device import card_line
+    from repro_torch.runtime.device import BusySampler
 
     smi = card_line(dev)
     print(smi, flush=True)
@@ -1429,6 +1790,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report = kernels.build_all()
     emit("build", seconds=time.perf_counter() - t0, kernels=report)
+    if args.multi_card:
+        return multi_card_only(torch, dev, smi, args.n)
 
     # ---- the LM serving path: flash kernel checks and times, qwen2.5-3b ---
     # first, in a fresh process: after the EDM paths have run, the same
@@ -1496,6 +1859,8 @@ def main(argv=None) -> int:
          (1, 7, 20)),
     ):
         knn_err = max(knn_err, check_knn(torch, name, Vq, Vc, k, excl, sel))
+    # the column range (library shards), both accumulators
+    range_err, range_bf16_err = check_knn_ranges(torch, V8, smi)
 
     idx8, sqd8 = knn_topk(V8, V8, E_MAX + 1, True, (E_MAX,))
     idx8, w8 = tknn.tables_with_weights_bucketed(idx8, sqd8, (E_MAX,))
@@ -1735,6 +2100,10 @@ def main(argv=None) -> int:
     wall_single = {"main": summary["wall_s"]}
     del summary, tsum
     shutil.rmtree(tiled_dir, ignore_errors=True)  # out_dir: the fleet's reference
+    # ---- the main path over several row slots / cards, against out_dir ----
+    multi_main = multi_device_main(torch, dev, smi, args.n, out_dir,
+                                   {"wall_s": wall_single["main"],
+                                    "launches": launches})
     profile_phase2(torch, dev, dummy_brain(args.n, FISH1_L), main_optE, smi)
 
     # ---- the significance path; the launch counts start at 0 here -------
@@ -1818,6 +2187,8 @@ def main(argv=None) -> int:
                              f"below the untiled {peak_sig} B")
     del stsum
     shutil.rmtree(sig_tiled_dir, ignore_errors=True)  # sig_dir: the fleet's
+    multi_sig_launches = multi_device_significance(torch, dev, smi, args.sig_n,
+                                                   sig_dir, sig_launches)
 
     # ---- the all-E phase 2 and the bfloat16 map, each path's counts at 0
     all_e = all_e_phase(torch, dev, smi)
@@ -1857,6 +2228,10 @@ def main(argv=None) -> int:
                                          Lq=Lp11, Lc=Lp11, k=E_MAX + 1,
                                          select_Es=list(all_E))
     emit("time_knn_topk", smi=smi, **times)
+    # ---- library-sharded kNN at Subject11's length, on the card and
+    # across the ranks of a two-rank torch.distributed world
+    sharded_launches = sharded_knn_phase(torch, dev, smi)
+    dist_launches = distributed_phase(torch, smi)
 
     # the significance path's prefix build: one chunk, its bucket set
     kp = sig_buckets[-1] + 1
@@ -2037,7 +2412,8 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
          "replaces": "src/repro/kernels/knn_topk/knn_topk.py:211",
          "launches": launches["knn_topk"],
-         "launches_significance": sig_launches["knn_topk"], "max_abs_err": knn_err,
+         "launches_significance": sig_launches["knn_topk"],
+         "max_abs_err": max(knn_err, range_err),
          "ms": k2["kernel_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_us"] / 1e3,
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -2055,7 +2431,14 @@ def main(argv=None) -> int:
          "launches_fleet": {k: v["knn_topk"] for k, v in fleet.items()},
          "launches_dryrun": {k: v["knn_topk"] for k, v in dry_launches.items()},
          "launches_bench_knn": bknn["launches"]["knn_topk"],
-         "checked": True, "checked_bf16": True},
+         "launches_multi_device_main": {k: v["launches"]["knn_topk"]
+                                        for k, v in multi_main.items()},
+         "launches_multi_device_significance": multi_sig_launches["knn_topk"],
+         "launches_sharded_knn": sharded_launches,
+         "launches_distributed": dist_launches,
+         "max_abs_err_column_range": range_err,
+         "max_abs_err_column_range_bf16": range_bf16_err,
+         "checked": True, "checked_bf16": True, "checked_column_range": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
          "replaces": "src/repro/kernels/ccm_lookup/ccm_lookup.py:24",
@@ -2076,6 +2459,9 @@ def main(argv=None) -> int:
                             for k, v in all_e["runs"].items()},
          "launches_fleet": {k: v["ccm_lookup"] for k, v in fleet.items()},
          "launches_dryrun": {k: v["ccm_lookup"] for k, v in dry_launches.items()},
+         "launches_multi_device_main": {k: v["launches"]["ccm_lookup"]
+                                        for k, v in multi_main.items()},
+         "launches_multi_device_significance": multi_sig_launches["ccm_lookup"],
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
@@ -2089,6 +2475,8 @@ def main(argv=None) -> int:
          "max_abs_err_bf16": prefix_bf16_err,
          "launches_significance_tiled": sig_tiled_launches["knn_topk_prefix"],
          "launches_fleet": {k: v["knn_topk_prefix"] for k, v in fleet.items()},
+         "launches_multi_device_significance":
+             multi_sig_launches["knn_topk_prefix"],
          "checked": True, "checked_bf16": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

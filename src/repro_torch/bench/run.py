@@ -31,10 +31,20 @@ where two layouts are compared.
                 bucketed in column tiles
   significance  one-sweep prefix tables vs the per-size rebuild
   roofline      a summary of the dry runs' JSONs (launch/edm_dryrun.py)
+  fig3          the main path's wall over 1, 2 and 4 row slots of one
+                device and over every visible card where there are
+                several: on one card the slots share it, so the rows
+                measure the decomposition's overhead, as the JAX bench's
+                spoofed CPU devices do
+  scale         BENCH_scale.json: per cell (N x L, E_max 20) one series'
+                streaming table build, the library-sharded build + merge
+                at 1, 2, 4 and 8 simulated shards (and over every visible
+                card where there are several), each bit-equal to the
+                unsharded table, and the merge alone on the device vs the
+                host oracle
 
-Not ported: ``fig3`` and ``scale`` (several devices, sharded kNN),
-``fig9b`` (its variants are XLA scheduling knobs) and the ``--check``
-regression gate (no committed baselines for the port yet).
+Not ported: ``fig9b`` (its variants are XLA scheduling knobs) and the
+``--check`` regression gate (no committed baselines for the port yet).
 """
 from __future__ import annotations
 
@@ -52,7 +62,13 @@ import torch
 from repro_torch import engine as engines
 from repro_torch.core import ccm, embedding, knn
 from repro_torch.core.baseline import ccm_pair_naive
-from repro_torch.core.pipeline import Phase2Runner, run_phase1
+from repro_torch.core.pipeline import (
+    Phase2Runner,
+    knn_tables_library_sharded,
+    knn_tables_library_sharded_sim,
+    run_causal_inference,
+    run_phase1,
+)
 from repro_torch.core.simplex import simplex_batch
 from repro_torch.core.types import EDMConfig
 from repro_torch.data.store import TileWriter
@@ -63,7 +79,8 @@ from repro_torch.kernels.knn_slab.ops import knn_slab
 from repro_torch.kernels.knn_slab.ref import padded_width
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from repro_torch.launch import roofline as RL
-from repro_torch.runtime.device import card_line, resolve_device
+from repro_torch.runtime.device import BusySampler, card_line, resolve_device
+from repro_torch.runtime.platform import local_devices
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 DEFAULT_OUT = REPO_ROOT / "build" / "bench"
@@ -89,7 +106,16 @@ SIZES = {
     "significance": {"card": dict(N=2048, L=1450, E_max=20, rows=8, n_sizes=6),
                      "tiny": dict(N=12, L=120, E_max=4, rows=4, n_sizes=3)},
     "roofline": {"card": {}, "tiny": {}},
+    "fig3": {"card": dict(N=4096, L=1450, E_max=20, slots=(1, 2, 4)),
+             "tiny": dict(N=12, L=120, E_max=3, slots=(1, 2, 4))},
+    "scale": {"card": dict(cells=((512, 1000), (2048, 2048), (16384, 4096)),
+                           E_max=20, shard_counts=(1, 2, 4, 8)),
+              "tiny": dict(cells=((16, 120), (32, 200)), E_max=4,
+                           shard_counts=(1, 2, 4, 8))},
 }
+
+#: the JAX scale bench's reference point: its fig6 / fig7 ceiling (N x L)
+PRIOR_CEILING_NL = 128 * 1000
 
 
 class Bench:
@@ -103,8 +129,10 @@ class Bench:
         self.rows: list[dict] = []
 
     def sync(self) -> None:
+        """Wait for every visible card (a multi-device run ends on all)."""
         if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
 
     def time(self, fn, reps: int = 3) -> float:
         """Median seconds of ``fn()`` after one warm-up call, each ended
@@ -545,6 +573,155 @@ def roofline_summary(b: Bench, dryrun_dir=DRYRUN_DIR):
     return b.write_rows("roofline")
 
 
+# ------------------------------------------------------------------- Fig 3
+def fig3_strong_scaling(b: Bench, N, L, E_max, slots):
+    """The main path's wall (phase 1 + phase 2, no store) against the row
+    slots: ``w`` slots of this bench's one device, then every visible card
+    where there are several.  Slots of one device share it, so their rows
+    measure the overhead of the decomposition (chunks of w x lib_block
+    rows, one dispatch per slot), as the JAX bench's spoofed CPU devices
+    do; only the cards' row can show a speedup.  Every map equals the
+    one-slot map byte for byte.  On cards each row carries every card's
+    busy share over its timed runs (``nvidia-smi``, sampled)."""
+    cfg = EDMConfig(E_max=E_max)
+    ts = dummy_brain(N, L)
+    base_map = base = None
+    runs = [(f"fig3_workers_{w}", [b.dev] * w, f"slots={w}x{b.dev}") for w in slots]
+    n_cards = torch.cuda.device_count() if b.dev.type == "cuda" else 0
+    if n_cards > 1:
+        runs.append((f"fig3_cards_{n_cards}", local_devices("cuda"),
+                     f"cards={n_cards}"))
+    for name, devs, what in runs:
+        rho = run_causal_inference(ts, cfg, device=devs).rho
+        if base_map is None:
+            base_map = rho
+        elif not np.array_equal(rho, base_map):
+            raise AssertionError(f"{name}: map differs from the one-slot map")
+        busy = BusySampler(n_cards) if n_cards else None
+        try:
+            t = b.time(lambda devs=devs: run_causal_inference(ts, cfg, device=devs))
+        finally:
+            busy = busy.stop()["per_card_pct"] if busy else None
+        base = base or t
+        kind = ("speedup" if name.startswith("fig3_cards")
+                else "one_device=decomposition_overhead")
+        b.row(name, t, f"spmd_overhead={100 * (t - base) / base:.0f}%;{what};"
+              f"N={N};L={L};{kind};x1={base / t:.2f}"
+              + ("" if busy is None else
+                 ";busy_pct=" + "/".join(f"{v:.1f}" for v in busy if v is not None)))
+    return b.write_rows("fig3")
+
+
+# ------------------------------------------------- paper-shape scaling
+def scale_bench(b: Bench, cells, E_max, shard_counts):
+    """BENCH_scale.json, the JAX bench's keys: per cell (N series x L
+    steps) one representative series' streaming all-E table build (per
+    series the cost does not depend on N), the library-sharded build +
+    merge at each simulated shard count (``sim{S}``) and over every
+    visible card where there are several (``mesh{W}``), each bit-equal to
+    the unsharded table, and the merge alone: the device tree
+    (``merge_device_s``) against the host lexsort oracle
+    (``merge_host_s``); whole-brain extrapolations as the JAX bench
+    computes them."""
+    cfg = EDMConfig(E_max=E_max)
+    k = cfg.k_max
+    eng = engines.get_engine(cfg.engine)
+    n_cards = torch.cuda.device_count() if b.dev.type == "cuda" else 0
+    out: dict = {"prior_ceiling_NL": PRIOR_CEILING_NL,
+                 "devices": max(n_cards, 1), "smoke": False, "cells": {}}
+    for N, L in cells:
+        Lp = cfg.n_points(L)
+        V = embedding.lag_matrix(b.series(1, L, seed=N), E_max, cfg.tau,
+                                 Lp).contiguous()
+        tile_c = knn.resolve_stream_tile(Lp, Lp, cfg)
+        reps = 1 if N * L > 10 * PRIOR_CEILING_NL else 3
+        build = lambda: eng.knn_tables(V, V, k, exclude_self=True, cfg=cfg)
+        t_build = b.time(build, reps=reps)
+        ref_i, ref_d = build()
+
+        def same(got):
+            return bool(torch.equal(got[0], ref_i) and torch.equal(
+                got[1].view(torch.int32), ref_d.view(torch.int32)))
+
+        sharded: dict = {}
+        if n_cards > 1:
+            devs = local_devices("cuda")
+            fn = lambda: knn_tables_library_sharded(V, V, k, cfg, exclude_self=True,
+                                                    devices=devs)
+            if not same(fn()):
+                raise AssertionError(f"scale {N}x{L}: mesh{n_cards} != unsharded")
+            sharded[f"mesh{n_cards}"] = {"build_merge_s": b.time(fn, reps=reps),
+                                         "identical": True, "collective": True}
+        for S in shard_counts:
+            fn = lambda S=S: knn_tables_library_sharded_sim(
+                V, V, k, cfg, exclude_self=True, shards=S)
+            if not same(fn()):
+                raise AssertionError(f"scale {N}x{L}: sim{S} != unsharded")
+            sharded[f"sim{S}"] = {"build_merge_s": b.time(fn, reps=reps),
+                                  "identical": True, "collective": False}
+        # the merge alone, device tree vs host oracle, over the shard
+        # tables of the largest shard count (built once)
+        S = shard_counts[-1]
+        shard = -(-Lp // S)
+        parts = []
+        for s in range(S):
+            lo, hi = s * shard, min((s + 1) * shard, Lp)
+            part = torch.nn.functional.pad(V[..., lo:max(lo, hi)],
+                                           (0, shard - max(0, hi - lo)))
+            parts.append(eng.knn_tables(V, part.contiguous(), min(k, shard),
+                                        exclude_self=True, cfg=cfg,
+                                        col_offset=lo, col_hi=hi))
+        idx_p, d_p = [p[0] for p in parts], [p[1] for p in parts]
+        t_merge_dev = b.time(lambda: knn.merge_topk_tree(idx_p, d_p, k),
+                             reps=max(reps, 3))
+        host_i = [i.cpu().numpy() for i in idx_p]
+        host_d = [d.cpu().numpy() for d in d_p]
+        t0 = time.perf_counter()
+        hi_, hd_ = knn.merge_shard_tables(host_i, host_d, k=k)
+        t_merge_host = time.perf_counter() - t0
+        if not (np.array_equal(hi_, ref_i.cpu().numpy())
+                and np.array_equal(hd_.view(np.int32),
+                                   ref_d.cpu().numpy().view(np.int32))):
+            raise AssertionError(f"scale {N}x{L}: host merge != unsharded")
+        cell = {
+            "N": N, "L": L, "Lp": Lp, "E_max": E_max, "k": k,
+            "NL": N * L, "ceiling_ratio": N * L / PRIOR_CEILING_NL,
+            "tile_c": tile_c,
+            "streaming_bytes": knn.streaming_bytes(Lp, k, tile_c, E_max),
+            "knn_build_s": t_build,
+            "sharded": sharded,
+            "merge_device_s": t_merge_dev,
+            "merge_host_s": t_merge_host,
+            "phase1_tables_extrapolated_s": t_build * N,
+            "phase1_tables_per_512_workers_s": t_build * N / 512,
+        }
+        out["cells"][f"{N}x{L}"] = cell
+        b.row(f"scale_{N}x{L}_knn_build", t_build,
+              f"Lp={Lp};tile={tile_c};NL={N * L}"
+              f";ceiling_x={cell['ceiling_ratio']:.0f}")
+        for sk, sv in sharded.items():
+            b.row(f"scale_{N}x{L}_sharded_{sk}", sv["build_merge_s"],
+                  "identical=True")
+        b.row(f"scale_{N}x{L}_merge", t_merge_dev,
+              f"host={t_merge_host * 1e6:.0f}us;"
+              f"device_vs_host={t_merge_host / max(t_merge_dev, 1e-9):.1f}x")
+    # per-series build ~ E_max * Lp^2: the constant from the largest cell,
+    # projected to the paper's two datasets (the JAX bench's model)
+    big = out["cells"][f"{cells[-1][0]}x{cells[-1][1]}"]
+    c0 = big["knn_build_s"] / (big["E_max"] * big["Lp"] ** 2)
+    for name, (Np, Lraw) in {"fish1_normo": (53053, 1450),
+                             "subject11": (101729, 8528)}.items():
+        t_series = c0 * 20 * (Lraw - 20) ** 2
+        out[f"model_{name}"] = {
+            "N": Np, "L": Lraw,
+            "phase1_tables_s_1core": t_series * Np,
+            "phase1_tables_s_512_workers": t_series * Np / 512,
+        }
+        b.row(f"scale_model_{name}", t_series * Np / 512,
+              "per_512_workers_extrapolated")
+    return b.write("BENCH_scale.json", out)
+
+
 BENCHES = {
     "table2": table2_speedup,
     "fig6": fig6_scaling_N,
@@ -555,6 +732,8 @@ BENCHES = {
     "phase2": phase2_engine_bench,
     "significance": significance_bench,
     "roofline": roofline_summary,
+    "fig3": fig3_strong_scaling,
+    "scale": scale_bench,
 }
 
 

@@ -19,6 +19,15 @@ Masked candidates (the self column under ``exclude_self``) carry +inf
 and come back as (+inf, own id), which is what the JAX tables hold in
 the k == Lc case.
 
+Library sharding (the JAX package's DESIGN.md SS8 / SS14): a table
+function given ``col_offset`` / ``col_hi`` selects over one contiguous
+shard of the candidates, column j being global candidate ``col_offset +
+j``; the shards' tables reduce to the unsharded table bit for bit by
+:func:`merge_topk_tree` (in one process, across devices too) or
+:func:`merge_topk_collective` (across the ranks of a
+``torch.distributed`` group); :func:`merge_shard_tables` is the host
+lexsort oracle of both.
+
 Every table function takes the series batch as the leading dimension:
 Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) -> idx, dist (S, n_sel, Lq, k).
 
@@ -35,6 +44,7 @@ JAX package's working-set formula, which the kNN bench reports.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.stats import simplex_weights
@@ -140,6 +150,107 @@ def merge_topk_sorted(run_i, run_d, new_i, new_d, k: int):
     return torch.gather(i, -1, order[..., :k]), d_sorted[..., :k]
 
 
+def merge_topk_tree(idx_parts, dist_parts, k: int):
+    """Reduce per-shard top-k tables to the global top-k.
+
+    idx_parts / dist_parts: (..., Lq, k_s) shard tables in ASCENDING
+    ``col_offset`` order, ids global.  Contiguous pairs fold through
+    :func:`merge_topk_sorted` (running = the left block), level by level.
+    Every id of a left block is below every id of its right block, so
+    running-before-new is the (distance, id) key of ``lax.top_k`` and of
+    :func:`merge_shard_tables`: the unsharded table bit for bit, ties
+    included.  Each level keeps ``min(k, w_a + w_b)`` entries, so no
+    padding entry is ever made.  The right table of a pair moves to the
+    left one's device (a device-to-device copy across local cards); the
+    result lies on the first shard's device."""
+    parts = list(zip(list(idx_parts), list(dist_parts)))
+    if not parts:
+        raise ValueError("merge_topk_tree needs at least one shard table")
+    while len(parts) > 1:
+        nxt = []
+        for a in range(0, len(parts) - 1, 2):
+            (ia, da), (ib, db) = parts[a], parts[a + 1]
+            kk = min(k, ia.shape[-1] + ib.shape[-1])
+            nxt.append(merge_topk_sorted(ia, da, ib.to(ia.device),
+                                         db.to(ia.device), kk))
+        if len(parts) % 2:
+            nxt.append(parts[-1])
+        parts = nxt
+    idx, dist = parts[0]
+    return idx[..., :k], dist[..., :k]
+
+
+def _exchange(dist_mod, group, peer: int, tensors):
+    """Send ``tensors`` to rank ``peer`` of ``group`` and receive the same
+    shapes from it (one batch of point-to-point ops)."""
+    outs = [torch.empty_like(t) for t in tensors]
+    gpeer = peer if group is None else dist_mod.get_global_rank(group, peer)
+    ops = [dist_mod.P2POp(dist_mod.isend, t, gpeer, group) for t in tensors]
+    ops += [dist_mod.P2POp(dist_mod.irecv, o, gpeer, group) for o in outs]
+    for req in dist_mod.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+def merge_topk_collective(idx, dist, k: int, group=None):
+    """Merge the shard tables of a ``torch.distributed`` group: rank r holds
+    the r-th contiguous candidate shard's (..., Lq, k_s) table (global
+    ids); every rank returns the global (..., Lq, k) table.
+
+    A power-of-two world runs a butterfly: at step s each rank exchanges
+    its table with rank ``r ^ s`` and keeps the merge of the two blocks,
+    the lower rank's as the running side, so each merge is of contiguous
+    ascending blocks and the tie rule of :func:`merge_topk_tree` holds;
+    log2(W) steps of one table each.  Other worlds: one ``all_gather`` and
+    :func:`merge_topk_tree` on every rank.  Every rank's table has the
+    same width (``min(k, shard)``), so the buffers take the sender's shape.
+
+    On a ``gloo`` group the tables go through host memory (gloo's
+    point-to-point takes CPU tensors) and come back to ``idx``'s device;
+    on NCCL they move card to card."""
+    import torch.distributed as dist_mod
+
+    W = dist_mod.get_world_size(group)
+    if W == 1:
+        return idx[..., :k], dist[..., :k]
+    me = dist_mod.get_rank(group)
+    dev = idx.device
+    host = dist_mod.get_backend(group) == "gloo"
+    stage = (lambda t: t.contiguous().cpu()) if host else (lambda t: t.contiguous())
+    if W & (W - 1) == 0:
+        step = 1
+        while step < W:
+            oi, od = (t.to(dev) for t in
+                      _exchange(dist_mod, group, me ^ step, [stage(idx), stage(dist)]))
+            kk = min(k, idx.shape[-1] + oi.shape[-1])
+            if me & step == 0:  # the lower block: running side
+                idx, dist = merge_topk_sorted(idx, dist, oi, od, kk)
+            else:
+                idx, dist = merge_topk_sorted(oi, od, idx, dist, kk)
+            step *= 2
+        return idx[..., :k], dist[..., :k]
+    gathered = []
+    for t in (stage(idx), stage(dist)):
+        bufs = [torch.empty_like(t) for _ in range(W)]
+        dist_mod.all_gather(bufs, t, group=group)
+        gathered.append([b.to(dev) for b in bufs])
+    return merge_topk_tree(gathered[0], gathered[1], k)
+
+
+def merge_shard_tables(idx_parts, dist_parts, k: int | None = None):
+    """Host oracle of the shard merges: numpy (idx, dist) of the global
+    top-k under the (distance, id) key — ``np.lexsort`` over the
+    concatenated shard tables (ids global).  ``k`` None: the narrowest
+    shard table's width."""
+    idx = np.concatenate([np.asarray(p) for p in idx_parts], axis=-1)
+    dist = np.concatenate([np.asarray(p) for p in dist_parts], axis=-1)
+    if k is None:
+        k = min(np.asarray(p).shape[-1] for p in idx_parts)
+    order = np.lexsort((idx, dist))[..., :k]
+    return (np.take_along_axis(idx, order, axis=-1),
+            np.take_along_axis(dist, order, axis=-1))
+
+
 def check_select_Es(select_Es, E_rows: int) -> tuple[int, ...]:
     select_Es = tuple(int(e) for e in select_Es)
     if not select_Es or list(select_Es) != sorted(set(select_Es)) or select_Es[0] < 1:
@@ -147,6 +258,25 @@ def check_select_Es(select_Es, E_rows: int) -> tuple[int, ...]:
     if select_Es[-1] > E_rows:
         raise ValueError(f"selection E {select_Es[-1]} exceeds lag rows {E_rows}")
     return select_Es
+
+
+def check_col_range(Lq: int, Lc: int, exclude_self: bool, col_offset: int = 0,
+                    col_hi: int | None = None) -> int:
+    """Validate a column range (the knn_topk kernel's rule); returns
+    ``col_hi`` resolved (None = ``col_offset + Lc``).  Without a range,
+    ``exclude_self`` needs the query set to be the candidate set, as in the
+    JAX package; with one, the query rows must reach ``col_hi``."""
+    unsharded = col_offset == 0 and col_hi is None
+    col_hi = col_offset + Lc if col_hi is None else int(col_hi)
+    if col_offset < 0 or not 0 <= col_hi <= col_offset + Lc:
+        raise ValueError(f"column range col_offset={col_offset}, col_hi="
+                         f"{col_hi} outside [0, col_offset + Lc={col_offset + Lc}]")
+    if exclude_self and unsharded and Lq != Lc:
+        raise ValueError("exclude_self requires query set == candidate set")
+    if exclude_self and Lq < col_hi:
+        raise ValueError(f"exclude_self over global candidates below col_hi="
+                         f"{col_hi} needs that many query rows, got Lq={Lq}")
+    return col_hi
 
 
 def _select_tile(D, invalid, k: int, c0: int):
@@ -167,9 +297,16 @@ def _knn_tables_streaming(
     tile_c: int,
     select_Es: tuple[int, ...],
     dist_dtype=torch.float32,
+    col_offset: int = 0,
+    col_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Candidate-tiled selection at the E values in ``select_Es``; the
     distance recurrence still sweeps every e up to max(select_Es).
+
+    ``col_offset`` / ``col_hi`` (one library shard, the JAX semantics):
+    column j of Vc is global candidate ``col_offset + j``; columns at or
+    past ``col_hi`` (default ``col_offset + Lc``) are masked to +inf and
+    keep their own id, and ``exclude_self`` masks global id == query row.
 
     Returns (idx int32, dist float32), each (S, len(select_Es), Lq, k)."""
     S, E_rows, Lq = Vq.shape
@@ -179,8 +316,7 @@ def _knn_tables_streaming(
         raise ValueError(f"Vq {tuple(Vq.shape)} and Vc {tuple(Vc.shape)} disagree")
     if k > Lc:
         raise ValueError(f"k={k} exceeds candidate count Lc={Lc}")
-    if exclude_self and Lq != Lc:
-        raise ValueError("exclude_self requires query set == candidate set")
+    col_hi = check_col_range(Lq, Lc, exclude_self, col_offset, col_hi)
     dist_dtype = _dtype(dist_dtype)
     # The first tile is selected directly, so it must hold >= k columns;
     # balanced widths as in the JAX table functions (any width gives the same
@@ -193,15 +329,19 @@ def _knn_tables_streaming(
     run_i = run_d = None
     for c0 in range(0, Lc, tile_c):
         c1 = min(c0 + tile_c, Lc)
+        gid = torch.arange(col_offset + c0, col_offset + c1, device=Vq.device)[None, :]
         invalid = None
+        if col_offset + c1 > col_hi:
+            invalid = gid >= col_hi
         if exclude_self:
-            invalid = torch.arange(c0, c1, device=Vq.device)[None, :] == rows
+            self_col = gid == rows
+            invalid = self_col if invalid is None else invalid | self_col
         D = torch.zeros((S, Lq, c1 - c0), dtype=dist_dtype, device=Vq.device)
         t_i, t_d = [], []
         for e in range(select_Es[-1]):
             D = _acc_sq(D, Vq[:, e], Vc[:, e, c0:c1], dist_dtype)
             if e + 1 in want:
-                i, d = _select_tile(D, invalid, k, c0)
+                i, d = _select_tile(D, invalid, k, col_offset + c0)
                 t_i.append(i)
                 t_d.append(d)
         T_i, T_d = torch.stack(t_i, dim=1), torch.stack(t_d, dim=1)
@@ -213,13 +353,15 @@ def _knn_tables_streaming(
 
 
 def knn_tables_all_E_streaming(
-    Vq, Vc, k_max: int, exclude_self: bool, tile_c: int, dist_dtype=torch.float32
+    Vq, Vc, k_max: int, exclude_self: bool, tile_c: int, dist_dtype=torch.float32,
+    col_offset: int = 0, col_hi: int | None = None,
 ):
     """All-E streaming tables: (S, E_rows, Lq, k_max) each — phase 1's
-    selection path (and the unbucketed phase 2's)."""
+    selection path (and the unbucketed phase 2's); with ``col_offset`` /
+    ``col_hi`` one library shard's (:func:`_knn_tables_streaming`)."""
     return _knn_tables_streaming(
         Vq, Vc, k_max, exclude_self, tile_c,
-        tuple(range(1, Vq.shape[1] + 1)), dist_dtype,
+        tuple(range(1, Vq.shape[1] + 1)), dist_dtype, col_offset, col_hi,
     )
 
 

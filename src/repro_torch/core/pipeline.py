@@ -1,25 +1,33 @@
-"""The port's causal-inference pipeline on one device.
+"""The port's causal-inference pipeline over the run's device slots.
 
-  phase 1 (simplex projection): the series in chunks of ``lib_block``,
-    each chunk one batched kNN-table build + forecast + rho; optE comes
+  phase 1 (simplex projection): the series in chunks of ``D x lib_block``
+    (D device slots, :func:`repro_torch.runtime.platform.local_devices`),
+    slot d taking rows ``[row0 + d * lib_block, ...)``; each slot's rows
+    one batched kNN-table build + forecast + rho on its device; optE comes
     back to the host once (N int32 — the one whole-run broadcast).
-  phase 2 (CCM, :class:`Phase2Runner`): per chunk of ``lib_block``
-    library series, one kNN launch builds every table of the chunk — at
-    the bucket E values (bucketed, the default) or at every E
-    (``bucketed=False``) — and the targets stream through the segmented
-    lookup.  Untiled (``target_tile=0``), a chunk's rho rows are full
-    width and the targets' futures live on the device for the whole
-    run; tiled, the tables of a chunk serve every column tile of
-    ``target_tile`` targets, whose futures are uploaded per tile from
-    the host, so the device holds O(chunk x buckets x Lp x k + tile x
-    Lp).  Finished blocks go through a :class:`ChunkStreamer` (the next
-    one is queued on the card while the last is copied out) into the
-    :class:`TileWriter` store, which doubles as the resume manifest.
-    Tiled and untiled maps are equal byte for byte.
+  phase 2 (CCM, :class:`Phase2Runner`): per chunk, split across the slots
+    the same way, each slot's library series build every table in one
+    kNN launch — at the bucket E values (bucketed, the default) or at
+    every E (``bucketed=False``) — and the targets stream through the
+    segmented lookup.  Untiled (``target_tile=0``), a chunk's rho rows
+    are full width and the targets' futures live on every device for
+    the whole run; tiled, the tables of a chunk serve every column tile
+    of ``target_tile`` targets, whose futures are uploaded per tile from
+    the host, so each device holds O(lib_block x buckets x Lp x k + tile
+    x Lp).  Every slot's block of a chunk is dispatched before any is
+    drained; the parts go through one :class:`ChunkStreamer` (the next
+    chunk is queued on the cards while the last is copied out) into the
+    :class:`TileWriter` store, in row order, which doubles as the resume
+    manifest.  The map is the same byte for byte for any device count,
+    tiled or untiled, and a resume may change the device count.
+  library-sharded kNN (:func:`knn_tables_library_sharded`): the
+    candidate axis cut into contiguous shards, one a device slot or a
+    rank of a ``torch.distributed`` group, merged to the unsharded table
+    bit for bit (the JAX package's DESIGN.md SS8 / SS14).
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card they raise (``runtime/device.py``).  Splitting chunks
-across several local cards is not ported yet.
+Entry points run on every visible card unless the caller passes
+``device="cpu"`` (or a device list); without a card they raise
+(``runtime/device.py``).
 """
 from __future__ import annotations
 
@@ -30,57 +38,100 @@ import numpy as np
 import torch
 
 from repro_torch import engine as engines
-from repro_torch.core import ccm, simplex
+from repro_torch.core import ccm, knn, simplex
 from repro_torch.core.types import CausalMap, EDMConfig
 from repro_torch.data.store import TileWriter
 from repro_torch.runtime import integrity, telemetry
-from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.platform import local_devices
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
 
-def check_run(cfg: EDMConfig, device=None) -> torch.device:
-    """The run's device (:func:`resolve_device`), after the engine's
-    limits for it are checked — before any work."""
-    engines.get_engine(cfg.engine).check_limits(cfg, device)
-    return resolve_device(device)
+def check_run(cfg: EDMConfig, device=None) -> list[torch.device]:
+    """The run's device slots (:func:`local_devices`: ``device`` a device,
+    a name or a list), after the engine's limits are checked for each
+    device asked for — before any work, and before a card is looked for."""
+    eng = engines.get_engine(cfg.engine)
+    for d in device if isinstance(device, (list, tuple)) else [device]:
+        eng.check_limits(cfg, d)
+    return local_devices(device)
+
+
+def slot_spans(row0: int, valid: int, n_slots: int,
+               lib_block: int) -> list[tuple[int, int, int]]:
+    """(slot, r0, r1) of a chunk's rows [row0, row0 + valid): slot d takes
+    ``h`` rows from ``row0 + d * h``, h = lib_block for a chunk of at most
+    ``n_slots x lib_block`` rows (the JAX mesh's split), larger for a
+    larger one; slots past the rows get none."""
+    h = max(lib_block, -(-valid // n_slots))
+    return [(d, row0 + d * h, row0 + min((d + 1) * h, valid))
+            for d in range(n_slots) if d * h < valid]
+
+
+def _on_each(devs, make) -> dict:
+    """{device: make(device)} over the distinct devices of ``devs``: slots
+    on one device share its state."""
+    return {d: make(d) for d in dict.fromkeys(devs)}
+
+
+def _host_in_row_order(parts) -> list[np.ndarray]:
+    """Parts (device, tensor, ...) in row order -> host arrays, each the
+    rows of every part in that order; one copy per device."""
+    by_dev: dict = {}
+    for dev, *ts in parts:
+        by_dev.setdefault(dev, []).append(ts)
+    host = {dev: [torch.cat(col).cpu() for col in zip(*lst)]
+            for dev, lst in by_dev.items()}
+    at = dict.fromkeys(host, 0)
+    out = [[] for _ in parts[0][1:]]
+    for dev, *ts in parts:
+        n = ts[0].shape[0]
+        for j, h in enumerate(host[dev]):
+            out[j].append(h[at[dev] : at[dev] + n])
+        at[dev] += n
+    return [torch.cat(o).numpy() for o in out]
 
 
 def run_phase1(
     ts: np.ndarray, cfg: EDMConfig, device=None, on_chunk=None
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Phase 1 alone: (simplex_rhos (N, E_max) float32, optE (N,) int32).
-    ``on_chunk(row0)`` fires before each chunk."""
-    dev = check_run(cfg, device)
-    ts_d = torch.as_tensor(np.asarray(ts, np.float32)).to(dev)
-    rhos_parts, optE_parts = [], []
-    for row0 in range(0, ts_d.shape[0], cfg.lib_block):
+    """Phase 1 alone: (simplex_rhos (N, E_max) float32, optE (N,) int32),
+    in chunks of ``len(devices) x lib_block`` rows.  ``on_chunk(row0)``
+    fires before each chunk."""
+    devs = check_run(cfg, device)
+    ts = np.asarray(ts, np.float32)
+    ts_d = _on_each(devs, lambda d: torch.as_tensor(ts).to(d))
+    chunk = len(devs) * cfg.lib_block
+    parts = []
+    for row0 in range(0, ts.shape[0], chunk):
         if on_chunk is not None:
             on_chunk(row0)
-        with telemetry.span("phase1", "chunk", row0=row0,
-                            chunk_rows=cfg.lib_block):
-            rhos_c, optE_c = simplex.simplex_batch(
-                ts_d[row0 : row0 + cfg.lib_block], cfg)
-        rhos_parts.append(rhos_c)
-        optE_parts.append(optE_c)
-    simplex_rhos = torch.cat(rhos_parts).cpu().numpy()
-    optE = torch.cat(optE_parts).cpu().numpy().astype(np.int32)
-    return simplex_rhos, optE
+        with telemetry.span("phase1", "chunk", row0=row0, chunk_rows=chunk):
+            for d, r0, r1 in slot_spans(row0, min(chunk, ts.shape[0] - row0),
+                                        len(devs), cfg.lib_block):
+                parts.append((devs[d], *simplex.simplex_batch(
+                    ts_d[devs[d]][r0:r1], cfg)))
+    simplex_rhos, optE = _host_in_row_order(parts)
+    return simplex_rhos, optE.astype(np.int32)
 
 
 class Phase2Runner:
     """Phase 2 over any (row0, nrows) chunk plans, untiled or tiled
-    (``cfg.target_tile``), bucketed or all-E (``cfg.bucketed``), its
-    per-run state set up once: the bucket plan and, untiled, the
-    targets' futures on the device; tiled, pinned host copies of the
-    series and of the futures (in tile order), from which a chunk's rows
-    and a tile's futures are uploaded when used, so the device holds no
-    (N, L) or (N, Lp) array.  A fleet worker keeps one runner and calls
-    :meth:`run` per claimed unit.  Values do not depend on the plan or
-    the tiles: tables are per library row, targets per column."""
+    (``cfg.target_tile``), bucketed or all-E (``cfg.bucketed``), across
+    the device slots (``device``: a device, a name or a list; chunks of
+    ``len(devices) x lib_block`` rows split as :func:`slot_spans`), its
+    per-run state set up once: the bucket plan on the host and, untiled,
+    the series and the targets' futures on every device; tiled, pinned
+    host copies of the series and of the futures (in tile order), from
+    which a slot's rows and a tile's futures are uploaded to its device
+    when used, so no device holds an (N, L) or (N, Lp) array.  A fleet
+    worker keeps one runner and calls :meth:`run` per claimed unit.
+    Values do not depend on the plan, the tiles or the device count:
+    tables are per library row, targets per column."""
 
     def __init__(self, ts: np.ndarray, ts_fut: np.ndarray, optE: np.ndarray,
                  cfg: EDMConfig, device=None):
-        self.dev = dev = check_run(cfg, device)
+        self.devs = check_run(cfg, device)
+        self.dev = dev = self.devs[0]
         self.cfg = cfg
         ts = np.asarray(ts, np.float32)
         self.N = N = ts.shape[0]
@@ -98,17 +149,25 @@ class Phase2Runner:
             self.ts_h = upload_source(ts, dev)
             self.fut_h = upload_source(fut, dev)
             return
-        self.ts_d = torch.as_tensor(ts).to(dev)
-        self.fut_d = torch.as_tensor(np.ascontiguousarray(fut)).to(dev)
+        fut = np.ascontiguousarray(fut)
+        self.ts_d = _on_each(self.devs, lambda d: torch.as_tensor(ts).to(d))
+        self.fut_d = _on_each(self.devs, lambda d: torch.as_tensor(fut).to(d))
         if cfg.bucketed:
-            self.inv = torch.as_tensor(np.argsort(self.order)).to(dev)
+            inv = np.argsort(self.order)
+            self.inv = _on_each(self.devs, lambda d: torch.as_tensor(inv).to(d))
 
-    def _rows_untiled(self, rows: torch.Tensor) -> torch.Tensor:
-        """Full-width (S, N) rho rows in natural column order."""
+    def _slots(self, row0: int, valid: int):
+        return [(self.devs[d], r0, r1) for d, r0, r1 in
+                slot_spans(row0, valid, len(self.devs), self.cfg.lib_block)]
+
+    def _rows_untiled(self, dev, r0: int, r1: int) -> torch.Tensor:
+        """Full-width (r1 - r0, N) rho rows of library series [r0, r1) on
+        ``dev``, natural column order."""
+        rows = self.ts_d[dev][r0:r1]
         if not self.cfg.bucketed:
-            return ccm.ccm_block(rows, self.fut_d, self.optE, self.cfg)
-        return ccm.ccm_block_bucketed(rows, self.fut_d, self.cfg,
-                                      self.plan)[:, self.inv]
+            return ccm.ccm_block(rows, self.fut_d[dev], self.optE, self.cfg)
+        return ccm.ccm_block_bucketed(rows, self.fut_d[dev], self.cfg,
+                                      self.plan)[:, self.inv[dev]]
 
     def run(self, chunk_plan: list[tuple[int, int]],
             writer: Optional[TileWriter] = None,
@@ -139,15 +198,17 @@ class Phase2Runner:
                     on_chunk(row0)
                 with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
                                     tiled=False):
-                    block = self._rows_untiled(self.ts_d[row0 : row0 + valid])
-                streamer.submit((row0, valid), block)
+                    blocks = [self._rows_untiled(dev, r0, r1)
+                              for dev, r0, r1 in self._slots(row0, valid)]
+                streamer.submit((row0, valid), blocks)
 
     def _run_tiled(self, chunk_plan, writer, rho, progress, on_chunk):
-        """(row-chunk x col-tile) phase 2: tables once per chunk, targets
-        in column tiles of ``cfg.target_tile``, blocks streamed with (row0,
-        col0, valid) tags.  Bucketed tiles are in the sorted column order
-        (``col_order.npy`` in the store), all-E tiles in the natural one."""
-        cfg, dev, N, order = self.cfg, self.dev, self.N, self.order
+        """(row-chunk x col-tile) phase 2: tables once per chunk and slot,
+        targets in column tiles of ``cfg.target_tile`` (uploaded once per
+        device and tile), blocks streamed with (row0, col0, valid) tags.
+        Bucketed tiles are in the sorted column order (``col_order.npy``
+        in the store), all-E tiles in the natural one."""
+        cfg, N, order = self.cfg, self.N, self.order
         T = cfg.target_tile
         if writer is not None:
             writer.ensure_col_order(order)
@@ -176,24 +237,29 @@ class Phase2Runner:
                 with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
                                     tiled=True, tile=T,
                                     n_tiles=len(self.tile_plans)):
-                    with telemetry.span("phase2", "device_put", row0=row0):
-                        rows = self.ts_h[row0 : row0 + valid].to(
-                            dev, non_blocking=True)
-                    if order is not None:
-                        idx, w = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
-                    else:
-                        idx, w = ccm.ccm_row_tables(rows, cfg)
-                    for c0, seg_plan in self.tile_plans:
-                        fut_tile = self.fut_h[c0 : c0 + T].to(dev,
-                                                               non_blocking=True)
+                    tables = []
+                    for dev, r0, r1 in self._slots(row0, valid):
+                        with telemetry.span("phase2", "device_put", row0=r0):
+                            rows = self.ts_h[r0:r1].to(dev, non_blocking=True)
                         if order is not None:
-                            block = ccm.ccm_block_tile_bucketed(
-                                idx, w, fut_tile, cfg, seg_plan, c0, N)
+                            tables.append((dev, ccm.ccm_row_tables_bucketed(
+                                rows, cfg, self.plan)))
                         else:
-                            block = ccm.ccm_block_tile(
-                                idx, w, fut_tile, self.optE[c0 : c0 + T] - 1,
-                                cfg, c0, N)
-                        streamer.submit((row0, c0, valid), block)
+                            tables.append((dev, ccm.ccm_row_tables(rows, cfg)))
+                    for c0, seg_plan in self.tile_plans:
+                        futs = _on_each([dev for dev, _ in tables],
+                                        lambda d: self.fut_h[c0 : c0 + T].to(
+                                            d, non_blocking=True))
+                        blocks = []
+                        for dev, (idx, w) in tables:
+                            if order is not None:
+                                blocks.append(ccm.ccm_block_tile_bucketed(
+                                    idx, w, futs[dev], cfg, seg_plan, c0, N))
+                            else:
+                                blocks.append(ccm.ccm_block_tile(
+                                    idx, w, futs[dev], self.optE[c0 : c0 + T] - 1,
+                                    cfg, c0, N))
+                        streamer.submit((row0, c0, valid), blocks)
         if writer is not None:
             writer.commit()  # no deferred entry is left behind
 
@@ -206,33 +272,35 @@ def run_causal_inference(
     progress: bool = False,
     timings: Optional[dict] = None,
 ) -> CausalMap:
-    """Full pipeline on one device (the card unless ``device="cpu"``).
+    """Full pipeline over the run's device slots (every visible card
+    unless ``device`` says otherwise: ``"cpu"``, ``"cuda:1"``, a list).
 
     With ``out_dir`` the phase-2 blocks stream to a :class:`TileWriter`
     and the returned map is a memmap at <out_dir>/causal_map/data.npy;
     the store is fingerprint-stamped first and checked on every resume.
-    A resume may change ``lib_block`` and ``target_tile``: only rows the
-    store does not cover are recomputed.  ``timings``, when given,
-    receives phase1_s / phase2_s / assemble_s."""
-    dev = check_run(cfg, device)
+    A resume may change ``lib_block``, ``target_tile`` and the device
+    count: only rows the store does not cover are recomputed.
+    ``timings``, when given, receives phase1_s / phase2_s / assemble_s."""
+    devs = check_run(cfg, device)
     ts = np.asarray(ts, np.float32)
     N = ts.shape[0]
+    chunk = len(devs) * cfg.lib_block
     if out_dir is not None:
         integrity.stamp_fingerprint(out_dir, integrity.fingerprint_of(ts, cfg))
 
     t0 = _perf()
-    simplex_rhos, optE = run_phase1(ts, cfg, dev)
+    simplex_rhos, optE = run_phase1(ts, cfg, devs)
     t1 = _perf()
 
     ts_fut = ccm.all_futures(torch.as_tensor(ts), cfg).numpy()
     writer = TileWriter(out_dir, N) if out_dir else None
     rho = None if writer is not None else np.zeros((N, N), np.float32)
     if writer is not None:
-        chunk_plan = writer.chunk_plan(cfg.lib_block)
+        chunk_plan = writer.chunk_plan(chunk)
     else:
-        chunk_plan = [(r, min(cfg.lib_block, N - r)) for r in range(0, N, cfg.lib_block)]
-    Phase2Runner(ts, ts_fut, optE, cfg, dev).run(chunk_plan, writer, rho,
-                                                 progress)
+        chunk_plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
+    Phase2Runner(ts, ts_fut, optE, cfg, devs).run(chunk_plan, writer, rho,
+                                                  progress)
     t2 = _perf()
     if writer is not None:
         rho = writer.assemble(mmap_path=writer.dir / "causal_map" / "data.npy")
@@ -240,3 +308,79 @@ def run_causal_inference(
         timings.update(phase1_s=t1 - t0, phase2_s=t2 - t1,
                        assemble_s=_perf() - t2)
     return CausalMap(rho=rho, optE=optE, simplex_rho=simplex_rhos)
+
+
+# ------------------------------------ library-sharded kNN (DESIGN SS8, SS14)
+def _shard_bounds(Lc: int, W: int) -> tuple[int, np.ndarray]:
+    """Contiguous candidate-shard geometry: (shard width, (W, 2) [lo, hi)),
+    the JAX package's."""
+    shard = -(-Lc // W)
+    lo = np.arange(W, dtype=np.int64) * shard
+    return shard, np.stack([lo, np.minimum(lo + shard, Lc)], axis=1)
+
+
+def _shard_table(Vq, Vc, k: int, cfg: EDMConfig, exclude_self: bool,
+                 s: int, W: int, dev):
+    """Shard s of W: its (S, E_rows, Lq, min(k, shard)) all-E table on
+    ``dev``, ids global.  The shard is padded with zero columns to the
+    common width; ids at or past its ``hi`` (the padding, or all of a
+    shard past Lc) come back as +inf with their own ids."""
+    Lc = Vc.shape[-1]
+    shard, bounds = _shard_bounds(Lc, W)
+    lo, hi = (int(b) for b in bounds[s])
+    part = Vc[..., lo:max(lo, hi)]
+    part = torch.nn.functional.pad(part, (0, shard - part.shape[-1]))
+    eng = engines.get_engine(cfg.engine)
+    return eng.knn_tables(Vq.to(dev).contiguous(), part.to(dev).contiguous(),
+                          min(k, shard), exclude_self=exclude_self, cfg=cfg,
+                          col_offset=lo, col_hi=hi)
+
+
+def knn_tables_library_sharded(
+    Vq, Vc, k: int, cfg: EDMConfig, *, exclude_self: bool, devices=None,
+    group=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All-E kNN tables with the candidate (library) axis in contiguous
+    shards, merged to the unsharded table bit for bit (k <= Lc).
+
+    Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) -> idx, dist (S, E_rows, Lq, k).
+    Without ``group``: shard s on ``devices[s]`` (:func:`local_devices`;
+    default every visible card), every shard dispatched before the
+    merge; :func:`knn.merge_topk_tree` folds them, each right table copied
+    to its left one's device; the table comes back on Vq's device.  With
+    a ``torch.distributed`` ``group`` (no ``devices``): rank r builds shard
+    r on Vq's device and :func:`knn.merge_topk_collective` (butterfly or
+    all_gather + tree) leaves the global table on every rank."""
+    Lc = Vc.shape[-1]
+    if k > Lc:
+        raise ValueError(f"k={k} exceeds candidate count Lc={Lc}")
+    if group is not None:
+        if devices is not None:
+            raise ValueError("with a group each rank builds its shard on Vq's "
+                             "device: pass devices=None")
+        import torch.distributed as dist
+
+        idx, d = _shard_table(Vq, Vc, k, cfg, exclude_self,
+                              dist.get_rank(group), dist.get_world_size(group),
+                              Vq.device)
+        return knn.merge_topk_collective(idx, d, k, group)
+    devs = local_devices(devices)
+    parts = [_shard_table(Vq, Vc, k, cfg, exclude_self, s, len(devs), dev)
+             for s, dev in enumerate(devs)]
+    idx, d = knn.merge_topk_tree([p[0] for p in parts], [p[1] for p in parts], k)
+    return idx.to(Vq.device), d.to(Vq.device)
+
+
+def knn_tables_library_sharded_sim(
+    Vq, Vc, k: int, cfg: EDMConfig, *, exclude_self: bool, shards: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``shards`` shard tables built in turn on Vq's device (the geometry of
+    the real sharded build) and folded by :func:`knn.merge_topk_tree`: the
+    merge's arithmetic at any shard count on one device, bit-equal to the
+    unsharded table and to :func:`knn_tables_library_sharded`."""
+    Lc = Vc.shape[-1]
+    if k > Lc:
+        raise ValueError(f"k={k} exceeds candidate count Lc={Lc}")
+    parts = [_shard_table(Vq, Vc, k, cfg, exclude_self, s, shards, Vq.device)
+             for s in range(shards)]
+    return knn.merge_topk_tree([p[0] for p in parts], [p[1] for p in parts], k)

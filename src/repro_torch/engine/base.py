@@ -6,7 +6,8 @@ Ops take the series batch as a leading tensor dimension (the JAX engines
 take one series and are vmapped):
 
   knn_tables          Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) ->
-                      idx, dist (S, E_rows, Lq, k)
+                      idx, dist (S, E_rows, Lq, k); with col_offset /
+                      col_hi, one library shard's (global ids)
   knn_tables_bucketed same, only at the bucket E values ->
                       (S, len(buckets), Lq, k)
   knn_tables_prefix   same, per nested library size ->
@@ -38,13 +39,18 @@ class Engine:
         ``device`` (None = the card); entry points call it before any
         work.  The plain versions take any config."""
 
-    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg,
+                       col_offset=0, col_hi=None):
         raise NotImplementedError
 
-    def knn_tables(self, Vq, Vc, k, *, exclude_self, cfg):
-        """kNN tables for every embedding dimension 1..E_rows."""
+    def knn_tables(self, Vq, Vc, k, *, exclude_self, cfg, col_offset=0,
+                   col_hi=None):
+        """kNN tables for every embedding dimension 1..E_rows; with
+        ``col_offset`` / ``col_hi`` over one library shard (column c is
+        global candidate ``col_offset + c``, ids >= ``col_hi`` masked)."""
         return self._select_tables(
-            Vq, Vc, k, exclude_self, tuple(range(1, Vq.shape[1] + 1)), cfg
+            Vq, Vc, k, exclude_self, tuple(range(1, Vq.shape[1] + 1)), cfg,
+            col_offset, col_hi,
         )
 
     def knn_tables_bucketed(self, Vq, Vc, k, *, buckets, exclude_self, cfg):

@@ -39,10 +39,11 @@ class CudaEngine(Engine):
                 "--device cpu) or with engine='torch-reference'"
             )
 
-    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg,
+                       col_offset=0, col_hi=None):
         return knn_topk(
             Vq.contiguous(), Vc.contiguous(), k, exclude_self, select_Es,
-            dist_dtype=cfg.dist_dtype,
+            dist_dtype=cfg.dist_dtype, col_offset=col_offset, col_hi=col_hi,
         )
 
     def knn_tables_prefix(self, Vq, Vc, k, *, buckets, lib_sizes,

@@ -12,11 +12,12 @@ from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
 class ReferenceEngine(Engine):
     name = "torch-reference"
 
-    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg):
+    def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg,
+                       col_offset=0, col_hi=None):
         tile = self.knn_selection_tile(Vq.shape[0] * Vq.shape[2], Vc.shape[2], cfg)
         return knn_topk_ref(
             Vq, Vc, k, exclude_self, select_Es, tile_c=tile,
-            dist_dtype=cfg.dist_dtype,
+            dist_dtype=cfg.dist_dtype, col_offset=col_offset, col_hi=col_hi,
         )
 
     def knn_tables_prefix(self, Vq, Vc, k, *, buckets, lib_sizes,

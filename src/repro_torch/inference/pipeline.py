@@ -1,8 +1,9 @@
 """Significance driver of the port: rho maps -> validated causal graphs,
-on one device.
+over the run's device slots.
 
 Runs the two statistical stages over the phase-2 decomposition — row
-chunks of ``lib_block`` library series, column tiles of
+chunks of ``len(devices) x lib_block`` library series, each slot's
+``lib_block`` rows on its device, column tiles of
 ``cfg.target_tile`` targets (one tile of all N when it is 0) — with
 phase 2's ChunkStreamer and TileWriter store:
 
@@ -30,7 +31,9 @@ values, and every map, are the same byte for byte.
 With ``out_dir`` set, blocks stream through TileWriters into
 ``rho_conv/`` (drho), ``rho_trend/``, ``pvals/`` and ``edges/``, and a
 killed run resumes at the first chunk any artifact is missing.  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+points run on every visible card unless the caller passes
+``device="cpu"`` (or a device list); the stores are the same byte for
+byte for any device count.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ccm
-from repro_torch.core.pipeline import check_run
+from repro_torch.core.pipeline import check_run, slot_spans
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.store import TileWriter
@@ -56,23 +59,42 @@ from repro_torch.runtime.stream import ChunkStreamer, upload_source
 SURR_BUILD_VALUES = 1 << 22
 
 
+class _OnDevice:
+    """What one device holds for the significance stage: the column order,
+    the subsampling permutation and the surrogate key (each made on the
+    device from the seed: the same values on every device) and, untiled,
+    the sorted target futures and the surrogate futures."""
+
+    def __init__(self, dev, order: np.ndarray, seed: int, Lp: int):
+        self.dev = dev
+        self.order = torch.as_tensor(order).to(dev)
+        perm_key, self.surr_key = prng.split(prng.prng_key(seed, dev), 2)
+        self.col_ids = convergence.subsample_permutation(perm_key, Lp)
+        self.fut_sorted = self.fut_surr = None
+
+
 class SignificanceChunkRunner:
     """Per-chunk significance compute — convergence tables and tile
     reductions, surrogate-null batches — apart from chunk planning and
-    finalization.  Everything the values depend on is derived here from
-    shared inputs only: the bucket plan and column order from phase-1
-    optE, the subsampling permutation and surrogate keys from sig.seed
-    (per-target fold_in).  ``run`` computes any subset of row chunks and
-    drains blocks through the caller's sink.
+    finalization, across the device slots (``device``: a device, a name
+    or a list; chunks of ``len(devices) x lib_block`` rows, split as
+    ``core/pipeline.py::slot_spans``).  Everything the values depend on is
+    derived here from shared inputs only: the bucket plan and column
+    order from phase-1 optE, the subsampling permutation and surrogate
+    keys from sig.seed (per-target fold_in).  ``run`` computes any subset
+    of row chunks and drains blocks through the caller's sink.
 
     Untiled (``cfg.target_tile`` 0, T = N) the sorted target futures
     ``fut_sorted`` (N, Lp) and surrogate futures ``fut_surr`` (N * m, Lp)
-    live on the device for the run; tiled both are None and every tile
-    uploads or builds its own."""
+    live on every device for the run; tiled both are None and every tile
+    uploads or builds its own, once per device.  The attributes
+    ``order_d``, ``col_ids``, ``surr_key``, ``fut_sorted`` and
+    ``fut_surr`` are the first device's."""
 
     def __init__(self, ts: np.ndarray, optE: np.ndarray, cfg: EDMConfig,
                  sig: SignificanceConfig, device=None):
-        self.dev = dev = check_run(cfg, device)
+        self.devs = check_run(cfg, device)
+        self.dev = dev = self.devs[0]
         self.cfg, self.sig = cfg, sig
         ts = np.asarray(ts, np.float32)
         N, L = ts.shape
@@ -87,11 +109,10 @@ class SignificanceChunkRunner:
                 f"(E_max={cfg.E_max}, tau={cfg.tau}, Tp={cfg.Tp})"
             )
         self.m = sig.n_surrogates
-        self.chunk = cfg.lib_block
+        self.chunk = len(self.devs) * cfg.lib_block
         self.T = cfg.target_tile or N
         self.plan, self.order = ccm.make_bucket_plan(np.asarray(optE, np.int32))
         self.tile_plans = ccm.make_tile_plans(self.plan, self.T)
-        self.order_d = torch.as_tensor(self.order).to(dev)
         self.ts_h = upload_source(ts, dev)
         self.ts_sorted_h = upload_source(ts[self.order], dev)
         fut = ccm.all_futures(torch.from_numpy(ts), cfg).numpy()
@@ -99,31 +120,38 @@ class SignificanceChunkRunner:
         # one batch size for every surrogate build, tiled or not
         self.surr_step = max(1, min(N, SURR_BUILD_VALUES // (max(self.m, 1) * L)))
 
-        perm_key, self.surr_key = prng.split(prng.prng_key(sig.seed, dev), 2)
-        self.col_ids = convergence.subsample_permutation(perm_key, Lp)
-        self.fut_sorted = self.fut_surr = None
+        self.on = {d: _OnDevice(d, self.order, sig.seed, Lp)
+                   for d in dict.fromkeys(self.devs)}
         if not cfg.target_tile:
-            self.fut_sorted = self.fut_sorted_h.to(dev)
-            if self.do_null:
-                self.fut_surr = self.surrogates(0, N)
+            for d, st in self.on.items():
+                st.fut_sorted = self.fut_sorted_h.to(d)
+                if self.do_null:
+                    st.fut_surr = self.surrogates(0, N, d)
+        home = self.on[dev]
+        self.order_d, self.col_ids, self.surr_key = (home.order, home.col_ids,
+                                                     home.surr_key)
+        self.fut_sorted, self.fut_surr = home.fut_sorted, home.fut_surr
 
-    def rows(self, row0: int, n: int) -> torch.Tensor:
-        """Library series [row0, row0 + n) on the device."""
-        return self.ts_h[row0 : row0 + n].to(self.dev, non_blocking=True)
+    def rows(self, row0: int, n: int, dev=None) -> torch.Tensor:
+        """Library series [row0, row0 + n) on ``dev`` (default the first
+        device)."""
+        return self.ts_h[row0 : row0 + n].to(dev or self.dev, non_blocking=True)
 
-    def surrogates(self, c0: int, c1: int) -> torch.Tensor:
+    def surrogates(self, c0: int, c1: int, dev=None) -> torch.Tensor:
         """((c1 - c0) * m, Lp) surrogate futures of the sorted targets
-        [c0, c1).  Built in batches of exactly ``surr_step`` targets (the
-        last one filled up with copies of its last target, dropped
-        after), so every FFT call has one batch size, tiled or not; each
-        target's draws depend only on its global id."""
+        [c0, c1) on ``dev`` (default the first device).  Built in batches
+        of exactly ``surr_step`` targets (the last one filled up with
+        copies of its last target, dropped after), so every FFT call has
+        one batch size, tiled or not; each target's draws depend only on
+        its global id."""
+        st = self.on[dev or self.dev]
         m, step, parts = self.m, self.surr_step, []
         for b0 in range(c0, c1, step):
             b1 = min(b0 + step, c1)
-            pos = torch.arange(step, device=self.dev).clamp_max_(b1 - b0 - 1)
-            rows = self.ts_sorted_h[b0:b1].to(self.dev, non_blocking=True)[pos]
+            pos = torch.arange(step, device=st.dev).clamp_max_(b1 - b0 - 1)
+            rows = self.ts_sorted_h[b0:b1].to(st.dev, non_blocking=True)[pos]
             fut = surrogates.surrogate_futures(
-                self.surr_key, rows, self.order_d[b0 + pos], n=m,
+                st.surr_key, rows, st.order[b0 + pos], n=m,
                 kind=self.sig.surrogate, cfg=self.cfg,
             )
             parts.append(fut[: (b1 - b0) * m])
@@ -131,11 +159,13 @@ class SignificanceChunkRunner:
 
     def run(self, plan_chunks, rho, drain, on_chunk=None) -> None:
         """Compute the given (row0, valid) chunks, draining ("conv"|
-        "pval", row0, c0, valid)-tagged blocks in submission order.
+        "pval", row0, c0, valid)-tagged blocks in submission order; every
+        slot's block of a (chunk, tile) is dispatched before any is
+        drained, and the parts are joined in row order.
 
         rho: the observed causal map (memmap fine; read only when the
         null stage is active).  on_chunk(row0) fires before each chunk."""
-        N, T, m, cfg, dev = self.N, self.T, self.m, self.cfg, self.dev
+        N, T, m, cfg = self.N, self.T, self.m, self.cfg
         with ChunkStreamer(drain, depth=cfg.stream_depth,
                            stage="sig") as streamer:
             for row0, valid in plan_chunks:
@@ -144,44 +174,60 @@ class SignificanceChunkRunner:
                 with telemetry.span("sig", "chunk", row0=row0, rows=valid,
                                     chunk_rows=self.chunk, tile=T,
                                     conv=self.do_conv, null=self.do_null):
-                    with telemetry.span("sig", "device_put", row0=row0):
-                        rows = self.rows(row0, valid)
-                    if self.do_conv:
-                        cidx, cw = convergence.conv_block_tables(
-                            rows, cfg, self.plan, self.sig.lib_sizes, self.col_ids
-                        )
+                    slots = []
+                    for d, r0, r1 in slot_spans(row0, valid, len(self.devs),
+                                                cfg.lib_block):
+                        st = self.on[self.devs[d]]
+                        with telemetry.span("sig", "device_put", row0=r0):
+                            rows = self.rows(r0, r1 - r0, st.dev)
+                        slot = {"st": st, "r": (r0 - row0, r1 - row0)}
+                        if self.do_conv:
+                            slot["conv"] = convergence.conv_block_tables(
+                                rows, cfg, self.plan, self.sig.lib_sizes,
+                                st.col_ids)
+                        if self.do_null:
+                            slot["null"] = ccm.ccm_row_tables_bucketed(
+                                rows, cfg, self.plan)
+                        slots.append(slot)
                     if self.do_null:
-                        fidx, fw = ccm.ccm_row_tables_bucketed(rows, cfg, self.plan)
                         rho_chunk = np.asarray(rho[row0 : row0 + valid], np.float32)
                     for c0, seg_plan in self.tile_plans:
                         c1 = min(c0 + T, N)
                         if self.do_conv:
-                            fut_tile = (
-                                self.fut_sorted[c0:c1] if self.fut_sorted is not None
-                                else self.fut_sorted_h[c0:c1].to(dev, non_blocking=True)
-                            )
-                            drho, trend = convergence.conv_block_tile(
-                                cidx, cw, fut_tile, cfg, seg_plan, col0=c0, width=N
-                            )
-                            streamer.submit(("conv", row0, c0, valid),
-                                            torch.stack([drho, trend]))
+                            futs = {}
+                            blocks = []
+                            for slot in slots:
+                                st = slot["st"]
+                                if st.dev not in futs:
+                                    futs[st.dev] = (
+                                        st.fut_sorted[c0:c1] if st.fut_sorted is not None
+                                        else self.fut_sorted_h[c0:c1].to(
+                                            st.dev, non_blocking=True))
+                                drho, trend = convergence.conv_block_tile(
+                                    *slot["conv"], futs[st.dev], cfg, seg_plan,
+                                    col0=c0, width=N)
+                                blocks.append(torch.stack([drho, trend]))
+                            streamer.submit(("conv", row0, c0, valid), blocks,
+                                            axis=1)
                         if self.do_null:
-                            fut_surr = (
-                                self.fut_surr[c0 * m : c1 * m]
-                                if self.fut_surr is not None
-                                else self.surrogates(c0, c1)
-                            )
-                            rho_obs = upload_source(
-                                rho_chunk[:, self.order[c0:c1]], dev
-                            ).to(dev, non_blocking=True)
+                            surr = {}
+                            blocks = []
                             seg_plan_m = tuple((b, cnt * m) for b, cnt in seg_plan)
-                            streamer.submit(
-                                ("pval", row0, c0, valid),
-                                significance.null_block_pvals(
-                                    fidx, fw, fut_surr, rho_obs, cfg, seg_plan_m,
-                                    m, col0=c0 * m, width=N * m,
-                                ),
-                            )
+                            for slot in slots:
+                                st = slot["st"]
+                                if st.dev not in surr:
+                                    surr[st.dev] = (
+                                        st.fut_surr[c0 * m : c1 * m]
+                                        if st.fut_surr is not None
+                                        else self.surrogates(c0, c1, st.dev))
+                                a, b = slot["r"]
+                                rho_obs = upload_source(
+                                    rho_chunk[a:b, self.order[c0:c1]], st.dev
+                                ).to(st.dev, non_blocking=True)
+                                blocks.append(significance.null_block_pvals(
+                                    *slot["null"], surr[st.dev], rho_obs, cfg,
+                                    seg_plan_m, m, col0=c0 * m, width=N * m))
+                            streamer.submit(("pval", row0, c0, valid), blocks)
 
 
 # ------------------------------------------------------------------- driver
@@ -248,8 +294,8 @@ def run_significance(
     progress: bool = False,
 ) -> SignificanceResult:
     """Validate a causal map: convergence statistics, surrogate p-values,
-    and the BH-FDR significance-masked edge list, on the card unless
-    ``device="cpu"``.
+    and the BH-FDR significance-masked edge list, on every visible card
+    unless ``device`` says otherwise (``"cpu"``, a device list).
 
     ts (N, L) series; optE (N,) phase-1 optimal embeddings; rho the
     (N, N) observed causal map (memmap fine — read a chunk of rows at a

@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kT = 256;        // time points per item, one per thread
@@ -86,6 +88,7 @@ constexpr int kTS = 512;       // (table, time point) pairs a stream block
 constexpr int kMaxK = 32;      // neighbours per table row (register bound)
 constexpr int kMaxSegs = 64;   // segments per launch (kernel parameter)
 constexpr size_t kTwoBlockBytes = 112 * 1024;  // shared memory for 2 blocks an SM
+constexpr int kMaxDevices = 64;  // device indices the launch caches keep a slot for
 
 struct Segs {
   int n;                  // segments
@@ -315,30 +318,52 @@ int choose_g(int Lp) {
   return 1;
 }
 
-template <int G, int MAXK>
-int launch(const int32_t* idx, const float* w, const float* Y, float* out,
-           int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
-           int dev, cudaStream_t stream) {
-  // the smem attribute and the occupancy it gives, kept per instance
-  static int cached_dev = -1, blocks = 0;
-  static size_t cached_smem = 0;
-  const size_t smem = 2 * (size_t)Lp * G * sizeof(float);
-  auto kern = ccm_lookup_kernel<G, MAXK>;
-  cudaError_t err;
-  if (dev != cached_dev || smem != cached_smem) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+// The dynamic shared-memory attribute of a kernel instance and the
+// resident blocks it gives, per device: the attribute is set on the
+// current device, so each device index keeps its own slot, and a launch
+// that alternates between cards finds its slot set.  One mutex an instance
+// makes the check and the set one step for launches from several host
+// threads.
+struct LaunchCache {
+  std::mutex mu;
+  size_t smem[kMaxDevices] = {};  // 0: not set on that device yet
+  int blocks[kMaxDevices] = {};
+};
+
+// Grid-filling block count of ``kern`` at ``threads`` and ``smem`` on
+// ``dev`` (0 or a negative argument code, or the CUDA error).
+template <typename Kern>
+int resident_blocks(Kern kern, int threads, size_t smem, int dev,
+                    LaunchCache& cache, int* blocks) {
+  if (dev < 0 || dev >= kMaxDevices) return -9;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  if (cache.smem[dev] != smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, n_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return -8;
-    blocks = per_sm * n_sm;
-    cached_dev = dev;
-    cached_smem = smem;
+    cache.blocks[dev] = per_sm * n_sm;
+    cache.smem[dev] = smem;
   }
+  *blocks = cache.blocks[dev];
+  return 0;
+}
+
+template <int G, int MAXK>
+int launch(const int32_t* idx, const float* w, const float* Y, float* out,
+           int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+           int dev, cudaStream_t stream) {
+  static LaunchCache cache;
+  const size_t smem = 2 * (size_t)Lp * G * sizeof(float);
+  int blocks = 0;
+  const int rc = resident_blocks(ccm_lookup_kernel<G, MAXK>, kT, smem, dev,
+                                 cache, &blocks);
+  if (rc != 0) return rc;
   const int n_tb = (Lq + kT - 1) / kT;
   const long long n_items = (long long)sg.g0[sg.n] * n_tb;
   if (n_items == 0) return 0;
@@ -362,25 +387,12 @@ template <int MAXK>
 int launch_stream(const int32_t* idx, const float* w, const float* Y, float* out,
                   int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
                   int dev, cudaStream_t stream) {
-  static int cached_dev = -1, blocks = 0;
-  static size_t cached_smem = 0;
+  static LaunchCache cache;
   const size_t smem = 2 * (size_t)Lp * sizeof(float);
   auto kern = ccm_lookup_stream_kernel<MAXK>;
-  cudaError_t err;
-  if (dev != cached_dev || smem != cached_smem) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0, n_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kTS, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return -8;
-    blocks = per_sm * n_sm;
-    cached_dev = dev;
-    cached_smem = smem;
-  }
+  int blocks = 0;
+  const int rc = resident_blocks(kern, kTS, smem, dev, cache, &blocks);
+  if (rc != 0) return rc;
   // every run of targets is read by all n_tiles blocks of it, so more runs
   // cost no bytes: about four waves of blocks, for balance
   const long long n_tiles = ((long long)S * Lq + kTS - 1) / kTS;

@@ -18,6 +18,11 @@
 // sorted ascending by (distance, candidate id) -- the lax.top_k tie rule.
 // Masked candidates (the self column under exclude_self) take the finite
 // stand-in kBig during selection and come back as +inf with their own id.
+// Column range (library sharding): candidate column c of vc is global
+// candidate col_offset + c, the id the tables hold; columns with
+// col_offset + c >= col_hi are masked as above, and exclude_self masks the
+// global id equal to the query row, so Lq may differ from the shard's Lc.
+// The default range (0, Lc) is the unsharded table, bit for bit.
 //
 // What bounds it on this card: operations.  Per (query, candidate, E) the
 // kernel does a subtract, a multiply and an add (3 fp32 operations) and
@@ -134,7 +139,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
                 int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
                 int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
-                int n_sel, int exclude_self) {
+                int n_sel, int exclude_self, int col_offset, int col_hi) {
   __shared__ float vc_t[MAXE * kTileC];  // [e][kTileC]
   __shared__ float qv_s[kWarps][MAXE];    // each warp's query coordinates
 
@@ -168,9 +173,9 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
     if (!live) continue;
     for (int g = 0; g < width; g += 32) {
       const int j = g + lane;  // < kTileC: g <= kTileC - 32
-      const int cid = c0 + j;
+      const int gid = col_offset + c0 + j;  // the global candidate id
       const bool valid = j < width;
-      const bool masked = exclude_self && cid == q;
+      const bool masked = gid >= col_hi || (exclude_self && gid == q);
       float D = 0.f;
 #pragma unroll
       for (int e = 0; e < MAXE; ++e) {
@@ -178,7 +183,7 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
         D = acc_sq<BF16>(D, qv[e], vc_t[e * kTileC + j]);
         if ((sel_mask >> e) & 1u) {
           const float key = !valid ? f_inf() : (masked ? kBig : D);
-          offer(ld[e], li[e], key, c0 + g, k, lane);
+          offer(ld[e], li[e], key, col_offset + c0 + g, k, lane);
         }
       }
     }
@@ -201,14 +206,17 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
 template <int MAXE>
 int launch(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
            int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
-           int n_sel, int exclude_self, int bf16, cudaStream_t stream) {
+           int n_sel, int exclude_self, int col_offset, int col_hi, int bf16,
+           cudaStream_t stream) {
   dim3 grid((Lq + kWarps - 1) / kWarps, S);
   if (bf16)
     knn_topk_kernel<MAXE, true><<<grid, kWarps * 32, 0, stream>>>(
-        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self,
+        col_offset, col_hi);
   else
     knn_topk_kernel<MAXE, false><<<grid, kWarps * 32, 0, stream>>>(
-        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self);
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, E_hi, sel_mask, n_sel, exclude_self,
+        col_offset, col_hi);
   return (int)cudaGetLastError();
 }
 
@@ -225,32 +233,36 @@ int knn_topk_max_e() { return kMaxE; }
 
 // vq (S, E_rows, Lq), vc (S, E_rows, Lc) float32 contiguous; idx / dist
 // (S, popcount(sel_mask), Lq, k).  Bit e of sel_mask selects E = e + 1;
-// E_hi = highest selected E.  bf16 != 0 accumulates the distance in
+// E_hi = highest selected E.  Candidate column c is global id col_offset +
+// c; global ids >= col_hi are masked (0 <= col_hi <= col_offset + Lc; with
+// exclude_self also col_hi <= Lq).  bf16 != 0 accumulates the distance in
 // bfloat16.  Returns 0, a negative argument code, or the CUDA error of the
 // launch.
 int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
                     float* dist, int S, int E_rows, int Lq, int Lc, int k,
-                    unsigned int sel_mask, int exclude_self, int bf16,
-                    void* stream) {
+                    unsigned int sel_mask, int exclude_self, int col_offset,
+                    int col_hi, int bf16, void* stream) {
   if (S < 1 || Lq < 1 || Lc < 1 || S > 65535) return -1;
   if (k < 1 || k > kMaxK || k > Lc) return -2;
   if (sel_mask == 0u) return -3;
   const int E_hi = 32 - __builtin_clz(sel_mask);
   if (E_hi > E_rows || E_hi > kMaxE) return -4;
-  if (exclude_self && Lq != Lc) return -5;
+  if (col_offset < 0 || col_hi < 0 || (long long)col_hi > (long long)col_offset + Lc)
+    return -5;
+  if (exclude_self && Lq < col_hi) return -6;
   const int n_sel = __builtin_popcount(sel_mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E_hi <= 8)
     return launch<8>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                     n_sel, exclude_self, bf16, st);
+                     n_sel, exclude_self, col_offset, col_hi, bf16, st);
   if (E_hi <= 16)
     return launch<16>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                      n_sel, exclude_self, bf16, st);
+                      n_sel, exclude_self, col_offset, col_hi, bf16, st);
   if (E_hi <= 24)
     return launch<24>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                      n_sel, exclude_self, bf16, st);
+                      n_sel, exclude_self, col_offset, col_hi, bf16, st);
   return launch<32>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                    n_sel, exclude_self, bf16, st);
+                    n_sel, exclude_self, col_offset, col_hi, bf16, st);
 }
 
 }  // extern "C"

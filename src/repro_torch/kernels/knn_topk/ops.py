@@ -24,7 +24,8 @@ from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
 MAX_K, MAX_E = 32, 32
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 _PREFIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -96,18 +97,26 @@ def knn_topk(
     exclude_self: bool,
     select_Es,
     dist_dtype="float32",
+    col_offset: int = 0,
+    col_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """kNN tables at the embedding dimensions ``select_Es``.
 
     Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) float32 -> (idx int32, dist
     float32), each (S, len(select_Es), Lq, k), sorted by (distance, id);
-    masked self entries come back as +inf.  E values below max(select_Es)
-    outside the set only accumulate distance.
+    masked entries come back as +inf with their own id.  E values below
+    max(select_Es) outside the set only accumulate distance.
+
+    Column range (one shard of the library): column c of Vc is global
+    candidate ``col_offset + c``, the id the tables hold; global ids at or
+    past ``col_hi`` (default ``col_offset + Lc``) are masked, and
+    ``exclude_self`` masks the global id equal to the query row.
     """
     select_Es = tuple(int(e) for e in select_Es)
     if Vq.device.type == "cpu" and Vc.device.type == "cpu":
         return knn_topk_ref(Vq, Vc, k, exclude_self, select_Es,
-                            dist_dtype=dist_dtype)
+                            dist_dtype=dist_dtype, col_offset=col_offset,
+                            col_hi=col_hi)
     bf16 = _check_cuda_pair("knn_topk", Vq, Vc, dist_dtype)
     S, E_rows, Lq = Vq.shape
     Lc = Vc.shape[2]
@@ -120,8 +129,7 @@ def knn_topk(
         )
     if select_Es[-1] > lib.knn_topk_max_e():
         raise ValueError(f"knn_topk: E={select_Es[-1]} above {lib.knn_topk_max_e()}")
-    if exclude_self and Lq != Lc:
-        raise ValueError("exclude_self requires query set == candidate set")
+    col_hi = knn.check_col_range(Lq, Lc, exclude_self, col_offset, col_hi)
     n_sel = len(select_Es)
     idx = torch.empty((S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
     dist = torch.empty((S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
@@ -129,7 +137,7 @@ def knn_topk(
         rc = lib.knn_topk_launch(
             Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
             S, E_rows, Lq, Lc, k, select_mask(select_Es), int(exclude_self),
-            bf16, kernels.current_stream(Vq.device),
+            col_offset, col_hi, bf16, kernels.current_stream(Vq.device),
         )
     kernels.check_launch("knn_topk", rc, lib)
     knn_topk.LAUNCHES += 1

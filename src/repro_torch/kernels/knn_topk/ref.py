@@ -16,14 +16,18 @@ def knn_topk_ref(
     select_Es,
     tile_c: int | None = None,
     dist_dtype="float32",
+    col_offset: int = 0,
+    col_hi: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Vq (S, E_rows, Lq), Vc (S, E_rows, Lc) -> (idx int32, dist
     float32), each (S, len(select_Es), Lq, k).  ``tile_c`` None selects
-    over the whole library at once; every width gives the same tables."""
+    over the whole library at once; every width gives the same tables.
+    ``col_offset`` / ``col_hi``: the kernel's column range (global ids
+    ``col_offset + c``, ids >= ``col_hi`` masked)."""
     Lc = Vc.shape[-1]
     return knn._knn_tables_streaming(
         Vq, Vc, k, exclude_self, Lc if tile_c is None else tile_c,
-        tuple(select_Es), dist_dtype,
+        tuple(select_Es), dist_dtype, col_offset, col_hi,
     )
 
 

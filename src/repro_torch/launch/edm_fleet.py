@@ -25,9 +25,14 @@ files in the shared ``--out`` store:
   finalize — one unit: assemble rho_conv/rho_trend/pvals, recount the p
              histogram, BH-FDR edge list.
 
-W workers share one card, each with its own CUDA context (the card's
-compute mode must be Default); ``fleet.json`` names the device, and a
-worker that cannot use it exits non-zero — it never goes on on the CPU.
+Each worker computes its units in chunks of ``len(devices) x
+lib_block`` rows over its own device slots (every visible card, or
+those its ``EDM_LOCAL_DEVICE_IDS`` names; ``runtime/platform.py``); W
+workers may share cards, each with its own CUDA context (the card's
+compute mode must be Default).  ``fleet.json`` names the device type,
+the platform tier and whether workers join a ``torch.distributed``
+group from their own EDM_* rank environment; a worker that cannot use
+its device exits non-zero — it never goes on on the CPU.
 SIGKILL any worker at any point: its claimed unit's lease expires (or is
 reclaimed at once by a relaunch under the same id) and is recomputed.
 Every unit's values are independent of which worker computes it and of
@@ -62,6 +67,7 @@ from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference.types import SignificanceConfig, sig_config_from_jax
 from repro_torch.runtime import faultpoints, integrity, telemetry
+from repro_torch.runtime import platform as rt_platform
 from repro_torch.runtime.workqueue import LeaseQueue, WorkUnit, plan_units
 
 SPEC_NAME = "fleet.json"
@@ -72,8 +78,6 @@ NOT_PORTED = {
     "trends": "the run history (runtime/history.py)",
     "--watch": "the live status watch (runtime/trace.py)",
 }
-_MULTI_HOST = ("platform tiers and multi-host meshes (sharded kNN and "
-               "several local cards) are not ported yet")
 
 
 # ------------------------------------------------------------------- spec
@@ -85,20 +89,26 @@ def init_fleet(
     unit_rows: int = 0,
     seed: int | None = None,
     device: str = "cuda",
+    platform: str | None = None,
+    distributed: bool = False,
 ) -> dict:
     """Write the shared fleet spec every worker derives its queue from,
     after the engine's limits are checked on ``device`` (raises where it
     is ``cuda`` and there is no card).  ``unit_rows=0`` resolves to one
-    chunk, ``cfg.lib_block`` rows.  The keys are the JAX package's
-    (``platform`` null, ``distributed`` false) plus ``device``; a rerun
-    into the same store must ask for the same spec."""
-    check_run(cfg, device)
+    chunk of this process's device slots, ``len(local_devices()) x
+    lib_block`` rows.  The keys are the JAX package's plus ``device``:
+    ``platform`` (a tier the workers apply) and ``distributed`` (workers
+    join a ``torch.distributed`` group from their own EDM_* environment);
+    a rerun into the same store must ask for the same spec."""
+    devs = check_run(cfg, device)
+    if platform is not None:
+        rt_platform.apply_platform(platform)  # tpu raises here
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     meta = json.loads((pathlib.Path(dataset) / "meta.json").read_text())
     N, L = (int(s) for s in meta["shape"][:2])
     if unit_rows <= 0:
-        unit_rows = cfg.lib_block
+        unit_rows = len(devs) * cfg.lib_block
     if seed is None:
         seed = 0 if sig is None else sig.seed
     ts = np.asarray(store.load_dataset(dataset), np.float32)
@@ -113,9 +123,9 @@ def init_fleet(
         "sig": None if sig is None else dataclasses.asdict(sig),
         "dataset_crc32": fp["dataset_crc32"],
         "fingerprint": fp["fingerprint"],
-        "platform": None,
-        "distributed": False,
-        "device": str(torch.device(device)),
+        "platform": platform,
+        "distributed": bool(distributed),
+        "device": devs[0].type,
     }
     spec = json.loads(json.dumps(spec))  # tuples as they read back
     existing = out / SPEC_NAME
@@ -134,8 +144,7 @@ def init_fleet(
 
 def load_fleet(out_dir: str | pathlib.Path) -> dict:
     """The store's spec with ``cfg`` / ``sig`` as the port's configs.
-    Refuses a spec the JAX package wrote (no ``device`` key) and one that
-    asks for a platform tier or a multi-host mesh."""
+    Refuses a spec the JAX package wrote (no ``device`` key)."""
     path = pathlib.Path(out_dir) / SPEC_NAME
     spec = json.loads(path.read_text())
     if "device" not in spec:
@@ -143,11 +152,6 @@ def load_fleet(out_dir: str | pathlib.Path) -> dict:
             f"{path} was initialised by the JAX package (it names no "
             "device); the port runs only stores it initialised — use a "
             "fresh --out dir or python -m repro.launch.edm_fleet"
-        )
-    if spec.get("platform") or spec.get("distributed"):
-        raise ValueError(
-            f"{path} sets platform={spec.get('platform')!r} / distributed="
-            f"{spec.get('distributed')!r}: {_MULTI_HOST}"
         )
     spec["cfg"] = config_from_jax(spec["cfg"])
     if spec["sig"] is not None:
@@ -165,8 +169,13 @@ def spawn_worker(
     """Spawn one fleet worker as a subprocess (``env``: its whole
     environment, default this process's).  On the card, build the
     kernels first (``kernels.build_all``): W workers then load the built
-    libraries instead of each running nvcc."""
+    libraries instead of each running nvcc.  A worker spawned here never
+    inherits this process's rank (EDM_COORDINATOR / EDM_NUM_PROCESSES /
+    EDM_PROCESS_ID are dropped: W children joining under one rank would
+    hang the group); it keeps EDM_LOCAL_DEVICE_IDS, its device slots."""
     e = dict(os.environ if env is None else env)
+    for var in rt_platform.RANK_ENV:
+        e.pop(var, None)
     src = pathlib.Path(__file__).resolve().parents[2]
     e["PYTHONPATH"] = f"{src}:{e['PYTHONPATH']}" if e.get("PYTHONPATH") else str(src)
     cmd = [sys.executable, "-m", "repro_torch.launch.edm_fleet",
@@ -181,7 +190,9 @@ def spawn_worker(
 # ----------------------------------------------------------------- worker
 def _sub_chunks(unit: WorkUnit, chunk: int) -> list[tuple[int, int]]:
     """Split a claimed unit into (row0, valid) chunks of at most
-    ``chunk`` rows."""
+    ``chunk`` rows, this worker's ``len(devices) x lib_block`` (a unit of a
+    spec written under another device count may span several: elastic
+    across device counts)."""
     hi = unit.row0 + unit.nrows
     return [(r, min(chunk, hi - r)) for r in range(unit.row0, hi, chunk)]
 
@@ -218,16 +229,19 @@ class FleetWorker:
                  unit_retries: int = 3):
         self.out = pathlib.Path(out_dir)
         spec = load_fleet(self.out)
+        apply_spec_platform(self.out)
         self.cfg: EDMConfig = spec["cfg"]
         self.sig: SignificanceConfig | None = spec["sig"]
         self.unit_rows: int = spec["unit_rows"]
         self.seed: int = spec["seed"]
-        self.dev = check_run(self.cfg, spec["device"])
-        if self.dev.type == "cuda":
-            # the worker's CUDA context, made now: where the card will not
-            # give one (compute mode not Default) the worker fails here
-            torch.zeros(1, device=self.dev)
-            torch.cuda.reset_peak_memory_stats(self.dev)
+        self.devs = check_run(self.cfg, spec["device"])
+        self.dev = self.devs[0]
+        for d in dict.fromkeys(self.devs):
+            if d.type == "cuda":
+                # the worker's CUDA context, made now: where the card will
+                # not give one (compute mode not Default) it fails here
+                torch.zeros(1, device=d)
+                torch.cuda.reset_peak_memory_stats(d)
         self.ts = np.array(store.load_dataset(spec["dataset"]), np.float32)
         self.N = self.ts.shape[0]
         want = (spec["N"], spec["L"])
@@ -246,7 +260,7 @@ class FleetWorker:
                                 poll=poll, fail_limit=unit_retries)
         self.timeout = timeout
         self.progress = progress
-        self.chunk = self.cfg.lib_block
+        self.chunk = len(self.devs) * self.cfg.lib_block
         self.stage_s: dict[str, float] = {}
 
     def _log(self, msg: str) -> None:
@@ -278,7 +292,7 @@ class FleetWorker:
 
         def compute(unit):
             self._log("phase1: simplex projection")
-            rhos, optE = run_phase1(self.ts, self.cfg, self.dev,
+            rhos, optE = run_phase1(self.ts, self.cfg, self.devs,
                                     on_chunk=lambda row0: self.queue.renew(unit))
             p1.mkdir(parents=True, exist_ok=True)
             # optE.npy is the stage's completion witness: it lands last
@@ -292,7 +306,7 @@ class FleetWorker:
 
     def _phase2(self, optE: np.ndarray) -> None:
         ts_fut = ccm.all_futures(torch.from_numpy(self.ts), self.cfg).numpy()
-        runner = Phase2Runner(self.ts, ts_fut, optE, self.cfg, self.dev)
+        runner = Phase2Runner(self.ts, ts_fut, optE, self.cfg, self.devs)
         writer = TileWriter(self.out, self.N, writer_id=self.worker_id,
                             stage="phase2")
 
@@ -352,7 +366,7 @@ class FleetWorker:
 
         sig = self.sig
         _check_resume_config(self.out, sig)
-        runner = SignificanceChunkRunner(self.ts, optE, self.cfg, sig, self.dev)
+        runner = SignificanceChunkRunner(self.ts, optE, self.cfg, sig, self.devs)
         conv_w = trend_w = pv_w = None
         if runner.do_conv:
             conv_w = _writer(self.out, "rho_conv", self.N, runner.order,
@@ -391,8 +405,8 @@ class FleetWorker:
         flushed at its end, so each worker's JSONL covers all five stages
         even where it computed none of a stage's units).  The last log
         line, ``[wid] done in <s>s {json}``, carries this process's
-        kernel launches, peak device bytes and stage seconds; the same
-        dict is returned."""
+        kernel launches, peak device bytes (the most of any of its cards)
+        and stage seconds; the same dict is returned."""
         t0 = time.time()
         telemetry.emit_clock_anchor(worker_id=self.worker_id)
         optE = self._phase1()
@@ -403,13 +417,29 @@ class FleetWorker:
         done = {
             "worker": self.worker_id,
             "launches": launch_counts(),
-            "peak_device_bytes": (torch.cuda.max_memory_allocated(self.dev)
-                                  if self.dev.type == "cuda" else None),
+            "devices": [str(d) for d in self.devs],
+            "peak_device_bytes": max(
+                (torch.cuda.max_memory_allocated(d) for d in self.devs
+                 if d.type == "cuda"), default=None),
             "stages_s": self.stage_s,
         }
         self._log(f"done in {time.time() - t0:.1f}s {json.dumps(done)}")
         telemetry.flush()
         return done
+
+
+def apply_spec_platform(out_dir: str | pathlib.Path) -> None:
+    """A worker's platform opt-in from ``fleet.json``: apply its
+    ``platform`` tier (``tpu`` raises) and, where the spec says
+    ``distributed``, join the group from this process's own EDM_* rank
+    environment (:func:`platform.init_distributed`: a no-op without
+    EDM_COORDINATOR, as in a worker :func:`spawn_worker` started; partial
+    settings raise)."""
+    raw = json.loads((pathlib.Path(out_dir) / SPEC_NAME).read_text())
+    if raw.get("platform"):
+        rt_platform.apply_platform(raw["platform"])
+    if raw.get("distributed"):
+        rt_platform.init_distributed(device=raw.get("device"))
 
 
 # ----------------------------------------------------------------- status
@@ -565,6 +595,11 @@ environment:
                       JSONL at <out>/telemetry/<worker-id>.jsonl
   EDM_FAULTS          fault-injection spec (runtime/faultpoints.py), e.g.
                       tile_pre_rename:crash@3 — testing only
+  EDM_LOCAL_DEVICE_IDS  this worker's device slots, e.g. 0,1 (default every
+                      visible card; "0,0": two slots on card 0)
+  EDM_COORDINATOR     torch.distributed group (runtime/platform.py;
+  EDM_NUM_PROCESSES   joined only when fleet.json says `distributed`):
+  EDM_PROCESS_ID      host:port of rank 0, world size, this rank
 """
 
 

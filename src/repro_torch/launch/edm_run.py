@@ -12,6 +12,9 @@
   # the masterless fleet: W worker processes share the card
   PYTHONPATH=src python -m repro_torch.launch.edm_run \\
       --synthetic 16384x1450 --e-max 20 --workers 2 --out /tmp/fleet
+  # two row slots on card 0 (several cards: EDM_LOCAL_DEVICE_IDS=0,1)
+  EDM_LOCAL_DEVICE_IDS=0,0 PYTHONPATH=src python -m \\
+      repro_torch.launch.edm_run --synthetic 2048x1450 --out /tmp/cm2
 
 Runs phase 1 (simplex) and phase 2 (CCM) — bucketed by optE, or with
 tables at every E under ``--no-bucketed``; untiled, or in column tiles
@@ -22,9 +25,18 @@ into <out>/causal_map/data.npy.  With ``--lib-sizes`` and/or
 convergence statistics (rho_conv/, rho_trend/), surrogate p-values
 (pvals/) and the BH-FDR edge list (edges/).  A rerun with the same --out
 resumes: only rows missing from the store are recomputed, whatever the
-new --lib-block or --target-tile.  Runs on the CUDA card by default and
-exits with an error where there is none; ``--device cpu`` runs the plain
-PyTorch versions on the CPU.
+new --lib-block, --target-tile or device count.  Runs on every visible
+CUDA card by default (chunks of ``cards x --lib-block`` rows, or of the
+slots ``EDM_LOCAL_DEVICE_IDS`` names) and exits with an error where there
+is none; ``--device cpu`` (or ``--platform cpu``) runs the plain PyTorch
+versions on the CPU.
+
+The EDM_* contract (``runtime/platform.py``) is read first thing: with
+EDM_COORDINATOR set the process joins a ``torch.distributed`` group.  A
+world of more than one rank, one ``edm_run`` process a rank, is refused
+(splitting a run's rows across ranks is not ported); ranks span hosts
+through the fleet (``--workers``), and the library-sharded kNN merges
+across a group's ranks.
 
 ``--workers W`` runs the same stages across W worker processes that
 claim row-span units from a lease queue in the store
@@ -33,8 +45,7 @@ worker under its id; every artifact is byte-identical to the
 single-process run for any W and ``--unit-rows``.
 
 The flags of paths not ported yet (engine selection, the driver's
-telemetry, autotuning, platform tiers) exit with an error that names
-them.
+telemetry, autotuning) exit with an error that names them.
 """
 from __future__ import annotations
 
@@ -46,11 +57,12 @@ import time
 
 import numpy as np
 
-from repro_torch.core.pipeline import run_causal_inference
+from repro_torch.core.pipeline import check_run, run_causal_inference
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.synthetic import dummy_brain
 from repro_torch.inference import SignificanceConfig, run_significance
+from repro_torch.runtime import platform
 
 #: flag -> what it belongs to; each exits with an error naming it
 NOT_PORTED = {
@@ -59,7 +71,6 @@ NOT_PORTED = {
     "--no-telemetry": "telemetry",
     "--autotune": "the autotuner",
     "--tune-from": "the autotuner",
-    "--platform": "the platform tiers",
 }
 
 
@@ -123,9 +134,16 @@ def build_parser() -> argparse.ArgumentParser:
         "meta.json)",
     )
     ap.add_argument(
-        "--device", default="cuda", choices=("cuda", "cpu"),
-        help="cuda (default; exits with an error without a card) or cpu "
-        "(the plain PyTorch versions)",
+        "--device", default=None, choices=("cuda", "cpu"),
+        help="cuda (default: every visible card, or EDM_LOCAL_DEVICE_IDS; "
+        "exits with an error without a card) or cpu (the plain PyTorch "
+        "versions)",
+    )
+    ap.add_argument(
+        "--platform", default=None, choices=platform.available_tiers(),
+        help="platform tier (runtime/platform.py): cpu = --device cpu and "
+        "the torch-reference engine, gpu = the cards and the cuda engine; "
+        "tpu is refused (the port has no TPU tier)",
     )
     ap.add_argument(
         "--workers", type=int, default=0,
@@ -171,6 +189,32 @@ def main(argv=None) -> dict:
             )
     if bool(args.synthetic) == bool(args.dataset):
         ap.error("give exactly one of --synthetic NxL and --dataset DIR")
+    engine = "cuda"
+    device = args.device or "cuda"
+    if args.platform:
+        try:
+            tier = platform.apply_platform(args.platform)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.device not in (None, tier["device"]):
+            ap.error(f"--device {args.device} conflicts with --platform "
+                     f"{args.platform} (device {tier['device']})")
+        device, engine = tier["device"], tier["engine"]
+        print(f"platform: tier {tier['tier']} (device {device}, engine {engine})")
+    # the EDM_* contract, before any work
+    spec = platform.distributed_spec_from_env()
+    if spec is not None and spec["num_processes"] > 1 and args.workers == 0:
+        ap.error(
+            f"EDM_NUM_PROCESSES={spec['num_processes']}: one edm_run process a "
+            "rank, splitting the run's rows across ranks, is not ported "
+            "(rows across ranks); run the ranks as a fleet (--workers) over "
+            "one store, or one process over this host's cards"
+        )
+    dist = platform.init_distributed(spec, device=device)
+    if dist is not None:
+        print(f"distributed: process {dist['process_id']}/"
+              f"{dist['num_processes']} via {dist['coordinator']} "
+              f"({dist['backend']}, {dist['device']})")
     if args.synthetic:
         N, L = map(int, args.synthetic.split("x"))
         ts = dummy_brain(N, L)
@@ -180,6 +224,7 @@ def main(argv=None) -> dict:
         E_max=args.e_max, tau=args.tau, lib_block=args.lib_block,
         stream_depth=args.stream_depth, knn_tile_c=args.knn_tile,
         target_tile=args.target_tile, bucketed=not args.no_bucketed,
+        engine=engine,
     )
     lib_sizes = tuple(int(s) for s in args.lib_sizes.split(",") if s)
     sig = None
@@ -189,18 +234,19 @@ def main(argv=None) -> dict:
             alpha=args.fdr, surrogate=args.surrogate_kind, seed=args.seed,
         )
     if args.workers > 0:
-        return _run_fleet(args, ts, cfg, sig)
+        return _run_fleet(args, ts, cfg, sig, device, distributed=spec is not None)
+    devs = check_run(cfg, device)
+    print(f"devices: {len(devs)} slot(s) {[str(d) for d in devs]}")
     timings: dict = {}
     t0 = time.perf_counter()
-    result = run_causal_inference(ts, cfg, device=args.device,
-                                  out_dir=args.out, progress=True,
-                                  timings=timings)
+    result = run_causal_inference(ts, cfg, device=devs, out_dir=args.out,
+                                  progress=True, timings=timings)
     dt = time.perf_counter() - t0
     N = ts.shape[0]
     n_buckets = len(np.unique(result.optE))
     print(f"causal map {N}x{N} in {dt:.1f}s ({N * N / dt:.0f} cross-maps/s); "
           f"optE mean {result.optE.mean():.2f}; engine {cfg.engine} on "
-          f"{args.device}; buckets {n_buckets}/{cfg.E_max}"
+          f"{len(devs)} x {devs[0].type}; buckets {n_buckets}/{cfg.E_max}"
           f"{'' if cfg.bucketed else ' (all-E tables)'}; tile "
           f"{cfg.target_tile or 'none'}; phase 1 "
           f"{timings['phase1_s']:.2f}s, phase 2 {timings['phase2_s']:.2f}s")
@@ -208,7 +254,8 @@ def main(argv=None) -> dict:
         "optE": result.optE.tolist(),
         "engine": cfg.engine,
         "framework": "torch",
-        "device": args.device,
+        "device": devs[0].type,
+        "devices": [str(d) for d in devs],
         "bucketed": cfg.bucketed,
         "n_buckets": int(n_buckets),
         "stream_depth": cfg.stream_depth,
@@ -224,8 +271,7 @@ def main(argv=None) -> dict:
     if sig is not None:
         t1 = time.perf_counter()
         out = run_significance(ts, result.optE, result.rho, cfg, sig,
-                               device=args.device, out_dir=args.out,
-                               progress=True)
+                               device=devs, out_dir=args.out, progress=True)
         sig_s = time.perf_counter() - t1
         stages = [s for s, on in (("convergence", sig.lib_sizes),
                                   ("surrogates", sig.n_surrogates)) if on]
@@ -236,13 +282,13 @@ def main(argv=None) -> dict:
     return {
         "result": result, "N": N, "L": int(ts.shape[1]), "wall_s": dt,
         **timings, "cross_maps_per_s": N * N / dt,
-        "n_buckets": int(n_buckets), "device": args.device,
-        "significance": out, "significance_s": sig_s,
+        "n_buckets": int(n_buckets), "device": devs[0].type,
+        "devices": [str(d) for d in devs], "significance": out, "significance_s": sig_s,
         "edges": None if out is None or out.edges is None else len(out.edges),
     }
 
 
-def _run_fleet(args, ts, cfg, sig) -> dict:
+def _run_fleet(args, ts, cfg, sig, device: str, distributed: bool) -> dict:
     """``--workers W``: a local masterless fleet over ``--out``.
 
     The supervisor prepares the store (dataset + fleet.json, the
@@ -273,8 +319,9 @@ def _run_fleet(args, ts, cfg, sig) -> dict:
         else:
             store.save_dataset(dataset, ts, {"synthetic": args.synthetic})
     edm_fleet.init_fleet(out, dataset, cfg, sig, unit_rows=args.unit_rows,
-                         seed=args.seed, device=args.device)
-    if args.device == "cuda":
+                         seed=args.seed, device=device, platform=args.platform,
+                         distributed=distributed)
+    if device == "cuda":
         from repro_torch import kernels
 
         kernels.build_all()
@@ -349,12 +396,12 @@ def _run_fleet(args, ts, cfg, sig) -> dict:
     summary = {
         "fleet": True, "N": N, "L": int(ts.shape[1]), "workers": args.workers,
         "wall_s": dt, "cross_maps_per_s": N * N / dt,
-        "n_buckets": meta["n_buckets"], "device": args.device,
+        "n_buckets": meta["n_buckets"], "device": device,
         "restarts": restarts, "failed": failed, "edges": None,
     }
     print(f"fleet[{args.workers}] causal map {N}x{N} in {dt:.1f}s "
           f"({N * N / dt:.0f} cross-maps/s); engine {cfg.engine} on "
-          f"{args.device}; buckets {meta['n_buckets']}/{cfg.E_max}; tile "
+          f"{device}; buckets {meta['n_buckets']}/{cfg.E_max}; tile "
           f"{cfg.target_tile or 'none'}; restarts {json.dumps(restarts)}; "
           f"failed {json.dumps(failed)}", flush=True)
     emeta_f = out / "edges" / "meta.json"

@@ -9,7 +9,9 @@ called) only once ``depth`` chunks are in flight, so with depth = 2 the
 next chunk is already queued on the card while the previous one is
 copied out and written.  Drains run in submission order, which the
 store's resume manifest needs.  CPU tensors and numpy arrays pass
-through without a copy.
+through without a copy.  A chunk computed on several devices is
+submitted as the list of its parts, each copied out from its own card
+and joined on the host along ``axis`` before the drain.
 
 :func:`upload_source` is the other direction: a host array from which
 slices go to the card as asynchronous copies (a copy from pageable host
@@ -57,6 +59,20 @@ class _HostCopy:
         return np.asarray(self._src)
 
 
+class _PartsCopy:
+    """The parts of one chunk, each from its own device, joined on the
+    host along ``axis``; every part's copy is started before any is
+    waited for."""
+
+    def __init__(self, parts, axis: int):
+        self._copies = [_HostCopy(p) for p in parts]
+        self._axis = axis
+
+    def wait(self) -> np.ndarray:
+        arrs = [c.wait() for c in self._copies]
+        return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=self._axis)
+
+
 class ChunkStreamer:
     """Bounded queue of in-flight chunks with ordered drains; each drain
     is a telemetry span (``stage``, "drain") whose ``gather_s`` is the
@@ -71,10 +87,14 @@ class ChunkStreamer:
         self.stage = stage  # telemetry label only
         self._pending: collections.deque[tuple[Any, _HostCopy]] = collections.deque()
 
-    def submit(self, tag: Any, value: Any) -> None:
-        """Enqueue a dispatched chunk result; drain the oldest chunk(s)
-        once ``depth`` are in flight (depth 1 = synchronous)."""
-        self._pending.append((tag, _HostCopy(value)))
+    def submit(self, tag: Any, value: Any, axis: int = 0) -> None:
+        """Enqueue a dispatched chunk result — a tensor, or a list of the
+        parts that several devices computed, joined along ``axis`` — and
+        drain the oldest chunk(s) once ``depth`` are in flight (depth 1 =
+        synchronous)."""
+        copy = (_PartsCopy(value, axis) if isinstance(value, (list, tuple))
+                else _HostCopy(value))
+        self._pending.append((tag, copy))
         while len(self._pending) >= self.depth:
             self._drain_one()
 

@@ -127,10 +127,10 @@ def test_roofline_bench_summarises_the_dry_runs(tmp_path, capsys):
 
 def test_unknown_bench_exits_nonzero(tmp_path):
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.bench.run", "knn", "fig3",
+        [sys.executable, "-m", "repro_torch.bench.run", "knn", "fig9b",
          "--tiny", "--device", "cpu", "--out", str(tmp_path)],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")},
     )
-    assert r.returncode != 0 and "fig3" in r.stderr
+    assert r.returncode != 0 and "fig9b" in r.stderr
     assert not any(tmp_path.iterdir())

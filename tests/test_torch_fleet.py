@@ -229,17 +229,22 @@ def _refusal_store(tmp_path, baseline, case):
         store.save_dataset(ds, baseline["ts"] + 1.0)
         return out, integrity.IntegrityError, "changed since init_fleet"
     spec = json.loads(spec_f.read_text())
-    key, value = {"platform": ("platform", "gpu"),
-                  "distributed": ("distributed", True)}[case]
+    # a tier the port does not have; a group joined from a partial EDM_*
+    # environment (the test sets EDM_COORDINATOR alone)
+    key, value, match = {"platform": ("platform", "tpu", "no TPU tier"),
+                         "distributed": ("distributed", True, "missing")}[case]
     spec[key] = value
     spec_f.write_text(json.dumps(spec))
-    return out, ValueError, "not ported yet"
+    return out, ValueError, match
 
 
 @pytest.mark.parametrize("case", ["jax_store", "changed_dataset", "platform",
                                   "distributed"])
-def test_worker_refuses(tmp_path, baseline, case):
+def test_worker_refuses(tmp_path, baseline, case, monkeypatch):
     out, err, match = _refusal_store(tmp_path, baseline, case)
+    monkeypatch.setenv("EDM_COORDINATOR", "localhost:1")
+    monkeypatch.delenv("EDM_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("EDM_PROCESS_ID", raising=False)
     with pytest.raises(err, match=match):
         edm_fleet.FleetWorker(out, "w0", progress=False)
 

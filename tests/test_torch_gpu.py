@@ -665,3 +665,68 @@ def test_knn_slab_kernel_refuses_what_it_does_not_take():
         knn_slab(V, V.cpu(), 4, True)
     with pytest.raises(ValueError, match="contiguous"):
         knn_slab(V[:, ::2], V[:, ::2], 4, True)
+
+
+@pytest.mark.parametrize("lo,hi,width,k,exclude_self,dist_dtype", [
+    (0, 200, 200, 21, True, "float32"),      # the default range, explicit
+    (200, 400, 200, 21, True, "float32"),    # a shard at an offset
+    (330, 400, 77, 21, True, "float32"),     # a padded last shard
+    (420, 400, 50, 21, True, "float32"),     # a shard wholly past Lc
+    (100, 300, 200, 32, False, "float32"),
+    (200, 400, 200, 21, True, "bfloat16"),
+    (330, 400, 77, 13, False, "bfloat16"),
+])
+def test_knn_topk_kernel_column_range_equals_plain_version(lo, hi, width, k,
+                                                           exclude_self,
+                                                           dist_dtype):
+    """Shard tables (global ids, masked columns +inf with their own ids,
+    exclude_self by global id) bit-equal to the plain version."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = _lags(3, 20, 400, 9)
+    part = np.zeros((3, 20, width), np.float32)
+    n = max(0, min(hi, 400) - lo)
+    part[..., :n] = x[..., lo:lo + n]
+    Vq, Vc = torch.tensor(x, device=dev), torch.tensor(part, device=dev)
+    sel = (3, 5, 8, 12, 20)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                      col_offset=lo, col_hi=hi)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                          col_offset=lo, col_hi=hi)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+def test_library_sharded_on_the_card_equals_the_unsharded_kernel_table(S):
+    dev = _card()
+    from repro_torch.core.pipeline import (knn_tables_library_sharded,
+                                           knn_tables_library_sharded_sim)
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    V = torch.tensor(_lags(2, 20, 700, 4), device=dev)
+    cfg = EDMConfig(E_max=20)
+    ui, ud = knn_topk(V, V, 21, True, tuple(range(1, 21)))
+    for got in (knn_tables_library_sharded_sim(V, V, 21, cfg, exclude_self=True,
+                                               shards=S),
+                knn_tables_library_sharded(V, V, 21, cfg, exclude_self=True,
+                                           devices=[dev] * S)):
+        assert torch.equal(got[0], ui)
+        assert torch.equal(got[1].view(torch.int32), ud.view(torch.int32))
+
+
+def test_main_path_over_two_slots_on_the_card_equals_one_slot():
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+
+    ts = dummy_brain(96, 500, seed=2)
+    for tile in (0, 40):
+        cfg = EDMConfig(E_max=12, target_tile=tile)
+        one = run_causal_inference(ts, cfg, device=[dev])
+        two = run_causal_inference(ts, cfg, device=[dev, dev])
+        assert one.rho.tobytes() == two.rho.tobytes()

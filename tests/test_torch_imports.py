@@ -113,7 +113,7 @@ def test_edm_run_fleet_defaults_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     "--engine cuda", "--use-kernels", "--no-telemetry", "--autotune",
-    "--tune-from t.json", "--platform gpu"])
+    "--tune-from t.json"])
 def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
     """Each flag of a path not ported yet exits naming itself and the
     path it belongs to (``--target-tile`` and ``--no-bucketed`` are
@@ -129,3 +129,21 @@ def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys
     name = flag.split()[0]
     assert f"{name} is not ported" in err
     assert f"({edm_run.NOT_PORTED[name]})" in err
+
+
+def test_platform_module_loads_no_jax_and_no_repro():
+    """The platform layer (tiers, device slots, the EDM_* group contract)
+    is among the modules above and imports neither package on its own."""
+    assert "repro_torch.runtime.platform" in list(_port_modules())
+    code = (
+        "import sys\n"
+        "import repro_torch.runtime.platform as p\n"
+        "assert p.available_tiers() == ('cpu', 'gpu', 'tpu')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

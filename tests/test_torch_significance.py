@@ -332,8 +332,8 @@ def test_tiled_significance_equals_untiled_bytes(sig_map, tile, monkeypatch):
     built = []
     surrogates = ipipe.SignificanceChunkRunner.surrogates
 
-    def spy(self, c0, c1):
-        out = surrogates(self, c0, c1)
+    def spy(self, c0, c1, dev=None):
+        out = surrogates(self, c0, c1, dev)
         built.append(out.shape[0])
         return out
 
