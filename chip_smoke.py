@@ -85,6 +85,21 @@ card 0, the tables staged through host memory; NCCL's refusal of two
 ranks on one card; NCCL with a card a rank where two are visible, else
 said so on the line).
 
+Rows across ranks (``runtime/ranks.py``), after the fleet: phases
+``ranks_main`` (``edm_run`` at the main path's N as two ranks sharing
+card 0, on gloo as ``edm_run`` joins its ranks: data.npy byte-equal to the
+one-process run of the same call, fsck clean, the launches summed over
+the ranks' ``rank r/W done`` lines equal to the one process's, the
+card's sampled busy share, each rank's rows and seconds) and
+``ranks_significance`` (the same at the significance path's N, all five
+artifacts byte-equal); ``engine_check_cli`` (``python -m
+repro_torch.engine.check --engine cuda``) and ``extensions``
+(``ccm_lagged`` through ``knn_topk`` equal to its plain route on the
+card, the S-Map sweep on the card within 1e-5 of the CPU).  With
+``--multi-card``, ``ranks_cards``: one gloo rank a card over every
+visible card at the main path's N, against card 0 alone, with each
+card's busy share.  The ranks' logs go to ``build/smoke_ranks_*/``.
+
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1726,18 +1741,201 @@ def distributed_phase(torch, smi):
             for name, v in runs.items()}
 
 
+# ----------------------------------------------------- rows across ranks
+RANKS_TIMEOUT_S = 600  # the limit of a world of edm_run ranks
+RANK_DONE = r"^rank (\d+)/(\d+) done in [0-9.]+s (\{.*\})$"
+
+
+def run_edm_ranks(world, argv, tag, ids=None):
+    """``world`` processes of ``python -m repro_torch.launch.edm_run
+    argv``, one a rank, joined through the EDM_* contract on localhost
+    (rank r's EDM_LOCAL_DEVICE_IDS = ids[r] where given, else card
+    ``r % cards``), each in a session of its own; every rank
+    still running at RANKS_TIMEOUT_S is killed.  Logs in
+    build/smoke_ranks_<tag>/.  Returns (wall s, each rank's ``rank r/W
+    done`` record); raises unless every rank exited 0."""
+    import os
+    import re
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    d = ROOT / "build" / f"smoke_ranks_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    logs, procs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "EDM_COORDINATOR": f"localhost:{port}",
+               "EDM_NUM_PROCESSES": str(world), "EDM_PROCESS_ID": str(r)}
+        env.pop("EDM_LOCAL_DEVICE_IDS", None)
+        if ids is not None:
+            env["EDM_LOCAL_DEVICE_IDS"] = str(ids[r])
+        logs.append(open(d / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.edm_run", *argv], env=env,
+            stdout=logs[r], stderr=subprocess.STDOUT, start_new_session=True))
+    t_end = time.time() + RANKS_TIMEOUT_S
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, t_end - time.time())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    for f in logs:
+        f.close()
+    texts = [(d / f"rank{r}.log").read_text() for r in range(world)]
+    if rcs != [0] * world:
+        raise AssertionError(f"ranks {tag} exited {rcs}:\n" + "\n".join(
+            f"rank {r}: {t[-3000:]}" for r, t in enumerate(texts)))
+    recs = []
+    for t in texts:
+        m = re.search(RANK_DONE, t, re.M)
+        if m is None:
+            raise AssertionError(f"ranks {tag}: a rank printed no done line")
+        recs.append(json.loads(m.group(3)))
+    return wall, recs
+
+
+def ranks_phase(torch, smi, name, world, argv, ref, artifacts, one, ids=None):
+    """One world of ``edm_run`` ranks against the one-process store
+    ``ref`` (``one``: its wall and launches): every artifact byte-equal,
+    fsck clean, the launches summed over the ranks equal to the one
+    process's, each card's sampled busy share and each rank's record."""
+    from repro_torch.runtime import integrity
+    from repro_torch.runtime.device import BusySampler
+
+    d = ROOT / "build" / f"smoke_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    n_cards = torch.cuda.device_count()
+    busy = BusySampler(n_cards)
+    try:
+        wall, recs = run_edm_ranks(world, [*argv, "--out", str(d)], name, ids)
+    finally:
+        busy = busy.stop()
+    equal = {a: same_npy_bits(ref / a / "data.npy", d / a / "data.npy")
+             for a in artifacts}
+    fsck = integrity.fsck_store(d)
+    launches = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    same = all(launches[k] == v for k, v in one["launches"].items())
+    per_rank = [{k: rec[k] for k in ("rank", "devices", "rows", "wall_s",
+                                     "phase1_s", "phase2_s", "assemble_s",
+                                     "significance_s", "peak_device_bytes",
+                                     "launches")} for rec in recs]
+    res = dict(world=world, backend="gloo",
+               card_ids=list(ids) if ids else "process_id % cards",
+               wall_s=wall, ranks_wall_s_max=max(r["wall_s"] + (
+                   r["significance_s"] or 0.0) for r in recs),
+               one_process=one, launches=launches, launches_equal=same,
+               per_rank=per_rank, card_busy_sampled=busy,
+               byte_equal_to_one_process=equal, fsck_clean=fsck["clean"])
+    emit(name, argv=argv, smi=smi, **res)
+    shutil.rmtree(d, ignore_errors=True)
+    if not (all(equal.values()) and fsck["clean"] and same
+            and launches["knn_topk"] > 0 and launches["ccm_lookup"] > 0):
+        raise AssertionError(f"{name}: byte_equal {equal}, fsck {fsck['clean']}, "
+                             f"launches {launches} against {one['launches']}")
+    return res
+
+
+def engine_check_cli(smi):
+    """``python -m repro_torch.engine.check --engine cuda``: every op of
+    the cuda engine against torch-reference on the card, in a process of
+    its own."""
+    import ast
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.engine.check", "--engine", "cuda"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not proc.stdout.startswith("cuda {"):
+        raise AssertionError(f"engine check exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    errs = {k: float(v) for k, v in ast.literal_eval(
+        proc.stdout.strip().splitlines()[-1][len("cuda "):]).items()}
+    emit("engine_check_cli", errs=errs, wall_s=wall, smi=smi)
+    return errs
+
+
+def extensions_phase(torch, dev, smi):
+    """``repro_torch.core.extensions`` on the card: ``ccm_lagged`` over a
+    batch of Fish1_Normo-length series through the cuda engine (one
+    ``knn_topk`` launch, counted from 0 just before it) equal to its
+    plain route (torch-reference on the card), and the S-Map sweep on the
+    card against the CPU within 1e-5; host-clock times with a sync."""
+    from repro_torch.core import extensions as ext
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    xs, ys = dummy_brain(64, FISH1_L, seed=5), dummy_brain(64, FISH1_L, seed=6)
+    cfg, E = EDMConfig(E_max=E_MAX), 12
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ext.ccm_lagged(xs, ys, E, cfg, device=dev)  # warm-up
+    knn_topk.LAUNCHES = 0
+    got, ms = timed(lambda: ext.ccm_lagged(xs, ys, E, cfg, device=dev))
+    launches = knn_topk.LAUNCHES
+    ref_cfg = dataclasses.replace(cfg, engine="torch-reference")
+    want, plain_ms = timed(lambda: ext.ccm_lagged(xs, ys, E, ref_cfg, device=dev))
+    equal = bool(torch.equal(got, want))
+    sweep, smap_ms = timed(lambda: ext.smap_theta_sweep(xs[:8], 2, cfg, device=dev))
+    smap_err = float((sweep.cpu() - ext.smap_theta_sweep(xs[:8], 2, cfg,
+                                                         device="cpu")).abs().max())
+    emit("extensions", series=64, L=FISH1_L, E_max=E_MAX, E=E,
+         ccm_lagged_ms=ms, ccm_lagged_plain_ms=plain_ms,
+         launches={"knn_topk": launches}, equal_to_plain_route=equal,
+         rho_finite=bool(torch.isfinite(got).all()), smap_series=8,
+         smap_ms=smap_ms, smap_max_abs_err_vs_cpu=smap_err, tol=1e-5, smi=smi)
+    if not (equal and launches == 1 and smap_err <= 1e-5):
+        raise AssertionError(f"extensions: equal {equal}, launches {launches}, "
+                             f"smap err {smap_err}")
+    return {"knn_topk": launches}
+
+
 def multi_card_only(torch, dev, smi, n) -> int:
     """``--multi-card``: the main path at ``n`` series on card 0 alone
     (EDM_LOCAL_DEVICE_IDS=0, the reference), then ``multi_device_main``
-    (two slots on card 0, every visible card), ``sharded_knn`` and
-    ``distributed`` (NCCL with a card a rank where two are visible)."""
+    (two slots on card 0, every visible card), ``ranks_cards`` (one gloo
+    ``edm_run`` rank a card), ``sharded_knn`` and ``distributed`` (NCCL
+    with a card a rank where two are visible)."""
     ref = ROOT / "build" / "smoke_out_card0"
     shutil.rmtree(ref, ignore_errors=True)
     summ, launches, _ = with_device_ids("0", lambda: run_cli(torch, dev, [
         "--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX), "--out", str(ref)]))
     emit("end_to_end_card0", N=n, **phase_walls(summ), launches=launches, smi=smi)
-    multi_device_main(torch, dev, smi, n, ref, {"wall_s": summ["wall_s"],
-                                                "launches": launches})
+    one = {"wall_s": summ["wall_s"], "launches": launches}
+    multi_device_main(torch, dev, smi, n, ref, one)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:  # one rank a card: each card its own dispatcher
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks_phase(torch, smi, "ranks_cards", n_cards, [
+            "--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX)], ref,
+            ("causal_map",), one)
+    else:
+        emit("ranks_cards", note="not run: one card visible (one rank a "
+             "card needs two or more)", smi=smi)
     shutil.rmtree(ref, ignore_errors=True)
     sharded_knn_phase(torch, dev, smi)
     distributed_phase(torch, smi)
@@ -1754,7 +1952,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-card", action="store_true",
                     help="only the phases across cards and ranks, for a "
                     "machine with several cards: the main path on card 0, "
-                    "then multi_device_main, sharded_knn and distributed")
+                    "then multi_device_main, ranks_cards, sharded_knn and "
+                    "distributed")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -2399,8 +2598,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fleet = fleet_phases(torch, smi, args.n, args.sig_n, out_dir, launches,
                          sig_dir, sig_launches, wall_single, busy_single)
+    # ---- rows across ranks: two gloo edm_run ranks sharing card 0 against
+    # the one-process stores of the same calls
+    ranks_main = ranks_phase(
+        torch, smi, "ranks_main", 2,
+        ["--synthetic", f"{args.n}x{FISH1_L}", "--e-max", str(E_MAX)], out_dir,
+        ("causal_map",), {"wall_s": wall_single["main"], "launches": launches},
+        ids=(0, 0))
+    ranks_sig = ranks_phase(
+        torch, smi, "ranks_significance", 2,
+        ["--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
+         "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)), "--surrogates",
+         str(SIG_M), "--surrogate-kind", "phase", "--fdr", "0.05", "--seed", "0"],
+        sig_dir, FLEET_ARTIFACTS, {"wall_s": wall_single["significance"],
+                                   "launches": sig_launches},
+        ids=(0, 0))
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.rmtree(sig_dir, ignore_errors=True)
+    engine_check_cli(smi)
+    ext_launches = extensions_phase(torch, dev, smi)
 
     # ---- the kernels line --------------------------------------------------
     k2, k1 = times["phase2"], times["phase1"]
@@ -2436,6 +2652,9 @@ def main(argv=None) -> int:
          "launches_multi_device_significance": multi_sig_launches["knn_topk"],
          "launches_sharded_knn": sharded_launches,
          "launches_distributed": dist_launches,
+         "launches_ranks_main": ranks_main["launches"]["knn_topk"],
+         "launches_ranks_significance": ranks_sig["launches"]["knn_topk"],
+         "launches_extensions": ext_launches["knn_topk"],
          "max_abs_err_column_range": range_err,
          "max_abs_err_column_range_bf16": range_bf16_err,
          "checked": True, "checked_bf16": True, "checked_column_range": True},
@@ -2462,6 +2681,8 @@ def main(argv=None) -> int:
          "launches_multi_device_main": {k: v["launches"]["ccm_lookup"]
                                         for k, v in multi_main.items()},
          "launches_multi_device_significance": multi_sig_launches["ccm_lookup"],
+         "launches_ranks_main": ranks_main["launches"]["ccm_lookup"],
+         "launches_ranks_significance": ranks_sig["launches"]["ccm_lookup"],
          "checked": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
@@ -2477,6 +2698,7 @@ def main(argv=None) -> int:
          "launches_fleet": {k: v["knn_topk_prefix"] for k, v in fleet.items()},
          "launches_multi_device_significance":
              multi_sig_launches["knn_topk_prefix"],
+         "launches_ranks_significance": ranks_sig["launches"]["knn_topk_prefix"],
          "checked": True, "checked_bf16": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

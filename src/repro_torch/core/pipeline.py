@@ -20,6 +20,13 @@
     :class:`TileWriter` store, in row order, which doubles as the resume
     manifest.  The map is the same byte for byte for any device count,
     tiled or untiled, and a resume may change the device count.
+  rows across ranks (``group``, ``runtime/ranks.py``): W processes of n
+    slots each split every chunk of ``W x n x lib_block`` rows as the
+    JAX package's global mesh does, rank r taking global slots ``r*n ..
+    r*n + n - 1`` (:func:`rank_plan`); optE is gathered to every rank
+    after phase 1, each rank writes its own manifest shard, and rank 0
+    alone writes the store's shared files.  The bytes equal one
+    process's for any world size, and a resume may change it.
   library-sharded kNN (:func:`knn_tables_library_sharded`): the
     candidate axis cut into contiguous shards, one a device slot or a
     rank of a ``torch.distributed`` group, merged to the unsharded table
@@ -43,6 +50,7 @@ from repro_torch.core.types import CausalMap, EDMConfig
 from repro_torch.data.store import TileWriter
 from repro_torch.runtime import integrity, telemetry
 from repro_torch.runtime.platform import local_devices
+from repro_torch.runtime.ranks import Ranks
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
 
@@ -91,27 +99,81 @@ def _host_in_row_order(parts) -> list[np.ndarray]:
     return [torch.cat(o).numpy() for o in out]
 
 
+def rank_plan(chunk_plan, n_local: int, lib_block: int, rank: int = 0,
+              world: int = 1) -> list[tuple[int, int]]:
+    """This rank's share of each (row0, valid) chunk of a plan made for a
+    world of ``world`` ranks of ``n_local`` slots each (chunks of at most
+    ``world x n_local x lib_block`` rows): the rows of global slots
+    ``rank * n_local .. (rank + 1) * n_local - 1`` (:func:`slot_spans`
+    over the world's slots, process-major as the JAX package's global
+    mesh), one contiguous (row0, nrows) span a chunk, chunks where the
+    rank has no rows left out.  A share splits over the rank's own slots
+    as the world split it."""
+    out = []
+    for row0, valid in chunk_plan:
+        mine = [(r0, r1) for d, r0, r1 in
+                slot_spans(row0, valid, world * n_local, lib_block)
+                if rank * n_local <= d < (rank + 1) * n_local]
+        if mine:
+            out.append((mine[0][0], mine[-1][1] - mine[0][0]))
+    return out
+
+
+def _spans(plan) -> list[tuple[int, int]]:
+    return [(r0, r0 + n) for r0, n in plan]
+
+
+def chunk_checks(ranks: Ranks, chunk_plan, n_local: int, lib_block: int,
+                 what: str):
+    """``ranks.chunk_checks`` over the chunks of ``chunk_plan`` that every
+    rank has a share of (:func:`rank_plan`): an ``on_chunk`` hook that
+    meets the ranks within the stage, or None for one process."""
+    if ranks.world == 1:
+        return None
+    return ranks.chunk_checks(min(
+        len(rank_plan(chunk_plan, n_local, lib_block, r, ranks.world))
+        for r in range(ranks.world)), what)
+
+
 def run_phase1(
-    ts: np.ndarray, cfg: EDMConfig, device=None, on_chunk=None
+    ts: np.ndarray, cfg: EDMConfig, device=None, on_chunk=None, group=None
 ) -> tuple[np.ndarray, np.ndarray]:
     """Phase 1 alone: (simplex_rhos (N, E_max) float32, optE (N,) int32),
     in chunks of ``len(devices) x lib_block`` rows.  ``on_chunk(row0)``
-    fires before each chunk."""
-    devs = check_run(cfg, device)
+    fires before each chunk.  With a ``torch.distributed`` ``group``
+    (:class:`~repro_torch.runtime.ranks.Ranks`) each rank computes its
+    share of chunks of ``ranks x len(devices) x lib_block`` rows
+    (:func:`rank_plan`) and every rank gets all N rows back."""
+    devs, ranks = check_run(cfg, device), Ranks(group)
     ts = np.asarray(ts, np.float32)
+    N = ts.shape[0]
     ts_d = _on_each(devs, lambda d: torch.as_tensor(ts).to(d))
-    chunk = len(devs) * cfg.lib_block
+    chunk = ranks.world * len(devs) * cfg.lib_block
+    world_plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
+    plan = rank_plan(world_plan, len(devs), cfg.lib_block, ranks.rank,
+                     ranks.world)
+    check = chunk_checks(ranks, world_plan, len(devs), cfg.lib_block, "phase 1")
     parts = []
-    for row0 in range(0, ts.shape[0], chunk):
+    for row0, valid in plan:
         if on_chunk is not None:
             on_chunk(row0)
+        if check is not None:
+            check(row0)
         with telemetry.span("phase1", "chunk", row0=row0, chunk_rows=chunk):
-            for d, r0, r1 in slot_spans(row0, min(chunk, ts.shape[0] - row0),
-                                        len(devs), cfg.lib_block):
+            for d, r0, r1 in slot_spans(row0, valid, len(devs), cfg.lib_block):
                 parts.append((devs[d], *simplex.simplex_batch(
                     ts_d[devs[d]][r0:r1], cfg)))
-    simplex_rhos, optE = _host_in_row_order(parts)
-    return simplex_rhos, optE.astype(np.int32)
+    simplex_rhos = np.zeros((N, cfg.E_max), np.float32)
+    optE = np.zeros(N, np.int32)
+    if parts:  # this rank's rows, in row order
+        rhos_mine, optE_mine = _host_in_row_order(parts)
+        at = 0
+        for r0, r1 in _spans(plan):
+            simplex_rhos[r0:r1] = rhos_mine[at : at + r1 - r0]
+            optE[r0:r1] = optE_mine[at : at + r1 - r0]
+            at += r1 - r0
+    ranks.gather_rows([simplex_rhos, optE], _spans(plan), "phase-1 optE")
+    return simplex_rhos, optE
 
 
 class Phase2Runner:
@@ -271,6 +333,7 @@ def run_causal_inference(
     out_dir: Optional[str] = None,
     progress: bool = False,
     timings: Optional[dict] = None,
+    group=None,
 ) -> CausalMap:
     """Full pipeline over the run's device slots (every visible card
     unless ``device`` says otherwise: ``"cpu"``, ``"cuda:1"``, a list).
@@ -278,35 +341,67 @@ def run_causal_inference(
     With ``out_dir`` the phase-2 blocks stream to a :class:`TileWriter`
     and the returned map is a memmap at <out_dir>/causal_map/data.npy;
     the store is fingerprint-stamped first and checked on every resume.
-    A resume may change ``lib_block``, ``target_tile`` and the device
-    count: only rows the store does not cover are recomputed.
-    ``timings``, when given, receives phase1_s / phase2_s / assemble_s."""
+    A resume may change ``lib_block``, ``target_tile``, the device count
+    and the world size: only rows the store does not cover are
+    recomputed.  ``timings``, when given, receives phase1_s / phase2_s /
+    assemble_s and ``rows``, the phase-2 rows this process computed.
+
+    ``group``: a ``torch.distributed`` process group whose every member
+    calls this with the same arguments (rows across ranks,
+    ``runtime/ranks.py``): each rank computes its share of every chunk
+    (:func:`rank_plan`), optE is gathered to every rank after phase 1,
+    and each rank writes its own manifest shard ``blocks.rank<r>.json``;
+    rank 0 alone stamps the fingerprint, writes ``col_order.npy``, makes
+    the chunk plan from the union of the shards and assembles the map,
+    each between barriers.  Every rank returns the whole map (without
+    ``out_dir``, the rows gathered from every rank)."""
     devs = check_run(cfg, device)
+    ranks = Ranks(group)
     ts = np.asarray(ts, np.float32)
     N = ts.shape[0]
-    chunk = len(devs) * cfg.lib_block
+    chunk = ranks.world * len(devs) * cfg.lib_block
     if out_dir is not None:
-        integrity.stamp_fingerprint(out_dir, integrity.fingerprint_of(ts, cfg))
+        fp = integrity.fingerprint_of(ts, cfg)
+        if ranks.lead:
+            integrity.stamp_fingerprint(out_dir, fp)
+        ranks.barrier("the fingerprint")
+        if not ranks.lead:  # verifies rank 0's stamp
+            integrity.stamp_fingerprint(out_dir, fp)
 
     t0 = _perf()
-    simplex_rhos, optE = run_phase1(ts, cfg, devs)
+    simplex_rhos, optE = run_phase1(ts, cfg, devs, group=ranks.host)
     t1 = _perf()
 
     ts_fut = ccm.all_futures(torch.as_tensor(ts), cfg).numpy()
-    writer = TileWriter(out_dir, N) if out_dir else None
+    runner = Phase2Runner(ts, ts_fut, optE, cfg, devs)
+    writer = TileWriter(out_dir, N, writer_id=ranks.writer_id) if out_dir else None
     rho = None if writer is not None else np.zeros((N, N), np.float32)
     if writer is not None:
-        chunk_plan = writer.chunk_plan(chunk)
+        plan = None
+        if ranks.lead:
+            if cfg.target_tile:
+                writer.ensure_col_order(runner.order)
+            plan = writer.refresh().chunk_plan(chunk)
+        plan = ranks.share(plan, "the phase-2 chunk plan")
     else:
-        chunk_plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
-    Phase2Runner(ts, ts_fut, optE, cfg, devs).run(chunk_plan, writer, rho,
-                                                  progress)
+        plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
+    mine = rank_plan(plan, len(devs), cfg.lib_block, ranks.rank, ranks.world)
+    runner.run(mine, writer, rho, progress, on_chunk=chunk_checks(
+        ranks, plan, len(devs), cfg.lib_block, "phase 2"))
     t2 = _perf()
     if writer is not None:
-        rho = writer.assemble(mmap_path=writer.dir / "causal_map" / "data.npy")
+        path = writer.dir / "causal_map" / "data.npy"
+        ranks.barrier("the phase-2 shards")
+        if ranks.lead:
+            rho = writer.refresh().assemble(mmap_path=path)
+        ranks.barrier("the assembled map")
+        if not ranks.lead:
+            rho = np.load(path, mmap_mode="r")
+    else:
+        ranks.gather_rows([rho], _spans(mine), "the causal map's rows")
     if timings is not None:
         timings.update(phase1_s=t1 - t0, phase2_s=t2 - t1,
-                       assemble_s=_perf() - t2)
+                       assemble_s=_perf() - t2, rows=sum(n for _, n in mine))
     return CausalMap(rho=rho, optE=optE, simplex_rho=simplex_rhos)
 
 

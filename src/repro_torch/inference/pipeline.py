@@ -45,13 +45,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import ccm
-from repro_torch.core.pipeline import check_run, slot_spans
+from repro_torch.core.pipeline import (check_run, chunk_checks, rank_plan,
+                                      slot_spans)
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference import convergence, prng, significance, surrogates
 from repro_torch.inference.types import SignificanceConfig, SignificanceResult
 from repro_torch.runtime import integrity, telemetry
+from repro_torch.runtime.ranks import Ranks
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
 # Surrogate values drawn per batch of the build: bounds the int64 words
@@ -292,6 +294,7 @@ def run_significance(
     device=None,
     out_dir: Optional[str] = None,
     progress: bool = False,
+    group=None,
 ) -> SignificanceResult:
     """Validate a causal map: convergence statistics, surrogate p-values,
     and the BH-FDR significance-masked edge list, on every visible card
@@ -300,29 +303,50 @@ def run_significance(
     ts (N, L) series; optE (N,) phase-1 optimal embeddings; rho the
     (N, N) observed causal map (memmap fine — read a chunk of rows at a
     time).  With ``out_dir`` every artifact streams through a TileWriter
-    (resumable) and the returned maps are disk-backed memmaps."""
+    (resumable) and the returned maps are disk-backed memmaps.
+
+    ``group``: rows across ranks, as ``core/pipeline.py::
+    run_causal_inference``: each rank computes its share of every chunk
+    into its own writer shards, the BH counts are summed over the ranks,
+    and rank 0 alone stamps the store, makes the chunk plan and writes
+    the assembled maps and ``edges/``, between barriers.  Every rank
+    returns the whole result.  The surrogates are keyed by global rows,
+    so the bytes equal one process's for any world size."""
     if not (sig.lib_sizes or sig.n_surrogates > 0):
         return SignificanceResult(None, None, None, None)
     runner = SignificanceChunkRunner(ts, optE, cfg, sig, device)
+    ranks = Ranks(group)
     N = runner.N
     do_conv, do_null = runner.do_conv, runner.do_null
-    m, chunk, order = runner.m, runner.chunk, runner.order
+    m, order = runner.m, runner.order
+    chunk = ranks.world * runner.chunk
 
     if out_dir is not None:
-        # Same stamp-or-verify as run_causal_inference; the sig params
-        # are pinned separately.
-        integrity.stamp_fingerprint(
-            out_dir, integrity.fingerprint_of(np.asarray(ts, np.float32), cfg)
-        )
-        _check_resume_config(out_dir, sig)
-        conv_w = _writer(out_dir, "rho_conv", N, order) if do_conv else None
-        trend_w = _writer(out_dir, "rho_trend", N, order) if do_conv else None
-        pv_w = _writer(out_dir, "pvals", N, order) if do_null else None
+        fp = integrity.fingerprint_of(np.asarray(ts, np.float32), cfg)
+
+        def open_store():
+            # Same stamp-or-verify as run_causal_inference; the sig
+            # params are pinned separately.
+            integrity.stamp_fingerprint(out_dir, fp)
+            _check_resume_config(out_dir, sig)
+            return [_writer(out_dir, name, N, order, ranks.writer_id) if on
+                    else None for name, on in (("rho_conv", do_conv),
+                                               ("rho_trend", do_conv),
+                                               ("pvals", do_null))]
+
+        if ranks.lead:
+            conv_w, trend_w, pv_w = open_store()
+        ranks.barrier("the significance store")
+        if not ranks.lead:  # verifies what rank 0 wrote
+            conv_w, trend_w, pv_w = open_store()
         writers = [w for w in (conv_w, trend_w, pv_w) if w is not None]
-        cov = writers[0].covered()
-        for w in writers[1:]:
-            cov &= w.covered()
-        plan_chunks = writers[0].chunk_plan(chunk, covered=cov)
+        plan_chunks = None
+        if ranks.lead:
+            cov = writers[0].refresh().covered()
+            for w in writers[1:]:
+                cov &= w.refresh().covered()
+            plan_chunks = writers[0].chunk_plan(chunk, covered=cov)
+        plan_chunks = ranks.share(plan_chunks, "the significance chunk plan")
         drho_map = trend_map = pv_map = None
         store_drain = make_store_drain(N, conv_w, trend_w, pv_w)
     else:
@@ -358,18 +382,32 @@ def run_significance(
             print(f"significance rows {row0}..{row0 + valid} / {N}")
 
     resumed_rows = N - sum(v for _, v in plan_chunks)
-    runner.run(plan_chunks, rho, drain)
+    mine = rank_plan(plan_chunks, len(runner.devs), cfg.lib_block, ranks.rank,
+                     ranks.world)
+    runner.run(mine, rho, drain, on_chunk=chunk_checks(
+        ranks, plan_chunks, len(runner.devs), cfg.lib_block, "significance"))
+    p_counts = ranks.sum(p_counts, "the p-value counts")
 
     if out_dir is not None:
         for w in writers:
             w.commit()
-        # Chunks durable from a prior run never re-drained: their counts
-        # come back from the assembled map (p_counts=None -> recount).
-        return _finalize_store(
-            cfg, sig, rho, conv_w=conv_w, trend_w=trend_w, pv_w=pv_w,
-            p_counts=None if resumed_rows else p_counts, progress=progress,
-        )
+        ranks.barrier("the significance shards")
+        if ranks.lead:
+            # Chunks durable from a prior run never re-drained: their
+            # counts come back from the assembled map (p_counts=None ->
+            # recount).
+            for w in writers:
+                w.refresh()
+            res = _finalize_store(
+                cfg, sig, rho, conv_w=conv_w, trend_w=trend_w, pv_w=pv_w,
+                p_counts=None if resumed_rows else p_counts, progress=progress,
+            )
+        ranks.barrier("the finalized significance store")
+        return res if ranks.lead else _read_store(out_dir, sig)
 
+    ranks.gather_rows([a for a in (drho_map, trend_map, pv_map) if a is not None],
+                      [(r0, r0 + n) for r0, n in mine],
+                      "the significance maps' rows")
     p_threshold, edges = 0.0, None
     n_tests = int(p_counts.sum())
     if do_null:
@@ -382,6 +420,25 @@ def run_significance(
         drho=drho_map, trend=trend_map, pvals=pv_map, edges=edges,
         p_threshold=p_threshold, n_tests=n_tests,
     )
+
+
+def _read_store(out_dir, sig: SignificanceConfig) -> SignificanceResult:
+    """The result a finalized significance store holds (memmaps), for
+    the ranks that did not finalize it."""
+    out = pathlib.Path(out_dir)
+
+    def load(name):
+        return np.load(out / name / "data.npy", mmap_mode="r")
+
+    res = SignificanceResult(None, None, None, None)
+    if sig.lib_sizes:
+        res.drho, res.trend = load("rho_conv"), load("rho_trend")
+    if sig.n_surrogates > 0:
+        meta = json.loads((out / "pvals" / "meta.json").read_text())
+        res.pvals = load("pvals")
+        res.edges = np.load(out / "edges" / "data.npy")
+        res.p_threshold, res.n_tests = meta["p_threshold"], meta["n_tests"]
+    return res
 
 
 def _bh_cut(p_counts: np.ndarray, m: int, alpha: float) -> tuple[float, float]:

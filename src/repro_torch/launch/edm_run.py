@@ -15,6 +15,10 @@
   # two row slots on card 0 (several cards: EDM_LOCAL_DEVICE_IDS=0,1)
   EDM_LOCAL_DEVICE_IDS=0,0 PYTHONPATH=src python -m \\
       repro_torch.launch.edm_run --synthetic 2048x1450 --out /tmp/cm2
+  # rows across ranks: one process a rank (here rank 1 of 4, a card each)
+  EDM_COORDINATOR=localhost:29500 EDM_NUM_PROCESSES=4 EDM_PROCESS_ID=1 \\
+      PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 16384x1450 --out /tmp/cm4
 
 Runs phase 1 (simplex) and phase 2 (CCM) — bucketed by optE, or with
 tables at every E under ``--no-bucketed``; untiled, or in column tiles
@@ -32,11 +36,17 @@ is none; ``--device cpu`` (or ``--platform cpu``) runs the plain PyTorch
 versions on the CPU.
 
 The EDM_* contract (``runtime/platform.py``) is read first thing: with
-EDM_COORDINATOR set the process joins a ``torch.distributed`` group.  A
-world of more than one rank, one ``edm_run`` process a rank, is refused
-(splitting a run's rows across ranks is not ported); ranks span hosts
-through the fleet (``--workers``), and the library-sharded kNN merges
-across a group's ranks.
+EDM_COORDINATOR set the process joins a ``torch.distributed`` group.
+A world of W > 1 ranks, one ``edm_run`` process a rank, joins on gloo
+(its exchanges are host arrays; ranks may share a card) and splits the
+rows (``runtime/ranks.py``): each rank computes its
+share of every chunk of ``W x slots x --lib-block`` rows on its card
+(``process_id % cards``) or on the slots its ``EDM_LOCAL_DEVICE_IDS``
+names, writes its own manifest shard, and prints its own summary and
+``rank r/W done in <s>s {json}`` line; rank 0 writes the store's shared
+files.  The bytes equal one process's for any W, and a rerun may change
+W.  A rank that dies or raises makes every other rank exit non-zero
+at their next meeting (``runtime/ranks.py`` states the bound).
 
 ``--workers W`` runs the same stages across W worker processes that
 claim row-span units from a lease queue in the store
@@ -44,8 +54,11 @@ claim row-span units from a lease queue in the store
 worker under its id; every artifact is byte-identical to the
 single-process run for any W and ``--unit-rows``.
 
-The flags of paths not ported yet (engine selection, the driver's
-telemetry, autotuning) exit with an error that names them.
+``--engine`` picks the engine (``cuda``: the kernels on a card, their
+plain versions on the CPU; ``torch-reference``: the plain versions);
+``--use-kernels`` is its deprecated alias for ``cuda``.  The flags of
+paths not ported yet (the driver's telemetry, autotuning) exit with an
+error that names them.
 """
 from __future__ import annotations
 
@@ -61,13 +74,13 @@ from repro_torch.core.pipeline import check_run, run_causal_inference
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.synthetic import dummy_brain
+from repro_torch.engine import available_engines
 from repro_torch.inference import SignificanceConfig, run_significance
 from repro_torch.runtime import platform
+from repro_torch.runtime.ranks import Ranks
 
 #: flag -> what it belongs to; each exits with an error naming it
 NOT_PORTED = {
-    "--engine": "engine selection",
-    "--use-kernels": "engine selection",
     "--no-telemetry": "telemetry",
     "--autotune": "the autotuner",
     "--tune-from": "the autotuner",
@@ -146,6 +159,17 @@ def build_parser() -> argparse.ArgumentParser:
         "tpu is refused (the port has no TPU tier)",
     )
     ap.add_argument(
+        "--engine", default=None, choices=available_engines(),
+        help="execution engine (repro_torch.engine registry): cuda (the "
+        "hand-written kernels on a card, their plain versions on the CPU) "
+        "or torch-reference (the plain PyTorch versions); default: the "
+        "--platform tier's, else cuda",
+    )
+    ap.add_argument(
+        "--use-kernels", action="store_true",
+        help="DEPRECATED: same as --engine cuda",
+    )
+    ap.add_argument(
         "--workers", type=int, default=0,
         help="run a local fleet of this many masterless worker processes "
         "over the output store (0 = in this process); any W gives the "
@@ -175,10 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Parse ``argv`` (default: sys.argv), run, and return a summary:
     {"result": CausalMap, "N", "L", "wall_s", "phase1_s", "phase2_s",
-    "assemble_s", "cross_maps_per_s", "n_buckets", "device",
-    "significance": SignificanceResult | None, "significance_s", "edges"}
-    (the last three None without significance flags); with ``--workers``
-    the fleet's summary (:func:`_run_fleet`)."""
+    "assemble_s", "rows", "cross_maps_per_s", "n_buckets", "device",
+    "devices", "significance": SignificanceResult | None,
+    "significance_s", "edges", "rank", "world"} (significance,
+    significance_s and edges None without significance flags; ``rows``:
+    the phase-2 rows this rank computed); with ``--workers`` the fleet's
+    summary (:func:`_run_fleet`)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag in NOT_PORTED:
@@ -189,7 +215,14 @@ def main(argv=None) -> dict:
             )
     if bool(args.synthetic) == bool(args.dataset):
         ap.error("give exactly one of --synthetic NxL and --dataset DIR")
-    engine = "cuda"
+    engine_flag = f"--engine {args.engine}"
+    if args.use_kernels:
+        if args.engine not in (None, "cuda"):
+            ap.error(f"--use-kernels conflicts with --engine {args.engine}; "
+                     "drop the deprecated flag")
+        print("note: --use-kernels is deprecated; use --engine cuda")
+        args.engine, engine_flag = "cuda", "--use-kernels"
+    engine = args.engine or "cuda"
     device = args.device or "cuda"
     if args.platform:
         try:
@@ -199,18 +232,19 @@ def main(argv=None) -> dict:
         if args.device not in (None, tier["device"]):
             ap.error(f"--device {args.device} conflicts with --platform "
                      f"{args.platform} (device {tier['device']})")
+        if args.engine not in (None, tier["engine"]):
+            ap.error(f"{engine_flag} conflicts with --platform {args.platform} "
+                     f"(engine {tier['engine']})")
         device, engine = tier["device"], tier["engine"]
         print(f"platform: tier {tier['tier']} (device {device}, engine {engine})")
     # the EDM_* contract, before any work
     spec = platform.distributed_spec_from_env()
-    if spec is not None and spec["num_processes"] > 1 and args.workers == 0:
-        ap.error(
-            f"EDM_NUM_PROCESSES={spec['num_processes']}: one edm_run process a "
-            "rank, splitting the run's rows across ranks, is not ported "
-            "(rows across ranks); run the ranks as a fleet (--workers) over "
-            "one store, or one process over this host's cards"
-        )
-    dist = platform.init_distributed(spec, device=device)
+    # rows across ranks exchange host arrays only: gloo, which also lets
+    # ranks share a card (NCCL would refuse it)
+    rows_across_ranks = (spec is not None and spec["num_processes"] > 1
+                         and args.workers == 0)
+    dist = platform.init_distributed(
+        spec, device=device, backend="gloo" if rows_across_ranks else None)
     if dist is not None:
         print(f"distributed: process {dist['process_id']}/"
               f"{dist['num_processes']} via {dist['coordinator']} "
@@ -234,13 +268,28 @@ def main(argv=None) -> dict:
             alpha=args.fdr, surrogate=args.surrogate_kind, seed=args.seed,
         )
     if args.workers > 0:
-        return _run_fleet(args, ts, cfg, sig, device, distributed=spec is not None)
-    devs = check_run(cfg, device)
+        return _run_fleet(args, ts, cfg, sig, device, spec)
+    group = None
+    if rows_across_ranks:
+        import torch.distributed
+
+        group = torch.distributed.group.WORLD
+        devs = check_run(cfg, platform.rank_devices(spec, device))
+    else:
+        devs = check_run(cfg, device)
+    ranks = Ranks(group)
+    if ranks.world > 1 and any(d.type == "cuda" for d in devs):
+        from repro_torch import kernels
+
+        if ranks.lead:  # once, before any rank loads a kernel
+            kernels.build_all()
+        ranks.barrier("the kernel build")
     print(f"devices: {len(devs)} slot(s) {[str(d) for d in devs]}")
     timings: dict = {}
     t0 = time.perf_counter()
     result = run_causal_inference(ts, cfg, device=devs, out_dir=args.out,
-                                  progress=True, timings=timings)
+                                  progress=True, timings=timings,
+                                  group=ranks.host)
     dt = time.perf_counter() - t0
     N = ts.shape[0]
     n_buckets = len(np.unique(result.optE))
@@ -249,7 +298,8 @@ def main(argv=None) -> dict:
           f"{len(devs)} x {devs[0].type}; buckets {n_buckets}/{cfg.E_max}"
           f"{'' if cfg.bucketed else ' (all-E tables)'}; tile "
           f"{cfg.target_tile or 'none'}; phase 1 "
-          f"{timings['phase1_s']:.2f}s, phase 2 {timings['phase2_s']:.2f}s")
+          f"{timings['phase1_s']:.2f}s, phase 2 {timings['phase2_s']:.2f}s"
+          + (f"; {ranks} ({timings['rows']} rows)" if ranks.world > 1 else ""))
     meta = {
         "optE": result.optE.tolist(),
         "engine": cfg.engine,
@@ -262,16 +312,19 @@ def main(argv=None) -> dict:
         "target_tile": cfg.target_tile,
         "knn_tile_c": cfg.knn_tile_c,
         "seed": args.seed,
+        "ranks": ranks.world,
     }
     # The pipeline assembled the map into <out>/causal_map/data.npy; only
     # the zarr-lite meta is missing.
-    store.save_meta(args.out + "/causal_map", result.rho.shape,
-                    result.rho.dtype, meta)
+    if ranks.lead:
+        store.save_meta(args.out + "/causal_map", result.rho.shape,
+                        result.rho.dtype, meta)
     out = sig_s = None
     if sig is not None:
         t1 = time.perf_counter()
         out = run_significance(ts, result.optE, result.rho, cfg, sig,
-                               device=devs, out_dir=args.out, progress=True)
+                               device=devs, out_dir=args.out, progress=True,
+                               group=ranks.host)
         sig_s = time.perf_counter() - t1
         stages = [s for s, on in (("convergence", sig.lib_sizes),
                                   ("surrogates", sig.n_surrogates)) if on]
@@ -279,16 +332,39 @@ def main(argv=None) -> dict:
               + (f"; {len(out.edges)} edges at FDR {args.fdr} "
                  f"(p* = {out.p_threshold:.4g}, {out.n_tests} tests)"
                  if out.edges is not None else ""))
-    return {
+    ranks.barrier("the end of the run")  # rank 0's meta and edges are written
+    summary = {
         "result": result, "N": N, "L": int(ts.shape[1]), "wall_s": dt,
         **timings, "cross_maps_per_s": N * N / dt,
         "n_buckets": int(n_buckets), "device": devs[0].type,
         "devices": [str(d) for d in devs], "significance": out, "significance_s": sig_s,
         "edges": None if out is None or out.edges is None else len(out.edges),
+        "rank": ranks.rank, "world": ranks.world,
     }
+    if ranks.world > 1:
+        _print_rank_record(summary, devs, time.perf_counter() - t0)
+    return summary
 
 
-def _run_fleet(args, ts, cfg, sig, device: str, distributed: bool) -> dict:
+def _print_rank_record(summary: dict, devs, wall: float) -> None:
+    """A rank's last line, ``rank r/W done in <s>s {json}``: its launches
+    of each kernel (per process: a reader sums them over the ranks), its
+    rows, stage seconds and peak device bytes."""
+    import torch
+
+    from repro_torch.launch.edm_fleet import launch_counts
+
+    cards = [d for d in dict.fromkeys(devs) if d.type == "cuda"]
+    rec = {k: summary[k] for k in ("rank", "world", "devices", "rows", "wall_s",
+                                    "phase1_s", "phase2_s", "assemble_s",
+                                    "significance_s", "edges")}
+    rec.update(launches=launch_counts(), peak_device_bytes=sum(
+        torch.cuda.max_memory_allocated(d) for d in cards))
+    print(f"rank {summary['rank']}/{summary['world']} done in {wall:.1f}s "
+          f"{json.dumps(rec)}", flush=True)
+
+
+def _run_fleet(args, ts, cfg, sig, device: str, spec: dict | None) -> dict:
     """``--workers W``: a local masterless fleet over ``--out``.
 
     The supervisor prepares the store (dataset + fleet.json, the
@@ -298,7 +374,10 @@ def _run_fleet(args, ts, cfg, sig, device: str, distributed: bool) -> dict:
     id (it reclaims its own leases at once) up to --max-worker-restarts
     times; a relaunched worker runs without EDM_FAULTS, so one armed
     fault kills one process generation.  A poisoned unit ends the fleet
-    with its id.  Success is the queue's completion witnesses and every
+    with its id.  Under an EDM_* world of several ranks, each rank's
+    supervisor names its workers ``p<rank>w<i>``, so two supervisors over
+    one store never share a worker id (a lease owner and a manifest
+    shard).  Success is the queue's completion witnesses and every
     requested artifact.  Returns {"fleet", "N", "L", "workers",
     "wall_s", "cross_maps_per_s", "n_buckets", "device", "restarts",
     "failed", "edges"}."""
@@ -320,7 +399,7 @@ def _run_fleet(args, ts, cfg, sig, device: str, distributed: bool) -> dict:
             store.save_dataset(dataset, ts, {"synthetic": args.synthetic})
     edm_fleet.init_fleet(out, dataset, cfg, sig, unit_rows=args.unit_rows,
                          seed=args.seed, device=device, platform=args.platform,
-                         distributed=distributed)
+                         distributed=spec is not None)
     if device == "cuda":
         from repro_torch import kernels
 
@@ -334,7 +413,8 @@ def _run_fleet(args, ts, cfg, sig, device: str, distributed: bool) -> dict:
         return edm_fleet.spawn_worker(out, wid, env=env,
                                       unit_retries=args.unit_retries)
 
-    procs = {f"w{i}": spawn(f"w{i}") for i in range(args.workers)}
+    prefix = f"p{spec['process_id']}" if spec and spec["num_processes"] > 1 else ""
+    procs = {w: spawn(w) for w in (f"{prefix}w{i}" for i in range(args.workers))}
     restarts = dict.fromkeys(procs, 0)
     failed = {}
     try:

@@ -18,8 +18,10 @@ contract of the port — the counterpart of the JAX package's
   * :func:`init_distributed` — ``torch.distributed.init_process_group``
     from ``EDM_COORDINATOR`` / ``EDM_NUM_PROCESSES`` / ``EDM_PROCESS_ID``
     (``tcp://<coordinator>``), on NCCL where the ranks use cards and on
-    gloo on the CPU.  The group carries the library-sharded kNN's
-    collective merge (``core/knn.py::merge_topk_collective``).
+    gloo on the CPU or when asked.  The group carries the library-sharded
+    kNN's collective merge (``core/knn.py::merge_topk_collective``) and,
+    joined on gloo, rows across ranks (``runtime/ranks.py``: one
+    ``edm_run`` a rank on :func:`rank_devices`).
 
 Nothing here changes a value of any output: the tables and maps are the
 same on every tier and for every device count.
@@ -193,18 +195,24 @@ def distributed_spec_from_env(env=None) -> dict | None:
     return spec
 
 
-def rank_device(spec: dict, device=None) -> torch.device:
-    """The device a rank computes on: the first of ``local_device_ids``;
-    without them, where ``device`` is the card (None or ``"cuda"``), card
-    ``process_id % device_count`` — one rank a card on one host."""
+def rank_devices(spec: dict, device=None) -> list[torch.device]:
+    """A rank's device slots: those its ``local_device_ids`` name (two
+    ids, two slots); without them, where ``device`` is the card (None or
+    ``"cuda"``), card ``process_id % device_count`` — one rank a card on
+    one host — else ``device``."""
     ids = spec.get("local_device_ids")
-    dev = resolve_device(device)
-    if dev.type != "cuda" or dev.index is not None:
-        return dev
     if ids:
         return local_devices(device, {ENV_LOCAL_DEVICE_IDS:
-                                      ",".join(map(str, ids))})[0]
-    return torch.device("cuda", spec["process_id"] % torch.cuda.device_count())
+                                      ",".join(map(str, ids))})
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev]
+    return [torch.device("cuda", spec["process_id"] % torch.cuda.device_count())]
+
+
+def rank_device(spec: dict, device=None) -> torch.device:
+    """The device a rank computes on: the first of :func:`rank_devices`."""
+    return rank_devices(spec, device)[0]
 
 
 _DISTRIBUTED: dict | None = None

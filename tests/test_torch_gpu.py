@@ -730,3 +730,39 @@ def test_main_path_over_two_slots_on_the_card_equals_one_slot():
         one = run_causal_inference(ts, cfg, device=[dev])
         two = run_causal_inference(ts, cfg, device=[dev, dev])
         assert one.rho.tobytes() == two.rho.tobytes()
+
+
+@pytest.mark.parametrize("E_max,L,series", [(6, 120, 2), (20, 1430, 3)])
+def test_check_engine_cuda_on_the_card(E_max, L, series):
+    """``python -m repro_torch.engine.check --engine cuda``'s check: every
+    op of the cuda engine against torch-reference on the card."""
+    _card()
+    from repro_torch.engine.check import TOLERANCES, check_engine
+
+    errs = check_engine("cuda", E_max=E_max, Lq=L, Lc=L, n_targets=37,
+                        series=series)
+    assert set(errs) == set(TOLERANCES)
+
+
+def test_extensions_on_the_card_run_knn_topk_and_equal_the_plain_route():
+    dev = _card()
+    from repro_torch.core import extensions as ext
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import coupled_logistic
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+
+    x, y = coupled_logistic(800, beta_xy=0.0, beta_yx=0.12, seed=3)
+    xs, ys = np.stack([y, x]), np.stack([x, y])
+    for E_max, E in ((6, 3), (20, 12)):
+        knn_topk.LAUNCHES = 0
+        got = ext.ccm_lagged(xs, ys, E, EDMConfig(E_max=E_max), device=dev)
+        assert knn_topk.LAUNCHES == 1 and got.device.type == "cuda"
+        want = ext.ccm_lagged(xs, ys, E, EDMConfig(E_max=E_max,
+                                                   engine="torch-reference"),
+                              device=dev)
+        assert torch.equal(got, want)
+    # the S-Map's solve on the card against the CPU's, within float32
+    # round-off of sums in another order
+    got = ext.smap_theta_sweep(xs, 2, EDMConfig(E_max=6), device=dev).cpu()
+    want = ext.smap_theta_sweep(xs, 2, EDMConfig(E_max=6), device="cpu")
+    assert (got - want).abs().max() <= 1e-5

@@ -112,13 +112,13 @@ def test_edm_run_fleet_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--engine cuda", "--use-kernels", "--no-telemetry", "--autotune",
-    "--tune-from t.json"])
+    "--no-telemetry", "--autotune", "--tune-from t.json"])
 def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
     """Each flag of a path not ported yet exits naming itself and the
     path it belongs to (``--target-tile`` and ``--no-bucketed`` are
     ported: tests/test_torch_tiling.py; the fleet's flags:
-    tests/test_torch_fleet.py)."""
+    tests/test_torch_fleet.py; ``--engine`` and ``--use-kernels``:
+    tests/test_torch_engine_check.py)."""
     from repro_torch.launch import edm_run
 
     with pytest.raises(SystemExit) as e:

@@ -109,5 +109,6 @@ def test_in_process_run_without_a_store_equals_the_store(runs):
                                device="cpu", timings=timings)
     stored = np.load(runs["port"] / "causal_map" / "data.npy")
     np.testing.assert_array_equal(res.rho, stored)
-    assert set(timings) == {"phase1_s", "phase2_s", "assemble_s"}
+    assert set(timings) == {"phase1_s", "phase2_s", "assemble_s", "rows"}
+    assert timings["rows"] == N
     assert res.simplex_rho.shape == (N, E_MAX)

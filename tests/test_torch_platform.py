@@ -236,15 +236,3 @@ def test_edm_run_refuses_tpu_and_a_conflicting_device(tmp_path, capsys, argv,
     assert match in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
 
-
-def test_edm_run_refuses_one_process_a_rank(tmp_path, capsys, monkeypatch):
-    """EDM_NUM_PROCESSES > 1 for an in-process run: refused before any
-    work, naming rows across ranks (the next item of the port)."""
-    monkeypatch.setenv("EDM_COORDINATOR", "localhost:1")
-    monkeypatch.setenv("EDM_NUM_PROCESSES", "2")
-    monkeypatch.setenv("EDM_PROCESS_ID", "0")
-    with pytest.raises(SystemExit) as e:
-        _edm_run(tmp_path, "--device", "cpu")
-    assert e.value.code != 0
-    assert "rows across ranks" in capsys.readouterr().err
-    assert not (tmp_path / "o").exists()
