@@ -15,9 +15,10 @@ plain PyTorch version on the card at the shapes of the paths that run
 it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
 main path (the causal map) and the significance path (map, convergence
-statistics, surrogate p-values and BH-FDR edges) — and then each again
-in column tiles (``--target-tile``: the tiled map and store byte for
-byte the untiled ones, with peak device memory beside them), the all-E
+statistics, surrogate p-values and BH-FDR edges) — and then each again,
+at half the N, untiled and in column tiles (``--target-tile``: the tiled
+map and store byte for byte the untiled ones, with peak device memory
+beside them), the all-E
 phase 2 (``--no-bucketed``, untiled and tiled) and the map with the
 bfloat16 distance accumulator — each path with the kernel launch counts
 set to 0 just before it and read just after, checks them against the
@@ -100,6 +101,23 @@ card, the S-Map sweep on the card within 1e-5 of the CPU).  With
 visible card at the main path's N, against card 0 alone, with each
 card's busy share.  The ranks' logs go to ``build/smoke_ranks_*/``.
 
+The telemetry trio (``runtime/history.py``, ``trace.py``,
+``autotune.py``): every ``edm_run`` of the smoke records its telemetry
+(the default sink) and its summary in one run history
+(``build/smoke_history.jsonl``, EDM_HISTORY).  Phase ``autotune`` (after
+the tiled main path) runs the map at 2,048 with telemetry off and on in
+turns, with ``--autotune`` and under the tuned shapes (``--tune-from``),
+every map byte-equal, and prints the telemetry cost, the tuned run's
+launches and peak memory, the recommendation with its evidence, and the
+memory the main path's own store's recommendation would need (by the
+peak's slope in library rows: computed, not run).  Phase ``fleet_trace``
+runs ``edm_fleet trace --json --reconcile`` over the ``fleet_main``
+store (every stage's six buckets and its critical-path unit, each
+stage within 1% of ``fleet_status``); ``fleet_watch`` is ``edm_fleet
+status --watch`` beside ``fleet_significance``; ``trends`` (after the
+ranks) finalizes the significance store again, which must replace its
+history record, and reads the history through ``edm_fleet trends``.
+
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -140,8 +158,16 @@ NEAR_TIE = 1e-6  # |difference| below which a comparison may round either way
 # (--no-bucketed) at N = 2,048, untiled and in tiles of 512; the
 # significance path in tiles of 512; the bfloat16 accumulator's map at
 # N = 2,048.  Subject11: N = 101,729 series.
-MAIN_TILE, SIG_TILE = 4096, 512
+MAIN_TILE, SIG_TILE = 4096, 256
+# The tiled phases run at a smaller N than the untiled ones (the smoke's
+# time limit), each against an untiled run of its own N: the map at
+# 8,192 (two tiles of 4,096 a row; 16,384 before), the significance
+# path at 1,024 (four tiles of 256 a row; 2,048 in tiles of 512 before).
+MAIN_TILED_N, SIG_TILED_N = 8192, 1024
 ALL_E_N, ALL_E_TILE, BF16_N = 2048, 512, 2048
+# The autotuner's phase: N 2,048; the peak's slope in library rows
+# measured from lib_block 8 to 128.
+AUTOTUNE_N, SLOPE_LIB_BLOCK = 2048, 128
 SUBJECT11_N = 101729
 
 # The LM serving path: qwen2.5-3b at full width (36 layers, d 2048, 16 / 2
@@ -672,6 +698,140 @@ def profile_phase2(torch, dev, ts, optE, smi):
               for us, k, c in sorted(rows, reverse=True)[:12]], smi=smi)
 
 
+def autotune_phase(torch, dev, smi, main_dir):
+    """The recorded-timing autotuner on the card at AUTOTUNE_N x 1450,
+    E_max 20, the cuda engine, eight ``edm_run`` runs in this order (each
+    with its launch counts and peak set to 0 just before it; EDM_HISTORY
+    unset, so each store keeps its own history): C ``--no-telemetry``;
+    A ``--autotune`` (records, writes tuned.json); B ``--autotune
+    --tune-from A`` (A's recommendation applied); then telemetry off and
+    on in turns at the default shapes, C2, E, C3, E2; D ``--no-telemetry
+    --lib-block SLOPE_LIB_BLOCK``.  Held: the eight maps byte-equal; C
+    leaves no telemetry/ and no history.jsonl; tuned.json equal to a
+    fresh ``autotune.recommend(A)``; B ran A's recommendation.  Printed:
+    each run's walls, phase-2 s, peak device bytes and kernel launches,
+    the recommendation and its evidence, the telemetry cost (the mean of
+    A, E, E2 against that of C, C2, C3: the same shapes), and
+    the device memory a tuned shape needs by the peak's slope in library
+    rows (C to D): B's (against its measured peak) and that of the
+    host-only recommendation of ``main_dir`` (the main path's store at
+    the smoke's N, whose run recorded its telemetry), which is not run."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.runtime import autotune
+
+    n = AUTOTUNE_N
+    base = ["--synthetic", f"{n}x{FISH1_L}", "--e-max", str(E_MAX)]
+    root = ROOT / "build" / "smoke_autotune"
+    shutil.rmtree(root, ignore_errors=True)
+    order = ("C", "A", "B", "C2", "E", "C3", "E2", "D")
+    on, off = ("A", "E", "E2"), ("C", "C2", "C3")
+    dirs = {k: root / k for k in order}
+    argv = {"A": ["--autotune"],
+            "B": ["--autotune", "--tune-from", str(dirs["A"])],
+            "E": [], "E2": [],
+            "D": ["--no-telemetry", "--lib-block", str(SLOPE_LIB_BLOCK)],
+            **{k: ["--no-telemetry"] for k in off}}
+    saved = os.environ.pop("EDM_HISTORY", None)
+    gc.collect()
+    torch.cuda.empty_cache()  # B's one chunk takes tens of GB
+    runs = {}
+    try:
+        for key in order:
+            t0 = time.perf_counter()
+            s, launches, peak = run_cli(torch, dev, [*base, *argv[key], "--out",
+                                                     str(dirs[key])])
+            runs[key] = dict(argv=argv[key], cli_wall_s=time.perf_counter() - t0,
+                             **phase_walls(s), lib_block=s["lib_block"],
+                             target_tile=s["target_tile"],
+                             applied=s["autotune"]["applied"],
+                             peak_device_bytes=peak, launches=launches)
+    finally:
+        if saved is not None:
+            os.environ["EDM_HISTORY"] = saved
+    maps = {k: d / "causal_map" / "data.npy" for k, d in dirs.items()}
+    equal = {k: same_npy_bits(maps["A"], maps[k]) for k in order if k != "A"}
+    tuned = json.loads((dirs["A"] / "tuned.json").read_text())
+    again = autotune.recommend(dirs["A"])
+    rec = tuned["recommend"]
+    off_clean = not (dirs["C"] / "telemetry").exists() and not (
+        dirs["C"] / "history.jsonl").exists()
+    on_kept = all((dirs[k] / f).exists() for k in "AB"
+                  for f in ("telemetry/main.jsonl", "history.jsonl"))
+    # device memory of a phase-2 chunk grows linearly in its library rows:
+    # the slope from C (LIB_BLOCK) to D (SLOPE_LIB_BLOCK), at n and at the
+    # main path's N (the series and futures the device holds grow with N)
+    slope = (runs["D"]["peak_device_bytes"] - runs["C"]["peak_device_bytes"]) / (
+        SLOPE_LIB_BLOCK - LIB_BLOCK)
+    Lp = FISH1_L - E_MAX  # 1430
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def need(rows, N):
+        # + the series and futures of N - n more columns, and the chunk's
+        # rho rows (its blocks and their join) N - n columns wider
+        return int(runs["C"]["peak_device_bytes"] + slope * (rows - LIB_BLOCK)
+                   + (N - n) * (FISH1_L + Lp) * 4 + 2 * rows * (N - n) * 4)
+
+    def tables(rows, N, buckets):
+        # the bucketed tables of a chunk: idx int32 + w float32 (+ the
+        # kernel's float32 distances, until the weights are made)
+        k = max(buckets) + 1
+        return {"idx_w": rows * len(buckets) * Lp * k * 8,
+                "idx_w_dist": rows * len(buckets) * Lp * k * 12}
+
+    t0 = time.perf_counter()
+    main_tuned = autotune.recommend(main_dir)
+    host_s = time.perf_counter() - t0
+    main_meta = json.loads((main_dir / "causal_map" / "meta.json").read_text())
+    main_N = main_meta["shape"][0]
+    main_buckets = sorted(set(main_meta["optE"]))
+    a_meta = json.loads((dirs["A"] / "causal_map" / "meta.json").read_text())
+    a_buckets = sorted(set(a_meta["optE"]))
+    rows_n = rec.get("chunk_rows", LIB_BLOCK)
+    rows_main = main_tuned["recommend"].get("chunk_rows", LIB_BLOCK)
+    def cost(key):  # telemetry on against off, the same shapes
+        base = sum(runs[k][key] for k in off) / len(off)
+        d = sum(runs[k][key] for k in on) / len(on) - base
+        return {key: d, key.replace("_s", "_pct"): 100.0 * d / base}
+    emit("autotune", N=n, L=FISH1_L, E_max=E_MAX, runs=runs, byte_equal_to_A=equal, no_telemetry_leaves_nothing=off_clean,
+         telemetry_and_history_kept=on_kept, recommend=rec,
+         evidence=tuned["evidence"], tuned_json_equals_recommend=tuned == again,
+         telemetry_cost={**cost("cli_wall_s"), **cost("wall_s"),
+                         **cost("phase2_s"),
+                         "records_A": sum(1 for _ in open(
+                             dirs["A"] / "telemetry" / "main.jsonl"))},
+         peak_slope_bytes_per_row=slope, device_total_bytes=total,
+         tuned_run={"N": n, "lib_block": rows_n,
+                    "tables_bytes": tables(rows_n, n, a_buckets),
+                    "peak_bytes_estimate": need(rows_n, n),
+                    "peak_bytes_measured": runs["B"]["peak_device_bytes"],
+                    "fits": need(rows_n, n) < total},
+         main_store_host_only={"N": main_N, "seconds": host_s,
+                               "recommend": main_tuned["recommend"],
+                               "evidence": main_tuned["evidence"],
+                               "lib_block": rows_main,
+                               "tables_bytes": tables(rows_main, main_N,
+                                                      main_buckets),
+                               "peak_bytes_estimate": need(rows_main, main_N),
+                               "fits": need(rows_main, main_N) < total},
+         smi=smi)
+    if not (all(equal.values()) and off_clean and on_kept and tuned == again
+            and runs["B"]["applied"] == rec
+            and runs["B"]["lib_block"] == rec.get("chunk_rows", LIB_BLOCK)):
+        raise AssertionError(f"autotune: byte_equal {equal}, off_clean "
+                             f"{off_clean}, on_kept {on_kept}, tuned.json == "
+                             f"recommend {tuned == again}, B {runs['B']}")
+    if min(min(r["launches"]["knn_topk"], r["launches"]["ccm_lookup"])
+           for r in runs.values()) < 1:
+        raise AssertionError(f"autotune: a run missed a kernel: {runs}")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # B's chunk held tens of GB in this process
+    return {k: r["launches"] for k, r in runs.items()}
+
+
 def all_e_phase(torch, dev, smi):
     """The all-E phase 2 (--no-bucketed) at ALL_E_N x 1450, E_max 20,
     through the CLI untiled and in tiles of ALL_E_TILE (each with its
@@ -1118,11 +1278,15 @@ def per_worker(done: dict) -> dict:
             for wid, recs in sorted(done.items())}
 
 
-def run_fleet_cli(argv, log_path, env_extra=None):
+def run_fleet_cli(argv, log_path, env_extra=None, watch=None):
     """``python -m repro_torch.launch.edm_run ... --workers W`` in a
     process group of its own (on a timeout the whole group, workers
     included, is killed), its log (the supervisor's and every worker's
-    lines) kept in ``log_path``: (wall s, log text)."""
+    lines) kept in ``log_path``: (wall s, log text).  ``watch``: a path
+    for the log of ``edm_fleet status --watch --interval 2`` over the
+    fleet's store (``--out`` of argv), started as a side process once
+    the store's fleet.json exists; it must exit 0 on its own once the run
+    is complete."""
     import os
     import signal
 
@@ -1132,17 +1296,45 @@ def run_fleet_cli(argv, log_path, env_extra=None):
                              *argv], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             start_new_session=True)
+    side = None
+    if watch is not None:
+        spec = pathlib.Path(argv[argv.index("--out") + 1]) / "fleet.json"
+        while not spec.exists() and proc.poll() is None:
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                break
+            time.sleep(0.05)
+        with open(watch, "w") as f:
+            side = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.edm_fleet", "status",
+                 "--watch", "--interval", "2", "--out", str(spec.parent)],
+                stdout=f, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True)
     try:
         out, _ = proc.communicate(timeout=FLEET_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         raise
+    finally:
+        if side is not None and proc.returncode != 0:
+            os.killpg(side.pid, signal.SIGKILL)
+            side.wait()
     wall = time.perf_counter() - t0
     log_path.write_text(out)
     if proc.returncode != 0:
         raise AssertionError(f"fleet run {argv} exited {proc.returncode}:\n"
                              f"{out[-4000:]}")
+    if side is not None:
+        try:
+            rc = side.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(side.pid, signal.SIGKILL)
+            side.wait()
+            raise AssertionError("status --watch did not end within 60 s of "
+                                 "the fleet's end")
+        if rc != 0:
+            raise AssertionError(f"status --watch exited {rc}:\n"
+                                 f"{pathlib.Path(watch).read_text()[-3000:]}")
     return wall, out
 
 
@@ -1242,6 +1434,45 @@ def stdout_fd_to(path):
         os.close(saved)
 
 
+def fleet_trace_phase(out, smi):
+    """``python -m repro_torch.launch.edm_fleet trace --json --reconcile``
+    over a finished fleet store: it exits 0 only where every stage's span
+    total is within 1% of ``fleet_status``'s; trace.json (Chrome trace
+    events) parses; each stage's six buckets and its critical-path unit
+    are printed, with the queue's own spans summed beside them (they
+    fall in ``queue_wait``)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.edm_fleet", "trace", "--json",
+         "--reconcile", "--out", str(out)], capture_output=True, text=True,
+        timeout=FLEET_TIMEOUT_S, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"edm_fleet trace exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    tr = json.loads(proc.stdout)
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    rec = tr["reconcile"]
+    worst = max(s["delta_pct"] for s in rec["stages"].values())
+    split = span_split(out)
+    emit("fleet_trace", store=out.name, seconds=wall, workers=tr["workers"],
+         total_wall_s=tr["total_wall_s"], clock_shift_s=tr["clock_shift_s"],
+         chrome_trace_events=len(events), reconcile_ok=rec["ok"],
+         reconcile_worst_delta_pct=worst, reconcile=rec["stages"],
+         stages={s: {k: st[k] for k in ("wall_s", "units", "chunks",
+                                        "chunk_p50_s", "chunk_p95_s", "buckets")}
+                 for s, st in tr["stages"].items()},
+         critical_path=tr["critical_path"],
+         queue_spans_s={k: v["s"] for k, v in split.items()
+                        if k.split("/")[1].startswith("queue_")},
+         smi=smi)
+    if not (rec["ok"] and worst <= 1.0 and events and tr["critical_path"]):
+        raise AssertionError(f"fleet trace: reconcile {rec}, {len(events)} "
+                             "Chrome events")
+
+
 def fleet_phases(torch, smi, n, sig_n, main_dir, main_launches, sig_dir,
                  sig_launches, wall_single, busy_single):
     """The fleet on the card: W worker processes, each with its own CUDA
@@ -1301,18 +1532,32 @@ def fleet_phases(torch, smi, n, sig_n, main_dir, main_launches, sig_dir,
         raise AssertionError(f"fleet main path: launches {sums} vs "
                              f"{main_launches}, supervisor {sup}")
     results["main"] = sums
+    fleet_trace_phase(out, smi)
     shutil.rmtree(out, ignore_errors=True)
 
     # ---- significance path, two workers ----------------------------------
     out = ROOT / "build" / "smoke_fleet_sig"
     shutil.rmtree(out, ignore_errors=True)
+    watch_log = logs / "significance_watch.log"
     wall, text = run_fleet_cli(["--synthetic", f"{sig_n}x{FISH1_L}", "--e-max",
                                 str(E_MAX), *sig_argv, "--workers", "2",
-                                "--out", str(out)], logs / "significance.log")
+                                "--out", str(out)], logs / "significance.log",
+                               watch=watch_log)
     done = worker_done_lines(text)
     sums = summed_launches(done)
     chk = check_fleet_store(out, sig_dir, FLEET_ARTIFACTS)
     sup = supervisor_line(text)
+    watch = watch_log.read_text().splitlines()
+    watch_lines = [ln for ln in watch if ln.startswith("watch: ")]
+    emit("fleet_watch", alongside="fleet_significance", interval_s=2,
+         refreshes=sum(ln.startswith("fleet ") for ln in watch),
+         complete_seen=any("[COMPLETE]" in ln for ln in watch),
+         watch_lines=len(watch_lines), first=watch_lines[:3],
+         stragglers=[ln for ln in watch_lines if "STRAGGLER" in ln][:5],
+         last=watch_lines[-3:], log=str(watch_log.relative_to(ROOT)))
+    if not watch_lines or not any("[COMPLETE]" in ln for ln in watch):
+        raise AssertionError("status --watch printed no watch: line or never "
+                             "saw the run complete")
     equal_counts = all(sums.get(k) == v for k, v in sig_launches.items())
     emit("fleet_significance", N=sig_n, L=FISH1_L, workers=2, wall_s=wall,
          supervisor_wall_s=sup["wall_s"], supervisor=sup["line"],
@@ -1849,6 +2094,52 @@ def ranks_phase(torch, smi, name, world, argv, ref, artifacts, one, ids=None):
     return res
 
 
+def trends_phase(torch, dev, smi, refinalize_argv, refinalize_dir, outs):
+    """The run history every ``edm_run`` and fleet run of the smoke kept
+    in one file (EDM_HISTORY): ``edm_run`` again into the finished store
+    ``refinalize_dir`` (a resume that computes nothing and finalizes
+    again) replaces that run's record and adds none; ``python -m
+    repro_torch.launch.edm_fleet trends --history FILE --json`` lists one
+    record per finished run (no two of one (out, fingerprint)), every
+    store of ``outs`` among them, and the text form renders."""
+    import os
+
+    from repro_torch.runtime import history
+
+    path = pathlib.Path(os.environ["EDM_HISTORY"])
+    before = history.load_history(path)
+    t_before = {r["out"]: r["t"] for r in before}
+    run_cli(torch, dev, [*refinalize_argv, "--out", str(refinalize_dir)])
+    after = history.load_history(path)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.edm_fleet", "trends",
+           "--history", str(path)]
+    got = json.loads(subprocess.run([*cmd, "--json"], capture_output=True,
+                                    text=True, check=True, timeout=120,
+                                    env=env).stdout)
+    text = subprocess.run(cmd, capture_output=True, text=True, check=True,
+                          timeout=120, env=env).stdout
+    keys = [(r["out"], r["fingerprint"]) for r in after]
+    mine = str(refinalize_dir.resolve())
+    missing = [str(o) for o in outs if str(o.resolve()) not in t_before]
+    ok = (len(set(keys)) == len(keys) == len(before) == len(got["runs"])
+          and not missing and t_before.get(mine, 0) < max(
+              r["t"] for r in after if r["out"] == mine)
+          and f"history: {len(after)} run(s)" in text)
+    emit("trends", history=str(path.relative_to(ROOT)), records=len(after),
+         records_before_refinalize=len(before), distinct_runs=len(set(keys)),
+         refinalized=str(refinalize_dir.relative_to(ROOT)), missing=missing,
+         regressions=len(got["regressions"]), knobs=got["knobs"][:6],
+         runs=[{k: r[k] for k in ("out", "N", "engine", "workers",
+                                  "total_span_s", "rows_per_s", "chunk_p95_s")}
+               for r in got["runs"]],
+         text_lines=len(text.splitlines()), smi=smi)
+    if not ok:
+        raise AssertionError(f"trends: {len(before)} records before, "
+                             f"{len(after)} after, {len(set(keys))} distinct, "
+                             f"missing {missing}:\n{text[-3000:]}")
+
+
 def engine_check_cli(smi):
     """``python -m repro_torch.engine.check --engine cuda``: every op of
     the cuda engine against torch-reference on the card, in a process of
@@ -1972,6 +2263,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    # every edm_run and fleet run of the smoke keeps its summary in one
+    # run history (the trends phase reads it)
+    import os
+
+    history_file = ROOT / "build" / "smoke_history.jsonl"
+    history_file.parent.mkdir(parents=True, exist_ok=True)
+    history_file.unlink(missing_ok=True)
+    os.environ["EDM_HISTORY"] = str(history_file)
 
     # ---- the card --------------------------------------------------------
     from repro_torch.runtime.device import card_line
@@ -2275,30 +2575,41 @@ def main(argv=None) -> int:
          rho_absmax=float(np.abs(rho).max()), smi=smi)
     del result, rho
 
-    # ---- the tiled main path: the same map in column tiles ---------------
-    tiled_dir = ROOT / "build" / "smoke_tiled"
+    wall_single = {"main": summary["wall_s"]}
+    del summary
+
+    # ---- the tiled main path: the map at MAIN_TILED_N untiled, then in
+    # column tiles
+    tn = MAIN_TILED_N
+    untiled_dir, tiled_dir = (ROOT / "build" / "smoke_tiled_ref",
+                              ROOT / "build" / "smoke_tiled")
+    shutil.rmtree(untiled_dir, ignore_errors=True)
     shutil.rmtree(tiled_dir, ignore_errors=True)
+    usum, untiled_launches, peak_untiled = run_cli(torch, dev, [
+        "--synthetic", f"{tn}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--out", str(untiled_dir)])
     tsum, tiled_launches, peak_tiled = run_cli(torch, dev, [
-        "--synthetic", f"{args.n}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--synthetic", f"{tn}x{FISH1_L}", "--e-max", str(E_MAX),
         "--target-tile", str(MAIN_TILE), "--out", str(tiled_dir)])
-    tiled_equal = same_npy_bits(out_dir / "causal_map" / "data.npy",
+    tiled_equal = same_npy_bits(untiled_dir / "causal_map" / "data.npy",
                                 tiled_dir / "causal_map" / "data.npy")
-    emit("tiled_main_path", N=args.n, L=FISH1_L, E_max=E_MAX, tile=MAIN_TILE,
-         **phase_walls(tsum), launches=tiled_launches,
+    emit("tiled_main_path", N=tn, L=FISH1_L, E_max=E_MAX, tile=MAIN_TILE,
+         n_cut_from=args.n, **phase_walls(tsum), launches=tiled_launches,
          peak_device_bytes=peak_tiled,
          tiles_written=len(list(tiled_dir.glob("tile_*.npy"))),
-         untiled={"wall_s": summary["wall_s"], "phase1_s": summary["phase1_s"],
-                  "phase2_s": summary["phase2_s"],
-                  "assemble_s": summary["assemble_s"], "launches": launches,
-                  "peak_device_bytes": peak_mem},
+         untiled={**phase_walls(usum), "launches": untiled_launches,
+                  "peak_device_bytes": peak_untiled},
          byte_equal_to_untiled=tiled_equal, smi=smi)
     if not tiled_equal:
         raise AssertionError("tiled main-path map != untiled map")
     if min(tiled_launches["knn_topk"], tiled_launches["ccm_lookup"]) < 1:
         raise AssertionError(f"tiled main path missed a kernel: {tiled_launches}")
-    wall_single = {"main": summary["wall_s"]}
-    del summary, tsum
+    del usum, tsum
+    shutil.rmtree(untiled_dir, ignore_errors=True)
     shutil.rmtree(tiled_dir, ignore_errors=True)  # out_dir: the fleet's reference
+    # ---- the autotuner: recorded, applied, off; and the recommendation of
+    # the main path's own store, on the host
+    autotune_launches = autotune_phase(torch, dev, smi, out_dir)
     # ---- the main path over several row slots / cards, against out_dir ----
     multi_main = multi_device_main(torch, dev, smi, args.n, out_dir,
                                    {"wall_s": wall_single["main"],
@@ -2352,25 +2663,36 @@ def main(argv=None) -> int:
          trend_mean=float(np.asarray(out.trend).mean()), smi=smi)
     del summary, out, maps
 
-    # ---- the tiled significance stage: the same store in column tiles ----
-    sig_tiled_dir = ROOT / "build" / "smoke_sig_tiled"
+    # ---- the tiled significance stage: the store at SIG_TILED_N untiled,
+    # then in column tiles
+    sn = SIG_TILED_N
+    sig_argv = ["--synthetic", f"{sn}x{FISH1_L}", "--e-max", str(E_MAX),
+                "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+                "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+                "--fdr", "0.05", "--seed", "0"]
+    sig_untiled_dir, sig_tiled_dir = (ROOT / "build" / "smoke_sig_tiled_ref",
+                                      ROOT / "build" / "smoke_sig_tiled")
+    shutil.rmtree(sig_untiled_dir, ignore_errors=True)
     shutil.rmtree(sig_tiled_dir, ignore_errors=True)
+    susum, sig_untiled_launches, peak_sig_untiled = run_cli(
+        torch, dev, [*sig_argv, "--out", str(sig_untiled_dir)])
     stsum, sig_tiled_launches, peak_sig_tiled = run_cli(torch, dev, [
-        "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
-        "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
-        "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
-        "--fdr", "0.05", "--seed", "0", "--target-tile", str(SIG_TILE),
-        "--out", str(sig_tiled_dir)])
-    sig_equal = {a: same_npy_bits(sig_dir / a / "data.npy",
+        *sig_argv, "--target-tile", str(SIG_TILE), "--out", str(sig_tiled_dir)])
+    sig_equal = {a: same_npy_bits(sig_untiled_dir / a / "data.npy",
                                   sig_tiled_dir / a / "data.npy")
                  for a in ("causal_map", "rho_conv", "rho_trend", "pvals", "edges")}
     Lp11 = SUBJECT11_L - (E_MAX - 1) - 1  # 8508
-    emit("significance_tiled", N=args.sig_n, L=FISH1_L, tile=SIG_TILE,
-         surrogates=SIG_M, wall_s=stsum["wall_s"] + stsum["significance_s"],
+    emit("significance_tiled", N=sn, n_cut_from=args.sig_n, L=FISH1_L,
+         tile=SIG_TILE, surrogates=SIG_M,
+         wall_s=stsum["wall_s"] + stsum["significance_s"],
          significance_s=stsum["significance_s"], launches=sig_tiled_launches,
-         peak_device_bytes=peak_sig_tiled, peak_device_bytes_untiled=peak_sig,
+         peak_device_bytes=peak_sig_tiled,
+         peak_device_bytes_untiled=peak_sig_untiled,
+         untiled={"wall_s": susum["wall_s"] + susum["significance_s"],
+                  "significance_s": susum["significance_s"],
+                  "launches": sig_untiled_launches},
          byte_equal_to_untiled=sig_equal,
-         surrogate_bytes={"untiled": args.sig_n * SIG_M * Lp * 4,
+         surrogate_bytes={"untiled": sn * SIG_M * Lp * 4,
                           "tiled": SIG_TILE * SIG_M * Lp * 4},
          subject11_surrogate_bytes_arithmetic={
              "untiled": SUBJECT11_N * SIG_M * Lp11 * 4,
@@ -2381,10 +2703,11 @@ def main(argv=None) -> int:
     if min(sig_tiled_launches.values()) < 1:
         raise AssertionError(f"tiled significance missed a kernel: "
                              f"{sig_tiled_launches}")
-    if not peak_sig_tiled < peak_sig:
+    if not peak_sig_tiled < peak_sig_untiled:
         raise AssertionError(f"tiled significance peak {peak_sig_tiled} B not "
-                             f"below the untiled {peak_sig} B")
-    del stsum
+                             f"below the untiled {peak_sig_untiled} B")
+    del stsum, susum
+    shutil.rmtree(sig_untiled_dir, ignore_errors=True)
     shutil.rmtree(sig_tiled_dir, ignore_errors=True)  # sig_dir: the fleet's
     multi_sig_launches = multi_device_significance(torch, dev, smi, args.sig_n,
                                                    sig_dir, sig_launches)
@@ -2613,6 +2936,15 @@ def main(argv=None) -> int:
         sig_dir, FLEET_ARTIFACTS, {"wall_s": wall_single["significance"],
                                    "launches": sig_launches},
         ids=(0, 0))
+    # ---- the run history of every store above, in one file -------------
+    build = ROOT / "build"
+    trends_phase(torch, dev, smi, [
+        "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)), "--surrogates",
+        str(SIG_M), "--surrogate-kind", "phase", "--fdr", "0.05", "--seed", "0"],
+        sig_dir, [out_dir, sig_dir] + [build / f"smoke_{x}" for x in (
+            "fleet_main", "fleet_sig", "fleet_kill", "fleet_faults",
+            "ranks_main", "ranks_significance")])
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.rmtree(sig_dir, ignore_errors=True)
     engine_check_cli(smi)
@@ -2640,6 +2972,7 @@ def main(argv=None) -> int:
          "plain_ms_phase1_bf16": k1["plain_ms_bf16"],
          "max_abs_err_bf16": knn_bf16_err,
          "launches_tiled_main_path": tiled_launches["knn_topk"],
+         "launches_autotune": {k: v["knn_topk"] for k, v in autotune_launches.items()},
          "launches_significance_tiled": sig_tiled_launches["knn_topk"],
          "launches_all_e": {k: v["launches"]["knn_topk"]
                             for k, v in all_e["runs"].items()},
@@ -2673,6 +3006,8 @@ def main(argv=None) -> int:
          "bound_ms_subject11_Lp":
              ltimes["subject11_chunk_tables"]["bound_us"] / 1e3,
          "launches_tiled_main_path": tiled_launches["ccm_lookup"],
+         "launches_autotune": {k: v["ccm_lookup"]
+                               for k, v in autotune_launches.items()},
          "launches_significance_tiled": sig_tiled_launches["ccm_lookup"],
          "launches_all_e": {k: v["launches"]["ccm_lookup"]
                             for k, v in all_e["runs"].items()},

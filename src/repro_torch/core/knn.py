@@ -93,7 +93,32 @@ def resolve_stream_tile(rows: int, Lc: int, cfg) -> int:
             "knn_tile_c=-1 (the removed dense distance-matrix selection "
             "path) is deprecated: use 0 (calibrated) or a positive width"
         )
-    return calibrate_knn_tile(rows, Lc)
+    tile = calibrate_knn_tile(rows, Lc)
+    _emit_calibration(rows, Lc, tile)
+    return tile
+
+
+# A calibration is pure shape arithmetic: each distinct (Lc, tile,
+# profile) is recorded once a process, not once a chunk.
+_calibration_seen: set = set()
+
+
+def _emit_calibration(rows: int, Lc: int, tile: int) -> None:
+    """The ``engine``/``knn_tile`` counter the autotuner pins
+    ``knn_tile_c`` from; profile ``plain``: the plain table functions'
+    budget (the CUDA kernels stage their own tiles and never calibrate)."""
+    from repro_torch.runtime import telemetry  # lazy: knn is a leaf module
+
+    if not telemetry.enabled():
+        return
+    key = (Lc, tile, "plain")
+    if key in _calibration_seen:
+        return
+    _calibration_seen.add(key)
+    telemetry.counter(
+        "engine", "knn_tile", float(tile), Lc=Lc, profile="plain",
+        working_set_bytes=rows * 2 * tile * _BYTES_PER_TILE_ELEM,
+    )
 
 
 def _next_pow2(n: int) -> int:

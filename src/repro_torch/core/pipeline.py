@@ -99,24 +99,31 @@ def _host_in_row_order(parts) -> list[np.ndarray]:
     return [torch.cat(o).numpy() for o in out]
 
 
-def rank_plan(chunk_plan, n_local: int, lib_block: int, rank: int = 0,
-              world: int = 1) -> list[tuple[int, int]]:
+def rank_shares(chunk_plan, n_local: int, lib_block: int, rank: int = 0,
+                world: int = 1) -> list[tuple[int, int, int]]:
     """This rank's share of each (row0, valid) chunk of a plan made for a
     world of ``world`` ranks of ``n_local`` slots each (chunks of at most
     ``world x n_local x lib_block`` rows): the rows of global slots
     ``rank * n_local .. (rank + 1) * n_local - 1`` (:func:`slot_spans`
     over the world's slots, process-major as the JAX package's global
-    mesh), one contiguous (row0, nrows) span a chunk, chunks where the
-    rank has no rows left out.  A share splits over the rank's own slots
-    as the world split it."""
+    mesh), one contiguous (row0, nrows, valid) a chunk — ``valid`` the
+    world's chunk's rows —, chunks where the rank has no rows left out.
+    A share splits over the rank's own slots as the world split it."""
     out = []
     for row0, valid in chunk_plan:
         mine = [(r0, r1) for d, r0, r1 in
                 slot_spans(row0, valid, world * n_local, lib_block)
                 if rank * n_local <= d < (rank + 1) * n_local]
         if mine:
-            out.append((mine[0][0], mine[-1][1] - mine[0][0]))
+            out.append((mine[0][0], mine[-1][1] - mine[0][0], valid))
     return out
+
+
+def rank_plan(chunk_plan, n_local: int, lib_block: int, rank: int = 0,
+              world: int = 1) -> list[tuple[int, int]]:
+    """This rank's (row0, nrows) share of each chunk (:func:`rank_shares`)."""
+    return [(r0, n) for r0, n, _ in
+            rank_shares(chunk_plan, n_local, lib_block, rank, world)]
 
 
 def _spans(plan) -> list[tuple[int, int]]:
@@ -147,26 +154,34 @@ def run_phase1(
     devs, ranks = check_run(cfg, device), Ranks(group)
     ts = np.asarray(ts, np.float32)
     N = ts.shape[0]
-    ts_d = _on_each(devs, lambda d: torch.as_tensor(ts).to(d))
     chunk = ranks.world * len(devs) * cfg.lib_block
     world_plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
     plan = rank_plan(world_plan, len(devs), cfg.lib_block, ranks.rank,
                      ranks.world)
     check = chunk_checks(ranks, world_plan, len(devs), cfg.lib_block, "phase 1")
-    parts = []
-    for row0, valid in plan:
+    parts, ts_d, host = [], None, None
+    for i, (row0, valid) in enumerate(plan):
         if on_chunk is not None:
             on_chunk(row0)
         if check is not None:
             check(row0)
-        with telemetry.span("phase1", "chunk", row0=row0, chunk_rows=chunk):
+        with telemetry.span("phase1", "chunk", row0=row0, chunk_rows=chunk) as t:
+            if ts_d is None:  # the series go to each device once, in the first chunk
+                with telemetry.span("phase1", "device_put", row0=row0):
+                    ts_d = _on_each(devs, lambda d: torch.as_tensor(ts).to(d))
             for d, r0, r1 in slot_spans(row0, valid, len(devs), cfg.lib_block):
                 parts.append((devs[d], *simplex.simplex_batch(
                     ts_d[devs[d]][r0:r1], cfg)))
+            # every chunk's results come back in one copy a device, in the
+            # last chunk: its wait for the device is the phase's gather
+            t0 = _perf()
+            if i == len(plan) - 1:
+                host = _host_in_row_order(parts)
+            t["gather_s"] = _perf() - t0
     simplex_rhos = np.zeros((N, cfg.E_max), np.float32)
     optE = np.zeros(N, np.int32)
-    if parts:  # this rank's rows, in row order
-        rhos_mine, optE_mine = _host_in_row_order(parts)
+    if host is not None:  # this rank's rows, in row order
+        rhos_mine, optE_mine = host
         at = 0
         for r0, r1 in _spans(plan):
             simplex_rhos[r0:r1] = rhos_mine[at : at + r1 - r0]
@@ -191,10 +206,13 @@ class Phase2Runner:
     tables are per library row, targets per column."""
 
     def __init__(self, ts: np.ndarray, ts_fut: np.ndarray, optE: np.ndarray,
-                 cfg: EDMConfig, device=None):
+                 cfg: EDMConfig, device=None, world: int = 1):
         self.devs = check_run(cfg, device)
         self.dev = dev = self.devs[0]
         self.cfg = cfg
+        #: the rows of one chunk of the world's plan (``world`` ranks of
+        #: these slots), recorded on every chunk span
+        self.chunk_rows = world * len(self.devs) * cfg.lib_block
         ts = np.asarray(ts, np.float32)
         self.N = N = ts.shape[0]
         self.optE = np.asarray(optE)
@@ -211,10 +229,16 @@ class Phase2Runner:
             self.ts_h = upload_source(ts, dev)
             self.fut_h = upload_source(fut, dev)
             return
-        fut = np.ascontiguousarray(fut)
+        self._host = (ts, np.ascontiguousarray(fut))
+        self.ts_d = None  # uploaded in the first chunk (:meth:`_put`)
+
+    def _put(self) -> None:
+        """Untiled: the series, the targets' futures and (bucketed) the
+        inverse column order onto every device, once a runner."""
+        ts, fut = self._host
         self.ts_d = _on_each(self.devs, lambda d: torch.as_tensor(ts).to(d))
         self.fut_d = _on_each(self.devs, lambda d: torch.as_tensor(fut).to(d))
-        if cfg.bucketed:
+        if self.cfg.bucketed:
             inv = np.argsort(self.order)
             self.inv = _on_each(self.devs, lambda d: torch.as_tensor(inv).to(d))
 
@@ -234,13 +258,16 @@ class Phase2Runner:
     def run(self, chunk_plan: list[tuple[int, int]],
             writer: Optional[TileWriter] = None,
             rho: Optional[np.ndarray] = None, progress: bool = False,
-            on_chunk=None) -> None:
+            on_chunk=None, span_rows: Optional[dict] = None) -> None:
         """Compute the chunks; blocks go to ``writer`` or, without one,
         into the host map ``rho``.  Returns once every block is drained
         (and, with a writer, committed to its manifest).  ``on_chunk(row0)``
-        fires before each chunk."""
+        fires before each chunk.  ``span_rows``: {row0: rows} of the
+        world's chunk each of this rank's chunks is a share of, recorded
+        as the chunk span's ``rows`` (default: the chunk's own rows)."""
         if self.cfg.target_tile:
-            self._run_tiled(chunk_plan, writer, rho, progress, on_chunk)
+            self._run_tiled(chunk_plan, writer, rho, progress, on_chunk,
+                            span_rows)
             return
         N = self.N
 
@@ -258,13 +285,18 @@ class Phase2Runner:
             for row0, valid in chunk_plan:
                 if on_chunk is not None:
                     on_chunk(row0)
-                with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
-                                    tiled=False):
+                with telemetry.span("phase2", "chunk", row0=row0,
+                                    rows=valid if span_rows is None
+                                    else span_rows[row0], tiled=False,
+                                    chunk_rows=self.chunk_rows):
+                    if self.ts_d is None:
+                        with telemetry.span("phase2", "device_put", row0=row0):
+                            self._put()
                     blocks = [self._rows_untiled(dev, r0, r1)
                               for dev, r0, r1 in self._slots(row0, valid)]
                 streamer.submit((row0, valid), blocks)
 
-    def _run_tiled(self, chunk_plan, writer, rho, progress, on_chunk):
+    def _run_tiled(self, chunk_plan, writer, rho, progress, on_chunk, span_rows):
         """(row-chunk x col-tile) phase 2: tables once per chunk and slot,
         targets in column tiles of ``cfg.target_tile`` (uploaded once per
         device and tile), blocks streamed with (row0, col0, valid) tags.
@@ -296,9 +328,11 @@ class Phase2Runner:
             for row0, valid in chunk_plan:
                 if on_chunk is not None:
                     on_chunk(row0)
-                with telemetry.span("phase2", "chunk", row0=row0, rows=valid,
-                                    tiled=True, tile=T,
-                                    n_tiles=len(self.tile_plans)):
+                with telemetry.span("phase2", "chunk", row0=row0,
+                                    rows=valid if span_rows is None
+                                    else span_rows[row0], tiled=True,
+                                    tile=T, n_tiles=len(self.tile_plans),
+                                    chunk_rows=self.chunk_rows):
                     tables = []
                     for dev, r0, r1 in self._slots(row0, valid):
                         with telemetry.span("phase2", "device_put", row0=r0):
@@ -373,7 +407,7 @@ def run_causal_inference(
     t1 = _perf()
 
     ts_fut = ccm.all_futures(torch.as_tensor(ts), cfg).numpy()
-    runner = Phase2Runner(ts, ts_fut, optE, cfg, devs)
+    runner = Phase2Runner(ts, ts_fut, optE, cfg, devs, world=ranks.world)
     writer = TileWriter(out_dir, N, writer_id=ranks.writer_id) if out_dir else None
     rho = None if writer is not None else np.zeros((N, N), np.float32)
     if writer is not None:
@@ -385,15 +419,24 @@ def run_causal_inference(
         plan = ranks.share(plan, "the phase-2 chunk plan")
     else:
         plan = [(r, min(chunk, N - r)) for r in range(0, N, chunk)]
-    mine = rank_plan(plan, len(devs), cfg.lib_block, ranks.rank, ranks.world)
+    shares = rank_shares(plan, len(devs), cfg.lib_block, ranks.rank, ranks.world)
+    mine = [(r0, n) for r0, n, _ in shares]
     runner.run(mine, writer, rho, progress, on_chunk=chunk_checks(
-        ranks, plan, len(devs), cfg.lib_block, "phase 2"))
+        ranks, plan, len(devs), cfg.lib_block, "phase 2"),
+        span_rows={r0: w for r0, _, w in shares})
     t2 = _perf()
     if writer is not None:
         path = writer.dir / "causal_map" / "data.npy"
         ranks.barrier("the phase-2 shards")
         if ranks.lead:
-            rho = writer.refresh().assemble(mmap_path=path)
+            with telemetry.span("assemble", "causal_map", N=N):
+                rho = writer.refresh().assemble(mmap_path=path)
+            # the in-process finish: the run's summary into the history
+            # store (a no-op with telemetry off and EDM_HISTORY unset; a
+            # later significance finish replaces it, same run identity)
+            from repro_torch.runtime import history
+
+            history.record_run(out_dir)
         ranks.barrier("the assembled map")
         if not ranks.lead:
             rho = np.load(path, mmap_mode="r")

@@ -45,14 +45,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import ccm
-from repro_torch.core.pipeline import (check_run, chunk_checks, rank_plan,
+from repro_torch.core.pipeline import (check_run, chunk_checks, rank_shares,
                                       slot_spans)
 from repro_torch.core.types import EDMConfig
 from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference import convergence, prng, significance, surrogates
 from repro_torch.inference.types import SignificanceConfig, SignificanceResult
-from repro_torch.runtime import integrity, telemetry
+from repro_torch.runtime import history, integrity, telemetry
 from repro_torch.runtime.ranks import Ranks
 from repro_torch.runtime.stream import ChunkStreamer, upload_source
 
@@ -91,10 +91,11 @@ class SignificanceChunkRunner:
     live on every device for the run; tiled both are None and every tile
     uploads or builds its own, once per device.  The attributes
     ``order_d``, ``col_ids``, ``surr_key``, ``fut_sorted`` and
-    ``fut_surr`` are the first device's."""
+    ``fut_surr`` are the first device's.  ``world``: the ranks of a
+    rows-across-ranks run, for the chunk height its spans record."""
 
     def __init__(self, ts: np.ndarray, optE: np.ndarray, cfg: EDMConfig,
-                 sig: SignificanceConfig, device=None):
+                 sig: SignificanceConfig, device=None, world: int = 1):
         self.devs = check_run(cfg, device)
         self.dev = dev = self.devs[0]
         self.cfg, self.sig = cfg, sig
@@ -112,6 +113,7 @@ class SignificanceChunkRunner:
             )
         self.m = sig.n_surrogates
         self.chunk = len(self.devs) * cfg.lib_block
+        self.chunk_rows = world * self.chunk  # one chunk of the world's plan
         self.T = cfg.target_tile or N
         self.plan, self.order = ccm.make_bucket_plan(np.asarray(optE, np.int32))
         self.tile_plans = ccm.make_tile_plans(self.plan, self.T)
@@ -159,22 +161,28 @@ class SignificanceChunkRunner:
             parts.append(fut[: (b1 - b0) * m])
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
-    def run(self, plan_chunks, rho, drain, on_chunk=None) -> None:
+    def run(self, plan_chunks, rho, drain, on_chunk=None,
+            span_rows: Optional[dict] = None) -> None:
         """Compute the given (row0, valid) chunks, draining ("conv"|
         "pval", row0, c0, valid)-tagged blocks in submission order; every
         slot's block of a (chunk, tile) is dispatched before any is
         drained, and the parts are joined in row order.
 
         rho: the observed causal map (memmap fine; read only when the
-        null stage is active).  on_chunk(row0) fires before each chunk."""
+        null stage is active).  on_chunk(row0) fires before each chunk.
+        ``span_rows``: {row0: rows} of the world's chunk each chunk is a
+        share of, recorded as the chunk span's ``rows`` (default: the
+        chunk's own rows)."""
         N, T, m, cfg = self.N, self.T, self.m, self.cfg
         with ChunkStreamer(drain, depth=cfg.stream_depth,
                            stage="sig") as streamer:
             for row0, valid in plan_chunks:
                 if on_chunk is not None:
                     on_chunk(row0)
-                with telemetry.span("sig", "chunk", row0=row0, rows=valid,
-                                    chunk_rows=self.chunk, tile=T,
+                with telemetry.span("sig", "chunk", row0=row0,
+                                    rows=valid if span_rows is None
+                                    else span_rows[row0],
+                                    chunk_rows=self.chunk_rows, tile=T,
                                     conv=self.do_conv, null=self.do_null):
                     slots = []
                     for d, r0, r1 in slot_spans(row0, valid, len(self.devs),
@@ -314,8 +322,9 @@ def run_significance(
     so the bytes equal one process's for any world size."""
     if not (sig.lib_sizes or sig.n_surrogates > 0):
         return SignificanceResult(None, None, None, None)
-    runner = SignificanceChunkRunner(ts, optE, cfg, sig, device)
     ranks = Ranks(group)
+    runner = SignificanceChunkRunner(ts, optE, cfg, sig, device,
+                                     world=ranks.world)
     N = runner.N
     do_conv, do_null = runner.do_conv, runner.do_null
     m, order = runner.m, runner.order
@@ -382,10 +391,12 @@ def run_significance(
             print(f"significance rows {row0}..{row0 + valid} / {N}")
 
     resumed_rows = N - sum(v for _, v in plan_chunks)
-    mine = rank_plan(plan_chunks, len(runner.devs), cfg.lib_block, ranks.rank,
-                     ranks.world)
+    shares = rank_shares(plan_chunks, len(runner.devs), cfg.lib_block,
+                         ranks.rank, ranks.world)
+    mine = [(r0, n) for r0, n, _ in shares]
     runner.run(mine, rho, drain, on_chunk=chunk_checks(
-        ranks, plan_chunks, len(runner.devs), cfg.lib_block, "significance"))
+        ranks, plan_chunks, len(runner.devs), cfg.lib_block, "significance"),
+        span_rows={r0: w for r0, _, w in shares})
     p_counts = ranks.sum(p_counts, "the p-value counts")
 
     if out_dir is not None:
@@ -402,6 +413,9 @@ def run_significance(
                 cfg, sig, rho, conv_w=conv_w, trend_w=trend_w, pv_w=pv_w,
                 p_counts=None if resumed_rows else p_counts, progress=progress,
             )
+            # the run finished: its summary into the history store (a
+            # no-op with telemetry off and EDM_HISTORY unset)
+            history.record_run(out_dir)
         ranks.barrier("the finalized significance store")
         return res if ranks.lead else _read_store(out_dir, sig)
 
@@ -540,8 +554,13 @@ def finalize_significance(
                 f"{w.dir} is incomplete ({int((~w.covered()).sum())} rows "
                 "uncovered): finalize ran before every sig unit was done"
             )
-    return _finalize_store(cfg, sig, rho, conv_w=conv_w, trend_w=trend_w,
-                           pv_w=pv_w, p_counts=None, progress=progress)
+    result = _finalize_store(cfg, sig, rho, conv_w=conv_w, trend_w=trend_w,
+                             pv_w=pv_w, p_counts=None, progress=progress)
+    # the finalize claimer is the run's one history writer: one record a
+    # finished run, replaced (not duplicated) when a resume or a heal
+    # finalizes again
+    history.record_run(out_dir)
+    return result
 
 
 def _recount_pvals(pv_map: np.ndarray, m: int) -> tuple[int, np.ndarray]:

@@ -9,7 +9,13 @@ DESIGN.md SS10), on the card.
   PYTHONPATH=src python -m repro_torch.launch.edm_fleet --out /tmp/fleet \\
       --worker-id w2
   PYTHONPATH=src python -m repro_torch.launch.edm_fleet status --out /tmp/fleet
+  PYTHONPATH=src python -m repro_torch.launch.edm_fleet status --watch \\
+      --interval 2 --out /tmp/fleet
   PYTHONPATH=src python -m repro_torch.launch.edm_fleet fsck --out /tmp/fleet
+  PYTHONPATH=src python -m repro_torch.launch.edm_fleet trace --reconcile \\
+      --out /tmp/fleet            # writes /tmp/fleet/trace.json (Perfetto)
+  PYTHONPATH=src python -m repro_torch.launch.edm_fleet trends \\
+      --history /tmp/fleet/history.jsonl
 
 Every worker runs the same stage sequence and coordinates only through
 files in the shared ``--out`` store:
@@ -66,18 +72,12 @@ from repro_torch.core.types import EDMConfig, config_from_jax
 from repro_torch.data import store
 from repro_torch.data.store import TileWriter
 from repro_torch.inference.types import SignificanceConfig, sig_config_from_jax
-from repro_torch.runtime import faultpoints, integrity, telemetry
+from repro_torch.runtime import faultpoints, history, integrity, telemetry, trace
 from repro_torch.runtime import platform as rt_platform
 from repro_torch.runtime.workqueue import LeaseQueue, WorkUnit, plan_units
 
 SPEC_NAME = "fleet.json"
 STAGE_ORDER = ("phase1", "phase2", "assemble", "sig", "finalize")
-#: what of the JAX package's fleet CLI the port does not run yet
-NOT_PORTED = {
-    "trace": "the fleet trace assembler (runtime/trace.py)",
-    "trends": "the run history (runtime/history.py)",
-    "--watch": "the live status watch (runtime/trace.py)",
-}
 
 
 # ------------------------------------------------------------------- spec
@@ -350,6 +350,11 @@ class FleetWorker:
                 "seed": self.seed,
                 "fleet": True,
             })
+            # the run's summary into the history store: without
+            # significance assemble is the run's end, and a later finalize
+            # replaces this record (same run identity); only the assemble
+            # claimer writes it, one history writer a run
+            history.record_run(self.out)
 
         self._stage("assemble", plan_units("assemble", self.N, self.unit_rows),
                     compute)
@@ -571,13 +576,87 @@ def render_status(st: dict) -> str:
     return "\n".join(lines)
 
 
+def watch_status(
+    out_dir: str | pathlib.Path,
+    interval: float = 2.0,
+    iterations: int | None = None,
+    file=None,
+) -> dict:
+    """``status --watch``: re-render fleet state every ``interval``
+    seconds until the run completes, adding what a single snapshot
+    cannot show —
+
+      * per-stage throughput (units done/s) and row-coverage rate with
+        an ETA, both from deltas between refreshes;
+      * STRAGGLER flags on live leases whose age exceeds the fleet's
+        p95 unit hold time (the recorded ``held`` counters — a unit
+        held longer than 95% of completed holds is statistically late,
+        long before its TTL expires).
+
+    ``iterations`` bounds the loop (tests); returns the last status
+    dict.  Pure reader — the same files-only observability as
+    :func:`fleet_status`, no worker RPC."""
+    f = file or sys.stdout
+    prev_t: float | None = None
+    prev_cov: dict[str, int] = {}
+    prev_done: dict[str, int] = {}
+    n = 0
+    while True:
+        st = fleet_status(out_dir)
+        now = time.time()
+        lines = [render_status(st)]
+        if prev_t is not None:
+            dt = max(now - prev_t, 1e-6)
+            for kind, s in st["stages"].items():
+                d = s["done"] - prev_done.get(kind, s["done"])
+                if d > 0 and s["done"] < s["total"]:
+                    rate = d / dt
+                    eta = (s["total"] - s["done"]) / rate
+                    lines.append(f"watch: {kind} {rate:.2f} units/s, "
+                                 f"ETA {eta:.0f}s")
+            for name, c in st["coverage"].items():
+                d = c["covered"] - prev_cov.get(name, c["covered"])
+                if d > 0 and c["covered"] < c["total"]:
+                    rate = d / dt
+                    eta = (c["total"] - c["covered"]) / rate
+                    lines.append(f"watch: {name} {rate:.1f} rows/s, "
+                                 f"ETA {eta:.0f}s")
+        held = trace.held_percentiles(out_dir)
+        p95 = held.get("p95")
+        if p95:
+            for kind, s in st["stages"].items():
+                for lease in s["leases"]:
+                    if lease["age_s"] > p95:
+                        lines.append(
+                            f"watch: STRAGGLER {lease['uid']}@{lease['worker']} "
+                            f"held {lease['age_s']}s > fleet p95 {p95:.1f}s"
+                            + (" (lease EXPIRED)" if lease["expired"] else ""))
+        print("\n".join(lines), file=f, flush=True)
+        prev_t = now
+        prev_cov = {k: c["covered"] for k, c in st["coverage"].items()}
+        prev_done = {k: s["done"] for k, s in st["stages"].items()}
+        n += 1
+        if st["complete"] or (iterations is not None and n >= iterations):
+            return st
+        time.sleep(interval)
+
+
 _FLAGS_EPILOG = """\
 commands:
   work (default)      claim and compute units until the run completes
-  status              render lease / coverage / telemetry state and exit
+  status              render live lease/coverage/telemetry state and exit
   fsck                verify every store artifact against its recorded
-                      checksum (from files alone) and exit
-  trace, trends       not ported yet: they exit naming what they need
+                      checksum (masterless, from files alone) and exit
+  trace               assemble the fleet-wide causal trace from recorded
+                      telemetry: unit lifecycles, clock-skew-aligned
+                      timelines, critical path through the stage DAG,
+                      wall-time buckets (compute / gather / store /
+                      queue-wait / straggler-tail); writes Chrome
+                      trace-event JSON loadable in Perfetto
+  trends              render the cross-run history (one summary record
+                      appended per finished run): regression flags vs
+                      the previous same-fingerprint run and a
+                      knob-vs-throughput table
 
 flags (work):
   --out DIR           shared fleet store holding fleet.json   [required]
@@ -587,12 +666,44 @@ flags (work):
   --timeout SEC       max wait on one stage barrier           [3600]
   --unit-retries N    attempts before a unit is poisoned      [3]
 
-flags (status):  --out DIR, --json, --expect-complete
-flags (fsck):    --out DIR, --json, --heal, --expect-clean
+flags (status):
+  --out DIR           fleet store to inspect                  [required]
+  --json              machine-readable status dict
+  --expect-complete   exit 1 unless all stages done AND every
+                      artifact at 100% row coverage
+  --watch             re-render every --interval seconds until complete,
+                      with per-stage throughput, ETA, and STRAGGLER
+                      flags on leases older than the fleet p95 hold time
+  --interval SEC      --watch refresh period                  [2]
+
+flags (fsck):
+  --out DIR           store to verify                         [required]
+  --json              machine-readable fsck report
+  --heal              revoke damaged tiles' manifest entries + queue done
+                      markers so one normal fleet pass recomputes exactly
+                      the damaged units (refused on a stale fingerprint:
+                      wrong INPUTS cannot be healed, only recomputed)
+  --expect-clean      exit 1 unless the store verifies clean
+
+flags (trace):
+  --out DIR           fleet store whose telemetry to assemble [required]
+  --trace-out FILE    Chrome trace JSON path     [<out>/trace.json]
+  --json              machine-readable trace analysis (units, stages,
+                      buckets, critical path) instead of the one-pager
+  --reconcile         exit 1 unless per-stage span totals match
+                      `status` within 1% (CI gate)
+
+flags (trends):
+  --history FILE      history JSONL to render [<out>/history.jsonl or
+                      $EDM_HISTORY; --out optional when given]
+  --json              machine-readable trends analysis
 
 environment:
   EDM_TELEMETRY       off | stdout | jsonl:<path>; unset -> per-worker
                       JSONL at <out>/telemetry/<worker-id>.jsonl
+  EDM_HISTORY         shared run-history JSONL (default:
+                      <out>/history.jsonl; one summary record appended
+                      per finished run, same-run reruns replace theirs)
   EDM_FAULTS          fault-injection spec (runtime/faultpoints.py), e.g.
                       tile_pre_rename:crash@3 — testing only
   EDM_LOCAL_DEVICE_IDS  this worker's device slots, e.g. 0,1 (default every
@@ -611,10 +722,16 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     ap.add_argument("cmd", nargs="?", default="work",
-                    choices=["work", "status", "fsck", "trace", "trends"])
-    ap.add_argument("--out", required=True,
+                    choices=["work", "status", "fsck", "trace", "trends"],
+                    help="work: run a fleet worker (default); status: "
+                    "render live fleet state for --out and exit; fsck: "
+                    "verify store integrity (optionally --heal) and exit; "
+                    "trace: assemble the fleet causal trace + Chrome "
+                    "trace JSON; trends: render the cross-run history")
+    ap.add_argument("--out",
                     help="shared fleet store (holds fleet.json; see edm_run "
-                    "--workers or init_fleet)")
+                    "--workers or init_fleet); required for every command "
+                    "except `trends --history FILE`")
     ap.add_argument("--worker-id",
                     help="stable queue identity; relaunching a killed "
                     "worker under the same id reclaims its leases at once")
@@ -628,7 +745,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="failed compute attempts (fleet-wide) before a "
                     "unit is poisoned and the whole fleet exits nonzero")
     ap.add_argument("--json", action="store_true",
-                    help="status / fsck: print the machine-readable dict")
+                    help="status / fsck / trace / trends: print the "
+                    "machine-readable dict")
     ap.add_argument("--expect-complete", action="store_true",
                     help="status: exit 1 unless every stage is done and "
                     "every artifact reports 100%% row coverage")
@@ -638,24 +756,69 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--expect-clean", action="store_true",
                     help="fsck: exit 1 unless the store verifies clean")
     ap.add_argument("--watch", action="store_true",
-                    help=f"status: not ported yet ({NOT_PORTED['--watch']})")
+                    help="status: re-render every --interval seconds until "
+                    "the run completes, with throughput, ETA, and "
+                    "straggler flags (lease age > fleet p95 hold time)")
+    ap.add_argument("--interval", type=float, default=2.0,
+                    help="status --watch refresh period in seconds")
+    ap.add_argument("--trace-out",
+                    help="trace: Chrome trace-event JSON destination "
+                    "(default <out>/trace.json; load in Perfetto)")
+    ap.add_argument("--reconcile", action="store_true",
+                    help="trace: exit 1 unless per-stage span totals "
+                    "reconcile with `status` within 1%%")
+    ap.add_argument("--history",
+                    help="trends: history JSONL to render (default "
+                    "$EDM_HISTORY or <out>/history.jsonl)")
     return ap
 
 
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for what in (args.cmd, "--watch" if args.watch else None):
-        if what in NOT_PORTED:
-            ap.error(f"{what} is not ported to the PyTorch package yet "
-                     f"({NOT_PORTED[what]}); run it with python -m "
-                     "repro.launch.edm_fleet")
+    if args.out is None and not (args.cmd == "trends" and args.history):
+        ap.error(f"{args.cmd} requires --out")
 
     if args.cmd == "status":
+        if args.watch:
+            watch_status(args.out, interval=args.interval)
+            return
         st = fleet_status(args.out)
         print(json.dumps(st, indent=1) if args.json else render_status(st))
         if args.expect_complete and not st["complete"]:
             sys.exit(1)
+        return
+
+    if args.cmd == "trace":
+        tr = trace.assemble_trace(args.out)
+        dest = pathlib.Path(args.trace_out) if args.trace_out \
+            else pathlib.Path(args.out) / "trace.json"
+        trace.write_chrome_trace(args.out, dest)
+        rep = trace.reconcile(tr, fleet_status(args.out)) \
+            if args.reconcile else None
+        if args.json:
+            print(json.dumps({**tr, "reconcile": rep} if rep else tr, indent=1))
+        else:
+            print(trace.render_trace(tr))
+            print(f"chrome trace: {dest} (load in Perfetto / chrome://tracing)")
+            if rep is not None:
+                for stage, s in sorted(rep["stages"].items()):
+                    print(f"reconcile {stage}: trace {s['trace_s']}s vs "
+                          f"status {s['status_s']}s (delta {s['delta_pct']}%)")
+        if rep is not None and not rep["ok"]:
+            sys.exit(1)
+        return
+
+    if args.cmd == "trends":
+        hp = pathlib.Path(args.history) if args.history \
+            else history.history_path(args.out)
+        recs = history.load_history(hp)
+        if args.json:
+            print(json.dumps({"path": str(hp), **history.analyze_trends(recs)},
+                             indent=1))
+        else:
+            print(f"history: {hp}")
+            print(history.render_trends(recs))
         return
 
     if args.cmd == "fsck":

@@ -56,9 +56,23 @@ single-process run for any W and ``--unit-rows``.
 
 ``--engine`` picks the engine (``cuda``: the kernels on a card, their
 plain versions on the CPU; ``torch-reference``: the plain versions);
-``--use-kernels`` is its deprecated alias for ``cuda``.  The flags of
-paths not ported yet (the driver's telemetry, autotuning) exit with an
-error that names them.
+``--use-kernels`` is its deprecated alias for ``cuda``.
+
+Telemetry is on by default: the run's spans and counters go to
+``<out>/telemetry/main.jsonl`` (``p<rank>.jsonl`` for each rank of a
+larger world), ``EDM_TELEMETRY=off|stdout|jsonl:<path>`` overrides the
+sink and ``--no-telemetry`` turns it off; the records never touch the
+outputs.  A finished run appends its summary to ``<out>/history.jsonl``
+(or ``$EDM_HISTORY``; ``edm_fleet trends`` renders it).  ``--autotune``
+applies the shapes of ``<out or --tune-from>/tuned.json`` (or of a fresh
+replay of that store's telemetry, ``runtime/autotune.py``) before the
+run and writes ``<out>/tuned.json`` from this run's telemetry after it;
+every shape gives the same bytes.
+
+  PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 2048x1450 --autotune --out /tmp/a     # records, tunes
+  PYTHONPATH=src python -m repro_torch.launch.edm_run \\
+      --synthetic 2048x1450 --autotune --tune-from /tmp/a --out /tmp/b
 """
 from __future__ import annotations
 
@@ -76,15 +90,8 @@ from repro_torch.data import store
 from repro_torch.data.synthetic import dummy_brain
 from repro_torch.engine import available_engines
 from repro_torch.inference import SignificanceConfig, run_significance
-from repro_torch.runtime import platform
+from repro_torch.runtime import autotune, history, platform, telemetry
 from repro_torch.runtime.ranks import Ranks
-
-#: flag -> what it belongs to; each exits with an error naming it
-NOT_PORTED = {
-    "--no-telemetry": "telemetry",
-    "--autotune": "the autotuner",
-    "--tune-from": "the autotuner",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -190,9 +197,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="times the fleet supervisor relaunches a crashed worker under "
         "the same id before leaving its units to the others",
     )
-    for flag, what in NOT_PORTED.items():
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help=f"not ported yet ({what})")
+    ap.add_argument(
+        "--no-telemetry", action="store_true",
+        help="disable the default per-run telemetry JSONL sink "
+        "(<out>/telemetry/main.jsonl, p<rank>.jsonl in a world of several "
+        "ranks); records are byte-invisible to outputs, so this only saves "
+        "the write traffic.  EDM_TELEMETRY=off|stdout|jsonl:<path> "
+        "overrides the default sink instead",
+    )
+    ap.add_argument(
+        "--autotune", action="store_true",
+        help="apply tuned geometry (<out or --tune-from>/tuned.json, or "
+        "a fresh replay of recorded telemetry) before the run, and write "
+        "<out>/tuned.json from this run's telemetry after it; shapes are "
+        "byte-invisible to outputs (runtime/autotune.py)",
+    )
+    ap.add_argument(
+        "--tune-from",
+        help="store whose recorded telemetry / tuned.json seeds "
+        "--autotune (default: --out itself, i.e. a rerun tunes from the "
+        "previous run)",
+    )
     return ap
 
 
@@ -203,16 +228,13 @@ def main(argv=None) -> dict:
     "devices", "significance": SignificanceResult | None,
     "significance_s", "edges", "rank", "world"} (significance,
     significance_s and edges None without significance flags; ``rows``:
-    the phase-2 rows this rank computed); with ``--workers`` the fleet's
-    summary (:func:`_run_fleet`)."""
+    the phase-2 rows this rank computed), "lib_block", "target_tile" (the
+    shapes it ran, tuned or not) and "autotune": {"applied": the tuned
+    shapes applied or None, "wrote": the tuned.json written or None};
+    with ``--workers`` the fleet's summary (:func:`_run_fleet`) and
+    "autotune"."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(
-                f"{flag} is not ported to the PyTorch package yet "
-                f"({NOT_PORTED[flag]}); run it with python -m repro.launch.edm_run"
-            )
     if bool(args.synthetic) == bool(args.dataset):
         ap.error("give exactly one of --synthetic NxL and --dataset DIR")
     engine_flag = f"--engine {args.engine}"
@@ -267,8 +289,103 @@ def main(argv=None) -> dict:
             lib_sizes=lib_sizes, n_surrogates=args.surrogates,
             alpha=args.fdr, surrogate=args.surrogate_kind, seed=args.seed,
         )
-    if args.workers > 0:
-        return _run_fleet(args, ts, cfg, sig, device, spec)
+    # each process of the run its own JSONL: "main", or p<rank> in a world
+    # of several ranks (as its fleet workers are p<rank>w<i>)
+    sink = "main" if spec is None or spec["num_processes"] == 1 \
+        else f"p{spec['process_id']}"
+    if args.no_telemetry:
+        telemetry.configure(worker=sink)
+    else:
+        telemetry.configure_from_env(
+            default_path=telemetry.worker_jsonl(args.out, sink), worker=sink)
+    try:
+        if args.workers > 0:
+            return _fleet_main(args, ts, cfg, sig, device, spec)
+        return _in_process(args, ts, cfg, sig, device, spec, rows_across_ranks)
+    finally:
+        telemetry.shutdown()
+
+
+def _tuned_cfg(args, cfg: EDMConfig, n_devices: int, ranks: Ranks | None = None):
+    """``--autotune``: ``cfg`` with the tuned shapes of ``--tune-from``
+    (default ``--out``) stamped in — its ``tuned.json``, else a replay of
+    its telemetry — and the tuned lease ttl kept in ``args.tuned_ttl``
+    for the fleet's workers; the worker count is printed as a
+    recommendation, never applied.  Under ranks, rank 0 loads or
+    recommends and every rank applies what it shares.  Returns (cfg, the
+    applied recommendation or None)."""
+    if not args.autotune:
+        return cfg, None
+    src = args.tune_from or args.out
+    tuned = None
+    if ranks is None or ranks.lead:
+        tuned = autotune.load_tuned(src) or autotune.recommend(src)
+    if ranks is not None:
+        tuned = ranks.share(tuned, "the tuned shapes")
+    if tuned is None:
+        if args.tune_from:
+            raise SystemExit(f"--tune-from {src}: no tuned.json and no chunk "
+                             "telemetry to replay")
+        return cfg, None
+    cfg = autotune.apply_to_cfg(cfg, tuned, n_devices)
+    rec = tuned["recommend"]
+    if rec.get("ttl"):
+        args.tuned_ttl = float(rec["ttl"])
+    if rec.get("workers") and args.workers > 0 and rec["workers"] != args.workers:
+        print(f"autotune: recommend --workers {rec['workers']} (this run uses "
+              f"{args.workers}; straggler-tail model, see tuned.json evidence)")
+    print(f"autotune: applied {rec} from {src}")
+    return cfg, rec
+
+
+def _run_config(args, cfg: EDMConfig) -> None:
+    """The run-start clock anchor (a trace aligns timelines on it), then
+    the run's config snapshot (the stream_depth and workers rules read it)."""
+    telemetry.emit_clock_anchor(driver=True, workers=args.workers)
+    telemetry.counter(
+        "fleet", "run_config", engine=cfg.engine, lib_block=cfg.lib_block,
+        target_tile=cfg.target_tile, knn_tile_c=cfg.knn_tile_c,
+        stream_depth=cfg.stream_depth, workers=args.workers,
+        autotune=bool(args.autotune),
+    )
+
+
+def _autotune_epilogue(args) -> dict | None:
+    """``--autotune``: replay the telemetry this run just recorded and
+    write the recommendation to ``<out>/tuned.json`` for the next run;
+    returns it (None where nothing was recorded)."""
+    if not args.autotune:
+        return None
+    tuned = autotune.recommend(args.out)
+    if tuned is None:
+        print("autotune: no chunk telemetry recorded this run (nothing "
+              "computed, or telemetry disabled); tuned.json not updated")
+        return None
+    p = autotune.write_tuned(args.out, tuned)
+    print(f"autotune: wrote {p}: {tuned['recommend']}")
+    return tuned
+
+
+def _fleet_main(args, ts, cfg, sig, device: str, spec: dict | None) -> dict:
+    """``--workers``: tune, run the fleet, then (rank 0 of an EDM_* world
+    only) the history record and the autotune epilogue."""
+    cfg, applied = _tuned_cfg(args, cfg, len(check_run(cfg, device)))
+    _run_config(args, cfg)
+    summary = _run_fleet(args, ts, cfg, sig, device, spec)
+    summary["autotune"] = {"applied": applied, "wrote": None}
+    if spec is None or spec["process_id"] == 0:
+        # the finalize claimer wrote the run's record; this one also
+        # covers the supervisor's own records (same run: replaces it)
+        history.record_run(args.out)  # flushes this process's records first
+        summary["autotune"]["wrote"] = _autotune_epilogue(args)
+    return summary
+
+
+def _in_process(args, ts, cfg, sig, device: str, spec: dict | None,
+                rows_across_ranks: bool) -> dict:
+    """One process, or one rank of rows across ranks: tune, run the map
+    and the significance stage, then (rank 0) the history record and the
+    autotune epilogue; returns :func:`main`'s summary."""
     group = None
     if rows_across_ranks:
         import torch.distributed
@@ -278,6 +395,8 @@ def main(argv=None) -> dict:
     else:
         devs = check_run(cfg, device)
     ranks = Ranks(group)
+    cfg, applied = _tuned_cfg(args, cfg, ranks.world * len(devs), ranks)
+    _run_config(args, cfg)
     if ranks.world > 1 and any(d.type == "cuda" for d in devs):
         from repro_torch import kernels
 
@@ -332,7 +451,12 @@ def main(argv=None) -> dict:
               + (f"; {len(out.edges)} edges at FDR {args.fdr} "
                  f"(p* = {out.p_threshold:.4g}, {out.n_tests} tests)"
                  if out.edges is not None else ""))
+    telemetry.flush()  # every rank's records durable before rank 0 reads them
     ranks.barrier("the end of the run")  # rank 0's meta and edges are written
+    wrote = None
+    if ranks.lead:
+        history.record_run(args.out)  # the run's summary (history.jsonl)
+        wrote = _autotune_epilogue(args)
     summary = {
         "result": result, "N": N, "L": int(ts.shape[1]), "wall_s": dt,
         **timings, "cross_maps_per_s": N * N / dt,
@@ -340,6 +464,8 @@ def main(argv=None) -> dict:
         "devices": [str(d) for d in devs], "significance": out, "significance_s": sig_s,
         "edges": None if out is None or out.edges is None else len(out.edges),
         "rank": ranks.rank, "world": ranks.world,
+        "lib_block": cfg.lib_block, "target_tile": cfg.target_tile,
+        "autotune": {"applied": applied, "wrote": wrote},
     }
     if ranks.world > 1:
         _print_rank_record(summary, devs, time.perf_counter() - t0)
@@ -410,7 +536,9 @@ def _run_fleet(args, ts, cfg, sig, device: str, spec: dict | None) -> dict:
         env = dict(os.environ)
         if relaunch:
             env.pop("EDM_FAULTS", None)
+        # ttl: the schedule knob of --autotune (None: the worker default)
         return edm_fleet.spawn_worker(out, wid, env=env,
+                                      ttl=getattr(args, "tuned_ttl", None),
                                       unit_retries=args.unit_retries)
 
     prefix = f"p{spec['process_id']}" if spec and spec["num_processes"] > 1 else ""

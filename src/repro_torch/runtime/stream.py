@@ -76,7 +76,9 @@ class _PartsCopy:
 class ChunkStreamer:
     """Bounded queue of in-flight chunks with ordered drains; each drain
     is a telemetry span (``stage``, "drain") whose ``gather_s`` is the
-    wait for the chunk's result."""
+    wait for the chunk's result, ``tag`` the repr of the chunk's tag (a
+    trace joins the drain to its unit by the row0 in it) and ``bytes``
+    the result's size."""
 
     def __init__(self, drain: Callable[[Any, np.ndarray], None], depth: int = 2,
                  stage: str = "stream"):
@@ -100,11 +102,12 @@ class ChunkStreamer:
 
     def _drain_one(self) -> None:
         tag, copy = self._pending.popleft()
-        with telemetry.span(self.stage, "drain", in_flight=len(self._pending),
-                            depth=self.depth) as t:
+        with telemetry.span(self.stage, "drain", tag=repr(tag),
+                            in_flight=len(self._pending), depth=self.depth) as t:
             t0 = time.perf_counter()
             host = copy.wait()  # the chunk's compute and copy-out
             t["gather_s"] = time.perf_counter() - t0
+            t["bytes"] = int(host.nbytes)
             self.drain(tag, host)
 
     def flush(self) -> None:

@@ -289,11 +289,12 @@ def counter(stage: str, name: str, value: float = 1.0, **attrs) -> None:
 
 
 def emit_clock_anchor(**attrs) -> None:
-    """One explicit (epoch, monotonic) clock sample at a worker's start:
-    it marks the run start on both clocks, so a trace assembler can
-    align workers on their monotonic clocks.  Emitted by the fleet
-    worker, never implicitly by :func:`configure` (tests install sinks
-    freely and count records)."""
+    """One explicit (epoch, monotonic) clock sample at the start of a
+    worker or of ``edm_run``: it marks the run start on both clocks, so
+    ``runtime/trace.py`` can align workers on their monotonic clocks.
+    Emitted by the fleet worker and by ``edm_run``, never
+    implicitly by :func:`configure` (tests install sinks freely and
+    count records)."""
     counter("fleet", "clock_anchor",
             epoch=time.time(), mono=time.monotonic(), **attrs)
 
@@ -365,7 +366,8 @@ def iter_store_records(
     out_dir: str | pathlib.Path,
 ) -> Iterator[tuple[str, dict]]:
     """Yield (worker_file_stem, record) over every per-worker JSONL a
-    run store holds — the summary input of ``edm_fleet status``."""
+    run store holds — the input of ``edm_fleet status`` and of the
+    trace, history and autotune readers."""
     d = store_telemetry_dir(out_dir)
     if not d.exists():
         return

@@ -277,12 +277,27 @@ def test_worker_without_the_card_exits_nonzero(tmp_path, baseline):
     assert not (out / "phase1").exists()
 
 
-def test_fleet_cli_names_what_is_not_ported(tmp_path, capsys):
-    for argv in (["trace"], ["trends"], ["status", "--watch"]):
-        with pytest.raises(SystemExit) as e:
-            edm_fleet.main([*argv, "--out", str(tmp_path)])
-        assert e.value.code != 0
-        assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("cmd", ["trace", "trends", "status --watch"])
+def test_fleet_cli_trace_trends_and_watch_read_a_fleet_store(fleet2, tmp_path,
+                                                             capsys, cmd):
+    """``trace`` writes a Chrome trace and renders every stage with its
+    critical-path unit; ``trends`` renders the one record the finished
+    run left (the finalize claimer replaced the assemble claimer's);
+    ``status --watch`` returns at once on a complete store."""
+    dest = tmp_path / "trace.json"
+    extra = {"trace": ["--trace-out", str(dest)],
+             "status --watch": ["--interval", "0.1"]}.get(cmd, [])
+    edm_fleet.main([*cmd.split(), "--out", str(fleet2), *extra])
+    out = capsys.readouterr().out
+    if cmd == "trace":
+        assert json.loads(dest.read_text())["traceEvents"]
+        assert "critical path" in out and f"chrome trace: {dest}" in out
+        for stage in telemetry.PIPELINE_STAGES:
+            assert f"\n{stage:<10}" in out and f"  {stage:<9} " in out
+    elif cmd == "trends":
+        assert "history: 1 run(s)" in out and "REGRESSION" not in out
+    else:
+        assert out.count("[COMPLETE]") == 1
 
 
 # -------------------------------------------------------------- edm_run CLI

@@ -7,6 +7,7 @@ Marked ``gpu``; run on a machine with a card:
 Without a card every test here skips from inside its body (never at
 collection, so every pytest worker collects the same tests)."""
 import dataclasses
+import json
 
 import pytest
 
@@ -766,3 +767,36 @@ def test_extensions_on_the_card_run_knn_topk_and_equal_the_plain_route():
     got = ext.smap_theta_sweep(xs, 2, EDMConfig(E_max=6), device=dev).cpu()
     want = ext.smap_theta_sweep(xs, 2, EDMConfig(E_max=6), device="cpu")
     assert (got - want).abs().max() <= 1e-5
+
+
+def test_autotune_stores_equal_with_telemetry_on_off_and_tuned_on_the_card(
+        tmp_path, monkeypatch):
+    """The smoke's ``autotune`` phase at a small size: A ``--autotune``
+    (records, writes tuned.json), B ``--autotune --tune-from A`` (one
+    chunk of every row: other launches), C ``--no-telemetry``: the maps
+    byte-equal; C leaves no telemetry and no history; tuned.json is A's
+    fresh recommendation."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.launch import edm_run
+    from repro_torch.runtime import autotune
+
+    monkeypatch.delenv("EDM_HISTORY", raising=False)
+    monkeypatch.delenv("EDM_TELEMETRY", raising=False)
+    base = ["--synthetic", "96x500", "--e-max", "10"]
+    a, b, c = (tmp_path / x for x in "abc")
+    launches = {}
+    for out, extra in ((a, ["--autotune"]),
+                       (b, ["--autotune", "--tune-from", str(a)]),
+                       (c, ["--no-telemetry"])):
+        knn_topk.LAUNCHES = 0
+        summary = edm_run.main([*base, *extra, "--out", str(out)])
+        launches[out.name] = knn_topk.LAUNCHES
+        assert summary["device"] == dev.type
+    maps = [(d / "causal_map" / "data.npy").read_bytes() for d in (a, b, c)]
+    assert maps[0] == maps[1] == maps[2]
+    assert not (c / "telemetry").exists() and not (c / "history.jsonl").exists()
+    tuned = json.loads((a / "tuned.json").read_text())
+    assert tuned == autotune.recommend(a)
+    assert tuned["recommend"]["chunk_rows"] == 96  # clamped to N
+    assert launches["b"] == 2 < launches["c"]  # one chunk in each phase

@@ -111,24 +111,38 @@ def test_edm_run_fleet_defaults_to_the_card(tmp_path):
     assert not (tmp_path / "o" / "queue").exists()
 
 
-@pytest.mark.parametrize("flag", [
-    "--no-telemetry", "--autotune", "--tune-from t.json"])
-def test_edm_run_flags_of_unported_paths_exit_naming_them(flag, tmp_path, capsys):
-    """Each flag of a path not ported yet exits naming itself and the
-    path it belongs to (``--target-tile`` and ``--no-bucketed`` are
-    ported: tests/test_torch_tiling.py; the fleet's flags:
+@pytest.mark.parametrize("flag", ["--no-telemetry", "--autotune", "--tune-from"])
+def test_edm_run_telemetry_and_autotune_flags_run(flag, tmp_path, capsys):
+    """Each flag of the telemetry trio runs on the CPU: ``--no-telemetry``
+    leaves no telemetry and no history; ``--autotune`` records, keeps the
+    run's history and writes ``tuned.json``; ``--tune-from`` applies
+    another store's recommendation (``--target-tile`` and
+    ``--no-bucketed``: tests/test_torch_tiling.py; the fleet's flags:
     tests/test_torch_fleet.py; ``--engine`` and ``--use-kernels``:
-    tests/test_torch_engine_check.py)."""
+    tests/test_torch_engine_check.py; the byte equality of every shape:
+    tests/test_torch_autotune.py)."""
     from repro_torch.launch import edm_run
 
-    with pytest.raises(SystemExit) as e:
-        edm_run.main(["--synthetic", "4x120", "--out", str(tmp_path),
-                      "--device", "cpu", *flag.split()])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    name = flag.split()[0]
-    assert f"{name} is not ported" in err
-    assert f"({edm_run.NOT_PORTED[name]})" in err
+    base = ["--synthetic", "12x120", "--e-max", "3", "--device", "cpu"]
+    src = tmp_path / "src"
+    if flag == "--tune-from":
+        edm_run.main([*base, "--out", str(src)])
+    out = tmp_path / "out"
+    extra = {"--no-telemetry": [flag], "--autotune": [flag],
+             "--tune-from": ["--autotune", flag, str(src)]}[flag]
+    summary = edm_run.main([*base, "--out", str(out), *extra])
+    text = capsys.readouterr().out
+    if flag == "--no-telemetry":
+        assert not (out / "telemetry").exists()
+        assert not (out / "history.jsonl").exists()
+    elif flag == "--autotune":
+        assert (out / "telemetry" / "main.jsonl").exists()
+        assert (out / "history.jsonl").exists() and (out / "tuned.json").exists()
+        assert summary["autotune"]["wrote"]["recommend"]["chunk_rows"] >= 8
+    else:
+        applied = summary["autotune"]["applied"]
+        assert f"autotune: applied {applied} from {src}" in text
+        assert summary["lib_block"] == applied["chunk_rows"]
 
 
 def test_platform_module_loads_no_jax_and_no_repro():
