@@ -10,15 +10,19 @@ version and timed, qwen2.5-3b at full width (random init) served through
 ``repro_torch.launch.steps`` — four prompts of 2048 tokens through
 ``make_prefill_step`` (the flash launch count set to 0 just before it),
 32 greedy decode steps — and the float32 gate of the kernel route
-against the plain route.  Then it holds each EDM kernel against its
-plain PyTorch version on the card at the shapes of the paths that run
-it, drives two paths of ``repro_torch.launch.edm_run`` at
+against the plain route; then the same for the moe and ssm families:
+``lm_moe_serve`` (dbrx-132b at full width, its depth cut from 40 layers
+to 8: the flash kernel at its group of 6, once a layer in prefill, and
+the share of (token, slot) assignments the MoE capacity drops),
+``lm_moe_check`` (2 layers in float32), ``lm_ssm_serve`` and
+``lm_ssm_check`` (mamba2-2.7b whole, no flash launch).  Then it holds
+each EDM kernel against its plain PyTorch version on the card at the
+shapes of the paths that run it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
 main path (the causal map) and the significance path (map, convergence
-statistics, surrogate p-values and BH-FDR edges) — and then each again,
-at half the N, untiled and in column tiles (``--target-tile``: the tiled
-map and store byte for byte the untiled ones, with peak device memory
-beside them), the all-E
+statistics, surrogate p-values and BH-FDR edges) — and then each again
+in column tiles (``--target-tile``: the tiled map and store byte for byte
+the untiled ones, with peak device memory beside them), the all-E
 phase 2 (``--no-bucketed``, untiled and tiled) and the map with the
 bfloat16 distance accumulator — each path with the kernel launch counts
 set to 0 just before it and read just after, checks them against the
@@ -118,7 +122,8 @@ status --watch`` beside ``fleet_significance``; ``trends`` (after the
 ranks) finalizes the significance store again, which must replace its
 history record, and reads the history through ``edm_fleet trends``.
 
-Every phase prints one JSON line; the line before the last is the card's
+Every phase prints one JSON line, its ``t_s`` the seconds since the
+script started; the line before the last is the card's
 name and power limit as nvidia-smi gives them, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 so does a machine without a CUDA card, or a directory holding this file
@@ -159,11 +164,9 @@ NEAR_TIE = 1e-6  # |difference| below which a comparison may round either way
 # significance path in tiles of 512; the bfloat16 accumulator's map at
 # N = 2,048.  Subject11: N = 101,729 series.
 MAIN_TILE, SIG_TILE = 4096, 256
-# The tiled phases run at a smaller N than the untiled ones (the smoke's
-# time limit), each against an untiled run of its own N: the map at
-# 8,192 (two tiles of 4,096 a row; 16,384 before), the significance
-# path at 1,024 (four tiles of 256 a row; 2,048 in tiles of 512 before).
-MAIN_TILED_N, SIG_TILED_N = 8192, 1024
+# The tiled phases run at the untiled paths' N (--n, --sig-n), each
+# against that path's store: the map in two tiles of 4,096 a row, the
+# significance path in four tiles of 256 a row.
 ALL_E_N, ALL_E_TILE, BF16_N = 2048, 512, 2048
 # The autotuner's phase: N 2,048; the peak's slope in library rows
 # measured from lib_block 8 to 128.
@@ -175,6 +178,15 @@ SUBJECT11_N = 101729
 # init; four requests of 2048 prompt tokens, 32 greedy decode steps.
 LM_ARCH = "qwen2.5-3b"
 SERVE_B, SERVE_S, DECODE_STEPS = 4, 2048, 32
+# The moe and ssm families, the same requests: dbrx-132b at full width (d
+# 6144, 48 / 8 heads of 128, 16 experts top-4 of d_ff 10,752, vocab
+# 100,352), its depth cut from 40 layers to 8 (the whole model is ~264 GB
+# in bf16 and sharding is not ported; 8 layers are ~54.6 GB) and to 2 for
+# the float32 gate (~31 GB); mamba2-2.7b whole (64 layers, d 2560, 80 SSD
+# heads of 64, state 128, vocab 50,280 padded to 50,432; ~5.7 GB in bf16,
+# ~11.3 GB in float32).
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_CHECK_LAYERS = "dbrx-132b", 8, 2
+SSM_ARCH = "mamba2-2.7b"
 # Flash kernel vs its plain version.  float32 (the CUDA-core route),
 # |got - want| <= atol + rtol |want|: sums in another order (softmax over
 # up to 2048 keys).  bfloat16 on the CUDA-core route: within one bf16 step
@@ -196,8 +208,12 @@ FLASH_BF16_STEP = 2.0 ** -7
 LM_GATE_TOL = 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
@@ -946,6 +962,7 @@ def bf16_map_phase(torch, dev, smi):
 FLASH_CASES = (
     # name, B, Sq, Sk, H, K, dh, causal, dtype
     ("serve_qwen2.5-3b", 4, 2048, 2048, 16, 2, 128, True, "bfloat16"),
+    ("serve_dbrx-132b_rep6", 4, 2048, 2048, 48, 8, 128, True, "bfloat16"),
     ("smollm-135m_dh64_rep3", 2, 1024, 1024, 9, 3, 64, True, "bfloat16"),
     ("minicpm-2b_mha_dh64", 1, 512, 512, 36, 36, 64, True, "bfloat16"),
     ("float32_dh128", 2, 1024, 1024, 16, 2, 128, True, "float32"),
@@ -1027,8 +1044,8 @@ def check_flash(torch, dev):
     return worst
 
 
-def time_flash(torch, dev, smi):
-    """CUDA-event means at the serve shape: kernel (the tensor-core
+def time_flash(torch, dev, smi, arch=LM_ARCH):
+    """CUDA-event means at ``arch``'s serve shape: kernel (the tensor-core
     route), plain version, and one library call (SDPA in (B, H, S, dh),
     transposed outside the timing)."""
     import torch.nn.functional as F
@@ -1037,7 +1054,7 @@ def time_flash(torch, dev, smi):
     from repro_torch.kernels.flash_attn.ref import flash_attn_ref
     from repro_torch.launch.roofline import PEAK_BF16_FLOPS, bound_ms, flash_counts
 
-    cfg = lm_config()
+    cfg = lm_config(arch)
     B, S, H, K, dh = SERVE_B, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qkv(torch, dev, B, S, S, H, K, dh, "bfloat16", seed=7)
     ms = time_ms(torch, lambda: flash_attn(q, k, v, True), 20)
@@ -1051,9 +1068,10 @@ def time_flash(torch, dev, smi):
     want = flash_attn_ref(q.float(), k.float(), v.float(), True)
     lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     err = float((flash_attn(q, k, v, True).float() - want).abs().max())
+    del want
     lib = time_ms(torch, sdpa, 20)
     bound, by = bound_ms(*flash_counts(B, S, H, K, dh, 2), PEAK_BF16_FLOPS)
-    out = dict(kernel_ms=ms, plain_ms=plain,
+    out = dict(arch=arch, kernel_ms=ms, plain_ms=plain,
                library_ms=lib, max_abs_err=err, library_max_abs_err=lib_err,
                bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
                route=flash_route(q.device.type, q.dtype, dh), B=B, S=S, H=H,
@@ -1062,10 +1080,25 @@ def time_flash(torch, dev, smi):
     return out
 
 
-def lm_config(**kw):
+def lm_config(arch=LM_ARCH, n_layers=None, **kw):
+    """``arch`` at full width on the kernel route, its depth cut to
+    ``n_layers`` where given."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(LM_ARCH), attn_impl="chunked", **kw)
+    if n_layers is not None:
+        kw["n_layers"] = n_layers
+    return dataclasses.replace(get_config(arch), attn_impl="chunked", **kw)
+
+
+def grown_cache(T, cfg, cache, B, S, S_new, dev):
+    """A prefill's cache made room for decode steps: dense / moe, a cache
+    of S_new positions with the prefill's S written; ssm, the state as it
+    is (it has no length)."""
+    if cfg.family == "ssm":
+        return cache
+    big = T.init_cache(cfg, B, S_new, device=dev)
+    big["k"][:, :, :S], big["v"][:, :, :S] = cache["k"], cache["v"]
+    return big
 
 
 def top1_mismatches(torch, got, want, vocab, tol):
@@ -1079,19 +1112,23 @@ def top1_mismatches(torch, got, want, vocab, tol):
     return int((bad & ~tie).sum()), int(tie.sum())
 
 
-def lm_serve(torch, dev, smi):
-    """qwen2.5-3b at full width in bf16 through make_prefill_step (four
-    requests of 2048 tokens, the flash kernel in each layer) and 32 greedy
-    decode steps; the flash launch count starts at 0 just before the
-    prefill.  Then the kernel route vs the plain route on one request,
-    reported, not gated."""
+def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
+    """``arch`` at full width in bf16 (depth ``n_layers`` where given)
+    through make_prefill_step (four requests of 2048 tokens, the flash
+    kernel once in each attention layer: none in an ssm model) and 32
+    greedy decode steps (no flash launch); the flash launch count and the
+    MoE drop counts start at 0 just before the prefill.  Then the kernel
+    route vs the plain route on one request, reported, not gated."""
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
 
-    cfg = lm_config()
+    cfg = lm_config(arch, n_layers)
     V = cfg.vocab_size
+    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
@@ -1103,25 +1140,26 @@ def lm_serve(torch, dev, smi):
     with torch.inference_mode():
         # warm-up at a short prompt: cuBLAS handles, the kernel's library
         _, c = prefill_step(params, {"tokens": tokens[:, :128]})
-        warm = T.init_cache(cfg, SERVE_B, 130, device=dev)
-        warm["k"][:, :, :128], warm["v"][:, :, :128] = c["k"], c["v"]
+        warm = grown_cache(T, cfg, c, SERVE_B, 128, 130, dev)
         decode(params, {"token": tokens[:, 128:129], "pos": 128}, warm)
         del c, warm
         torch.cuda.synchronize()
 
         flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+        MOE.reset_drop_counts(params)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, {"tokens": tokens})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        prefill_routes = dict(flash_attn.ROUTE_LAUNCHES)
+        routed, dropped = MOE.drop_counts(params)
         if tuple(logits.shape) != (SERVE_B, SERVE_S, cfg.padded_vocab):
             raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
         prefill_finite = bool(torch.isfinite(logits).all())
         tok = logits[:, -1, :V].argmax(-1)
         del logits
-        big = T.init_cache(cfg, SERVE_B, SERVE_S + DECODE_STEPS, device=dev)
-        big["k"][:, :, :SERVE_S], big["v"][:, :, :SERVE_S] = cache["k"], cache["v"]
+        big = grown_cache(T, cfg, cache, SERVE_B, SERVE_S, SERVE_S + DECODE_STEPS, dev)
         del cache
         out_tokens, finite = [tok], torch.ones((), dtype=torch.bool, device=dev)
         torch.cuda.synchronize()
@@ -1134,6 +1172,9 @@ def lm_serve(torch, dev, smi):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         by_route = dict(flash_attn.ROUTE_LAUNCHES)
+        decode_routes = {r: by_route[r] - prefill_routes[r] for r in ROUTES}
+        decode_routed, decode_dropped = (n - m for n, m in zip(MOE.drop_counts(params),
+                                                               (routed, dropped)))
         peak = torch.cuda.max_memory_allocated(dev)
 
         # where the time goes: one traced prefill, and four decode steps
@@ -1148,15 +1189,25 @@ def lm_serve(torch, dev, smi):
         del big, ld
         if not (prefill_finite and bool(finite)):
             raise AssertionError("non-finite logits on the serving path")
-        if by_route != {**dict.fromkeys(ROUTES, 0), "tensor_core": cfg.n_layers}:
-            raise AssertionError(f"prefill launched the flash kernels {by_route}, "
-                                 f"not the tensor-core route once per layer "
-                                 f"({cfg.n_layers})")
+        if prefill_routes != {**dict.fromkeys(ROUTES, 0), "tensor_core": want_flash} \
+                or any(decode_routes.values()):
+            raise AssertionError(f"prefill launched the flash kernels {prefill_routes} "
+                                 f"and decode {decode_routes}, not the tensor-core "
+                                 f"route once per attention layer ({want_flash}) and "
+                                 f"none in decode")
+        if decode_dropped:
+            raise AssertionError(f"decode dropped {decode_dropped} MoE assignments")
 
-        # bf16: the kernel route against the plain route on one request
+        # bf16: the kernel route against the plain route on one request;
+        # for MoE, each layer's share of tokens routed to another expert set
         one = {"tokens": tokens[:1]}
+        moes = [m for m in params.modules() if isinstance(m, MOE.MoE)]
         fk, _ = T.forward(params, one, cfg)
+        routes_k = [m.last_experts.sort(-1).values for m in moes]
         fp, _ = T.forward(params, one, dataclasses.replace(cfg, attn_impl="xla"))
+        bf16_routing_differs = [float((a != m.last_experts.sort(-1).values).any(-1)
+                                      .float().mean()) for a, m in zip(routes_k, moes)]
+        del routes_k
         bf16_err = float((fk - fp).abs().max())
         bf16_bad, bf16_ties = top1_mismatches(torch, fk, fp, V, LM_GATE_TOL)
         bf16_logit_absmax = float(fp.abs().max())
@@ -1164,40 +1215,51 @@ def lm_serve(torch, dev, smi):
     del params
     torch.cuda.empty_cache()
     gen = torch.stack(out_tokens, 1).cpu()
-    out = dict(arch=LM_ARCH, params=n_params, dtype=cfg.dtype,
-               attn_impl=cfg.attn_impl, B=SERVE_B, prompt=SERVE_S,
+    out = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers,
+               n_layers_full=get_config(arch).n_layers, params=n_params,
+               dtype=cfg.dtype, attn_impl=cfg.attn_impl, B=SERVE_B, prompt=SERVE_S,
                decode_steps=DECODE_STEPS, init_s=init_s, prefill_s=prefill_s,
                prefill_tokens_per_s=SERVE_B * SERVE_S / prefill_s,
                decode_ms_per_step=decode_s / DECODE_STEPS * 1e3,
                decode_tokens_per_s=SERVE_B * DECODE_STEPS / decode_s,
                peak_device_bytes=peak,
                launches={"flash_attn": sum(by_route.values())},
-               launches_by_route=by_route,
+               launches_by_route=by_route, launches_decode=decode_routes,
                generated_distinct=int(gen.unique().numel()),
                bf16_kernel_vs_plain_max_abs=bf16_err,
                bf16_logit_absmax=bf16_logit_absmax,
                bf16_top1_mismatches=bf16_bad, bf16_top1_near_ties=bf16_ties,
                profile=busy, smi=smi)
-    emit("lm_serve", **out)
+    if cfg.n_experts:
+        out.update(moe_prefill_assignments=routed, moe_prefill_dropped=dropped,
+                   moe_prefill_dropped_share=dropped / routed,
+                   moe_decode_dropped=decode_dropped,
+                   bf16_kernel_vs_plain_routing_differs_by_layer=bf16_routing_differs)
+    emit(phase, **out)
     return out
 
 
-def lm_check(torch, dev, smi):
-    """The gate: the same model in float32 (TF32 off), one request of 2049
-    tokens, the kernel route (chunked) against the plain route (xla):
+def lm_check(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_check"):
+    """The gate: ``arch`` in float32 (TF32 off; depth ``n_layers`` where
+    given), one request of 2049 tokens, the kernel route (chunked: the
+    flash kernel once per attention layer) against the plain route (xla):
     every position's logits within LM_GATE_TOL and top-1 equal outside
     near-ties.  Then prefill (2048 tokens) against forward, and the decode
     of token 2048 against forward at that position."""
     from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import transformer as T
 
-    cfg = lm_config(dtype="float32")
+    cfg = lm_config(arch, n_layers, dtype="float32")
     V, S = cfg.vocab_size, SERVE_S
+    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
     toks = torch.as_tensor(TokenStream(V, 1, S + 1, seed=0).batch_at(0)["tokens"])
     with torch.inference_mode():
+        flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
         fk, _ = T.forward(params, {"tokens": toks}, cfg)
+        flash_launches = dict(flash_attn.ROUTE_LAUNCHES)
         fp, _ = T.forward(params, {"tokens": toks},
                           dataclasses.replace(cfg, attn_impl="xla"))
         route_err = float((fk - fp).abs().max())
@@ -1208,8 +1270,7 @@ def lm_check(torch, dev, smi):
         pl, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks[:, :S]})
         prefill_err = float((pl - fk[:, :S]).abs().max())
         del pl
-        big = T.init_cache(cfg, 1, S + 1, device=dev)
-        big["k"][:, :, :S], big["v"][:, :, :S] = cache["k"], cache["v"]
+        big = grown_cache(T, cfg, cache, 1, S, S + 1, dev)
         del cache
         ld, _ = make_decode_step(cfg, device=dev)(
             params, {"token": toks[:, S : S + 1], "pos": S}, big)
@@ -1219,15 +1280,17 @@ def lm_check(torch, dev, smi):
     del params
     torch.cuda.empty_cache()
     ok = (route_err <= LM_GATE_TOL and bad == 0 and prefill_err <= LM_GATE_TOL
-          and decode_err <= LM_GATE_TOL)
-    out = dict(arch=LM_ARCH, dtype="float32", tf32=False, B=1, positions=S + 1,
-               tol=LM_GATE_TOL, kernel_vs_plain_max_abs=route_err,
+          and decode_err <= LM_GATE_TOL
+          and flash_launches == {**dict.fromkeys(ROUTES, 0), "cuda_core": want_flash})
+    out = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers, dtype="float32",
+               tf32=False, B=1, positions=S + 1, tol=LM_GATE_TOL,
+               kernel_vs_plain_max_abs=route_err,
                kernel_vs_plain_last_prompt_position=last_err,
                logit_absmax=logit_absmax, top1_mismatches=bad, top1_near_ties=ties,
                prefill_vs_forward_max_abs=prefill_err,
                decode_vs_forward_max_abs=decode_err, decode_top1_equal=decode_top1,
-               ok=ok, smi=smi)
-    emit("lm_check", **out)
+               flash_launches_forward=flash_launches, ok=ok, smi=smi)
+    emit(phase, **out)
     if not ok:
         raise AssertionError(f"LM float32 gate failed: {out}")
     return out
@@ -2236,9 +2299,9 @@ def multi_card_only(torch, dev, smi, n) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=16384,
+    ap.add_argument("--n", type=int, default=8192,
                     help="series in the main-path run (Fish1_Normo has 53,053)")
-    ap.add_argument("--sig-n", type=int, default=2048,
+    ap.add_argument("--sig-n", type=int, default=1024,
                     help="series in the significance-path run")
     ap.add_argument("--multi-card", action="store_true",
                     help="only the phases across cards and ranks, for a "
@@ -2297,8 +2360,14 @@ def main(argv=None) -> int:
     # decode steps take about twice as long (PERF.md, open questions)
     flash_err = check_flash(torch, dev)
     ftimes = time_flash(torch, dev, smi)
+    ftimes_moe = time_flash(torch, dev, smi, MOE_ARCH)
     serve = lm_serve(torch, dev, smi)
     lm_check(torch, dev, smi)
+    # the moe and ssm families: dbrx-132b (depth cut) and mamba2-2.7b whole
+    serve_moe = lm_serve(torch, dev, smi, MOE_ARCH, MOE_SERVE_LAYERS, "lm_moe_serve")
+    check_moe = lm_check(torch, dev, smi, MOE_ARCH, MOE_CHECK_LAYERS, "lm_moe_check")
+    serve_ssm = lm_serve(torch, dev, smi, SSM_ARCH, phase="lm_ssm_serve")
+    check_ssm = lm_check(torch, dev, smi, SSM_ARCH, phase="lm_ssm_check")
 
     from repro_torch.core import knn as tknn
     from repro_torch.data.synthetic import dummy_brain
@@ -2576,36 +2645,29 @@ def main(argv=None) -> int:
     del result, rho
 
     wall_single = {"main": summary["wall_s"]}
+    main_walls = phase_walls(summary)
     del summary
 
-    # ---- the tiled main path: the map at MAIN_TILED_N untiled, then in
-    # column tiles
-    tn = MAIN_TILED_N
-    untiled_dir, tiled_dir = (ROOT / "build" / "smoke_tiled_ref",
-                              ROOT / "build" / "smoke_tiled")
-    shutil.rmtree(untiled_dir, ignore_errors=True)
+    # ---- the tiled main path: the same call in column tiles, against
+    # end_to_end's store
+    tiled_dir = ROOT / "build" / "smoke_tiled"
     shutil.rmtree(tiled_dir, ignore_errors=True)
-    usum, untiled_launches, peak_untiled = run_cli(torch, dev, [
-        "--synthetic", f"{tn}x{FISH1_L}", "--e-max", str(E_MAX),
-        "--out", str(untiled_dir)])
     tsum, tiled_launches, peak_tiled = run_cli(torch, dev, [
-        "--synthetic", f"{tn}x{FISH1_L}", "--e-max", str(E_MAX),
+        "--synthetic", f"{args.n}x{FISH1_L}", "--e-max", str(E_MAX),
         "--target-tile", str(MAIN_TILE), "--out", str(tiled_dir)])
-    tiled_equal = same_npy_bits(untiled_dir / "causal_map" / "data.npy",
+    tiled_equal = same_npy_bits(out_dir / "causal_map" / "data.npy",
                                 tiled_dir / "causal_map" / "data.npy")
-    emit("tiled_main_path", N=tn, L=FISH1_L, E_max=E_MAX, tile=MAIN_TILE,
-         n_cut_from=args.n, **phase_walls(tsum), launches=tiled_launches,
+    emit("tiled_main_path", N=args.n, L=FISH1_L, E_max=E_MAX, tile=MAIN_TILE,
+         **phase_walls(tsum), launches=tiled_launches,
          peak_device_bytes=peak_tiled,
          tiles_written=len(list(tiled_dir.glob("tile_*.npy"))),
-         untiled={**phase_walls(usum), "launches": untiled_launches,
-                  "peak_device_bytes": peak_untiled},
+         untiled={**main_walls, "launches": launches, "peak_device_bytes": peak_mem},
          byte_equal_to_untiled=tiled_equal, smi=smi)
     if not tiled_equal:
         raise AssertionError("tiled main-path map != untiled map")
     if min(tiled_launches["knn_topk"], tiled_launches["ccm_lookup"]) < 1:
         raise AssertionError(f"tiled main path missed a kernel: {tiled_launches}")
-    del usum, tsum
-    shutil.rmtree(untiled_dir, ignore_errors=True)
+    del tsum
     shutil.rmtree(tiled_dir, ignore_errors=True)  # out_dir: the fleet's reference
     # ---- the autotuner: recorded, applied, off; and the recommendation of
     # the main path's own store, on the host
@@ -2621,13 +2683,13 @@ def main(argv=None) -> int:
     shutil.rmtree(sig_dir, ignore_errors=True)
     knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    sig_argv = ["--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
+                "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
+                "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
+                "--fdr", "0.05", "--seed", "0"]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        summary = edm_run.main([
-            "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
-            "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
-            "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
-            "--fdr", "0.05", "--seed", "0", "--out", str(sig_dir)])
+        summary = edm_run.main([*sig_argv, "--out", str(sig_dir)])
     sig_launches = {"knn_topk": knn_topk.LAUNCHES,
                     "knn_topk_prefix": knn_topk_prefix.LAUNCHES,
                     "ccm_lookup": ccm_lookup.LAUNCHES}
@@ -2661,36 +2723,27 @@ def main(argv=None) -> int:
          p_threshold=out.p_threshold, n_tests=out.n_tests,
          drho_mean=float(np.asarray(out.drho).mean()),
          trend_mean=float(np.asarray(out.trend).mean()), smi=smi)
+    sig_untiled = {"significance_s": summary["significance_s"], "launches": sig_launches}
     del summary, out, maps
 
-    # ---- the tiled significance stage: the store at SIG_TILED_N untiled,
-    # then in column tiles
-    sn = SIG_TILED_N
-    sig_argv = ["--synthetic", f"{sn}x{FISH1_L}", "--e-max", str(E_MAX),
-                "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)),
-                "--surrogates", str(SIG_M), "--surrogate-kind", "phase",
-                "--fdr", "0.05", "--seed", "0"]
-    sig_untiled_dir, sig_tiled_dir = (ROOT / "build" / "smoke_sig_tiled_ref",
-                                      ROOT / "build" / "smoke_sig_tiled")
-    shutil.rmtree(sig_untiled_dir, ignore_errors=True)
+    # ---- the tiled significance stage: the same call in column tiles,
+    # against the significance path's store
+    sn = args.sig_n
+    sig_tiled_dir = ROOT / "build" / "smoke_sig_tiled"
     shutil.rmtree(sig_tiled_dir, ignore_errors=True)
-    susum, sig_untiled_launches, peak_sig_untiled = run_cli(
-        torch, dev, [*sig_argv, "--out", str(sig_untiled_dir)])
     stsum, sig_tiled_launches, peak_sig_tiled = run_cli(torch, dev, [
         *sig_argv, "--target-tile", str(SIG_TILE), "--out", str(sig_tiled_dir)])
-    sig_equal = {a: same_npy_bits(sig_untiled_dir / a / "data.npy",
+    sig_equal = {a: same_npy_bits(sig_dir / a / "data.npy",
                                   sig_tiled_dir / a / "data.npy")
-                 for a in ("causal_map", "rho_conv", "rho_trend", "pvals", "edges")}
+                 for a in FLEET_ARTIFACTS}
     Lp11 = SUBJECT11_L - (E_MAX - 1) - 1  # 8508
-    emit("significance_tiled", N=sn, n_cut_from=args.sig_n, L=FISH1_L,
+    emit("significance_tiled", N=sn, L=FISH1_L,
          tile=SIG_TILE, surrogates=SIG_M,
          wall_s=stsum["wall_s"] + stsum["significance_s"],
          significance_s=stsum["significance_s"], launches=sig_tiled_launches,
          peak_device_bytes=peak_sig_tiled,
-         peak_device_bytes_untiled=peak_sig_untiled,
-         untiled={"wall_s": susum["wall_s"] + susum["significance_s"],
-                  "significance_s": susum["significance_s"],
-                  "launches": sig_untiled_launches},
+         peak_device_bytes_untiled=peak_sig,
+         untiled={"wall_s": wall_single["significance"], **sig_untiled},
          byte_equal_to_untiled=sig_equal,
          surrogate_bytes={"untiled": sn * SIG_M * Lp * 4,
                           "tiled": SIG_TILE * SIG_M * Lp * 4},
@@ -2703,11 +2756,10 @@ def main(argv=None) -> int:
     if min(sig_tiled_launches.values()) < 1:
         raise AssertionError(f"tiled significance missed a kernel: "
                              f"{sig_tiled_launches}")
-    if not peak_sig_tiled < peak_sig_untiled:
+    if not peak_sig_tiled < peak_sig:
         raise AssertionError(f"tiled significance peak {peak_sig_tiled} B not "
-                             f"below the untiled {peak_sig_untiled} B")
-    del stsum, susum
-    shutil.rmtree(sig_untiled_dir, ignore_errors=True)
+                             f"below the untiled {peak_sig} B")
+    del stsum
     shutil.rmtree(sig_tiled_dir, ignore_errors=True)  # sig_dir: the fleet's
     multi_sig_launches = multi_device_significance(torch, dev, smi, args.sig_n,
                                                    sig_dir, sig_launches)
@@ -2929,22 +2981,15 @@ def main(argv=None) -> int:
         ("causal_map",), {"wall_s": wall_single["main"], "launches": launches},
         ids=(0, 0))
     ranks_sig = ranks_phase(
-        torch, smi, "ranks_significance", 2,
-        ["--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
-         "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)), "--surrogates",
-         str(SIG_M), "--surrogate-kind", "phase", "--fdr", "0.05", "--seed", "0"],
-        sig_dir, FLEET_ARTIFACTS, {"wall_s": wall_single["significance"],
-                                   "launches": sig_launches},
+        torch, smi, "ranks_significance", 2, sig_argv, sig_dir, FLEET_ARTIFACTS,
+        {"wall_s": wall_single["significance"], "launches": sig_launches},
         ids=(0, 0))
     # ---- the run history of every store above, in one file -------------
     build = ROOT / "build"
-    trends_phase(torch, dev, smi, [
-        "--synthetic", f"{args.sig_n}x{FISH1_L}", "--e-max", str(E_MAX),
-        "--lib-sizes", ",".join(map(str, SIG_LIB_SIZES)), "--surrogates",
-        str(SIG_M), "--surrogate-kind", "phase", "--fdr", "0.05", "--seed", "0"],
-        sig_dir, [out_dir, sig_dir] + [build / f"smoke_{x}" for x in (
-            "fleet_main", "fleet_sig", "fleet_kill", "fleet_faults",
-            "ranks_main", "ranks_significance")])
+    trends_phase(torch, dev, smi, sig_argv, sig_dir, [out_dir, sig_dir] + [
+        build / f"smoke_{x}" for x in ("fleet_main", "fleet_sig", "fleet_kill",
+                                       "fleet_faults", "ranks_main",
+                                       "ranks_significance")])
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.rmtree(sig_dir, ignore_errors=True)
     engine_check_cli(smi)
@@ -3044,6 +3089,13 @@ def main(argv=None) -> int:
          "plain_ms": ftimes["plain_ms"],
          "bound_ms": ftimes["bound_ms"], "bound_by": ftimes["bound_by"],
          "library_ms": ftimes["library_ms"],
+         "ms_dbrx": ftimes_moe["kernel_ms"], "plain_ms_dbrx": ftimes_moe["plain_ms"],
+         "bound_ms_dbrx": ftimes_moe["bound_ms"],
+         "library_ms_dbrx": ftimes_moe["library_ms"],
+         "launches_lm_moe_serve": serve_moe["launches"]["flash_attn"],
+         "launches_lm_moe_check": sum(check_moe["flash_launches_forward"].values()),
+         "launches_lm_ssm_serve": serve_ssm["launches"]["flash_attn"],
+         "launches_lm_ssm_check": sum(check_ssm["flash_launches_forward"].values()),
          "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
          "checked": True},
         {"name": "knn_slab", "route": "cuda",

@@ -62,11 +62,16 @@ class Norm(nn.Module):
         self.bias = _param((d,), dtype, device) if kind == "layernorm" else None
 
 
-def rms_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rms_norm_scale(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with a bare scale tensor (the Mamba2 block's gated norm)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p.scale.float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rms_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return rms_norm_scale(p.scale, x, eps)
 
 
 def layer_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -452,6 +452,7 @@ def test_tiled_significance_equals_untiled_on_the_card():
 
 @pytest.mark.parametrize("B,Sq,Sk,H,K,dh,causal,dtype", [
     (4, 2048, 2048, 16, 2, 128, True, "bfloat16"),
+    (4, 2048, 2048, 48, 8, 128, True, "bfloat16"),  # dbrx-132b's prefill, group 6
     (2, 1000, 1000, 9, 3, 64, True, "bfloat16"),
     (1, 300, 333, 8, 2, 128, False, "float32"),
     (2, 129, 129, 4, 4, 16, True, "float32"),
@@ -547,6 +548,40 @@ def test_lm_kernel_route_equals_plain_route_on_the_card():
     assert sum(flash_attn.ROUTE_LAUNCHES.values()) - before == cfg.n_layers
     want, _ = T.forward(model, {"tokens": toks}, dataclasses.replace(cfg, attn_impl="xla"))
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("arch,launches", [("dbrx-132b", 2), ("mamba2-2.7b", 0)])
+def test_moe_and_ssm_kernel_route_equal_plain_route_on_the_card(arch, launches):
+    """Smoke dbrx-132b and mamba2-2.7b in float32: the chunked route (the
+    flash kernel once per attention layer in prefill; mamba2 has none)
+    against the xla route within 1e-5, and the decode after the prefill
+    against the forward at that position within 1e-5."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), attn_impl="chunked")
+    if cfg.n_experts:  # drop-free: the prompt and the sequence group alike
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_tok)
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 101)).astype(np.int32)
+    before = sum(flash_attn.ROUTE_LAUNCHES.values())
+    got, cache = make_prefill_step(cfg, device=dev)(model, {"tokens": toks[:, :100]})
+    assert sum(flash_attn.ROUTE_LAUNCHES.values()) - before == launches == (
+        cfg.n_layers if cfg.family == "moe" else 0)
+    want, _ = T.forward(model, {"tokens": toks}, dataclasses.replace(cfg, attn_impl="xla"))
+    assert float((got - want[:, :100]).abs().max()) <= 1e-5
+    if cfg.family == "moe":  # the decode's cache needs room for token 100
+        big = T.init_cache(cfg, 2, 101, device=dev)
+        big["k"][:, :, :100], big["v"][:, :, :100] = cache["k"], cache["v"]
+        cache = big
+    ld, _ = make_decode_step(cfg, device=dev)(model, {"token": toks[:, 100:], "pos": 100},
+                                              cache)
+    assert float((ld[:, 0] - want[:, 100]).abs().max()) <= 1e-5
 
 
 # ------------------------------------------------------------------ fleet

@@ -145,6 +145,24 @@ def test_edm_run_telemetry_and_autotune_flags_run(flag, tmp_path, capsys):
         assert summary["lib_block"] == applied["chunk_rows"]
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe", "repro_torch.models.ssm"])
+def test_lm_family_modules_load_no_jax_and_no_repro(module):
+    """The MoE and Mamba2 layers are among the modules above and import
+    neither package on their own."""
+    assert module in list(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_platform_module_loads_no_jax_and_no_repro():
     """The platform layer (tiers, device slots, the EDM_* group contract)
     is among the modules above and imports neither package on its own."""
