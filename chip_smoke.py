@@ -15,7 +15,14 @@ against the plain route; then the same for the moe and ssm families:
 to 8: the flash kernel at its group of 6, once a layer in prefill, and
 the share of (token, slot) assignments the MoE capacity drops),
 ``lm_moe_check`` (2 layers in float32), ``lm_ssm_serve`` and
-``lm_ssm_check`` (mamba2-2.7b whole, no flash launch).  Then it holds
+``lm_ssm_check`` (mamba2-2.7b whole, no flash launch); then the hybrid,
+audio and vlm families, each whole: ``lm_hybrid_serve`` /
+``lm_hybrid_check`` (zamba2-7b: the flash kernel once a shared-block
+application, 27), ``lm_audio_*`` (whisper-medium, 1,500 audio frames and
+416 prompt tokens: 24 encoder, 24 decoder and 24 cross launches) and
+``lm_vlm_*`` (llama-3.2-vision-11b, 1,601 image patches: 32 self and 8
+cross launches), the zero-initialised LoRA b and gates drawn non-zero
+first; ``time_flash`` at each of their serve shapes.  Then it holds
 each EDM kernel against its plain PyTorch version on the card at the
 shapes of the paths that run it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
@@ -114,7 +121,10 @@ turns, with ``--autotune`` and under the tuned shapes (``--tune-from``),
 every map byte-equal, and prints the telemetry cost, the tuned run's
 launches and peak memory, the recommendation with its evidence, and the
 memory the main path's own store's recommendation would need (by the
-peak's slope in library rows: computed, not run).  Phase ``fleet_trace``
+peak's slope in library rows), and runs that recommendation at the main
+path's N under the cap ``--autotune`` prints (a chunk fitted to the
+card's free memory): the map byte-equal to the main path's, the peak
+below the card's memory.  Phase ``fleet_trace``
 runs ``edm_fleet trace --json --reconcile`` over the ``fleet_main``
 store (every stage's six buckets and its critical-path unit, each
 stage within 1% of ``fleet_status``); ``fleet_watch`` is ``edm_fleet
@@ -187,6 +197,19 @@ SERVE_B, SERVE_S, DECODE_STEPS = 4, 2048, 32
 # ~11.3 GB in float32).
 MOE_ARCH, MOE_SERVE_LAYERS, MOE_CHECK_LAYERS = "dbrx-132b", 8, 2
 SSM_ARCH = "mamba2-2.7b"
+# The hybrid, audio and vlm families, each whole, the same B and decode
+# steps: zamba2-7b (81 layers: 54 Mamba2 blocks, 27 applications of one
+# shared block of 32 heads of 112; 4.74 B parameters, 9.48 GB in bf16) and
+# llama-3.2-vision-11b (40 layers, 8 of them behind a gated cross block over
+# 1,601 image patches; 9.78 B, 19.55 GB) at 2,048 prompt tokens;
+# whisper-medium (24 + 24 layers over 1,500 audio frames; 0.88 B) at 416
+# prompt tokens, its text context of 448 less the 32 decode steps.  Audio
+# frames and image patches are 0.1 N(0, 1) from a seeded generator on the
+# card.  The float32 gates draw the zero-initialised LoRA b and gates
+# non-zero first (ZERO_LEAVES), so that no branch hides behind a zero.
+HYBRID_ARCH, AUDIO_ARCH, VLM_ARCH = "zamba2-7b", "whisper-medium", "llama-3.2-vision-11b"
+AUDIO_PROMPT = 416
+ZERO_LEAVES = ("b_q", "b_k", "b_v", "gate_attn", "gate_mlp")
 # Flash kernel vs its plain version.  float32 (the CUDA-core route),
 # |got - want| <= atol + rtol |want|: sums in another order (softmax over
 # up to 2048 keys).  bfloat16 on the CUDA-core route: within one bf16 step
@@ -731,7 +754,12 @@ def autotune_phase(torch, dev, smi, main_dir):
     the device memory a tuned shape needs by the peak's slope in library
     rows (C to D): B's (against its measured peak) and that of the
     host-only recommendation of ``main_dir`` (the main path's store at
-    the smoke's N, whose run recorded its telemetry), which is not run."""
+    the smoke's N, whose run recorded its telemetry).  Last, M: that
+    recommendation applied at the main path's N (``--autotune --tune-from
+    main_dir``), its ``lib_block`` capped to the card's free memory
+    (``autotune.fit_lib_block``): its map byte-equal to ``main_dir``'s,
+    its measured peak below the card's memory.  B and M each run
+    min(recommended rows, the printed cap)."""
     import os
 
     import numpy as np
@@ -763,12 +791,31 @@ def autotune_phase(torch, dev, smi, main_dir):
                              **phase_walls(s), lib_block=s["lib_block"],
                              target_tile=s["target_tile"],
                              applied=s["autotune"]["applied"],
+                             lib_block_cap=s["autotune"]["lib_block_cap"],
                              peak_device_bytes=peak, launches=launches)
+        # M: the main path's own store's recommendation applied at its N,
+        # under the cap (uncapped, a chunk of every row: PERF.md)
+        main_N = json.loads((main_dir / "causal_map" / "meta.json").read_text())[
+            "shape"][0]
+        dirs["M"] = root / "M"
+        argv["M"] = ["--synthetic", f"{main_N}x{FISH1_L}", "--e-max", str(E_MAX),
+                     "--autotune", "--tune-from", str(main_dir)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        s, launches, peak = run_cli(torch, dev, [*argv["M"], "--out", str(dirs["M"])])
+        runs["M"] = dict(argv=argv["M"], cli_wall_s=time.perf_counter() - t0,
+                         **phase_walls(s), lib_block=s["lib_block"],
+                         target_tile=s["target_tile"], applied=s["autotune"]["applied"],
+                         lib_block_cap=s["autotune"]["lib_block_cap"],
+                         peak_device_bytes=peak, launches=launches)
+        del s
     finally:
         if saved is not None:
             os.environ["EDM_HISTORY"] = saved
     maps = {k: d / "causal_map" / "data.npy" for k, d in dirs.items()}
     equal = {k: same_npy_bits(maps["A"], maps[k]) for k in order if k != "A"}
+    main_equal = same_npy_bits(main_dir / "causal_map" / "data.npy", maps["M"])
     tuned = json.loads((dirs["A"] / "tuned.json").read_text())
     again = autotune.recommend(dirs["A"])
     rec = tuned["recommend"]
@@ -801,7 +848,6 @@ def autotune_phase(torch, dev, smi, main_dir):
     main_tuned = autotune.recommend(main_dir)
     host_s = time.perf_counter() - t0
     main_meta = json.loads((main_dir / "causal_map" / "meta.json").read_text())
-    main_N = main_meta["shape"][0]
     main_buckets = sorted(set(main_meta["optE"]))
     a_meta = json.loads((dirs["A"] / "causal_map" / "meta.json").read_text())
     a_buckets = sorted(set(a_meta["optE"]))
@@ -832,13 +878,27 @@ def autotune_phase(torch, dev, smi, main_dir):
                                                       main_buckets),
                                "peak_bytes_estimate": need(rows_main, main_N),
                                "fits": need(rows_main, main_N) < total},
+         main_store_applied={"N": main_N, "lib_block": runs["M"]["lib_block"],
+                             "lib_block_cap": runs["M"]["lib_block_cap"],
+                             "capped": runs["M"]["lib_block"] < rows_main,
+                             "peak_bytes_estimate": need(runs["M"]["lib_block"], main_N),
+                             "peak_bytes_measured": runs["M"]["peak_device_bytes"],
+                             "byte_equal_to_main_store": main_equal},
          smi=smi)
+    def applied_ok(key, rows):  # the recommendation, capped on the card
+        r = runs[key]
+        return (r["lib_block_cap"] is not None
+                and r["lib_block"] == min(rows, r["lib_block_cap"]))
+
     if not (all(equal.values()) and off_clean and on_kept and tuned == again
-            and runs["B"]["applied"] == rec
-            and runs["B"]["lib_block"] == rec.get("chunk_rows", LIB_BLOCK)):
+            and runs["B"]["applied"] == rec and applied_ok("B", rows_n)
+            and main_equal and runs["M"]["applied"] == main_tuned["recommend"]
+            and applied_ok("M", rows_main)
+            and runs["M"]["peak_device_bytes"] < total):
         raise AssertionError(f"autotune: byte_equal {equal}, off_clean "
                              f"{off_clean}, on_kept {on_kept}, tuned.json == "
-                             f"recommend {tuned == again}, B {runs['B']}")
+                             f"recommend {tuned == again}, B {runs['B']}, "
+                             f"M {runs['M']} (equal to the main store {main_equal})")
     if min(min(r["launches"]["knn_topk"], r["launches"]["ccm_lookup"])
            for r in runs.values()) < 1:
         raise AssertionError(f"autotune: a run missed a kernel: {runs}")
@@ -978,6 +1038,21 @@ FLASH_CASES = (
     ("sq1_below_tile", 4, 1, 2048, 16, 2, 128, False, "bfloat16"),
     ("rep8_h32_k4", 1, 1000, 1000, 32, 4, 128, True, "bfloat16"),
     ("bf16_dh8_cuda_core", 1, 96, 96, 2, 1, 8, True, "bfloat16"),
+    # the hybrid, audio and vlm serve shapes: zamba2's shared block (dh
+    # 112), whisper's encoder (non-causal MHA, 1,500 frames: partial query
+    # and key tiles), its decoder and cross-attention, the vlm's self and
+    # cross-attention (1,601 patches: a partial key tile); the f32 gate's
+    # route at the non-causal ones
+    ("serve_zamba2-7b_dh112", 4, 2048, 2048, 32, 32, 112, True, "bfloat16"),
+    ("serve_whisper_encoder", 4, 1500, 1500, 16, 16, 64, False, "bfloat16"),
+    ("serve_whisper_decoder", 4, 416, 416, 16, 16, 64, True, "bfloat16"),
+    ("serve_whisper_cross", 4, 416, 1500, 16, 16, 64, False, "bfloat16"),
+    ("serve_vlm_self", 4, 2048, 2048, 32, 8, 128, True, "bfloat16"),
+    ("serve_vlm_cross", 4, 2048, 1601, 32, 8, 128, False, "bfloat16"),
+    ("whisper_encoder_f32", 1, 1500, 1500, 16, 16, 64, False, "float32"),
+    ("whisper_cross_f32", 1, 416, 1500, 16, 16, 64, False, "float32"),
+    ("vlm_cross_f32", 1, 2048, 1601, 32, 8, 128, False, "float32"),
+    ("zamba2_dh112_f32", 1, 2048, 2048, 32, 32, 112, True, "float32"),
 )
 
 
@@ -1044,38 +1119,38 @@ def check_flash(torch, dev):
     return worst
 
 
-def time_flash(torch, dev, smi, arch=LM_ARCH):
-    """CUDA-event means at ``arch``'s serve shape: kernel (the tensor-core
-    route), plain version, and one library call (SDPA in (B, H, S, dh),
-    transposed outside the timing)."""
+def time_flash(torch, dev, smi, arch=LM_ARCH, part="self"):
+    """CUDA-event means at one attention of ``arch``'s serve prefill
+    (``serve_flash_shapes``): kernel (the tensor-core route), plain
+    version, and one library call (SDPA in (B, H, S, dh), transposed
+    outside the timing)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn.ops import flash_attn, flash_route
     from repro_torch.kernels.flash_attn.ref import flash_attn_ref
     from repro_torch.launch.roofline import PEAK_BF16_FLOPS, bound_ms, flash_counts
 
-    cfg = lm_config(arch)
-    B, S, H, K, dh = SERVE_B, SERVE_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = qkv(torch, dev, B, S, S, H, K, dh, "bfloat16", seed=7)
-    ms = time_ms(torch, lambda: flash_attn(q, k, v, True), 20)
-    plain = time_ms(torch, lambda: flash_attn_ref(q, k, v, True), 3)
+    B, Sq, Sk, H, K, dh, causal = serve_flash_shapes(arch)[part]
+    q, k, v = qkv(torch, dev, B, Sq, Sk, H, K, dh, "bfloat16", seed=7)
+    ms = time_ms(torch, lambda: flash_attn(q, k, v, causal), 20)
+    plain = time_ms(torch, lambda: flash_attn_ref(q, k, v, causal), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
-    want = flash_attn_ref(q.float(), k.float(), v.float(), True)
+    want = flash_attn_ref(q.float(), k.float(), v.float(), causal)
     lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
-    err = float((flash_attn(q, k, v, True).float() - want).abs().max())
+    err = float((flash_attn(q, k, v, causal).float() - want).abs().max())
     del want
     lib = time_ms(torch, sdpa, 20)
-    bound, by = bound_ms(*flash_counts(B, S, H, K, dh, 2), PEAK_BF16_FLOPS)
-    out = dict(arch=arch, kernel_ms=ms, plain_ms=plain,
+    bound, by = bound_ms(*flash_counts(B, Sq, Sk, H, K, dh, 2, causal), PEAK_BF16_FLOPS)
+    out = dict(arch=arch, part=part, kernel_ms=ms, plain_ms=plain,
                library_ms=lib, max_abs_err=err, library_max_abs_err=lib_err,
                bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
-               route=flash_route(q.device.type, q.dtype, dh), B=B, S=S, H=H,
-               K=K, dh=dh, dtype="bfloat16", causal=True)
+               route=flash_route(q.device.type, q.dtype, dh), B=B, Sq=Sq, Sk=Sk,
+               H=H, K=K, dh=dh, dtype="bfloat16", causal=causal)
     emit("time_flash", smi=smi, **out)
     return out
 
@@ -1090,14 +1165,89 @@ def lm_config(arch=LM_ARCH, n_layers=None, **kw):
     return dataclasses.replace(get_config(arch), attn_impl="chunked", **kw)
 
 
+def serve_prompt(cfg) -> int:
+    return AUDIO_PROMPT if cfg.family == "audio" else SERVE_S
+
+
+def serve_flash_shapes(arch) -> dict:
+    """{part: (B, Sq, Sk, H, K, dh, causal)} of the attentions a serve
+    prefill of ``arch`` launches the flash kernel for: every family's
+    causal self-attention; the audio encoder's (frames x frames, not
+    causal); the cross-attention of audio and vlm (prompt x frames or
+    patches)."""
+    cfg = lm_config(arch)
+    S, nf = serve_prompt(cfg), cfg.n_frontend_tokens
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    out = {"self": (SERVE_B, S, S, *heads, True)}
+    if cfg.family == "audio":
+        out["encoder"] = (SERVE_B, nf, nf, *heads, False)
+    if cfg.family in ("audio", "vlm"):
+        out["cross"] = (SERVE_B, S, nf, *heads, False)
+    return out
+
+
+def want_flash(T, cfg) -> int:
+    """Flash launches of one prefill (or forward) of ``cfg``: one an
+    attention layer (dense, moe), none (ssm), one a shared-block
+    application (hybrid), encoder + decoder self + cross layers (audio),
+    the self and cross layers (vlm: n_layers)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return T._hybrid_counts(cfg)[0]
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def frontend(torch, T, cfg, B, dev, seed=0) -> dict:
+    """The batch's audio frames or image patches, 0.1 N(0, 1) float32 from
+    a seeded generator on the card (none for the other families)."""
+    key = T.FRONTEND.get(cfg.family)
+    if key is None:
+        return {}
+    g = torch.Generator(dev).manual_seed(seed)
+    return {key: 0.1 * torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                                   generator=g, device=dev)}
+
+
+def nonzero_zero_leaves(torch, params, dev, seed=1) -> list:
+    """Draw the leaves JAX initialises at zero and that switch a branch off
+    (ZERO_LEAVES: the LoRA b, the vlm gates) non-zero: b N(0, 0.02), gates
+    0.3 + 0.6 U(0, 1).  Returns the leaf names it drew."""
+    g = torch.Generator(dev).manual_seed(seed)
+    drawn = set()
+    with torch.no_grad():
+        for name, prm in params.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf not in ZERO_LEAVES:
+                continue
+            r = torch.empty(prm.shape, dtype=torch.float32, device=dev)
+            if leaf.startswith("gate"):
+                r = 0.3 + 0.6 * r.uniform_(generator=g)
+            else:
+                r = r.normal_(0.0, 0.02, generator=g)
+            prm.copy_(r)
+            drawn.add(leaf)
+    return sorted(drawn)
+
+
 def grown_cache(T, cfg, cache, B, S, S_new, dev):
-    """A prefill's cache made room for decode steps: dense / moe, a cache
-    of S_new positions with the prefill's S written; ssm, the state as it
-    is (it has no length)."""
+    """A prefill's cache made room for decode steps: a cache of S_new
+    positions with the prefill's S written on the sequence axis of every
+    self-attention k / v (axis 2; the vlm's axis 3, behind its unit and
+    layer axes); the cross keys and values, Mamba2 states and x0 as they
+    are; ssm, the whole state as it is (it has no length)."""
     if cfg.family == "ssm":
         return cache
     big = T.init_cache(cfg, B, S_new, device=dev)
-    big["k"][:, :, :S], big["v"][:, :, :S] = cache["k"], cache["v"]
+    axis = 3 if cfg.family == "vlm" else 2
+    src, dst = (cache["attn"], big["attn"]) if cfg.family == "hybrid" else (cache, big)
+    for name in ("k", "v"):
+        dst[name].narrow(axis, 0, S).copy_(src[name])
+    for name in cache:
+        if name not in ("k", "v", "attn"):
+            big[name] = cache[name]
     return big
 
 
@@ -1114,11 +1264,13 @@ def top1_mismatches(torch, got, want, vocab, tol):
 
 def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
     """``arch`` at full width in bf16 (depth ``n_layers`` where given)
-    through make_prefill_step (four requests of 2048 tokens, the flash
-    kernel once in each attention layer: none in an ssm model) and 32
-    greedy decode steps (no flash launch); the flash launch count and the
-    MoE drop counts start at 0 just before the prefill.  Then the kernel
-    route vs the plain route on one request, reported, not gated."""
+    through make_prefill_step (four requests of ``serve_prompt`` tokens,
+    with their audio frames or image patches; the flash kernel ``want_flash``
+    times on the tensor-core route) and 32 greedy decode steps (no flash
+    launch); the flash launch count and the MoE drop counts start at 0
+    just before the prefill.  The LoRA b and gates are drawn non-zero
+    first (``drawn_nonzero``).  Then the kernel route vs the plain route
+    on one request, reported, not gated."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
@@ -1127,19 +1279,21 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
     from repro_torch.models import transformer as T
 
     cfg = lm_config(arch, n_layers)
-    V = cfg.vocab_size
-    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
+    V, S = cfg.vocab_size, serve_prompt(cfg)
+    n_flash = want_flash(T, cfg)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    drawn = nonzero_zero_leaves(torch, params, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    tokens = torch.as_tensor(TokenStream(V, SERVE_B, SERVE_S, seed=0).batch_at(0)["tokens"])
+    tokens = torch.as_tensor(TokenStream(V, SERVE_B, S, seed=0).batch_at(0)["tokens"])
+    front = frontend(torch, T, cfg, SERVE_B, dev)
     prefill_step = make_prefill_step(cfg, device=dev)
     decode = make_decode_step(cfg, device=dev)
     with torch.inference_mode():
         # warm-up at a short prompt: cuBLAS handles, the kernel's library
-        _, c = prefill_step(params, {"tokens": tokens[:, :128]})
+        _, c = prefill_step(params, {"tokens": tokens[:, :128], **front})
         warm = grown_cache(T, cfg, c, SERVE_B, 128, 130, dev)
         decode(params, {"token": tokens[:, 128:129], "pos": 128}, warm)
         del c, warm
@@ -1149,23 +1303,23 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
         MOE.reset_drop_counts(params)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill_step(params, {"tokens": tokens})
+        logits, cache = prefill_step(params, {"tokens": tokens, **front})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_routes = dict(flash_attn.ROUTE_LAUNCHES)
         routed, dropped = MOE.drop_counts(params)
-        if tuple(logits.shape) != (SERVE_B, SERVE_S, cfg.padded_vocab):
+        if tuple(logits.shape) != (SERVE_B, S, cfg.padded_vocab):
             raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
         prefill_finite = bool(torch.isfinite(logits).all())
         tok = logits[:, -1, :V].argmax(-1)
         del logits
-        big = grown_cache(T, cfg, cache, SERVE_B, SERVE_S, SERVE_S + DECODE_STEPS, dev)
+        big = grown_cache(T, cfg, cache, SERVE_B, S, S + DECODE_STEPS, dev)
         del cache
         out_tokens, finite = [tok], torch.ones((), dtype=torch.bool, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(DECODE_STEPS):
-            ld, big = decode(params, {"token": tok[:, None], "pos": SERVE_S + t}, big)
+            ld, big = decode(params, {"token": tok[:, None], "pos": S + t}, big)
             tok = ld[:, 0, :V].argmax(-1)
             finite &= torch.isfinite(ld).all()
             out_tokens.append(tok)
@@ -1179,9 +1333,10 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
 
         # where the time goes: one traced prefill, and four decode steps
         # that rewrite the last four slots of the cache
-        last = SERVE_S + DECODE_STEPS - 4
+        last = S + DECODE_STEPS - 4
         busy = {
-            "prefill": profile_busy(torch, lambda: prefill_step(params, {"tokens": tokens})),
+            "prefill": profile_busy(torch, lambda: prefill_step(
+                params, {"tokens": tokens, **front})),
             "decode_4_steps": profile_busy(torch, lambda: [
                 decode(params, {"token": tok[:, None], "pos": last + i}, big)
                 for i in range(4)]),
@@ -1189,18 +1344,18 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
         del big, ld
         if not (prefill_finite and bool(finite)):
             raise AssertionError("non-finite logits on the serving path")
-        if prefill_routes != {**dict.fromkeys(ROUTES, 0), "tensor_core": want_flash} \
+        if prefill_routes != {**dict.fromkeys(ROUTES, 0), "tensor_core": n_flash} \
                 or any(decode_routes.values()):
             raise AssertionError(f"prefill launched the flash kernels {prefill_routes} "
                                  f"and decode {decode_routes}, not the tensor-core "
-                                 f"route once per attention layer ({want_flash}) and "
+                                 f"route once per attention ({n_flash}) and "
                                  f"none in decode")
         if decode_dropped:
             raise AssertionError(f"decode dropped {decode_dropped} MoE assignments")
 
         # bf16: the kernel route against the plain route on one request;
         # for MoE, each layer's share of tokens routed to another expert set
-        one = {"tokens": tokens[:1]}
+        one = {"tokens": tokens[:1], **{k: v[:1] for k, v in front.items()}}
         moes = [m for m in params.modules() if isinstance(m, MOE.MoE)]
         fk, _ = T.forward(params, one, cfg)
         routes_k = [m.last_experts.sort(-1).values for m in moes]
@@ -1217,14 +1372,16 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
     gen = torch.stack(out_tokens, 1).cpu()
     out = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers,
                n_layers_full=get_config(arch).n_layers, params=n_params,
-               dtype=cfg.dtype, attn_impl=cfg.attn_impl, B=SERVE_B, prompt=SERVE_S,
-               decode_steps=DECODE_STEPS, init_s=init_s, prefill_s=prefill_s,
-               prefill_tokens_per_s=SERVE_B * SERVE_S / prefill_s,
+               dtype=cfg.dtype, attn_impl=cfg.attn_impl, B=SERVE_B, prompt=S,
+               frontend_tokens=cfg.n_frontend_tokens or None,
+               drawn_nonzero=drawn, decode_steps=DECODE_STEPS, init_s=init_s,
+               prefill_s=prefill_s, prefill_tokens_per_s=SERVE_B * S / prefill_s,
                decode_ms_per_step=decode_s / DECODE_STEPS * 1e3,
                decode_tokens_per_s=SERVE_B * DECODE_STEPS / decode_s,
                peak_device_bytes=peak,
                launches={"flash_attn": sum(by_route.values())},
-               launches_by_route=by_route, launches_decode=decode_routes,
+               launches_by_route=by_route, launches_prefill=prefill_routes,
+               launches_decode=decode_routes,
                generated_distinct=int(gen.unique().numel()),
                bf16_kernel_vs_plain_max_abs=bf16_err,
                bf16_logit_absmax=bf16_logit_absmax,
@@ -1241,33 +1398,37 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
 
 def lm_check(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_check"):
     """The gate: ``arch`` in float32 (TF32 off; depth ``n_layers`` where
-    given), one request of 2049 tokens, the kernel route (chunked: the
-    flash kernel once per attention layer) against the plain route (xla):
-    every position's logits within LM_GATE_TOL and top-1 equal outside
-    near-ties.  Then prefill (2048 tokens) against forward, and the decode
-    of token 2048 against forward at that position."""
+    given; the LoRA b and gates drawn non-zero), one request of
+    ``serve_prompt`` + 1 tokens (with its audio frames or image patches),
+    the kernel route (chunked: the flash kernel ``want_flash`` times, on
+    the CUDA-core route) against the plain route (xla): every position's
+    logits within LM_GATE_TOL and top-1 equal outside near-ties.  Then
+    prefill (the prompt) against forward, and the decode of the next
+    token against forward at that position."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import transformer as T
 
     cfg = lm_config(arch, n_layers, dtype="float32")
-    V, S = cfg.vocab_size, SERVE_S
-    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
+    V, S = cfg.vocab_size, serve_prompt(cfg)
     params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    drawn = nonzero_zero_leaves(torch, params, dev)
     toks = torch.as_tensor(TokenStream(V, 1, S + 1, seed=0).batch_at(0)["tokens"])
+    front = frontend(torch, T, cfg, 1, dev)
     with torch.inference_mode():
         flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
-        fk, _ = T.forward(params, {"tokens": toks}, cfg)
+        fk, _ = T.forward(params, {"tokens": toks, **front}, cfg)
         flash_launches = dict(flash_attn.ROUTE_LAUNCHES)
-        fp, _ = T.forward(params, {"tokens": toks},
+        fp, _ = T.forward(params, {"tokens": toks, **front},
                           dataclasses.replace(cfg, attn_impl="xla"))
         route_err = float((fk - fp).abs().max())
         last_err = float((fk[:, S - 1] - fp[:, S - 1]).abs().max())
         bad, ties = top1_mismatches(torch, fk, fp, V, LM_GATE_TOL)
         logit_absmax = float(fp.abs().max())
         del fp
-        pl, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks[:, :S]})
+        pl, cache = make_prefill_step(cfg, device=dev)(params,
+                                                       {"tokens": toks[:, :S], **front})
         prefill_err = float((pl - fk[:, :S]).abs().max())
         del pl
         big = grown_cache(T, cfg, cache, 1, S, S + 1, dev)
@@ -1281,9 +1442,12 @@ def lm_check(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_check"):
     torch.cuda.empty_cache()
     ok = (route_err <= LM_GATE_TOL and bad == 0 and prefill_err <= LM_GATE_TOL
           and decode_err <= LM_GATE_TOL
-          and flash_launches == {**dict.fromkeys(ROUTES, 0), "cuda_core": want_flash})
+          and flash_launches == {**dict.fromkeys(ROUTES, 0),
+                                 "cuda_core": want_flash(T, cfg)})
     out = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers, dtype="float32",
-               tf32=False, B=1, positions=S + 1, tol=LM_GATE_TOL,
+               tf32=False, B=1, positions=S + 1,
+               frontend_tokens=cfg.n_frontend_tokens or None, drawn_nonzero=drawn,
+               tol=LM_GATE_TOL,
                kernel_vs_plain_max_abs=route_err,
                kernel_vs_plain_last_prompt_position=last_err,
                logit_absmax=logit_absmax, top1_mismatches=bad, top1_near_ties=ties,
@@ -2361,6 +2525,12 @@ def main(argv=None) -> int:
     flash_err = check_flash(torch, dev)
     ftimes = time_flash(torch, dev, smi)
     ftimes_moe = time_flash(torch, dev, smi, MOE_ARCH)
+    # the hybrid, audio and vlm serve shapes (the decoder's self-attention of
+    # whisper, 416 x 416, is checked above and not timed)
+    ftimes_new = {f"{arch}_{part}": time_flash(torch, dev, smi, arch, part)
+                  for arch, part in ((HYBRID_ARCH, "self"), (AUDIO_ARCH, "encoder"),
+                                     (AUDIO_ARCH, "cross"), (VLM_ARCH, "self"),
+                                     (VLM_ARCH, "cross"))}
     serve = lm_serve(torch, dev, smi)
     lm_check(torch, dev, smi)
     # the moe and ssm families: dbrx-132b (depth cut) and mamba2-2.7b whole
@@ -2368,6 +2538,11 @@ def main(argv=None) -> int:
     check_moe = lm_check(torch, dev, smi, MOE_ARCH, MOE_CHECK_LAYERS, "lm_moe_check")
     serve_ssm = lm_serve(torch, dev, smi, SSM_ARCH, phase="lm_ssm_serve")
     check_ssm = lm_check(torch, dev, smi, SSM_ARCH, phase="lm_ssm_check")
+    # the hybrid, audio and vlm families, each whole
+    serve_more, check_more = {}, {}
+    for fam, arch in (("hybrid", HYBRID_ARCH), ("audio", AUDIO_ARCH), ("vlm", VLM_ARCH)):
+        serve_more[fam] = lm_serve(torch, dev, smi, arch, phase=f"lm_{fam}_serve")
+        check_more[fam] = lm_check(torch, dev, smi, arch, phase=f"lm_{fam}_check")
 
     from repro_torch.core import knn as tknn
     from repro_torch.data.synthetic import dummy_brain
@@ -3096,6 +3271,13 @@ def main(argv=None) -> int:
          "launches_lm_moe_check": sum(check_moe["flash_launches_forward"].values()),
          "launches_lm_ssm_serve": serve_ssm["launches"]["flash_attn"],
          "launches_lm_ssm_check": sum(check_ssm["flash_launches_forward"].values()),
+         **{f"launches_lm_{fam}_serve": r["launches_prefill"]
+            for fam, r in serve_more.items()},
+         **{f"launches_lm_{fam}_check": r["flash_launches_forward"]
+            for fam, r in check_more.items()},
+         **{f"{name}_{part}": t[key] for part, t in ftimes_new.items()
+            for key, name in (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
+                              ("library_ms", "library_ms"), ("bound_ms", "bound_ms"))},
          "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
          "checked": True},
         {"name": "knn_slab", "route": "cuda",

@@ -230,7 +230,8 @@ def main(argv=None) -> dict:
     significance_s and edges None without significance flags; ``rows``:
     the phase-2 rows this rank computed), "lib_block", "target_tile" (the
     shapes it ran, tuned or not) and "autotune": {"applied": the tuned
-    shapes applied or None, "wrote": the tuned.json written or None};
+    shapes applied or None, "wrote": the tuned.json written or None,
+    "lib_block_cap": the cap of a tuned run on a card or None};
     with ``--workers`` the fleet's summary (:func:`_run_fleet`) and
     "autotune"."""
     ap = build_parser()
@@ -306,16 +307,45 @@ def main(argv=None) -> dict:
         telemetry.shutdown()
 
 
-def _tuned_cfg(args, cfg: EDMConfig, n_devices: int, ranks: Ranks | None = None):
+def _slot_free_bytes(devs, ranks: Ranks | None, processes: int) -> int | None:
+    """The device memory one slot of this run may use (None off the card):
+    over the cards the run's slots are on, the least of each card's free
+    memory shared among the slots on it -- of every rank of the world
+    (one host), and of each of ``processes`` fleet workers.  This
+    process's allocator first returns its unused cache to the card: a
+    cached block is fragmented memory a chunk's large buffers may not
+    fit in.  The same on every rank."""
+    import torch
+
+    cards = sorted({d.index or 0 for d in devs if d.type == "cuda"})
+    if not cards:
+        return None
+    slots = np.zeros(torch.cuda.device_count(), np.int64)
+    for d in devs:
+        slots[d.index or 0] += processes
+    if ranks is not None:
+        slots = ranks.sum(slots, "the slots on each card")
+    torch.cuda.empty_cache()
+    free = [torch.cuda.mem_get_info(c)[0] // int(slots[c]) for c in cards]
+    if ranks is None:
+        return min(free)
+    mine = np.zeros(ranks.world, np.int64)
+    mine[ranks.rank] = min(free)
+    return int(ranks.sum(mine, "the free memory").min())
+
+
+def _tuned_cfg(args, cfg: EDMConfig, devs, shape, ranks: Ranks | None = None):
     """``--autotune``: ``cfg`` with the tuned shapes of ``--tune-from``
     (default ``--out``) stamped in — its ``tuned.json``, else a replay of
     its telemetry — and the tuned lease ttl kept in ``args.tuned_ttl``
     for the fleet's workers; the worker count is printed as a
-    recommendation, never applied.  Under ranks, rank 0 loads or
+    recommendation, never applied.  On a card ``lib_block`` is capped so
+    that a chunk fits the memory free for each slot (printed on a line of
+    its own; ``autotune.fit_lib_block``).  Under ranks, rank 0 loads or
     recommends and every rank applies what it shares.  Returns (cfg, the
-    applied recommendation or None)."""
+    applied recommendation or None, the cap or None)."""
     if not args.autotune:
-        return cfg, None
+        return cfg, None, None
     src = args.tune_from or args.out
     tuned = None
     if ranks is None or ranks.lead:
@@ -326,16 +356,25 @@ def _tuned_cfg(args, cfg: EDMConfig, n_devices: int, ranks: Ranks | None = None)
         if args.tune_from:
             raise SystemExit(f"--tune-from {src}: no tuned.json and no chunk "
                              "telemetry to replay")
-        return cfg, None
-    cfg = autotune.apply_to_cfg(cfg, tuned, n_devices)
+        return cfg, None, None
+    world = 1 if ranks is None else ranks.world
+    free = _slot_free_bytes(devs, ranks, max(1, args.workers))
+    N, L = shape
+    cfg = autotune.apply_to_cfg(cfg, tuned, world * len(devs), free, N, L)
     rec = tuned["recommend"]
+    cap = None
+    if free is not None:
+        cap = autotune.fit_lib_block(cfg, N, L, free)
+        print(f"autotune: lib_block cap {cap} ({autotune.chunk_row_bytes(cfg, N, L)} "
+              f"device bytes a library row, {free} free a slot): chunk_rows "
+              f"{rec.get('chunk_rows')} -> lib_block {cfg.lib_block}")
     if rec.get("ttl"):
         args.tuned_ttl = float(rec["ttl"])
     if rec.get("workers") and args.workers > 0 and rec["workers"] != args.workers:
         print(f"autotune: recommend --workers {rec['workers']} (this run uses "
               f"{args.workers}; straggler-tail model, see tuned.json evidence)")
     print(f"autotune: applied {rec} from {src}")
-    return cfg, rec
+    return cfg, rec, cap
 
 
 def _run_config(args, cfg: EDMConfig) -> None:
@@ -369,10 +408,10 @@ def _autotune_epilogue(args) -> dict | None:
 def _fleet_main(args, ts, cfg, sig, device: str, spec: dict | None) -> dict:
     """``--workers``: tune, run the fleet, then (rank 0 of an EDM_* world
     only) the history record and the autotune epilogue."""
-    cfg, applied = _tuned_cfg(args, cfg, len(check_run(cfg, device)))
+    cfg, applied, cap = _tuned_cfg(args, cfg, check_run(cfg, device), ts.shape)
     _run_config(args, cfg)
     summary = _run_fleet(args, ts, cfg, sig, device, spec)
-    summary["autotune"] = {"applied": applied, "wrote": None}
+    summary["autotune"] = {"applied": applied, "wrote": None, "lib_block_cap": cap}
     if spec is None or spec["process_id"] == 0:
         # the finalize claimer wrote the run's record; this one also
         # covers the supervisor's own records (same run: replaces it)
@@ -395,7 +434,7 @@ def _in_process(args, ts, cfg, sig, device: str, spec: dict | None,
     else:
         devs = check_run(cfg, device)
     ranks = Ranks(group)
-    cfg, applied = _tuned_cfg(args, cfg, ranks.world * len(devs), ranks)
+    cfg, applied, cap = _tuned_cfg(args, cfg, devs, ts.shape, ranks)
     _run_config(args, cfg)
     if ranks.world > 1 and any(d.type == "cuda" for d in devs):
         from repro_torch import kernels
@@ -465,7 +504,7 @@ def _in_process(args, ts, cfg, sig, device: str, spec: dict | None,
         "edges": None if out is None or out.edges is None else len(out.edges),
         "rank": ranks.rank, "world": ranks.world,
         "lib_block": cfg.lib_block, "target_tile": cfg.target_tile,
-        "autotune": {"applied": applied, "wrote": wrote},
+        "autotune": {"applied": applied, "wrote": wrote, "lib_block_cap": cap},
     }
     if ranks.world > 1:
         _print_rank_record(summary, devs, time.perf_counter() - t0)

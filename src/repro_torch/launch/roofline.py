@@ -128,11 +128,17 @@ def slab_counts(E_max, Lq, Lc, k) -> tuple[float, float]:
     return ops, nbytes
 
 
-def flash_counts(B, S, H, K, dh, nbytes_el) -> tuple[float, float]:
-    """Causal ``flash_attn``: 4 dh operations per (query, key <= query,
-    head) -- q k and p v --; q, k, v read and o written once."""
-    ops = 4.0 * B * H * dh * S * (S + 1) / 2
-    nbytes = nbytes_el * B * S * dh * (2 * H + 2 * K)
+def flash_counts(B, Sq, Sk, H, K, dh, nbytes_el, causal=True) -> tuple[float, float]:
+    """``flash_attn``: 4 dh operations per (query, key it attends to, head)
+    -- q k and p v --, the keys of query i being j <= i (top-left) where
+    ``causal``, all Sk otherwise; q, k, v read and o written once."""
+    if causal:
+        n = min(Sq, Sk)  # queries past Sk see every key
+        pairs = n * (n + 1) / 2 + (Sq - n) * Sk
+    else:
+        pairs = Sq * Sk
+    ops = 4.0 * B * H * dh * pairs
+    nbytes = nbytes_el * B * dh * (2 * Sq * H + 2 * Sk * K)
     return ops, nbytes
 
 

@@ -18,7 +18,9 @@ from repro_torch.runtime.device import resolve_device
 
 def make_prefill_step(cfg: ModelConfig, policy=None, device=None):
     """prefill_step(params, batch) -> (logits, cache): the cache is sized
-    to the prompt, as in JAX (the full-cache branch of attention)."""
+    to the prompt, as in JAX (the full-cache branch of attention).  The
+    batch's audio frames or image patches go to the device in the
+    config's dtype."""
     if policy is not None:
         raise NotImplementedError(
             "a sharding policy for the prefill cache needs sharding, which the "
@@ -30,7 +32,7 @@ def make_prefill_step(cfg: ModelConfig, policy=None, device=None):
         with torch.inference_mode():
             B, S = batch["tokens"].shape
             cache = T.init_cache(cfg, B, S, device=dev)
-            return T.prefill(params, batch, cache, cfg)
+            return T.prefill(params, T.frontend_batch(batch, cfg, dev), cache, cfg)
 
     return prefill_step
 

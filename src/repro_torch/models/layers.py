@@ -13,7 +13,9 @@ plain dense version (``flash_attn_ref``, the counterpart of JAX's
 ``q_pos`` is the flash-attention kernel (``kernels.flash_attn``), which
 computes that same function for any length, so JAX's chunk size and
 unroll flag have no counterpart; ``q_pos`` (decode, prefill into a
-longer cache) is the dense version, as in JAX.  Sequence-parallel attention needs sharding and raises.
+longer cache) is the dense version, as in JAX.  Every self-attention
+with a cache goes through :func:`cached_attention`.  Sequence-parallel
+attention needs sharding and raises.
 """
 from __future__ import annotations
 
@@ -142,6 +144,36 @@ def _sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla",
     return flash_attn_ref(q, k, v, causal, q_pos)
 
 
+def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
+                     seq_shard: bool = False) -> torch.Tensor:
+    """Causal self-attention through a KV cache, every family's cache
+    branch (the dense blocks' and the hybrid's shared block).
+
+    q (B, Sq, H, dh); k / v (B, Sq, K, dh) the new keys and values, written
+    IN PLACE into cache {'k', 'v'} (B, S_max, K, dh) at cache_pos ..
+    cache_pos + Sq - 1 (JAX returns an updated copy); a write past S_max
+    raises (JAX clamps the start index).  A prefill filling the whole
+    cache attends over the fresh k / v without ``q_pos`` -- causal, top-left:
+    the function JAX computes there, with or without its q_pos =
+    arange(S) -- so it reaches the flash kernel on ``chunked``; any other
+    write (decode, a prefill into a longer cache) attends over the cache
+    with ``q_pos``, which hides the unwritten slots, on the plain version.
+    """
+    Sq, S_max = q.shape[1], cache["k"].shape[1]
+    if not 0 <= cache_pos <= S_max - Sq:
+        raise ValueError(
+            f"cache write at positions {cache_pos}..{cache_pos + Sq - 1} runs "
+            f"past the cache of length {S_max}"
+        )
+    cache["k"][:, cache_pos : cache_pos + Sq] = k.to(cache["k"].dtype)
+    cache["v"][:, cache_pos : cache_pos + Sq] = v.to(cache["v"].dtype)
+    if Sq == S_max:
+        return _sdpa(q, k, v, causal=True, impl=impl, seq_shard=seq_shard)
+    q_pos = torch.arange(cache_pos, cache_pos + Sq, device=q.device)
+    return _sdpa(q, cache["k"], cache["v"], causal=True, q_pos=q_pos, impl=impl,
+                 seq_shard=seq_shard)
+
+
 def attention_fwd(
     p: Attention,
     a: AttnDims,
@@ -154,17 +186,21 @@ def attention_fwd(
     """Self- or cross-attention, the JAX ``attention_fwd``'s branches.
 
     cache: {'k': (B, S_max, K, dh), 'v': ...}.  With ``cache_pos`` (an
-    int) the new keys and values are written IN PLACE at cache_pos ..
-    cache_pos + Sq - 1 (JAX returns an updated copy) and the same dict is
-    returned; a write past S_max raises (JAX clamps the start index).
-    Without ``cache_pos`` the cache is a cross-attention source.
+    int) the cache is written in place (:func:`cached_attention`) and the
+    same dict is returned.  Without ``cache_pos`` the cache is a
+    cross-attention source, and no key or value is projected from ``x``.
     """
     B, Sq, _ = x.shape
-    src = x if kv_src is None else kv_src
     q = linear(p.wq, x).reshape(B, Sq, a.n_heads, a.d_head)
+    kw = dict(impl=a.impl, seq_shard=a.seq_shard)
+    self_cache = cache is not None and cache_pos is not None and kv_src is None
+    if cache is not None and not self_cache:  # cross-attn, precomputed source kv
+        o = _sdpa(q, cache["k"], cache["v"], causal=False, **kw)
+        return linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head)), cache
+
+    src = x if kv_src is None else kv_src
     k = linear(p.wk, src).reshape(B, src.shape[1], a.n_kv_heads, a.d_head)
     v = linear(p.wv, src).reshape(B, src.shape[1], a.n_kv_heads, a.d_head)
-
     if a.use_rope and kv_src is None:
         if positions is None:
             start = 0 if cache_pos is None else cache_pos
@@ -172,31 +208,12 @@ def attention_fwd(
         q = rope(q, positions, a.rope_theta)
         k = rope(k, positions, a.rope_theta)
 
-    kw = dict(impl=a.impl, seq_shard=a.seq_shard)
-    new_cache = None
-    if cache is not None and cache_pos is not None and kv_src is None:
-        S_max = cache["k"].shape[1]
-        if not 0 <= cache_pos <= S_max - Sq:
-            raise ValueError(
-                f"cache write at positions {cache_pos}..{cache_pos + Sq - 1} runs "
-                f"past the cache of length {S_max}"
-            )
-        cache["k"][:, cache_pos : cache_pos + Sq] = k.to(cache["k"].dtype)
-        cache["v"][:, cache_pos : cache_pos + Sq] = v.to(cache["v"].dtype)
-        new_cache = cache
-        if Sq == S_max:
-            # full-cache prefill: attend over the fresh k / v, as JAX does
-            o = _sdpa(q, k, v, causal=True, **kw)
-        else:
-            q_pos = torch.arange(cache_pos, cache_pos + Sq, device=x.device)
-            o = _sdpa(q, cache["k"], cache["v"], causal=True, q_pos=q_pos, **kw)
-    elif cache is not None:  # cross-attn with precomputed source kv
-        o = _sdpa(q, cache["k"], cache["v"], causal=False, **kw)
-        new_cache = cache
+    if self_cache:
+        o = cached_attention(q, k, v, cache, cache_pos, **kw)
     else:
         o = _sdpa(q, k, v, causal=a.causal and kv_src is None, **kw)
     y = linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head))
-    return y, new_cache
+    return y, cache if self_cache else None
 
 
 # --------------------------------------------------------------------------

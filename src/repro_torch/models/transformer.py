@@ -1,35 +1,53 @@
-"""The port's LM: the decoder-only families dense, moe and ssm.
+"""The port's LM: all six families, dense, moe, ssm, hybrid, audio, vlm.
 
-The counterpart of those families of the JAX package's
-``models/transformer.py``: init, full-sequence forward (with the MoE aux
-loss), cache, prefill and one-token decode, with the same public
-functions (``init_params``, ``forward``, ``init_cache``, ``prefill``,
-``decode_step``), dispatching on the family as JAX's do.  The parameters
-are an ``LM`` module whose state-dict keys are the JAX tree's paths with
-the stacked layer axis spelled out (``blocks.3.attn.wq.w``,
-``blocks.3.mixer.A_log``); ``params_from_jax`` loads a JAX tree.  Layers
-are an ``nn.ModuleList`` walked in a Python loop (JAX scans).
+The counterpart of the JAX package's ``models/transformer.py``: init,
+full-sequence forward (with the MoE aux loss), cache, prefill and
+one-token decode, with the same public functions (``init_params``,
+``forward``, ``init_cache``, ``prefill``, ``decode_step``), dispatching
+on the family as JAX's do.  The parameters are an ``LM`` module whose
+state-dict keys are the JAX tree's paths with every stacked axis spelled
+out (``blocks.3.attn.wq.w``, ``mamba.2.1.mixer.A_log``,
+``selfs.0.3.attn.wq.w``); ``params_from_jax`` loads a JAX tree.  Layers
+are ``nn.ModuleList``s walked in Python loops (JAX scans).
 
 - dense / moe: decoder blocks; a block's MLP is the MoE layer
   (``models/moe.py``) whenever ``n_experts > 0``, whatever the family.
-  The cache keeps JAX's stacked layout {"k", "v"} of shape (n_layers, B,
-  S, K, dh).
+  The cache is {"k", "v"} of shape (n_layers, B, S, K, dh).
 - ssm (mamba2): Mamba2 blocks (``models/ssm.py``).  The cache is
   {"conv": (n_layers, B, d_conv - 1, conv_dim), "ssm": (n_layers, B, H,
   P, N) float32}, whatever the cache length; prefill starts from a zero
   state (the incoming cache's contents are ignored) and a decode takes
   any ``pos``.
+- hybrid (zamba2): units of ``cfg.hybrid_pattern`` ("m" a Mamba2 block,
+  "a" ONE shared attention + MLP block reading concat(h, h0), with the
+  unit's LoRA on q / k / v).  Parameters ``mamba`` (n_units x
+  m_per_unit blocks), ``shared``, ``lora`` (one a unit).  The cache is
+  {"ssm": {"conv", "ssm"} of shape (n_units, m_per_unit, ...), "attn":
+  {"k", "v"} of shape (n_units, B, S, K, dh), "x0": (B, 1, d)}; a decode
+  takes its own token's embedding as x0 and never reads ``x0``, as JAX
+  does.
+- audio (whisper): an encoder (non-causal self-attention over the
+  precomputed frame embeddings ``batch["audio"]`` plus ``enc_pos``) and
+  a decoder (causal self-attention, cross-attention over the encoder's
+  keys and values, MLP).  The cache is {"k", "v": (n_layers, B, S, K,
+  dh), "xk", "xv": (n_layers, B, n_frames, K, dh)}: prefill stores each
+  layer's cross keys and values, decode reads them.
+- vlm (llama-3.2-vision): units of ``cross_attn_period - 1`` decoder
+  blocks with a gated cross-attention block over the image embeddings
+  ``batch["image_embeds"]`` before the unit's last one.  The cache is
+  {"k", "v": (n_units, period - 1, B, S, K, dh), "xk", "xv": (n_units,
+  B, n_patches, K, dh)}.
 
-Prefill and decode write the cache in place.  The families still to
-come (hybrid, audio, vlm) raise ``NotImplementedError`` naming the
-family.
+Prefill and decode write the cache in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -39,6 +57,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.runtime.device import resolve_device
 
 _INIT_STD = 0.02
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 # --------------------------------------------------------------------------
@@ -48,21 +67,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-_FAMILIES = ("dense", "moe", "ssm")
+def _family(cfg: ModelConfig) -> str:
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    return cfg.family
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            "port has the dense, moe and ssm families (hybrid, audio and vlm "
-            "are still to come)"
-        )
-
-
-def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
-    """Self-attention dims of a decoder block (cross-attention comes with
-    the audio and vlm families)."""
+def _attn_dims(cfg: ModelConfig, cross: bool = False) -> L.AttnDims:
+    """Attention dims of a decoder block; ``cross``: cross-attention over
+    a source of width d_model, no RoPE, not causal."""
     return L.AttnDims(
         d_model=cfg.d_model,
         n_heads=cfg.n_heads,
@@ -70,10 +83,17 @@ def _attn_dims(cfg: ModelConfig) -> L.AttnDims:
         d_head=cfg.head_dim,
         qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta,
-        use_rope=cfg.pos == "rope",
+        use_rope=cfg.pos == "rope" and not cross,
+        causal=not cross,
+        kv_d_model=cfg.d_model if cross else None,
         impl=cfg.attn_impl,
         seq_shard=cfg.attn_seq_shard,
     )
+
+
+def _enc_dims(cfg: ModelConfig) -> L.AttnDims:
+    """The audio encoder's self-attention: not causal, no RoPE."""
+    return dataclasses.replace(_attn_dims(cfg), causal=False, use_rope=False)
 
 
 def _ssm_dims(cfg: ModelConfig) -> SSM.SSMDims:
@@ -85,6 +105,23 @@ def _ssm_dims(cfg: ModelConfig) -> SSM.SSMDims:
         head_dim=cfg.ssm_head_dim,
         chunk=cfg.ssm_chunk,
     )
+
+
+def _hybrid_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_units, Mamba2 blocks a unit)."""
+    unit = len(cfg.hybrid_pattern)
+    if unit == 0 or cfg.n_layers % unit:
+        raise ValueError(f"n_layers {cfg.n_layers} must tile hybrid_pattern "
+                         f"{cfg.hybrid_pattern}")
+    return cfg.n_layers // unit, cfg.hybrid_pattern.count("m")
+
+
+def _vlm_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_units, period)."""
+    p = cfg.cross_attn_period
+    if p < 2 or cfg.n_layers % p:
+        raise ValueError(f"n_layers {cfg.n_layers} must tile cross_attn_period {p}")
+    return cfg.n_layers // p, p
 
 
 # --------------------------------------------------------------------------
@@ -129,17 +166,114 @@ class MambaBlock(nn.Module):
         self.mixer = SSM.Mamba(_ssm_dims(cfg), dt, device)
 
 
+class SharedBlock(nn.Module):
+    """The hybrid's shared attention + MLP block, reading concat(h, h0):
+    ``ln1`` / ``ln2`` of width 2d, ``wq`` / ``wk`` / ``wv`` (2d -> heads),
+    ``wo``, ``w_up`` (2d -> d_ff), ``w_down``, no biases."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt, d2, hd = _dtype(cfg), 2 * cfg.d_model, cfg.head_dim
+        self.ln1 = L.Norm(cfg.norm, d2, dt, device)
+        self.wq = L.Linear(d2, cfg.n_heads * hd, dt, device)
+        self.wk = L.Linear(d2, cfg.n_kv_heads * hd, dt, device)
+        self.wv = L.Linear(d2, cfg.n_kv_heads * hd, dt, device)
+        self.wo = L.Linear(cfg.n_heads * hd, cfg.d_model, dt, device)
+        self.ln2 = L.Norm(cfg.norm, d2, dt, device)
+        self.w_up = L.Linear(d2, cfg.d_ff, dt, device)
+        self.w_down = L.Linear(cfg.d_ff, cfg.d_model, dt, device)
+
+
+class LoRA(nn.Module):
+    """A unit's adapters on the shared block's q / k / v: ``a_q`` (2d,
+    r), ``b_q`` (r, H dh), and the same for k and v (K dh)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt, d2, hd, r = _dtype(cfg), 2 * cfg.d_model, cfg.head_dim, cfg.lora_rank
+        for nm, nh in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
+            setattr(self, f"a_{nm}", L._param((d2, r), dt, device))
+            setattr(self, f"b_{nm}", L._param((r, nh * hd), dt, device))
+
+
+class CrossBlock(nn.Module):
+    """The vlm's cross-attention block: ``ln1``, ``xattn``, ``ln2``,
+    ``mlp``; gated, ``gate_attn`` / ``gate_mlp`` float32 scalars."""
+
+    def __init__(self, cfg: ModelConfig, device, gated: bool):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.ln1 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.xattn = L.Attention(_attn_dims(cfg, cross=True), dt, device)
+        self.ln2 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dt, device)
+        self.gate_attn = L._param((), torch.float32, device) if gated else None
+        self.gate_mlp = L._param((), torch.float32, device) if gated else None
+
+
+class EncBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.ln1 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.attn = L.Attention(_enc_dims(cfg), dt, device)
+        self.ln2 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dt, device)
+
+
+class DecBlock(nn.Module):
+    """The audio decoder's block: causal ``attn``, cross ``xattn``, ``mlp``
+    behind ``ln1`` / ``ln2`` / ``ln3``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.ln1 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.attn = L.Attention(_attn_dims(cfg), dt, device)
+        self.ln2 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.xattn = L.Attention(_attn_dims(cfg, cross=True), dt, device)
+        self.ln3 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dt, device)
+
+
+def _stack(make, n: int) -> nn.ModuleList:
+    return nn.ModuleList(make() for _ in range(n))
+
+
 class LM(nn.Module):
-    """Parameters of a model of a ported family (uninitialised; see
+    """Parameters of a model of any family (uninitialised; see
     ``init_params`` and ``params_from_jax``)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        _check_ported(cfg)
+        fam = _family(cfg)
         self.cfg = cfg
         self.embed = Embed(cfg, device)
-        block = MambaBlock if cfg.family == "ssm" else DenseBlock
-        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.n_layers))
+        if fam in ("dense", "moe", "ssm"):
+            block = MambaBlock if fam == "ssm" else DenseBlock
+            self.blocks = _stack(lambda: block(cfg, device), cfg.n_layers)
+        elif fam == "hybrid":
+            n_units, m_per_unit = _hybrid_counts(cfg)
+            self.mamba = _stack(lambda: _stack(lambda: MambaBlock(cfg, device),
+                                               m_per_unit), n_units)
+            self.shared = SharedBlock(cfg, device)
+            self.lora = _stack(lambda: LoRA(cfg, device), n_units)
+        elif fam == "audio":
+            self.enc_pos = L._param((cfg.n_frontend_tokens, cfg.d_model),
+                                    _dtype(cfg), device)
+            self.enc_blocks = _stack(lambda: EncBlock(cfg, device), cfg.n_enc_layers)
+            self.enc_ln_f = L.Norm(cfg.norm, cfg.d_model, _dtype(cfg), device)
+            self.dec_blocks = _stack(lambda: DecBlock(cfg, device), cfg.n_layers)
+        else:  # vlm
+            n_units, period = _vlm_counts(cfg)
+            self.selfs = _stack(lambda: _stack(lambda: DenseBlock(cfg, device),
+                                               period - 1), n_units)
+            self.cross = _stack(lambda: CrossBlock(cfg, device, gated=True), n_units)
+
+
+#: the stacked axes of each JAX subtree (``params_from_jax``)
+_STACKED = {"blocks": 1, "mamba": 2, "selfs": 2, "lora": 1, "cross": 1,
+            "enc_blocks": 1, "dec_blocks": 1}
 
 
 def _dense_block_fwd(p: DenseBlock, cfg: ModelConfig, x, positions=None,
@@ -160,6 +294,27 @@ def _dense_block_fwd(p: DenseBlock, cfg: ModelConfig, x, positions=None,
         )
         return x + h, aux
     return x + L.mlp_fwd(p.mlp, hn, cfg.mlp_act), None
+
+
+def _cross_block_fwd(p: CrossBlock, cfg: ModelConfig, x, src_kv: dict):
+    """src_kv: precomputed {'k', 'v'} of the image embeddings."""
+    h, _ = L.attention_fwd(p.xattn, _attn_dims(cfg, cross=True),
+                           L.apply_norm(cfg.norm, p.ln1, x), cache=src_kv)
+    if p.gate_attn is not None:
+        h = torch.tanh(p.gate_attn).to(h.dtype) * h
+    x = x + h
+    h = L.mlp_fwd(p.mlp, L.apply_norm(cfg.norm, p.ln2, x), cfg.mlp_act)
+    if p.gate_mlp is not None:
+        h = torch.tanh(p.gate_mlp).to(h.dtype) * h
+    return x + h
+
+
+def _cross_kv(p_attn: L.Attention, cfg: ModelConfig, src: torch.Tensor) -> dict:
+    """Cross-attention keys and values of a source, once a sequence."""
+    B, S_src, _ = src.shape
+    a = _attn_dims(cfg, cross=True)
+    return {"k": L.linear(p_attn.wk, src).reshape(B, S_src, a.n_kv_heads, a.d_head),
+            "v": L.linear(p_attn.wv, src).reshape(B, S_src, a.n_kv_heads, a.d_head)}
 
 
 def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0):
@@ -186,8 +341,33 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.tok.device).long()
 
 
-def _layer_cache(cache: dict, i: int) -> dict:
+#: the frontend's precomputed embeddings a batch of each family carries
+FRONTEND = {"audio": "audio", "vlm": "image_embeds"}
+
+
+def frontend_batch(batch: dict, cfg: ModelConfig, device) -> dict:
+    """``batch`` with the frontend's embeddings (audio frames, image
+    patches) as a tensor on ``device`` in the config's dtype."""
+    key = FRONTEND.get(cfg.family)
+    if key is None:
+        return batch
+    return {**batch, key: torch.as_tensor(batch[key]).to(device=device,
+                                                         dtype=_dtype(cfg))}
+
+
+def _frontend(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    return frontend_batch(batch, cfg, params.embed.tok.device)[FRONTEND[cfg.family]]
+
+
+def _layer_cache(cache: dict, *i: int) -> dict:
+    """The views of one layer's entries (index ``i`` on the stacked axes)."""
     return {name: val[i] for name, val in cache.items()}
+
+
+def _write_state(cache: dict, i: tuple, st: dict) -> None:
+    """A Mamba2 state into its slot, cast to the cache's dtypes."""
+    for name, val in st.items():
+        cache[name][i] = val
 
 
 # ==========================================================================
@@ -202,19 +382,18 @@ def _fwd_dense(params: LM, cfg: ModelConfig, x):
     return x, aux
 
 
-def _dense_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
-    shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.head_dim)
+def _kv_cache(shape, dtype, dev) -> dict:
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _prefill_dense(params: LM, cfg: ModelConfig, x, cache: dict):
-    for i, blk in enumerate(params.blocks):
-        x, _ = _dense_block_fwd(blk, cfg, x, cache=_layer_cache(cache, i), cache_pos=0)
-    return x
+def _dense_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
+    return _kv_cache((cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.head_dim),
+                     dtype, dev)
 
 
-def _decode_dense(params: LM, cfg: ModelConfig, x, cache: dict, pos: int):
+def _step_dense(params: LM, cfg: ModelConfig, x, cache: dict, pos: int):
+    """Prefill (pos 0) or decode through every block's cache."""
     for i, blk in enumerate(params.blocks):
         x, _ = _dense_block_fwd(blk, cfg, x, cache=_layer_cache(cache, i), cache_pos=pos)
     return x
@@ -230,43 +409,187 @@ def _fwd_ssm(params: LM, cfg: ModelConfig, x):
     return x
 
 
-def _ssm_cache(cfg: ModelConfig, B, dtype, dev) -> dict:
-    """O(1) state: the cache length plays no part."""
+def _ssm_state(cfg: ModelConfig, lead: tuple, B, dtype, dev) -> dict:
+    """Zero Mamba2 states with the leading axes ``lead``."""
     st = SSM.mamba_init_state(_ssm_dims(cfg), B, dtype, dev)
-    return {name: val.new_zeros((cfg.n_layers,) + val.shape) for name, val in st.items()}
+    return {name: val.new_zeros(lead + val.shape) for name, val in st.items()}
 
 
-def _write_state(cache: dict, i: int, st: dict) -> None:
-    for name, val in st.items():
-        cache[name][i] = val
-
-
-def _prefill_ssm(params: LM, cfg: ModelConfig, x, cache: dict):
-    """From a zero state; the cache's contents are overwritten, not read."""
+def _mamba_step(blk: MambaBlock, cfg: ModelConfig, x, cache: Optional[dict],
+                i: tuple, decode: bool):
+    """x + one Mamba2 block: forward (no cache), prefill (the new state
+    written to ``cache`` at ``i``, from a zero state) or decode (the
+    state at ``i`` read and replaced)."""
     dims = _ssm_dims(cfg)
+    hn = L.apply_norm(cfg.norm, blk.ln, x)
+    if cache is None:
+        return x + SSM.mamba_fwd(blk.mixer, dims, hn)
+    if decode:
+        y, st = SSM.mamba_decode_step(blk.mixer, dims, hn, _layer_cache(cache, *i))
+    else:
+        y, st = SSM.mamba_fwd(blk.mixer, dims, hn, return_state=True)
+    _write_state(cache, i, st)
+    return x + y
+
+
+def _step_ssm(params: LM, cfg: ModelConfig, x, cache: dict, decode: bool):
+    """Prefill (from a zero state; the cache's contents are overwritten,
+    not read) or decode."""
     for i, blk in enumerate(params.blocks):
-        y, st = SSM.mamba_fwd(blk.mixer, dims, L.apply_norm(cfg.norm, blk.ln, x),
-                              return_state=True)
-        _write_state(cache, i, st)
-        x = x + y
+        x = _mamba_step(blk, cfg, x, cache, (i,), decode)
     return x
 
 
-def _decode_ssm(params: LM, cfg: ModelConfig, x, cache: dict):
-    dims = _ssm_dims(cfg)
-    for i, blk in enumerate(params.blocks):
-        y, st = SSM.mamba_decode_step(blk.mixer, dims, L.apply_norm(cfg.norm, blk.ln, x),
-                                      _layer_cache(cache, i))
-        _write_state(cache, i, st)
-        x = x + y
+# ==========================================================================
+# hybrid (zamba2) family: units of cfg.hybrid_pattern, "a" = shared block
+# ==========================================================================
+def _shared_block_fwd(sp: SharedBlock, lora: LoRA, cfg: ModelConfig, x, x0,
+                      cache: Optional[dict] = None, cache_pos: Optional[int] = None):
+    """The shared block with a unit's LoRA: q / k / v = h w + (h a) b, RoPE
+    at cache_pos + arange(S), causal attention (through the cache when
+    one is given), then the gelu MLP over concat(x, x0)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    h = L.apply_norm(cfg.norm, sp.ln1, torch.cat([x, x0], dim=-1))
+
+    def proj(nm, lin, nh):
+        y = h @ lin.w + (h @ getattr(lora, f"a_{nm}")) @ getattr(lora, f"b_{nm}")
+        return y.reshape(B, S, nh, hd)
+
+    start = 0 if cache_pos is None else cache_pos
+    positions = torch.arange(start, start + S, device=x.device)
+    q = L.rope(proj("q", sp.wq, cfg.n_heads), positions, cfg.rope_theta)
+    k = L.rope(proj("k", sp.wk, cfg.n_kv_heads), positions, cfg.rope_theta)
+    v = proj("v", sp.wv, cfg.n_kv_heads)
+    if cache is not None:
+        o = L.cached_attention(q, k, v, cache, cache_pos, impl=cfg.attn_impl)
+    else:
+        o = L._sdpa(q, k, v, causal=True, impl=cfg.attn_impl)
+    x = x + L.linear(sp.wo, o.reshape(B, S, cfg.n_heads * hd))
+    h2 = L.apply_norm(cfg.norm, sp.ln2, torch.cat([x, x0], dim=-1))
+    return x + L.linear(sp.w_down, F.gelu(L.linear(sp.w_up, h2), approximate="tanh"))
+
+
+def _step_hybrid(params: LM, cfg: ModelConfig, x, cache: Optional[dict] = None,
+                 pos: Optional[int] = None, decode: bool = False):
+    """Every unit: forward (no cache), prefill (pos 0) or decode.  x0 is
+    the embedding this call starts from."""
+    x0 = x
+    for u, lora in enumerate(params.lora):
+        mi = 0
+        for sym in cfg.hybrid_pattern:
+            if sym == "m":
+                x = _mamba_step(params.mamba[u][mi], cfg, x,
+                                None if cache is None else cache["ssm"], (u, mi), decode)
+                mi += 1
+            else:
+                x = _shared_block_fwd(
+                    params.shared, lora, cfg, x, x0,
+                    cache=None if cache is None else _layer_cache(cache["attn"], u),
+                    cache_pos=pos)
     return x
+
+
+def _hybrid_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
+    n_units, m_per_unit = _hybrid_counts(cfg)
+    return {
+        "ssm": _ssm_state(cfg, (n_units, m_per_unit), B, dtype, dev),
+        "attn": _kv_cache((n_units, B, cache_len, cfg.n_kv_heads, cfg.head_dim),
+                          dtype, dev),
+        "x0": torch.zeros((B, 1, cfg.d_model), dtype=dtype, device=dev),
+    }
+
+
+# ==========================================================================
+# audio (whisper) encoder-decoder family
+# ==========================================================================
+def _encode_audio(params: LM, cfg: ModelConfig, audio: torch.Tensor):
+    x = audio + params.enc_pos
+    dims = _enc_dims(cfg)
+    for blk in params.enc_blocks:
+        h, _ = L.attention_fwd(blk.attn, dims, L.apply_norm(cfg.norm, blk.ln1, x))
+        x = x + h
+        x = x + L.mlp_fwd(blk.mlp, L.apply_norm(cfg.norm, blk.ln2, x), cfg.mlp_act)
+    return L.apply_norm(cfg.norm, params.enc_ln_f, x)
+
+
+def _dec_block_fwd(p: DecBlock, cfg: ModelConfig, x, enc_kv: dict, cache=None,
+                   cache_pos=None):
+    h, _ = L.attention_fwd(p.attn, _attn_dims(cfg), L.apply_norm(cfg.norm, p.ln1, x),
+                           cache=cache, cache_pos=cache_pos)
+    x = x + h
+    h, _ = L.attention_fwd(p.xattn, _attn_dims(cfg, cross=True),
+                           L.apply_norm(cfg.norm, p.ln2, x), cache=enc_kv)
+    x = x + h
+    return x + L.mlp_fwd(p.mlp, L.apply_norm(cfg.norm, p.ln3, x), cfg.mlp_act)
+
+
+def _step_audio(params: LM, cfg: ModelConfig, x, audio=None, cache=None, pos=None):
+    """The decoder: forward (``audio``, no cache), prefill (``audio`` and
+    the cache: each layer's cross keys and values stored) or decode (no
+    ``audio``: they are read from the cache)."""
+    enc = None if audio is None else _encode_audio(params, cfg, audio)
+    for i, blk in enumerate(params.dec_blocks):
+        if enc is not None:
+            enc_kv = _cross_kv(blk.xattn, cfg, enc)
+            if cache is not None:
+                cache["xk"][i], cache["xv"][i] = enc_kv["k"], enc_kv["v"]
+        else:
+            enc_kv = {"k": cache["xk"][i], "v": cache["xv"][i]}
+        self_cache = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _dec_block_fwd(blk, cfg, x, enc_kv, cache=self_cache, cache_pos=pos)
+    return x
+
+
+def _cross_cache(cfg: ModelConfig, n: int, B, dtype, dev) -> dict:
+    xk = _kv_cache((n, B, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.head_dim),
+                   dtype, dev)
+    return {"xk": xk["k"], "xv": xk["v"]}
+
+
+def _audio_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
+    return {**_dense_cache(cfg, B, cache_len, dtype, dev),
+            **_cross_cache(cfg, cfg.n_layers, B, dtype, dev)}
+
+
+# ==========================================================================
+# vlm (llama-3.2-vision) family: units of cross_attn_period decoder layers,
+# in-unit position period - 2 is a gated cross-attention block
+# ==========================================================================
+def _step_vlm(params: LM, cfg: ModelConfig, x, img=None, cache=None, pos=None):
+    """Every unit: period - 1 decoder blocks with the gated cross block
+    before the last one.  Forward (``img``, no cache), prefill (``img``
+    and the cache: each unit's image keys and values stored) or decode
+    (no ``img``: read from the cache)."""
+    _, period = _vlm_counts(cfg)
+    for u, cross in enumerate(params.cross):
+        if img is not None:
+            img_kv = _cross_kv(cross.xattn, cfg, img)
+            if cache is not None:
+                cache["xk"][u], cache["xv"][u] = img_kv["k"], img_kv["v"]
+        else:
+            img_kv = {"k": cache["xk"][u], "v": cache["xv"][u]}
+        for j, blk in enumerate(params.selfs[u]):
+            if j == period - 2:
+                x = _cross_block_fwd(cross, cfg, x, img_kv)
+            cl = None if cache is None else {"k": cache["k"][u, j], "v": cache["v"][u, j]}
+            x, _ = _dense_block_fwd(blk, cfg, x, cache=cl, cache_pos=pos)
+    return x
+
+
+def _vlm_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
+    n_units, period = _vlm_counts(cfg)
+    return {**_kv_cache((n_units, period - 1, B, cache_len, cfg.n_kv_heads,
+                         cfg.head_dim), dtype, dev),
+            **_cross_cache(cfg, n_units, B, dtype, dev)}
 
 
 # --------------------------------------------------------------------------
 # public API
 # --------------------------------------------------------------------------
 _ONES = ("scale", "norm_scale", "D")
-_ZEROS = ("b", "bias", "conv_b", "dt_bias")
+_ZEROS = ("b", "bias", "conv_b", "dt_bias", "b_q", "b_k", "b_v", "gate_attn",
+          "gate_mlp")
 _STD = {"conv_w": 0.1}
 
 
@@ -275,10 +598,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random init on ``device`` (default the card; raises without one),
     JAX's scheme leaf by leaf: N(0, 0.02) drawn in f32 and cast to the
     parameter's dtype (``conv_w`` N(0, 0.1)), norm scales and ``D`` at
-    one, biases, ``conv_b`` and ``dt_bias`` at zero, ``A_log`` =
-    log(linspace(1, 16, H)) (the draws differ from JAX's).
-    ``generator``: a ``torch.Generator`` on that device (default: one
-    seeded with 0)."""
+    one, biases, ``conv_b``, ``dt_bias``, the LoRA ``b_q`` / ``b_k`` /
+    ``b_v`` and the vlm gates at zero, ``A_log`` = log(linspace(1, 16,
+    H)) (the draws differ from JAX's).  ``generator``: a
+    ``torch.Generator`` on that device (default: one seeded with 0)."""
     dev = resolve_device(device)
     model = LM(cfg, dev)
     if generator is None:
@@ -310,22 +633,22 @@ def _flatten(tree: dict, prefix=()):
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The port's module with the weights of a JAX parameter tree.
 
-    ``tree``: the JAX ``init_params`` tree as numpy arrays (``blocks``
-    with its stacked layer axis; float32 or bfloat16 values), each leaf
-    loaded in the dtype of the port's parameter (``cfg.dtype``, or
-    float32 for the MoE router and the Mamba2 ``A_log``, ``D`` and
-    ``dt_bias``) on ``device`` (default the card).  Every leaf must
-    match a parameter of the port's module, shape for shape."""
+    ``tree``: the JAX ``init_params`` tree as numpy arrays (float32 or
+    bfloat16 values), its stacked subtrees unstacked on their stacked
+    axes (``blocks``, ``lora``, ``cross``, ``enc_blocks``, ``dec_blocks``
+    one; ``mamba``, ``selfs`` two), each leaf loaded in the dtype of the
+    port's parameter (``cfg.dtype``, or float32 for the MoE router, the
+    Mamba2 ``A_log``, ``D`` and ``dt_bias`` and the vlm gates) on
+    ``device`` (default the card).  Every leaf must match a parameter of
+    the port's module, shape for shape."""
     dev = resolve_device(device)
     model = LM(cfg, dev)
     flat = {}
     for path, arr in _flatten(tree):
         arr = np.array(arr, dtype=np.float32)  # a writable copy
-        if path[0] == "blocks":
-            for i in range(cfg.n_layers):
-                flat[".".join(("blocks", str(i)) + path[1:])] = arr[i]
-        else:
-            flat[".".join(path)] = arr
+        n = _STACKED.get(path[0], 0)
+        for i in np.ndindex(arr.shape[:n]):
+            flat[".".join((path[0], *map(str, i)) + path[1:])] = arr[i + (...,)]
     params = dict(model.named_parameters())
     if set(flat) != set(params):
         raise ValueError(
@@ -344,56 +667,77 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
 
 def forward(params: LM, batch: dict, cfg: ModelConfig):
     """Full-sequence forward -> (logits (B, S, V_pad) f32, the sum of the
-    layers' MoE aux losses (f32; 0 without experts))."""
-    _check_ported(cfg)
+    layers' MoE aux losses (f32; 0 without experts)).  batch: {'tokens'},
+    and 'audio' / 'image_embeds' (B, n_frontend_tokens, d) for the audio
+    / vlm families."""
+    fam = _family(cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
-    if cfg.family == "ssm":
-        x, aux = _fwd_ssm(params, cfg, x), torch.zeros((), device=x.device)
-    else:
+    aux = torch.zeros((), device=x.device)
+    if fam in ("dense", "moe"):
         x, aux = _fwd_dense(params, cfg, x)
+    elif fam == "ssm":
+        x = _fwd_ssm(params, cfg, x)
+    elif fam == "hybrid":
+        x = _step_hybrid(params, cfg, x)
+    elif fam == "audio":
+        x = _step_audio(params, cfg, x, audio=_frontend(params, cfg, batch))
+    else:
+        x = _step_vlm(params, cfg, x, img=_frontend(params, cfg, batch))
     return _head(params.embed, cfg, x), aux
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,
                device=None) -> dict:
-    """Zero cache on ``device`` (default the card; raises without one):
-    dense / moe {"k", "v"}, each (n_layers, B, cache_len, K, dh) in
-    ``dtype`` (default ``cfg.dtype``); ssm {"conv": (n_layers, B,
-    d_conv - 1, conv_dim) in ``dtype``, "ssm": (n_layers, B, H, P, N)
-    float32}, whatever ``cache_len``."""
-    _check_ported(cfg)
+    """Zero cache on ``device`` (default the card; raises without one) in
+    ``dtype`` (default ``cfg.dtype``; the Mamba2 ``ssm`` states float32),
+    JAX's layout key for key (module docstring)."""
+    fam = _family(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
-    if cfg.family == "ssm":
-        return _ssm_cache(cfg, B, dtype, dev)
-    return _dense_cache(cfg, B, cache_len, dtype, dev)
+    if fam == "ssm":
+        return _ssm_state(cfg, (cfg.n_layers,), B, dtype, dev)
+    make = {"dense": _dense_cache, "moe": _dense_cache, "hybrid": _hybrid_cache,
+            "audio": _audio_cache, "vlm": _vlm_cache}[fam]
+    return make(cfg, B, cache_len, dtype, dev)
 
 
 def prefill(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """Fill the cache from a full prompt -> (logits (B, S, V_pad), or
     (B, 1, V_pad) with ``prefill_last_only``; the cache, written in place)."""
-    _check_ported(cfg)
+    fam = _family(cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
-    if cfg.family == "ssm":
-        x = _prefill_ssm(params, cfg, x, cache)
+    if fam in ("dense", "moe"):
+        x = _step_dense(params, cfg, x, cache, 0)
+    elif fam == "ssm":
+        x = _step_ssm(params, cfg, x, cache, decode=False)
+    elif fam == "hybrid":
+        x = _step_hybrid(params, cfg, x, cache, 0)
+    elif fam == "audio":
+        x = _step_audio(params, cfg, x, _frontend(params, cfg, batch), cache, 0)
     else:
-        x = _prefill_dense(params, cfg, x, cache)
+        x = _step_vlm(params, cfg, x, _frontend(params, cfg, batch), cache, 0)
     return _prefill_head(params, cfg, x), cache
 
 
 def decode_step(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """One-token decode.  batch: {'token': (B, 1), 'pos': int} -> (logits
     (B, 1, V_pad), the cache, written in place: the token's keys and values
-    at ``pos``, or the new ssm state).  Dense / moe: a ``pos`` at or past
-    the cache length raises; ssm takes any ``pos``."""
-    _check_ported(cfg)
+    at ``pos``, and the new Mamba2 states).  A ``pos`` at or past the
+    cache length raises, except in the ssm family, which takes any."""
+    fam = _family(cfg)
     token = _tokens(params, batch["token"])
     pos = int(batch["pos"])
     x = _embed(params.embed, cfg, token, pos_offset=pos)
-    if cfg.family == "ssm":
-        x = _decode_ssm(params, cfg, x, cache)
+    if fam in ("dense", "moe"):
+        x = _step_dense(params, cfg, x, cache, pos)
+    elif fam == "ssm":
+        x = _step_ssm(params, cfg, x, cache, decode=True)
+    elif fam == "hybrid":
+        x = _step_hybrid(params, cfg, x, cache, pos, decode=True)
+    elif fam == "audio":
+        x = _step_audio(params, cfg, x, cache=cache, pos=pos)
     else:
-        x = _decode_dense(params, cfg, x, cache, pos)
+        x = _step_vlm(params, cfg, x, cache=cache, pos=pos)
     return _head(params.embed, cfg, x), cache

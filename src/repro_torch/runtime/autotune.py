@@ -17,7 +17,10 @@ paper closed by hand (SSIV-B profiling -> per-node work shapes):
   write_tuned()     — persist them as ``tuned.json`` beside
                       ``fleet.json`` (same atomic-write discipline);
   load_tuned()      — read them back (fleet restart / --autotune);
-  apply_to_cfg()    — stamp them into an EDMConfig for the next run.
+  apply_to_cfg()    — stamp them into an EDMConfig for the next run;
+                      on a card, ``lib_block`` capped so that a chunk
+                      fits the memory free for it (``fit_lib_block``,
+                      a rule of the port alone).
 
 Decision rules (the JAX package's DESIGN.md SS11):
 
@@ -71,7 +74,9 @@ rerun under different hardware visibly re-derives different shapes.
 On a card a ``chunk`` span closes once the chunk's kernels are queued:
 its seconds are the host's dispatch time, so the chunk_rows rule scales
 a dispatch rate and lands far above what the device itself would ask
-for (PERF.md states what that does to device memory).
+for.  ``recommend`` keeps the JAX rule all the same; ``apply_to_cfg``
+given the memory a slot may use caps ``lib_block`` to what fits it
+(``edm_run`` passes the card's free memory and prints the cap).
 
   PYTHONPATH=src python -m repro_torch.runtime.autotune STORE [--write]
 """
@@ -284,14 +289,65 @@ def load_tuned(out_dir: str | pathlib.Path) -> dict | None:
     return t if t.get("v") == TUNED_VERSION and "recommend" in t else None
 
 
-def apply_to_cfg(cfg, tuned: dict, n_devices: int):
+#: the share of the memory a card has free for a run that a tuned chunk
+#: may fill (the rest: the allocator's rounding and fragmentation -- phase
+#: 1's and the tables' blocks split among the lookups' large buffers --
+#: and the kernels' workspaces)
+FIT_SHARE = 0.8
+
+
+def chunk_row_bytes(cfg, N: int, L: int, n_tables: int | None = None) -> int:
+    """Device bytes one library row adds to a phase-2 chunk at the run's
+    shapes, as the chunk allocates them (``core/ccm.py``): its lag rows
+    (E_max, Lp) float32; its kNN tables, ``n_tables`` (default E_max, the
+    most a bucketed run has: its bucket count is known only after phase
+    1) of (Lp, k) entries, each an int32 index, a float32 weight and a
+    distance in the accumulator's dtype; one target block's predictions
+    (T, Lp) float32 and the Pearson's centred copy of them, T =
+    min(target_block, target_tile or N, N); and its rho row, N float32 in
+    each of the stream's depth + 1 chunks."""
+    Lp = cfg.n_points(L)
+    n_tables = cfg.E_max if n_tables is None else n_tables
+    dist = 2 if cfg.dist_dtype == "bfloat16" else 4
+    T = min(cfg.target_block, cfg.target_tile or N, N)
+    return (4 * cfg.E_max * Lp + n_tables * Lp * cfg.k_max * (8 + dist)
+            + 2 * 4 * T * Lp + 4 * N * (cfg.stream_depth + 1))
+
+
+def run_fixed_bytes(cfg, N: int, L: int) -> int:
+    """Device bytes a slot holds whatever ``lib_block``: untiled, the series
+    (N, L) and the targets' futures (N, Lp) float32 and (bucketed) the
+    inverse column order (N int64); tiled, one tile's futures."""
+    Lp = cfg.n_points(L)
+    if cfg.target_tile:
+        return 4 * cfg.target_tile * Lp
+    return 4 * N * (L + Lp) + 8 * N
+
+
+def fit_lib_block(cfg, N: int, L: int, free_bytes: int) -> int:
+    """The largest ``lib_block`` whose phase-2 chunk fits ``free_bytes``
+    (the device memory one slot may use) at FIT_SHARE, by
+    :func:`chunk_row_bytes` and :func:`run_fixed_bytes`; at least 1."""
+    room = FIT_SHARE * free_bytes - run_fixed_bytes(cfg, N, L)
+    return max(1, int(room // chunk_row_bytes(cfg, N, L)))
+
+
+def apply_to_cfg(cfg, tuned: dict, n_devices: int, free_bytes: int | None = None,
+                 N: int | None = None, L: int | None = None):
     """EDMConfig with the tuned shapes stamped in (byte-identity makes
     any of them safe to apply): chunk_rows -> lib_block (per-device row
     share; ``n_devices`` the run's device slots over every rank, as
     the JAX package's global device count), target_tile / knn_tile_c /
     stream_depth verbatim.  The
     remaining schedule knobs (ttl, workers) are process-level, not
-    config-level — ``edm_run`` applies / prints them."""
+    config-level — ``edm_run`` applies / prints them.
+
+    ``free_bytes`` (the device memory one slot may use; ``N`` and ``L``
+    the run's series count and length with it): ``lib_block`` is capped
+    at :func:`fit_lib_block` of the tuned config, a decision of the port
+    (the JAX rule scales ``chunk_rows`` to time alone, and at 16,384
+    series asks for several times a card's memory).  Without it, the
+    JAX package's apply."""
     rec = tuned["recommend"]
     fields = {}
     if rec.get("chunk_rows"):
@@ -302,7 +358,12 @@ def apply_to_cfg(cfg, tuned: dict, n_devices: int):
         fields["knn_tile_c"] = int(rec["knn_tile_c"])
     if rec.get("stream_depth"):
         fields["stream_depth"] = int(rec["stream_depth"])
-    return dataclasses.replace(cfg, **fields) if fields else cfg
+    cfg = dataclasses.replace(cfg, **fields) if fields else cfg
+    if free_bytes is not None:
+        cap = fit_lib_block(cfg, N, L, free_bytes)
+        if cfg.lib_block > cap:
+            cfg = dataclasses.replace(cfg, lib_block=cap)
+    return cfg
 
 
 def main(argv=None) -> None:

@@ -173,6 +173,73 @@ def test_port_fleet_store_tunes_as_the_jax_package(fleet_store):
     assert ev["rec_chunk_rows"] == 8 and ev["held_n"] > 0
 
 
+# --------------------------------------- the port's cap on a card's memory
+#: the peak's slope in library rows measured on an H100 at 2,048 x 1,450,
+#: E_max 20 (PERF.md, the autotune phase of chip_smoke.py)
+MEASURED_ROW_BYTES = 25.97e6
+
+
+def test_chunk_row_bytes_bound_the_measured_slope():
+    """From the shapes alone (E_max tables, the most a bucketed run has):
+    at or above the slope measured on the card, by at most a quarter."""
+    from repro_torch.core.types import EDMConfig
+
+    cfg = EDMConfig(E_max=20)
+    row = P.autotune.chunk_row_bytes(cfg, 2048, 1450)
+    assert MEASURED_ROW_BYTES <= row <= 1.25 * MEASURED_ROW_BYTES
+    # the target block bounds the lookup's share: a wider map adds its rho
+    # rows only, a narrower tile shrinks it; the bf16 distances save bytes
+    assert (P.autotune.chunk_row_bytes(cfg, 16384, 1450) - row
+            == 4 * (16384 - 2048) * (cfg.stream_depth + 1))
+    import dataclasses
+
+    assert P.autotune.chunk_row_bytes(dataclasses.replace(cfg, target_tile=512),
+                                      2048, 1450) < row
+    assert P.autotune.chunk_row_bytes(dataclasses.replace(cfg, dist_dtype="bfloat16"),
+                                      2048, 1450) < row
+    assert P.autotune.chunk_row_bytes(cfg, 2048, 1450, n_tables=4) < row
+
+
+@pytest.mark.parametrize("chunk_rows,n_devices", [(16384, 1), (16384, 2), (8192, 1),
+                                                  (2048, 1)])
+def test_apply_caps_lib_block_to_a_stated_device_memory(chunk_rows, n_devices):
+    """With the memory a slot may use, lib_block is the largest whose chunk
+    fits FIT_SHARE of it (never above the recommendation); without it, or
+    where the recommendation fits, the JAX package's apply exactly."""
+    import dataclasses
+
+    from repro.core.types import EDMConfig as JaxConfig
+    from repro_torch.core.types import EDMConfig
+
+    tuned = {"recommend": {"chunk_rows": chunk_rows, "target_tile": 1024,
+                           "stream_depth": 3}}
+    N, L, card = 16384, 1450, 80 * 10 ** 9
+    want = J.autotune.apply_to_cfg(JaxConfig(E_max=20), tuned, n_devices)
+    plain = P.autotune.apply_to_cfg(EDMConfig(E_max=20), tuned, n_devices)
+    fields = ("lib_block", "target_tile", "knn_tile_c", "stream_depth")
+    assert [getattr(plain, f) for f in fields] == [getattr(want, f) for f in fields]
+    capped = P.autotune.apply_to_cfg(EDMConfig(E_max=20), tuned, n_devices, card, N, L)
+    assert dataclasses.replace(capped, lib_block=plain.lib_block) == plain
+
+    def chunk(lib_block):
+        return (P.autotune.run_fixed_bytes(plain, N, L)
+                + lib_block * P.autotune.chunk_row_bytes(plain, N, L))
+
+    share = P.autotune.FIT_SHARE * card
+    assert capped.lib_block <= plain.lib_block and chunk(capped.lib_block) <= share
+    assert capped.lib_block == plain.lib_block or chunk(capped.lib_block + 1) > share
+    huge = P.autotune.apply_to_cfg(EDMConfig(E_max=20), tuned, n_devices, 10 ** 15, N, L)
+    assert huge == plain
+
+
+def test_slot_free_bytes_is_none_off_the_card():
+    import torch
+
+    from repro_torch.launch import edm_run
+
+    assert edm_run._slot_free_bytes([torch.device("cpu")] * 2, None, 3) is None
+
+
 # ---------------------------------------------------- the port's edm_run
 def _bytes(out) -> dict:
     return {a: (out / a / "data.npy").read_bytes() for a in ARTIFACTS}

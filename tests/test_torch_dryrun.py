@@ -59,7 +59,7 @@ FORMER = [
     ("lookup_bound_ms", (1, 2048, 1430, 1430, 21), (0.007065480597014926, "bytes")),
     ("lookup_bound_ms", (8, 2048, 8508, 8508, 21), (0.1906604704477612, "bytes")),
     ("prefix_bound_ms", (8, 12, 4, 1430, 1430, 5, 13), (0.008790017910447761, "operations")),
-    ("flash_bound_ms", (4, 2048, 16, 2, 128, 2), (0.06951772615571283, "operations")),
+    ("flash_bound_ms", (4, 2048, 2048, 16, 2, 128, 2), (0.06951772615571283, "operations")),
 ]
 
 
@@ -156,3 +156,28 @@ def test_dryrun_chunk_counts_follow_the_bucket_plan():
     assert c["phase2_knn"] == RL.knn_counts(8, 7, 3, Lp, Lp, 8)
     assert c["phase2_lookup"] == RL.segmented_counts(8, blocks, Lp, Lp, 8)
     assert c["phase2_lookup"][0] == 2.0 * 8 * 6 * Lp * 8
+
+
+@pytest.mark.parametrize("args,want", [
+    # zamba2-7b's shared block, whisper-medium's encoder, its cross and its
+    # decoder's self-attention at the serve prompt, llama-3.2-vision-11b's
+    # self and cross: bf16, B 4
+    ((4, 2048, 2048, 32, 32, 112, 2, True), (0.12165602077249747, "operations")),
+    ((4, 1500, 1500, 16, 16, 64, 2, False), (0.03727401415571284, "operations")),
+    ((4, 416, 1500, 16, 16, 64, 2, False), (0.010337326592517695, "operations")),
+    ((4, 416, 416, 16, 16, 64, 2, True), (0.004069100895522388, "bytes")),
+    ((4, 2048, 2048, 32, 8, 128, 2, True), (0.13903545231142567, "operations")),
+    ((4, 2048, 1601, 32, 8, 128, 2, False), (0.2172725809180991, "operations")),
+])
+def test_flash_bounds_at_the_serve_shapes(args, want):
+    assert RL.bound_ms(*RL.flash_counts(*args), RL.PEAK_BF16_FLOPS) == want
+
+
+def test_flash_counts_pairs_by_mask():
+    """Operations count the (query, key) pairs the mask keeps: all Sq x Sk
+    without it; the top-left triangle with it, and every key for the
+    queries past Sk; one head of dh 1 counts 4 a pair."""
+    assert RL.flash_counts(1, 3, 5, 1, 1, 1, 4, causal=False)[0] == 4 * 15
+    assert RL.flash_counts(1, 3, 5, 1, 1, 1, 4)[0] == 4 * (1 + 2 + 3)
+    assert RL.flash_counts(1, 5, 3, 1, 1, 1, 4)[0] == 4 * (1 + 2 + 3 + 3 + 3)
+    assert RL.flash_counts(1, 3, 5, 2, 1, 1, 4)[1] == 4 * (2 * 3 * 2 + 2 * 5 * 1)

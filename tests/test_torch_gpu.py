@@ -584,6 +584,49 @@ def test_moe_and_ssm_kernel_route_equal_plain_route_on_the_card(arch, launches):
     assert float((ld[:, 0] - want[:, 100]).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("arch,launches", [("zamba2-7b", 2), ("whisper-medium", 6),
+                                           ("llama-3.2-vision-11b", 10)])
+def test_hybrid_audio_vlm_kernel_route_equal_plain_route_on_the_card(arch, launches):
+    """Smoke zamba2-7b, whisper-medium and llama-3.2-vision-11b in float32,
+    the LoRA b and gates drawn non-zero: the chunked route's prefill (the
+    flash kernel once a shared-block application; encoder, decoder and
+    cross layers; self and cross layers) against the xla route's forward
+    within 1e-5, and the decode after it against the forward at that
+    position."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), attn_impl="chunked")
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("b_q", "b_k", "b_v", "gate_attn", "gate_mlp"):
+                prm.uniform_(0.3, 0.9, generator=g)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 101)).astype(np.int32)
+    front = {}
+    if cfg.family in T.FRONTEND:
+        front[T.FRONTEND[cfg.family]] = (0.1 * rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)
+    before = sum(flash_attn.ROUTE_LAUNCHES.values())
+    got, _ = make_prefill_step(cfg, device=dev)(model, {"tokens": toks[:, :100], **front})
+    assert sum(flash_attn.ROUTE_LAUNCHES.values()) - before == launches
+    want, _ = T.forward(model, {"tokens": toks, **front},
+                        dataclasses.replace(cfg, attn_impl="xla"))
+    assert float((got - want[:, :100]).abs().max()) <= 1e-5
+    cache = T.init_cache(cfg, 2, 101, device=dev)
+    T.prefill(model, {"tokens": toks[:, :100], **front}, cache, cfg)
+    ld, _ = make_decode_step(cfg, device=dev)(model, {"token": toks[:, 100:], "pos": 100},
+                                              cache)
+    assert float((ld[:, 0] - want[:, 100]).abs().max()) <= 1e-5
+
+
 # ------------------------------------------------------------------ fleet
 @pytest.mark.parametrize("unit_rows", [5, 8])
 def test_fleet_of_three_workers_equals_one_process_on_the_card(tmp_path, unit_rows):

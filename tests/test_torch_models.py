@@ -4,7 +4,8 @@ the four dense smoke configs (tied and untied embeddings, MHA and GQA,
 QKV bias), the moe smoke configs (dbrx-132b: swiglu experts; grok-1-314b:
 gelu experts), a dense config with experts and the ssm smoke config
 (mamba2-2.7b), both attention routes, with the JAX weights carried across
-by ``params_from_jax``.
+by ``params_from_jax``.  The hybrid, audio and vlm families have their
+own files (test_torch_hybrid.py, test_torch_cross.py).
 
 Tolerances (docs/PORT.md): float32 logits and caches within
 1e-5 + 1e-5 |want| (the same f32 operations, sums in another order), the
@@ -311,20 +312,20 @@ def test_init_params_scheme(arch):
 
 
 # ------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-medium", "llama-3.2-vision-11b"])
-def test_other_families_raise_naming_the_family(arch):
-    """The three families still to come: each entry point refuses, naming
-    the family and the three."""
-    cfg = get_config(arch, smoke=True)
+def test_unknown_family_raises_value_error():
+    """As JAX's dispatch: every entry point refuses a family it does not
+    know with ValueError naming it."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), family="rnn")
+    model = T.init_params(get_config("qwen2.5-3b", smoke=True), device="cpu")
     for call in (lambda: T.init_params(cfg, device="cpu"),
                  lambda: T.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: T.forward(None, {"tokens": np.zeros((1, 4), np.int32)}, cfg),
-                 lambda: T.prefill(None, {"tokens": np.zeros((1, 4), np.int32)}, {}, cfg),
-                 lambda: T.decode_step(None, {"token": np.zeros((1, 1), np.int32),
-                                              "pos": 0}, {}, cfg)):
-        with pytest.raises(NotImplementedError, match=cfg.family) as err:
+                 lambda: T.params_from_jax({}, cfg, device="cpu"),
+                 lambda: T.forward(model, {"tokens": np.zeros((1, 4), np.int32)}, cfg),
+                 lambda: T.prefill(model, {"tokens": np.zeros((1, 4), np.int32)}, {}, cfg),
+                 lambda: T.decode_step(model, {"token": np.zeros((1, 1), np.int32),
+                                               "pos": 0}, {}, cfg)):
+        with pytest.raises(ValueError, match="rnn"):
             call()
-        assert all(f in str(err.value) for f in ("hybrid", "audio", "vlm"))
 
 
 def test_seq_shard_and_sharding_policy_raise():
@@ -380,7 +381,8 @@ def test_decode_writes_where_jax_writes():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
-    for arch in ("qwen2.5-3b", "dbrx-132b", "mamba2-2.7b"):
+    for arch in ("qwen2.5-3b", "dbrx-132b", "mamba2-2.7b", "zamba2-7b",
+                 "whisper-medium", "llama-3.2-vision-11b"):
         cfg = get_config(arch, smoke=True)
         for call in (lambda: T.init_params(cfg), lambda: T.init_cache(cfg, 1, 8),
                      lambda: T.init_params(cfg, device="cuda"),
