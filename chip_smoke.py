@@ -22,7 +22,19 @@ application, 27), ``lm_audio_*`` (whisper-medium, 1,500 audio frames and
 416 prompt tokens: 24 encoder, 24 decoder and 24 cross launches) and
 ``lm_vlm_*`` (llama-3.2-vision-11b, 1,601 image patches: 32 self and 8
 cross launches), the zero-initialised LoRA b and gates drawn non-zero
-first; ``time_flash`` at each of their serve shapes.  Then it holds
+first; ``time_flash`` at each of their serve shapes.  Then the training
+path: ``train_check`` (the flash kernel's autograd Function -- the kernel
+forward, the plain version's chunked backward -- against the plain
+version's autograd at minicpm-2b's training shape, f32 and bf16, one
+backward timed; minicpm-2b at full width cut to 2 layers in f32, one
+step's loss and gradients on the kernel route against the plain route),
+``train_step`` (minicpm-2b whole, 8 x 4,096 tokens a step in
+micro-batches of 2, remat, AdamW, WSD, through
+``launch.steps.make_train_step``: the flash launch count set to 0 before
+each timed step, 320 a step; step seconds, tokens/s, the model-FLOP
+share, peak memory, a traced step's busy share, falling losses) and
+``train_cli`` (the train CLI for 6 steps and again for 9, resuming from
+its own checkpoint; a bit-exact kill-and-resume at 2 layers).  Then it holds
 each EDM kernel against its plain PyTorch version on the card at the
 shapes of the paths that run it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
@@ -147,6 +159,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -229,6 +242,28 @@ FLASH_BF16_STEP = 2.0 ** -7
 # The full-width float32 gate, kernel route vs plain route: max |logit
 # difference| (logits are O(1); an attention fault moves them O(0.1)).
 LM_GATE_TOL = 1e-3
+# The training path: minicpm-2b whole (40 layers, d 2,304, 36 heads of 64
+# (MHA), d_ff 5,760, vocab 122,753 padded to 122,880, tied embeddings,
+# 2.72 B parameters) in bf16 on attn_impl "chunked" (the flash kernel's
+# tensor-core route at dh 64 in every forward and remat recompute), remat,
+# AdamW with float32 moments, MiniCPM's WSD schedule; train_4k's sequence
+# length of 4,096, a global batch of 8 in micro-batches of 2 (four a
+# step), one warm-up step and four timed steps on one repeated batch.  The
+# checks cut only its depth (2 layers) and batch (2).  The flash Function's
+# gradients are held to the plain version's autograd: float32 within
+# FLASH_TOL_F32, bfloat16 by the forward's tensor-core rule with SDPA's
+# backward as the library; the float32 2-layer model's loss and every
+# gradient on the kernel route within TRAIN_GATE_TOL (relative to the
+# leaf's max |want|) of the plain route's.
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_TIMED = 8, 4096, 2, 4
+TRAIN_CHECK_B, TRAIN_CHECK_LAYERS = 2, 2
+TRAIN_GATE_TOL = 1e-3
+# the CLI's run: smollm-135m (the JAX system test's arch), 6 steps and then
+# 9 on the same checkpoint directory; the kill-and-resume: 2 x 512 tokens
+TRAIN_CLI_ARGS = ("--arch", "smollm-135m", "--batch", "8", "--seq", "1024",
+                  "--save-every", "3", "--log-every", "1")
+RESUME_B, RESUME_S = 2, 512
 
 
 T_START = time.perf_counter()
@@ -639,13 +674,15 @@ def _device_time_by_kernel(prof):
     return sorted(rows, reverse=True)
 
 
-def profile_busy(torch, run, top=8):
+def profile_busy(torch, run, top=8, cpu=True):
     """Wall time, device-busy share and the ``top`` device kernels of one
-    traced call of ``run``."""
+    traced call of ``run``; ``cpu=False`` traces the device alone (a
+    training step's host events take the profiler a minute to sort)."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU] if cpu else []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1457,6 +1494,289 @@ def lm_check(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_check"):
     emit(phase, **out)
     if not ok:
         raise AssertionError(f"LM float32 gate failed: {out}")
+    return out
+
+
+# ---- the training path ---------------------------------------------------
+def flash_grads(torch, fn, q, k, v, do):
+    """(o, dq, dk, dv) of ``fn(q, k, v)`` against the cotangent ``do``."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+def train_check(torch, dev, smi):
+    """The flash Function (kernel forward, plain chunked backward) at
+    minicpm-2b's training shape against the plain version's autograd, f32
+    (cuda_core) and bf16 (tensor_core), with one Function backward timed;
+    then minicpm-2b at full width cut to 2 layers in f32: the loss and
+    every gradient of one step on the kernel route (chunked) against the
+    plain route (xla)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attn.ops import ROUTES, FlashAttnFn, flash_attn, flash_route
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS, bound_ms, flash_counts
+    from repro_torch.models import transformer as T
+
+    cfg = lm_config(TRAIN_ARCH)
+    B, S, H, K, dh = TRAIN_CHECK_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    chunk = cfg.attn_chunk
+    fn = lambda a, b, c: FlashAttnFn.apply(a, b, c, True, chunk)
+    plain = lambda a, b, c: flash_attn_ref(a, b, c, True)
+    out = {}
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        q, k, v = qkv(torch, dev, B, S, S, H, K, dh, dtype, seed=300 + i)
+        do = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(310 + i),
+                         device=dev).to(q.dtype)
+        flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+        got = flash_grads(torch, fn, q, k, v, do)
+        launches = dict(flash_attn.ROUTE_LAUNCHES)
+        case = dict(dtype=dtype, route=flash_route("cuda", q.dtype, dh), launches=launches)
+        ok = launches[case["route"]] == 1 and sum(launches.values()) == 1
+        if dtype == "float32":
+            want = flash_grads(torch, plain, q, k, v, do)
+            atol, rtol = FLASH_TOL_F32
+            for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+                d = (g - w).abs()
+                case[f"{name}_max_abs_err"] = float(d.max())
+                ok &= bool(torch.isfinite(g).all()) and bool((d <= atol + rtol * w.abs()).all())
+            case.update(atol=atol, rtol=rtol)
+        else:
+            want = flash_grads(torch, plain, q.float(), k.float(), v.float(), do.float())
+            lib = flash_grads(torch, lambda a, b, c: sdpa(torch, a, b, c, True), q, k, v, do)
+            for name, g, w, lb in zip(("o", "dq", "dk", "dv"), got, want, lib):
+                diff = (g.float() - w).abs()
+                lib_row = (lb.float() - w).abs().amax(-1)
+                lib_err = float(lib_row.max())
+                limit = min(FLASH_BF16_LIBRARY_FACTOR * lib_err, FLASH_BF16_CEILING)
+                elem = FLASH_BF16_STEP * w.abs() + FLASH_BF16_LIBRARY_FACTOR * lib_row[..., None]
+                share = float((diff / elem.clamp_min(1e-30)).max())
+                err = float(diff.max())
+                case.update({f"{name}_max_abs_err": err, f"{name}_library_max_abs_err": lib_err,
+                             f"{name}_tol": limit, f"{name}_elem_limit_share": share})
+                ok &= bool(torch.isfinite(g).all()) and err <= limit and share <= 1.0
+            del lib
+            # one Function backward at this shape (a layer's micro-batch),
+            # CUDA events: forward + backward less the forward
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            fwd_ms = time_ms(torch, lambda: fn(qr, kr, vr), 3)
+            both_ms = time_ms(torch, lambda: torch.autograd.grad(fn(qr, kr, vr),
+                                                                 (qr, kr, vr), do), 3)
+            ops, nbytes = flash_counts(B, S, S, H, K, dh, 2, True)
+            # a backward's products: 2.5 times the forward's (dv, dp, dq, dk
+            # and the recomputed q k), twice its bytes
+            bwd_bound, bwd_by = bound_ms(2.5 * ops, 2 * nbytes, PEAK_BF16_FLOPS)
+            case.update(forward_ms=fwd_ms, backward_ms=both_ms - fwd_ms,
+                        backward_bound_ms=bwd_bound, backward_bound_by=bwd_by)
+            del qr, kr, vr
+        case["ok"] = ok
+        emit("train_check", case="flash_grads", B=B, S=S, H=H, K=K, dh=dh, causal=True,
+             chunk=chunk, smi=smi, **case)
+        if not ok:
+            raise AssertionError(f"FlashAttnFn grads != plain version's ({dtype}): {case}")
+        out[dtype] = case
+        del q, k, v, do, got, want
+        torch.cuda.empty_cache()
+
+    # the 2-layer f32 model: kernel route vs plain route, loss and grads
+    cfg2 = lm_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS, dtype="float32")
+    tc = TrainConfig(remat=True)
+    params = T.init_params(cfg2, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = TokenStream(cfg2.vocab_size, TRAIN_CHECK_B, TRAIN_S, seed=1).batch_at(0)["tokens"]
+    res = {}
+    for impl in ("chunked", "xla"):
+        c = dataclasses.replace(cfg2, attn_impl=impl)
+        flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+        loss, _ = T.loss_fn(params, {"tokens": toks}, c, tc)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        res[impl] = (loss.item(), grads, dict(flash_attn.ROUTE_LAUNCHES))
+        del loss
+    (lk, gk, launch_k), (lx, gx, launch_x) = res["chunked"], res["xla"]
+    names = [n for n, _ in params.named_parameters()]
+    rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for n, a, b in zip(names, gk, gx)}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    loss_rel = abs(lk - lx) / abs(lx)
+    # the kernel once a layer in the forward and once in its remat recompute
+    want_launches = {**dict.fromkeys(ROUTES, 0), "cuda_core": 2 * TRAIN_CHECK_LAYERS}
+    ok = (finite and loss_rel <= TRAIN_GATE_TOL and rel[worst] <= TRAIN_GATE_TOL
+          and launch_k == want_launches and not any(launch_x.values()))
+    gate = dict(arch=TRAIN_ARCH, n_layers=TRAIN_CHECK_LAYERS, dtype="float32", tf32=False,
+                B=TRAIN_CHECK_B, S=TRAIN_S, remat=True, loss_chunked=lk, loss_xla=lx,
+                loss_rel_diff=loss_rel, grad_leaves=len(names),
+                grad_max_rel_diff=rel[worst], grad_worst_leaf=worst,
+                flash_launches_chunked=launch_k, flash_launches_xla=launch_x,
+                tol=TRAIN_GATE_TOL, ok=ok)
+    emit("train_check", case="minicpm_2_layers_f32", smi=smi, **gate)
+    del params, res, gk, gx
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"training gate, chunked vs xla: {gate}")
+    out["gate"] = gate
+    return out
+
+
+def train_step_phase(torch, dev, smi, check):
+    """minicpm-2b whole trained through make_train_step (TRAIN_* above):
+    the warm-up step, then TRAIN_TIMED timed steps with the flash launch
+    count set to 0 before each; step seconds, tokens/s, the 6NT model-FLOP
+    share of 989 TFLOP/s (remat's extra forward not counted; the 8NT share
+    beside it), peak memory, one traced step's busy share, each step's
+    loss.  Every loss finite and the last below the first."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS
+    from repro_torch.launch.steps import TrainState, make_train_step
+
+    cfg = lm_config(TRAIN_ARCH)
+    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
+                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
+                     total_steps=1 + TRAIN_TIMED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)  # warm-up
+    losses = [float(m["loss"])]
+    warm_s = time.perf_counter() - t0
+    step_s, launches, lrs, gnorms = [], [], [], []
+    for _ in range(TRAIN_TIMED):
+        flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        launches.append(dict(flash_attn.ROUTE_LAUNCHES))
+        lrs.append(float(m["lr"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    holder = [state]
+
+    def traced():
+        holder[0], _ = step(holder[0], batch)
+
+    busy = profile_busy(torch, traced, top=10, cpu=False)
+    del holder, state, m
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_B * TRAIN_S
+    mean_s = sum(step_s) / len(step_s)
+    flops_6nt = 6.0 * n_params * tokens
+    per_layer_mb = 2 * cfg.n_layers * (TRAIN_B // TRAIN_MICRO)
+    want = {**dict.fromkeys(ROUTES, 0), "tensor_core": per_layer_mb}
+    bwd_ms = check["bfloat16"]["backward_ms"]
+    n_bwd = cfg.n_layers * (TRAIN_B // TRAIN_MICRO)
+    out = dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, params=n_params, dtype=cfg.dtype,
+               attn_impl=cfg.attn_impl, remat=tc.remat, optimizer=tc.optimizer,
+               moment_dtype=tc.moment_dtype, schedule=tc.schedule, B=TRAIN_B, S=TRAIN_S,
+               microbatch=TRAIN_MICRO, init_s=init_s, warmup_step_s=warm_s,
+               step_s=step_s, step_s_mean=mean_s, tokens_per_s=tokens / mean_s,
+               model_flops_6NT=flops_6nt,
+               mfu_6NT_of_989=flops_6nt / mean_s / PEAK_BF16_FLOPS,
+               mfu_8NT_with_remat_of_989=flops_6nt * 8 / 6 / mean_s / PEAK_BF16_FLOPS,
+               peak_device_bytes=peak, losses=losses, lr=lrs, grad_norm=gnorms,
+               flash_launches_per_step=launches,
+               flash_backward_ms_one=bwd_ms,
+               flash_backward_share_of_step=n_bwd * bwd_ms / 1e3 / mean_s,
+               flash_backward_bound_share_of_step=n_bwd
+               * check["bfloat16"]["backward_bound_ms"] / 1e3 / mean_s,
+               profile_one_step=busy, smi=smi)
+    emit("train_step", **out)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite and falling")
+    if any(n != want for n in launches):
+        raise AssertionError(f"flash launches a step {launches}, not {want}")
+    return out
+
+
+def leaves_equal(torch, a, b) -> bool:
+    """Every leaf of two training states equal bit for bit."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    return set(fa) == set(fb) and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(
+            fa[k].detach().reshape(-1).view(torch.uint8),
+            fb[k].detach().reshape(-1).view(torch.uint8)) for k in fa)
+
+
+def train_cli(torch, dev, smi):
+    """The train CLI's ``main`` (``python -m repro_torch.launch.train``'s
+    code, called in this process to spare two processes' start on the
+    card; smollm-135m, TRAIN_CLI_ARGS) for 6 steps, then for 9 on the same
+    checkpoint directory, which must resume from step 6; then minicpm-2b
+    at full width cut to 2 layers in bf16 (dense: every op of its step
+    deterministic on the card): 6 steps straight against 3 steps, a
+    checkpoint, a restore and 3 more, every leaf bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainState, make_train_step
+
+    torch.cuda.empty_cache()
+    ckpt_dir = ROOT / "build" / "smoke_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runs = {}
+    for n in (6, 9):
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            _, step_n, _ = train.main([*TRAIN_CLI_ARGS, "--steps", str(n),
+                                       "--ckpt-dir", str(ckpt_dir)])
+        torch.cuda.synchronize()
+        lines = log.getvalue().strip().splitlines()
+        runs[n] = dict(step=step_n, seconds=time.perf_counter() - t0,
+                       resumed=[ln for ln in lines if ln.startswith("resumed from")],
+                       last=lines[-1] if lines else None)
+        print("\n".join(lines[-3:]), flush=True)
+        torch.cuda.empty_cache()
+    ok_cli = (runs[6]["step"] == 6 and runs[9]["step"] == 9 and not runs[6]["resumed"]
+              and runs[9]["resumed"] == ["resumed from step 6"]
+              and runs[6]["last"].startswith("done at step 6; final loss ")
+              and runs[9]["last"].startswith("done at step 9; final loss ")
+              and math.isfinite(float(runs[9]["last"].rsplit(" ", 1)[1])))
+
+    cfg = lm_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS)
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10, remat=True)
+    stream = TokenStream(cfg.vocab_size, RESUME_B, RESUME_S, seed=0)
+    ck = CheckpointManager(ROOT / "build" / "smoke_train_resume", keep_last=2)
+    for s_ in ck.all_steps():
+        shutil.rmtree(ck.dir / f"step_{s_:08d}")
+    s0 = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
+    ck.save(0, s0, blocking=True)
+    step = make_train_step(cfg, tc, device=dev)
+    sA = s0
+    for i in range(6):
+        sA, _ = step(sA, stream.batch_at(i))
+    sB = ck.restore(0, sA)
+    for i in range(3):
+        sB, _ = step(sB, stream.batch_at(i))
+    ck.save(3, sB, blocking=True)
+    del sB  # "crash"
+    n_restored, sB = ck.restore_latest(sA)
+    for i in range(3, 6):
+        sB, _ = step(sB, stream.batch_at(i))
+    same = n_restored == 3 and leaves_equal(torch, sA, sB)
+    del s0, sA, sB
+    torch.cuda.empty_cache()
+    out = dict(cli=runs, cli_ok=ok_cli, resume_arch=TRAIN_ARCH,
+               resume_n_layers=TRAIN_CHECK_LAYERS, resume_dtype=cfg.dtype,
+               resume_B=RESUME_B, resume_S=RESUME_S, resume_restored_step=n_restored,
+               resume_bit_exact=same, smi=smi)
+    emit("train_cli", **out)
+    if not (ok_cli and same):
+        raise AssertionError(f"train_cli failed: {out}")
     return out
 
 
@@ -2544,6 +2864,12 @@ def main(argv=None) -> int:
         serve_more[fam] = lm_serve(torch, dev, smi, arch, phase=f"lm_{fam}_serve")
         check_more[fam] = lm_check(torch, dev, smi, arch, phase=f"lm_{fam}_check")
 
+    # the training path: the flash Function's gradients, minicpm-2b whole
+    # through make_train_step, the train CLI and a bit-exact resume
+    tcheck = train_check(torch, dev, smi)
+    tstep = train_step_phase(torch, dev, smi, tcheck)
+    train_cli(torch, dev, smi)
+
     from repro_torch.core import knn as tknn
     from repro_torch.data.synthetic import dummy_brain
     from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
@@ -3279,7 +3605,10 @@ def main(argv=None) -> int:
             for key, name in (("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
                               ("library_ms", "library_ms"), ("bound_ms", "bound_ms"))},
          "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
-         "checked": True},
+         "launches_train": tstep["flash_launches_per_step"][-1],
+         "train_step_s": tstep["step_s_mean"],
+         "backward_ms_train_shape": tcheck["bfloat16"]["backward_ms"],
+         "checked": True, "checked_grad": True},
         {"name": "knn_slab", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_slab/csrc/knn_slab.cu",
          "replaces": "benchmarks/run.py:476",

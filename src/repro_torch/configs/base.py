@@ -1,10 +1,10 @@
 """Model configuration schema of the port's LM side.
 
-``ModelConfig``, ``ShapeCell``, ``SHAPE_CELLS`` and ``shape_cell`` are
-copies of the JAX package's ``configs/base.py`` (field for field, same
-defaults), so a config means the same model in both packages.
-``model_config_from_jax`` maps a JAX config across.  ``TrainConfig``
-comes with the training path.
+``ModelConfig``, ``ShapeCell``, ``SHAPE_CELLS``, ``shape_cell`` and
+``TrainConfig`` are copies of the JAX package's ``configs/base.py``
+(field for field, same defaults), so a config means the same model and
+the same training run in both packages.  ``model_config_from_jax`` maps
+a JAX model config across.
 """
 from __future__ import annotations
 
@@ -106,6 +106,23 @@ def shape_cell(name: str) -> ShapeCell:
         if c.name == name:
             return c
     raise KeyError(name)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"  # adamw | adafactor
+    moment_dtype: str = "float32"  # bfloat16 halves AdamW moment memory
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # cosine | wsd | constant
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    remat: bool = True
+    microbatch: int = 0  # >0: gradient accumulation micro-batch size
+    grad_compression: bool = False  # int8 + error feedback all-reduce
+    moe_aux_weight: float = 0.01
+    seed: int = 0
 
 
 def model_config_from_jax(d: dict) -> ModelConfig:

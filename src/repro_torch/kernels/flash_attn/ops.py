@@ -6,6 +6,13 @@ kernel is chosen statically by :func:`flash_route`: bfloat16 at a head
 dim that is a multiple of 16 up to 128 goes to the tensor-core kernel
 (``flash_attn_wgmma_launch``), every other case to the CUDA-core kernel
 (``flash_attn_launch``).
+
+The kernels have no backward.  :class:`FlashAttnFn` is the autograd
+Function that trains through them: its forward launches the kernel, its
+backward recomputes attention through the plain version query chunk by
+query chunk.  A bare :func:`flash_attn` call on CUDA tensors that
+require grad, with grad mode on, raises: its output would carry no
+autograd history, and q, k and v would silently get no gradient.
 """
 from __future__ import annotations
 
@@ -62,6 +69,12 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = (q, k, v)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attn_ref(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "flash_attn: the kernel has no backward, and q, k or v requires grad "
+            "with grad mode on; train through FlashAttnFn.apply (models.layers."
+            "_sdpa does on attn_impl='chunked'), or call it under torch.no_grad()"
+        )
     if not (all(t.is_cuda for t in tensors) and q.device == k.device == v.device):
         raise ValueError(
             f"flash_attn: q on {q.device}, k on {k.device}, v on {v.device}; all "
@@ -118,3 +131,49 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: kernel launches since the last reset, by route (chip_smoke.py resets
 #: and reads them; their sum is the kernel's launch count)
 flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+class FlashAttnFn(torch.autograd.Function):
+    """Attention that trains: ``FlashAttnFn.apply(q, k, v, causal, chunk)``.
+
+    Forward: :func:`flash_attn` (the kernel on the card, the plain version
+    on the CPU); q, k and v are saved.  Backward: the plain version
+    (``ref.py``) recomputed under autograd, ``chunk`` query rows at a
+    time, each chunk at its query positions (causal: its keys up to the
+    chunk's last row, the rest carry zero weight), q / k / v taken in
+    float32 so that dk and dv sum over the chunks in float32 -- the
+    memory shape and the gradient of JAX's ``_sdpa_chunked``, which
+    checkpoints each chunk.  dq, dk, dv come back in the inputs' dtypes.
+    No backward kernel: the recompute is plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, chunk: int = 1024):
+        ctx.causal, ctx.chunk = causal, chunk
+        ctx.save_for_backward(q, k, v)
+        return flash_attn(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        Sq, Sk = q.shape[1], k.shape[1]
+        C = max(1, min(ctx.chunk, Sq))
+        kf = k.detach().float().requires_grad_()
+        vf = v.detach().float().requires_grad_()
+        dq = torch.empty_like(q)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        go = grad_out.float()
+        with torch.enable_grad():
+            for lo in range(0, Sq, C):
+                hi = min(lo + C, Sq)
+                # keys past the chunk's last row carry exactly zero weight
+                kh = hi if ctx.causal and Sk == Sq else Sk
+                qc = q[:, lo:hi].detach().float().requires_grad_()
+                kc, vc = kf[:, :kh], vf[:, :kh]
+                q_pos = torch.arange(lo, hi, device=q.device) if ctx.causal else None
+                oc = flash_attn_ref(qc, kc, vc, ctx.causal, q_pos)
+                gq, gk, gv = torch.autograd.grad(oc, (qc, kf, vf), go[:, lo:hi])
+                dq[:, lo:hi] = gq.to(q.dtype)
+                dk += gk
+                dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None

@@ -1,19 +1,177 @@
-"""Serving steps of the port's LM: prefill and decode.
+"""Step functions of the port's LM: train step, prefill and decode.
 
-The counterparts of ``make_prefill_step`` / ``make_decode_step`` of the
-JAX package's ``launch/steps.py``: one function per step kind, closed
-over the ModelConfig.  The steps run under ``torch.inference_mode()``
-on the device given to ``make_*`` (default the card; ``make_*`` raises
-without one).  Sharding policies and the training step are not ported
-yet.
+The counterparts of ``TrainState``, ``make_train_step``,
+``_accumulated_grads``, ``make_prefill_step`` and ``make_decode_step``
+of the JAX package's ``launch/steps.py``: one function per step kind,
+closed over the ModelConfig (and TrainConfig), on the device given to
+``make_*`` (default the card; ``make_*`` raises without one).  Serving
+steps run under ``torch.inference_mode()``; the train step takes the
+gradient of ``models.transformer.loss_fn`` with autograd and updates
+the state's tensors in place.  ``train_state_from_jax`` carries a JAX
+TrainState across.  Sharding policies are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
+from repro_torch.optim import adafactor, adamw
+from repro_torch.optim.schedule import make_schedule
 from repro_torch.runtime.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainState:
+    """params: the ``LM`` module; opt: the optimizer's dict of tensors
+    (AdamW: {"m", "v": {parameter name: moment}, "count"}; Adafactor:
+    {"acc": {JAX leaf path: {"vr", "vc"} or {"v"}}, "count"}); step: the
+    int32 step counter (0-d, on the params' device)."""
+
+    params: Any
+    opt: Any
+    step: torch.Tensor
+
+    @staticmethod
+    def create(cfg: ModelConfig, tc: TrainConfig,
+               generator: Optional[torch.Generator] = None, device=None) -> "TrainState":
+        """``init_params`` on ``device`` (default the card; raises without
+        one), the optimizer's zero state, step 0.  ``generator``: default
+        one seeded with ``tc.seed``."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(tc.seed)
+        params = T.init_params(cfg, generator, dev)
+        return TrainState(params=params, opt=init_opt(params, tc),
+                          step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def init_opt(params: T.LM, tc: TrainConfig) -> dict:
+    named = dict(params.named_parameters())
+    if tc.optimizer == "adamw":
+        return adamw.init(named, moment_dtype=getattr(torch, tc.moment_dtype))
+    if tc.optimizer == "adafactor":
+        return adafactor.init(named, groups=T.jax_leaf_groups(params))
+    raise ValueError(f"optimizer {tc.optimizer!r}: adamw or adafactor")
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
+    """train_step(state, batch) -> (state, metrics), JAX's step: the loss
+    and its gradient (float32 accumulated over micro-batches of
+    ``tc.microbatch`` rows where it is > 0), the gradient clipped to
+    ``tc.grad_clip`` by its global norm, the optimizer's update at
+    ``sched(state.step)``.  The state's parameters and optimizer tensors
+    are updated in place; the returned state holds them and the next
+    step.  metrics: {"loss", "ce", "moe_aux", "grad_norm", "lr"}, 0-d
+    float32 tensors on the device (no synchronisation)."""
+    resolve_device(device)
+    sched = make_schedule(tc.schedule, tc.lr, tc.warmup_steps, tc.total_steps)
+    if tc.optimizer not in ("adamw", "adafactor"):
+        raise ValueError(f"optimizer {tc.optimizer!r}: adamw or adafactor")
+
+    def loss_of(params, batch):
+        return T.loss_fn(params, batch, cfg, tc)
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        model = state.params
+        if tc.microbatch > 0:
+            grads, (loss, metrics) = _accumulated_grads(loss_of, model, batch,
+                                                        tc.microbatch)
+        else:
+            loss, metrics = loss_of(model, batch)
+            grads = _grads(loss, model)
+            loss = loss.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, gnorm = adamw.clip_by_global_norm(grads, tc.grad_clip)
+        lr = sched(state.step)
+        named = dict(model.named_parameters())
+        # the leaf rules read the JAX leaf each tensor is a slice of
+        if tc.optimizer == "adamw":
+            _, opt = adamw.update(grads, state.opt, named, lr,
+                                  weight_decay=tc.weight_decay,
+                                  leaf_ndim=T.jax_leaf_ndims(model))
+        else:
+            _, opt = adafactor.update(grads, state.opt, named, lr,
+                                      weight_decay=tc.weight_decay,
+                                      groups=T.jax_leaf_groups(model))
+        del grads
+        metrics = {**metrics, "loss": loss, "grad_norm": gnorm, "lr": lr}
+        return TrainState(model, opt, state.step + 1), metrics
+
+    return train_step
+
+
+def _grads(loss: torch.Tensor, model: T.LM) -> dict:
+    """{name: d loss / d parameter} in the parameters' dtypes."""
+    named = dict(model.named_parameters())
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def _accumulated_grads(loss_of, params: T.LM, batch: dict, microbatch: int):
+    """Gradient accumulation over micro-batches (batch axis 0 split):
+    float32 gradient sums divided by their count, the mean loss, the
+    other metrics of the last micro-batch."""
+    B = int(np.shape(batch["tokens"])[0])
+    if B % microbatch:
+        raise ValueError(f"batch {B} is not a multiple of the micro-batch {microbatch}")
+    n_micro = B // microbatch
+    dev = params.embed.tok.device
+    g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for k, p in params.named_parameters()}
+    l_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = {}
+    for i in range(n_micro):
+        micro = {k: v[i * microbatch : (i + 1) * microbatch] for k, v in batch.items()}
+        loss, metrics = loss_of(params, micro)
+        for k, g in _grads(loss, params).items():
+            g_sum[k] += g.float()
+        l_sum = l_sum + loss.detach()
+        del loss
+    grads = {k: g / n_micro for k, g in g_sum.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return grads, (l_sum / n_micro, metrics)
+
+
+def train_state_from_jax(state_tree, cfg: ModelConfig, tc: TrainConfig,
+                         device=None) -> TrainState:
+    """The port's TrainState from a JAX one (its ``params``, ``opt`` and
+    ``step`` as numpy leaves): params through
+    ``params_from_jax``; AdamW's ``m`` / ``v`` unstacked on the params'
+    stacked axes, in ``tc.moment_dtype``; Adafactor's accumulators as
+    they are (its groups keep JAX's stacked shapes); ``count`` and
+    ``step`` as int32."""
+    dev = resolve_device(device)
+    params = T.params_from_jax(state_tree.params, cfg, dev)
+    jopt = state_tree.opt
+    opt = init_opt(params, tc)
+    with torch.no_grad():
+        if tc.optimizer == "adamw":
+            for key in ("m", "v"):
+                flat = T.unstack_jax_tree(jopt[key])
+                if set(flat) != set(opt[key]):
+                    raise ValueError(f"JAX AdamW {key} and the port's parameters differ")
+                for name, t in opt[key].items():
+                    t.copy_(torch.from_numpy(flat[name]))
+        else:
+            for name, acc in opt["acc"].items():
+                node = jopt["acc"]
+                for part in name.split("."):
+                    node = node[part]
+                for k, t in acc.items():
+                    arr = np.asarray(node[k], dtype=np.float32)
+                    if tuple(arr.shape) != tuple(t.shape):
+                        raise ValueError(f"adafactor {name}.{k}: JAX shape {arr.shape}, "
+                                         f"port shape {tuple(t.shape)}")
+                    t.copy_(torch.tensor(arr))
+        opt["count"] = torch.tensor(int(np.asarray(jopt["count"])), dtype=torch.int32,
+                                    device=dev)
+    step = torch.tensor(int(np.asarray(state_tree.step)),
+                        dtype=torch.int32, device=dev)
+    return TrainState(params=params, opt=opt, step=step)
 
 
 def make_prefill_step(cfg: ModelConfig, policy=None, device=None):

@@ -11,11 +11,17 @@ Attention routing (``_sdpa``) keeps JAX's knob: ``impl="xla"`` is the
 plain dense version (``flash_attn_ref``, the counterpart of JAX's
 ``_sdpa_dense``); ``impl="chunked"`` with more than one query and no
 ``q_pos`` is the flash-attention kernel (``kernels.flash_attn``), which
-computes that same function for any length, so JAX's chunk size and
-unroll flag have no counterpart; ``q_pos`` (decode, prefill into a
-longer cache) is the dense version, as in JAX.  Every self-attention
-with a cache goes through :func:`cached_attention`.  Sequence-parallel
-attention needs sharding and raises.
+computes that same function for any length; where it trains (grad mode
+on and q, k or v requiring grad) it goes through ``FlashAttnFn``, whose
+backward recomputes the plain version ``chunk`` query rows at a time,
+the memory shape of JAX's checkpointed chunks (JAX's unroll flag has no
+counterpart).  ``q_pos`` (decode, prefill into a longer cache) is the
+dense version, as in JAX.  Every self-attention with a cache goes
+through :func:`cached_attention`.  Sequence-parallel attention needs
+sharding and raises.
+
+Parameters are trainable (``requires_grad``); serving runs under
+``torch.inference_mode()`` (``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -26,14 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attn.ops import flash_attn
+from repro_torch.kernels.flash_attn.ops import FlashAttnFn, flash_attn
 from repro_torch.kernels.flash_attn.ref import flash_attn_ref
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    # serving only: no gradients (training is not ported yet)
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +123,7 @@ class AttnDims:
     causal: bool = True
     kv_d_model: Optional[int] = None  # cross-attn source width
     impl: str = "xla"  # xla (dense S^2) | chunked (the flash kernel)
+    chunk: int = 1024  # query rows of a chunk of the flash backward
     seq_shard: bool = False  # sequence-parallel attention: needs sharding
 
 
@@ -133,19 +138,21 @@ class Attention(nn.Module):
 
 
 def _sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla",
-          seq_shard: bool = False):
+          chunk: int = 1024, seq_shard: bool = False):
     if seq_shard:
         raise NotImplementedError(
             "sequence-parallel attention (attn_seq_shard) needs sharding, which "
             "the port does not have yet"
         )
     if impl == "chunked" and q.shape[1] > 1 and q_pos is None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return FlashAttnFn.apply(q, k, v, causal, chunk)
         return flash_attn(q, k, v, causal)
     return flash_attn_ref(q, k, v, causal, q_pos)
 
 
 def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
-                     seq_shard: bool = False) -> torch.Tensor:
+                     chunk: int = 1024, seq_shard: bool = False) -> torch.Tensor:
     """Causal self-attention through a KV cache, every family's cache
     branch (the dense blocks' and the hybrid's shared block).
 
@@ -168,10 +175,10 @@ def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
     cache["k"][:, cache_pos : cache_pos + Sq] = k.to(cache["k"].dtype)
     cache["v"][:, cache_pos : cache_pos + Sq] = v.to(cache["v"].dtype)
     if Sq == S_max:
-        return _sdpa(q, k, v, causal=True, impl=impl, seq_shard=seq_shard)
+        return _sdpa(q, k, v, causal=True, impl=impl, chunk=chunk, seq_shard=seq_shard)
     q_pos = torch.arange(cache_pos, cache_pos + Sq, device=q.device)
     return _sdpa(q, cache["k"], cache["v"], causal=True, q_pos=q_pos, impl=impl,
-                 seq_shard=seq_shard)
+                 chunk=chunk, seq_shard=seq_shard)
 
 
 def attention_fwd(
@@ -192,7 +199,7 @@ def attention_fwd(
     """
     B, Sq, _ = x.shape
     q = linear(p.wq, x).reshape(B, Sq, a.n_heads, a.d_head)
-    kw = dict(impl=a.impl, seq_shard=a.seq_shard)
+    kw = dict(impl=a.impl, chunk=a.chunk, seq_shard=a.seq_shard)
     self_cache = cache is not None and cache_pos is not None and kv_src is None
     if cache is not None and not self_cache:  # cross-attn, precomputed source kv
         o = _sdpa(q, cache["k"], cache["v"], causal=False, **kw)

@@ -26,9 +26,16 @@ its rows back, weighted by its gates.  The semantics are JAX's:
 Each ``MoE`` module counts its routed and dropped (token, slot)
 assignments on its device (``drop_counts`` / ``reset_drop_counts``),
 without a synchronisation, and keeps its last call's expert choices
-(``last_experts``: (G, g, top_k) indices, a reference, no copy).
+(``last_experts``: (G, g, top_k) indices, a reference, no copy).  Each
+forward counts once: the recompute pass of activation recomputation
+runs under :func:`not_counting`.  The backward goes through the index
+dispatch (the copy into the buffer rows, the gates' weighted sum back):
+a dropped assignment gets no gradient, as under JAX's one-hot dispatch.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +60,22 @@ class MoE(nn.Module):
                                                     device=device), persistent=False)
         self.routed = 0
         self.last_experts = None
+
+
+_COUNT = threading.local()
+
+
+@contextlib.contextmanager
+def not_counting():
+    """MoE layers called inside (on this thread) do not add to their
+    routed and dropped counts: the recompute pass of a checkpointed layer
+    computes a forward that was counted already."""
+    prev = getattr(_COUNT, "off", False)
+    _COUNT.off = True
+    try:
+        yield
+    finally:
+        _COUNT.off = prev
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -128,8 +151,9 @@ def moe_fwd(
     aux = E * ((kept / g) * probs.mean(1)).sum(-1).mean()
 
     p.last_experts = experts
-    p.routed += T0 * top_k
-    p.dropped += T0 * top_k - keep.sum()
+    if not getattr(_COUNT, "off", False):
+        p.routed += T0 * top_k
+        p.dropped += T0 * top_k - keep.sum()
     return y.reshape(T, d)[:T0].reshape(B, S, d), aux
 
 

@@ -136,9 +136,13 @@ def mamba_fwd(p: Mamba, s: SSMDims, u: torch.Tensor, return_state: bool = False)
     # intra-chunk: decay[b,c,h,t,j] = exp(csum_t - csum_j) for j <= t
     M = csum[..., :, None] - csum[..., None, :]  # (b,c,h,t,j)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
-    M.masked_fill_(~tri, -1e30).exp_()
-    M.mul_((Cc @ Bc.transpose(-1, -2))[:, :, None])  # scores (b,c,1,t,j)
-    M.mul_(dtc[..., None, :])  # dt_j
+    scores = (Cc @ Bc.transpose(-1, -2))[:, :, None]  # (b,c,1,t,j)
+    if torch.is_grad_enabled():  # autograd keeps exp's output: no in-place
+        M = torch.exp(M.masked_fill(~tri, -1e30)) * scores * dtc[..., None, :]
+    else:  # the same terms in place (serving: one (b,c,h,Q,Q) buffer)
+        M.masked_fill_(~tri, -1e30).exp_()
+        M.mul_(scores)
+        M.mul_(dtc[..., None, :])  # dt_j
     y = M @ xc  # (b,c,h,q,p)
     del M
 

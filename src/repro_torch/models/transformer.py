@@ -39,6 +39,14 @@ are ``nn.ModuleList``s walked in Python loops (JAX scans).
   B, n_patches, K, dh)}.
 
 Prefill and decode write the cache in place.
+
+Training: ``forward(..., remat=True)`` runs each of JAX's scan bodies
+(one block for dense, moe and ssm; one unit for hybrid and vlm; one
+encoder or decoder layer for audio) under ``torch.utils.checkpoint``
+when grad mode is on, as JAX wraps its scan body in ``jax.checkpoint``;
+the recompute pass does not count MoE assignments again.
+``loss_fn`` is JAX's next-token loss.  ``jax_leaf_groups`` names the
+JAX leaf each parameter is a slice of, for the optimizers' leaf rules.
 """
 from __future__ import annotations
 
@@ -49,8 +57,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -87,6 +96,7 @@ def _attn_dims(cfg: ModelConfig, cross: bool = False) -> L.AttnDims:
         causal=not cross,
         kv_d_model=cfg.d_model if cross else None,
         impl=cfg.attn_impl,
+        chunk=cfg.attn_chunk,
         seq_shard=cfg.attn_seq_shard,
     )
 
@@ -318,7 +328,9 @@ def _cross_kv(p_attn: L.Attention, cfg: ModelConfig, src: torch.Tensor) -> dict:
 
 
 def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0):
-    x = p.tok[tokens]
+    # a gather; F.embedding's backward sums each row's uses in a fixed
+    # order on the card, where indexing's (index_put_) accumulates atomically
+    x = F.embedding(tokens, p.tok)
     if cfg.pos == "learned":
         x = x + p.pos[pos_offset : pos_offset + tokens.shape[1]]
     return x
@@ -370,13 +382,33 @@ def _write_state(cache: dict, i: tuple, st: dict) -> None:
         cache[name][i] = val
 
 
+def _remat(remat: bool, fn, *args):
+    """``fn(*args)``: one of JAX's scan bodies.  With ``remat`` and grad
+    mode on, under activation recomputation (JAX's ``jax.checkpoint``):
+    only the inputs are kept, and the backward runs ``fn`` again; that
+    recompute runs with the MoE counters off, so each forward counts
+    once.  No random numbers are drawn, so no RNG state is kept."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    ran = []
+
+    def body(*a):
+        if ran:  # the backward's recompute
+            with MOE.not_counting():
+                return fn(*a)
+        ran.append(True)
+        return fn(*a)
+
+    return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 # ==========================================================================
 # dense / moe decoder-only family
 # ==========================================================================
-def _fwd_dense(params: LM, cfg: ModelConfig, x):
+def _fwd_dense(params: LM, cfg: ModelConfig, x, remat: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        x, a = _dense_block_fwd(blk, cfg, x)
+        x, a = _remat(remat, _dense_block_fwd, blk, cfg, x)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -402,10 +434,9 @@ def _step_dense(params: LM, cfg: ModelConfig, x, cache: dict, pos: int):
 # ==========================================================================
 # ssm (mamba2) family
 # ==========================================================================
-def _fwd_ssm(params: LM, cfg: ModelConfig, x):
-    dims = _ssm_dims(cfg)
+def _fwd_ssm(params: LM, cfg: ModelConfig, x, remat: bool = False):
     for blk in params.blocks:
-        x = x + SSM.mamba_fwd(blk.mixer, dims, L.apply_norm(cfg.norm, blk.ln, x))
+        x = _remat(remat, _mamba_step, blk, cfg, x, None, (), False)
     return x
 
 
@@ -461,32 +492,45 @@ def _shared_block_fwd(sp: SharedBlock, lora: LoRA, cfg: ModelConfig, x, x0,
     q = L.rope(proj("q", sp.wq, cfg.n_heads), positions, cfg.rope_theta)
     k = L.rope(proj("k", sp.wk, cfg.n_kv_heads), positions, cfg.rope_theta)
     v = proj("v", sp.wv, cfg.n_kv_heads)
+    kw = dict(impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     if cache is not None:
-        o = L.cached_attention(q, k, v, cache, cache_pos, impl=cfg.attn_impl)
+        o = L.cached_attention(q, k, v, cache, cache_pos, **kw)
     else:
-        o = L._sdpa(q, k, v, causal=True, impl=cfg.attn_impl)
+        o = L._sdpa(q, k, v, causal=True, **kw)
     x = x + L.linear(sp.wo, o.reshape(B, S, cfg.n_heads * hd))
     h2 = L.apply_norm(cfg.norm, sp.ln2, torch.cat([x, x0], dim=-1))
     return x + L.linear(sp.w_down, F.gelu(L.linear(sp.w_up, h2), approximate="tanh"))
 
 
+def _hybrid_unit(params: LM, cfg: ModelConfig, u: int, x, x0,
+                 cache: Optional[dict] = None, pos: Optional[int] = None,
+                 decode: bool = False):
+    """Unit ``u``: its Mamba2 blocks and the shared block with its LoRA."""
+    mi = 0
+    for sym in cfg.hybrid_pattern:
+        if sym == "m":
+            x = _mamba_step(params.mamba[u][mi], cfg, x,
+                            None if cache is None else cache["ssm"], (u, mi), decode)
+            mi += 1
+        else:
+            x = _shared_block_fwd(
+                params.shared, params.lora[u], cfg, x, x0,
+                cache=None if cache is None else _layer_cache(cache["attn"], u),
+                cache_pos=pos)
+    return x
+
+
 def _step_hybrid(params: LM, cfg: ModelConfig, x, cache: Optional[dict] = None,
-                 pos: Optional[int] = None, decode: bool = False):
-    """Every unit: forward (no cache), prefill (pos 0) or decode.  x0 is
-    the embedding this call starts from."""
+                 pos: Optional[int] = None, decode: bool = False,
+                 remat: bool = False):
+    """Every unit: forward (no cache; a unit under ``remat``), prefill
+    (pos 0) or decode.  x0 is the embedding this call starts from."""
     x0 = x
-    for u, lora in enumerate(params.lora):
-        mi = 0
-        for sym in cfg.hybrid_pattern:
-            if sym == "m":
-                x = _mamba_step(params.mamba[u][mi], cfg, x,
-                                None if cache is None else cache["ssm"], (u, mi), decode)
-                mi += 1
-            else:
-                x = _shared_block_fwd(
-                    params.shared, lora, cfg, x, x0,
-                    cache=None if cache is None else _layer_cache(cache["attn"], u),
-                    cache_pos=pos)
+    for u in range(len(params.lora)):
+        if cache is None:
+            x = _remat(remat, _hybrid_unit, params, cfg, u, x, x0)
+        else:
+            x = _hybrid_unit(params, cfg, u, x, x0, cache, pos, decode)
     return x
 
 
@@ -503,13 +547,17 @@ def _hybrid_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
 # ==========================================================================
 # audio (whisper) encoder-decoder family
 # ==========================================================================
-def _encode_audio(params: LM, cfg: ModelConfig, audio: torch.Tensor):
+def _enc_block_fwd(blk: EncBlock, cfg: ModelConfig, x):
+    h, _ = L.attention_fwd(blk.attn, _enc_dims(cfg), L.apply_norm(cfg.norm, blk.ln1, x))
+    x = x + h
+    return x + L.mlp_fwd(blk.mlp, L.apply_norm(cfg.norm, blk.ln2, x), cfg.mlp_act)
+
+
+def _encode_audio(params: LM, cfg: ModelConfig, audio: torch.Tensor,
+                  remat: bool = False):
     x = audio + params.enc_pos
-    dims = _enc_dims(cfg)
     for blk in params.enc_blocks:
-        h, _ = L.attention_fwd(blk.attn, dims, L.apply_norm(cfg.norm, blk.ln1, x))
-        x = x + h
-        x = x + L.mlp_fwd(blk.mlp, L.apply_norm(cfg.norm, blk.ln2, x), cfg.mlp_act)
+        x = _remat(remat, _enc_block_fwd, blk, cfg, x)
     return L.apply_norm(cfg.norm, params.enc_ln_f, x)
 
 
@@ -524,19 +572,30 @@ def _dec_block_fwd(p: DecBlock, cfg: ModelConfig, x, enc_kv: dict, cache=None,
     return x + L.mlp_fwd(p.mlp, L.apply_norm(cfg.norm, p.ln3, x), cfg.mlp_act)
 
 
-def _step_audio(params: LM, cfg: ModelConfig, x, audio=None, cache=None, pos=None):
-    """The decoder: forward (``audio``, no cache), prefill (``audio`` and
-    the cache: each layer's cross keys and values stored) or decode (no
-    ``audio``: they are read from the cache)."""
-    enc = None if audio is None else _encode_audio(params, cfg, audio)
+def _dec_layer(blk: DecBlock, cfg: ModelConfig, x, enc):
+    """A decoder layer of the forward: its cross keys and values, then the block."""
+    return _dec_block_fwd(blk, cfg, x, _cross_kv(blk.xattn, cfg, enc))
+
+
+def _step_audio(params: LM, cfg: ModelConfig, x, audio=None, cache=None, pos=None,
+                remat: bool = False):
+    """The decoder: forward (``audio``, no cache; an encoder or decoder
+    layer under ``remat``), prefill (``audio`` and the cache: each layer's
+    cross keys and values stored) or decode (no ``audio``: they are read
+    from the cache)."""
+    enc = None if audio is None else _encode_audio(params, cfg, audio,
+                                                   remat and cache is None)
     for i, blk in enumerate(params.dec_blocks):
+        if cache is None:
+            x = _remat(remat, _dec_layer, blk, cfg, x, enc)
+            continue
         if enc is not None:
             enc_kv = _cross_kv(blk.xattn, cfg, enc)
             if cache is not None:
                 cache["xk"][i], cache["xv"][i] = enc_kv["k"], enc_kv["v"]
         else:
             enc_kv = {"k": cache["xk"][i], "v": cache["xv"][i]}
-        self_cache = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+        self_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         x = _dec_block_fwd(blk, cfg, x, enc_kv, cache=self_cache, cache_pos=pos)
     return x
 
@@ -556,24 +615,35 @@ def _audio_cache(cfg: ModelConfig, B, cache_len, dtype, dev) -> dict:
 # vlm (llama-3.2-vision) family: units of cross_attn_period decoder layers,
 # in-unit position period - 2 is a gated cross-attention block
 # ==========================================================================
-def _step_vlm(params: LM, cfg: ModelConfig, x, img=None, cache=None, pos=None):
-    """Every unit: period - 1 decoder blocks with the gated cross block
-    before the last one.  Forward (``img``, no cache), prefill (``img``
-    and the cache: each unit's image keys and values stored) or decode
-    (no ``img``: read from the cache)."""
+def _vlm_unit(params: LM, cfg: ModelConfig, u: int, x, img=None, cache=None, pos=None):
+    """Unit ``u``: period - 1 decoder blocks with the gated cross block
+    before the last one, over ``img``'s keys and values (or the cache's)."""
     _, period = _vlm_counts(cfg)
-    for u, cross in enumerate(params.cross):
-        if img is not None:
-            img_kv = _cross_kv(cross.xattn, cfg, img)
-            if cache is not None:
-                cache["xk"][u], cache["xv"][u] = img_kv["k"], img_kv["v"]
+    cross = params.cross[u]
+    if img is not None:
+        img_kv = _cross_kv(cross.xattn, cfg, img)
+        if cache is not None:
+            cache["xk"][u], cache["xv"][u] = img_kv["k"], img_kv["v"]
+    else:
+        img_kv = {"k": cache["xk"][u], "v": cache["xv"][u]}
+    for j, blk in enumerate(params.selfs[u]):
+        if j == period - 2:
+            x = _cross_block_fwd(cross, cfg, x, img_kv)
+        cl = None if cache is None else {"k": cache["k"][u, j], "v": cache["v"][u, j]}
+        x, _ = _dense_block_fwd(blk, cfg, x, cache=cl, cache_pos=pos)
+    return x
+
+
+def _step_vlm(params: LM, cfg: ModelConfig, x, img=None, cache=None, pos=None,
+              remat: bool = False):
+    """Every unit: forward (``img``, no cache; a unit under ``remat``),
+    prefill (``img`` and the cache: each unit's image keys and values
+    stored) or decode (no ``img``: read from the cache)."""
+    for u in range(len(params.cross)):
+        if cache is None:
+            x = _remat(remat, _vlm_unit, params, cfg, u, x, img)
         else:
-            img_kv = {"k": cache["xk"][u], "v": cache["xv"][u]}
-        for j, blk in enumerate(params.selfs[u]):
-            if j == period - 2:
-                x = _cross_block_fwd(cross, cfg, x, img_kv)
-            cl = None if cache is None else {"k": cache["k"][u, j], "v": cache["v"][u, j]}
-            x, _ = _dense_block_fwd(blk, cfg, x, cache=cl, cache_pos=pos)
+            x = _vlm_unit(params, cfg, u, x, img, cache, pos)
     return x
 
 
@@ -630,6 +700,48 @@ def _flatten(tree: dict, prefix=()):
             yield prefix + (key,), val
 
 
+def unstack_jax_tree(tree: dict) -> dict:
+    """{port parameter name: float32 numpy array} of a JAX parameter tree
+    (or of a tree shaped like it: AdamW's moments), its stacked subtrees
+    unstacked on their stacked axes (``_STACKED``)."""
+    flat = {}
+    for path, arr in _flatten(tree):
+        arr = np.array(arr, dtype=np.float32)  # a writable copy
+        n = _STACKED.get(path[0], 0)
+        for i in np.ndindex(arr.shape[:n]):
+            flat[".".join((path[0], *map(str, i)) + path[1:])] = arr[i + (...,)]
+    return flat
+
+
+def jax_leaf_groups(model: LM) -> dict:
+    """{JAX leaf path: (its stacked shape, the port parameter names that
+    are its slices, in row-major order of their stack index)}: JAX keeps
+    ``blocks.3.attn.wq.w`` as slice 3 of leaf ``blocks.attn.wq.w`` of
+    shape (n_layers, d, H dh).  Unstacked parameters are groups of one
+    with shape ()."""
+    groups: dict = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        n = _STACKED.get(parts[0], 0)
+        idx = tuple(int(i) for i in parts[1 : 1 + n])
+        key = ".".join(parts[:1] + parts[1 + n :])
+        groups.setdefault(key, []).append((idx, name))
+    out = {}
+    for key, members in groups.items():
+        members.sort()
+        stack = tuple(max(i[a] for i, _ in members) + 1
+                      for a in range(len(members[0][0])))
+        out[key] = (stack, [name for _, name in members])
+    return out
+
+
+def jax_leaf_ndims(model: LM) -> dict:
+    """{port parameter name: ndim of the JAX leaf it is a slice of}."""
+    return {name: len(stack) + prm.ndim
+            for stack, names in jax_leaf_groups(model).values()
+            for name, prm in ((n, model.get_parameter(n)) for n in names)}
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The port's module with the weights of a JAX parameter tree.
 
@@ -643,12 +755,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     the port's module, shape for shape."""
     dev = resolve_device(device)
     model = LM(cfg, dev)
-    flat = {}
-    for path, arr in _flatten(tree):
-        arr = np.array(arr, dtype=np.float32)  # a writable copy
-        n = _STACKED.get(path[0], 0)
-        for i in np.ndindex(arr.shape[:n]):
-            flat[".".join((path[0], *map(str, i)) + path[1:])] = arr[i + (...,)]
+    flat = unstack_jax_tree(tree)
     params = dict(model.named_parameters())
     if set(flat) != set(params):
         raise ValueError(
@@ -665,26 +772,40 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     return model
 
 
-def forward(params: LM, batch: dict, cfg: ModelConfig):
+def forward(params: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
     """Full-sequence forward -> (logits (B, S, V_pad) f32, the sum of the
     layers' MoE aux losses (f32; 0 without experts)).  batch: {'tokens'},
     and 'audio' / 'image_embeds' (B, n_frontend_tokens, d) for the audio
-    / vlm families."""
+    / vlm families.  ``remat``: each scan body under activation
+    recomputation where grad mode is on (module docstring)."""
     fam = _family(cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
     aux = torch.zeros((), device=x.device)
     if fam in ("dense", "moe"):
-        x, aux = _fwd_dense(params, cfg, x)
+        x, aux = _fwd_dense(params, cfg, x, remat)
     elif fam == "ssm":
-        x = _fwd_ssm(params, cfg, x)
+        x = _fwd_ssm(params, cfg, x, remat)
     elif fam == "hybrid":
-        x = _step_hybrid(params, cfg, x)
+        x = _step_hybrid(params, cfg, x, remat=remat)
     elif fam == "audio":
-        x = _step_audio(params, cfg, x, audio=_frontend(params, cfg, batch))
+        x = _step_audio(params, cfg, x, audio=_frontend(params, cfg, batch), remat=remat)
     else:
-        x = _step_vlm(params, cfg, x, img=_frontend(params, cfg, batch))
+        x = _step_vlm(params, cfg, x, img=_frontend(params, cfg, batch), remat=remat)
     return _head(params.embed, cfg, x), aux
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig, tc: TrainConfig):
+    """JAX's next-token loss -> (loss, {"ce", "moe_aux"}): a float32
+    log-softmax over the padded vocabulary, the labels ``tokens[:, 1:]``,
+    the mean cross-entropy (``nll_loss``: each row's gradient written
+    once, no atomic sum), plus ``tc.moe_aux_weight`` times the aux loss."""
+    logits, aux = forward(params, batch, cfg, remat=tc.remat)
+    labels = _tokens(params, batch["tokens"])[:, 1:]
+    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    ce = F.nll_loss(lp.reshape(-1, lp.shape[-1]), labels.reshape(-1))
+    loss = ce + tc.moe_aux_weight * aux
+    return loss, {"ce": ce, "moe_aux": aux}
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,

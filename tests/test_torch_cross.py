@@ -128,7 +128,7 @@ def test_params_from_jax_unstacks_every_stacked_tree(arch):
         assert float(model.cross[1].gate_attn) != 0.0
     for name, want in pairs.items():
         got = model.get_parameter(name)
-        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+        np.testing.assert_array_equal(got.float().detach().numpy(), np.asarray(want, np.float32))
     assert sum(p.numel() for p in model.parameters()) == sum(
         a.size for a in jax.tree.leaves(tree))
 
@@ -154,7 +154,7 @@ def test_init_params_scheme(arch):
     a = T.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     b = T.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
-        assert torch.equal(p, q) and not p.requires_grad, name
+        assert torch.equal(p, q) and p.requires_grad, name
         leaf = name.rsplit(".", 1)[-1]
         if leaf.startswith("gate"):
             assert p.dtype == torch.float32 and p.shape == () and float(p) == 0.0

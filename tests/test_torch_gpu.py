@@ -627,6 +627,80 @@ def test_hybrid_audio_vlm_kernel_route_equal_plain_route_on_the_card(arch, launc
     assert float((ld[:, 0] - want[:, 100]).abs().max()) <= 1e-5
 
 
+def test_bare_flash_attn_under_grad_raises_on_the_card():
+    """The kernel has no backward: a bare call on CUDA tensors that require
+    grad, with grad mode on, raises instead of returning a tensor without
+    autograd history; under no_grad it runs."""
+    dev = _card()
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+
+    q = torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
+    k, v = torch.randn(1, 64, 2, 16, device=dev), torch.randn(1, 64, 2, 16, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attn(q, k, v, True)
+    with torch.no_grad():
+        assert not flash_attn(q, k, v, True).requires_grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fn_grads_equal_plain_version_on_the_card(dtype):
+    """FlashAttnFn (kernel forward, plain chunked backward) against the plain
+    version's autograd at 300 queries in chunks of 128, GQA: float32 (the
+    CUDA-core route) within 2e-5; bfloat16 (tensor-core) within one bf16
+    step of the plain version's float32 gradients plus 2e-2."""
+    dev = _card()
+    from repro_torch.kernels.flash_attn.ops import FlashAttnFn
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+
+    g = torch.Generator(dev).manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dt)
+                   for s in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64),
+                             (2, 300, 8, 64)))
+
+    def grads(fn, *xs):
+        xs = [x.detach().requires_grad_() for x in xs]
+        o = fn(*xs)
+        return (o.detach(), *torch.autograd.grad(o, xs, do.to(o.dtype)))
+
+    got = grads(lambda a, b, c: FlashAttnFn.apply(a, b, c, True, 128), q, k, v)
+    want = grads(lambda a, b, c: flash_attn_ref(a, b, c, True), q.float(), k.float(),
+                 v.float())
+    for a, w in zip(got, want):
+        assert a.dtype == dt
+        tol = (2e-5 + 2e-5 * w.abs() if dtype == "float32"
+               else 2.0 ** -7 * w.abs() + 2e-2)
+        assert bool(((a.float() - w).abs() <= tol).all())
+
+
+def test_train_loss_and_grads_kernel_route_equal_plain_route_on_the_card():
+    """A smoke minicpm-2b in float32 under remat: the loss and every
+    gradient on the chunked route (the flash kernel in the forward and the
+    recompute) against the xla route within 1e-5."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("minicpm-2b", smoke=True), attn_impl="chunked")
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    out = {}
+    for impl in ("chunked", "xla"):
+        before = sum(flash_attn.ROUTE_LAUNCHES.values())
+        loss, _ = T.loss_fn(model, {"tokens": toks}, dataclasses.replace(cfg, attn_impl=impl),
+                            TrainConfig(remat=True))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[impl] = (loss.item(), grads, sum(flash_attn.ROUTE_LAUNCHES.values()) - before)
+    assert out["chunked"][2] == 2 * cfg.n_layers and out["xla"][2] == 0
+    assert abs(out["chunked"][0] - out["xla"][0]) <= 1e-5 * abs(out["xla"][0])
+    for a, b in zip(out["chunked"][1], out["xla"][1]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
 # ------------------------------------------------------------------ fleet
 @pytest.mark.parametrize("unit_rows", [5, 8])
 def test_fleet_of_three_workers_equals_one_process_on_the_card(tmp_path, unit_rows):

@@ -145,10 +145,16 @@ def test_edm_run_telemetry_and_autotune_flags_run(flag, tmp_path, capsys):
         assert summary["lib_block"] == applied["chunk_rows"]
 
 
-@pytest.mark.parametrize("module", ["repro_torch.models.moe", "repro_torch.models.ssm"])
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.optim.schedule",
+    "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+    "repro_torch.optim.grad_compress", "repro_torch.checkpoint.manager",
+    "repro_torch.runtime.fault", "repro_torch.launch.train", "repro_torch.launch.steps",
+])
 def test_lm_family_modules_load_no_jax_and_no_repro(module):
-    """The MoE and Mamba2 layers are among the modules above and import
-    neither package on their own."""
+    """The MoE and Mamba2 layers and the training path (optimizers,
+    schedules, checkpoints, the resilient loop, the train CLI and steps)
+    are among the modules above and import neither package on their own."""
     assert module in list(_port_modules())
     code = (
         "import importlib, sys\n"

@@ -60,10 +60,10 @@ def test_norms_match_jax(kind):
     mod = _load(L.Norm(kind, 24, torch.float32, "cpu"), tree)
     x = 3.0 * _x((2, 5, 24), 2)
     want = np.asarray(JL.apply_norm(kind, _jtree(tree), jnp.asarray(x)))
-    got = L.apply_norm(kind, mod, torch.tensor(x)).numpy()
+    got = L.apply_norm(kind, mod, torch.tensor(x)).detach().numpy()
     np.testing.assert_allclose(got, want, **TOL)
     fn = L.rms_norm if kind == "rmsnorm" else L.layer_norm
-    np.testing.assert_array_equal(fn(mod, torch.tensor(x)).numpy(), got)
+    np.testing.assert_array_equal(fn(mod, torch.tensor(x)).detach().numpy(), got)
 
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -72,7 +72,7 @@ def test_linear_matches_jax(bias):
     mod = _load(L.Linear(16, 12, torch.float32, "cpu", bias), tree)
     x = _x((2, 7, 16), 4)
     want = np.asarray(JL.linear(_jtree(tree), jnp.asarray(x)))
-    np.testing.assert_allclose(L.linear(mod, torch.tensor(x)).numpy(), want, **TOL)
+    np.testing.assert_allclose(L.linear(mod, torch.tensor(x)).detach().numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("theta,start,batched", [(1.0e4, 0, False), (1.0e6, 0, False),
@@ -83,7 +83,7 @@ def test_rope_matches_jax(theta, start, batched):
     if batched:
         pos = np.stack([pos, pos + 3])
     want = np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), theta))
-    got = L.rope(torch.tensor(x), torch.tensor(pos), theta).numpy()
+    got = L.rope(torch.tensor(x), torch.tensor(pos), theta).detach().numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -98,7 +98,7 @@ def test_mlp_matches_jax(act):
     mod = _load(L.MLP(16, 40, act, torch.float32, "cpu"), tree)
     x = _x((2, 6, 16), 8)
     want = np.asarray(JL.mlp_fwd(_jtree(tree), jnp.asarray(x), act))
-    np.testing.assert_allclose(L.mlp_fwd(mod, torch.tensor(x), act).numpy(), want, **TOL)
+    np.testing.assert_allclose(L.mlp_fwd(mod, torch.tensor(x), act).detach().numpy(), want, **TOL)
 
 
 # ------------------------------------------------------------- attention
@@ -151,11 +151,11 @@ def test_attention_branches_match_jax(branch, impl, chunk, unroll):
            for k, v in kw.items()}
     jy, jcache = JL.attention_fwd(_jtree(tree), ja, jnp.asarray(x), **jkw)
     ty, tcache = L.attention_fwd(mod, ta, torch.tensor(x), **tkw)
-    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL)
     assert (jcache is None) == (tcache is None)
     if jcache is not None:
         for name in ("k", "v"):
-            np.testing.assert_allclose(tcache[name].numpy(), np.asarray(jcache[name]),
+            np.testing.assert_allclose(tcache[name].detach().numpy(), np.asarray(jcache[name]),
                                        **TOL)
 
 
@@ -166,7 +166,7 @@ def test_attention_equals_jax_sdpa_chunked(impl, chunk, unroll):
     rng = np.random.default_rng(11)
     q = rng.standard_normal((B, S, H, DH)).astype(np.float32)
     k, v = (rng.standard_normal((B, S, K, DH)).astype(np.float32) for _ in range(2))
-    got = L._sdpa(*(torch.tensor(a) for a in (q, k, v)), causal=True, impl=impl).numpy()
+    got = L._sdpa(*(torch.tensor(a) for a in (q, k, v)), causal=True, impl=impl).detach().numpy()
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     np.testing.assert_allclose(got, np.asarray(JL._sdpa_chunked(
         jq, jk, jv, True, chunk=chunk, unroll=unroll)), **TOL)
@@ -185,7 +185,10 @@ def test_chunked_routes_to_the_flash_kernel_exactly_where_jax_would_chunk(branch
         calls.append(causal)
         return L.flash_attn_ref(q, k, v, causal)
 
+    from repro_torch.kernels.flash_attn import ops
+
     monkeypatch.setattr(L, "flash_attn", spy)
+    monkeypatch.setattr(ops, "flash_attn", spy)  # FlashAttnFn's forward, under grad
     x, kw = _branch_inputs(branch, np.random.default_rng(12))
     kw = {k: (jax.tree.map(torch.tensor, v) if k != "cache_pos" else v)
           for k, v in kw.items()}

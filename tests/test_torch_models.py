@@ -121,9 +121,9 @@ def test_prefill_decode_matches_own_forward(arch, impl):
     full, _ = T.forward(model, {"tokens": toks}, tc)
     cache = T.init_cache(tc, B, P + 1, dtype=torch.float32, device="cpu")
     lp, cache = T.prefill(model, {"tokens": toks[:, :P]}, cache, tc)
-    _close(lp, full[:, :P].numpy(), rtol=2e-4, atol=2e-4)
+    _close(lp, full[:, :P].detach().numpy(), rtol=2e-4, atol=2e-4)
     ld, _ = T.decode_step(model, {"token": toks[:, P:], "pos": torch.tensor(P)}, cache, tc)
-    _close(ld[:, 0], full[:, P].numpy(), rtol=2e-4, atol=2e-4)
+    _close(ld[:, 0], full[:, P].detach().numpy(), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-135m"])
@@ -238,9 +238,9 @@ def test_params_from_jax_loads_every_weight_exactly():
     jc, tc = _cfgs("qwen2.5-3b", "xla")
     tree = jax.tree.map(np.asarray, JT.init_params(jc, jax.random.PRNGKey(6)))
     model = T.params_from_jax(tree, tc, device="cpu")
-    np.testing.assert_array_equal(model.blocks[1].attn.wq.b.numpy(),
+    np.testing.assert_array_equal(model.blocks[1].attn.wq.b.detach().numpy(),
                                   tree["blocks"]["attn"]["wq"]["b"][1])
-    np.testing.assert_array_equal(model.embed.lm_head.numpy(), tree["embed"]["lm_head"])
+    np.testing.assert_array_equal(model.embed.lm_head.detach().numpy(), tree["embed"]["lm_head"])
     n_jax = sum(a.size for a in jax.tree.leaves(tree))
     assert sum(p.numel() for p in model.parameters()) == n_jax
 
@@ -263,7 +263,7 @@ def test_params_from_jax_keeps_f32_leaves_in_a_bf16_model(arch):
         assert prm.dtype == want_dtype, name
         assert str(arr.dtype) == ("float32" if leaf in f32 else "bfloat16"), name
         a = arr[1] if path[0] == "blocks" else arr
-        np.testing.assert_array_equal(prm.float().numpy(), np.asarray(a, np.float32))
+        np.testing.assert_array_equal(prm.float().detach().numpy(), np.asarray(a, np.float32))
         seen.add(leaf)
     assert f32 & seen == ({"router"} if arch == "dbrx-132b" else {"A_log", "D", "dt_bias"})
 
@@ -291,7 +291,7 @@ def test_init_params_scheme(arch):
     b = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     leaves = set()
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
-        assert torch.equal(p, q) and p.dtype == torch.float32 and not p.requires_grad
+        assert torch.equal(p, q) and p.dtype == torch.float32 and p.requires_grad
         leaf = name.rsplit(".", 1)[-1]
         leaves.add(leaf)
         if leaf in ("scale", "norm_scale", "D"):
@@ -300,7 +300,7 @@ def test_init_params_scheme(arch):
             assert not p.any()
         elif leaf == "A_log":
             want = np.log(np.linspace(1.0, 16.0, p.shape[0], dtype=np.float32))
-            np.testing.assert_allclose(p.numpy(), want, rtol=1e-6)
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6)
         else:
             std = 0.1 if leaf == "conv_w" else 0.02
             assert abs(float(p.std()) - std) < 0.2 * std, name

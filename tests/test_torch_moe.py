@@ -87,7 +87,7 @@ def test_moe_fwd_matches_jax(act, case):
     m = _port(tree, act)
     y, aux = M.moe_fwd(m, torch.from_numpy(x), E, K, act, cf, gs, no_drop)
     assert y.dtype == torch.float32 and aux.dtype == torch.float32
-    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(yj), **TOL)
     assert abs(float(aux) - float(aj)) <= AUX_TOL
 
     # the drop counter against a slot-major loop over the port's own routing
@@ -101,7 +101,7 @@ def test_moe_fwd_matches_jax(act, case):
     assert torch.equal(m.last_experts, ids)
     routed, dropped = M.drop_counts(m)
     assert routed == T0 * K
-    assert dropped == _slot_major_drops(ids.numpy(), valid, C)
+    assert dropped == _slot_major_drops(ids.detach().numpy(), valid, C)
     assert (dropped > 0) == (case not in ("no_drops", "no_drop_flag"))
     if case == "padding":
         assert T > T0
@@ -112,9 +112,9 @@ def test_moe_fwd_matches_jax(act, case):
 def test_moe_top_k_breaks_ties_toward_the_lower_index():
     p = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25, 0.25, 0.25, 0.25]])
     vals, idx = M._top_k(p, 2)
-    want_vals, want_idx = jax.lax.top_k(jnp.asarray(p.numpy()), 2)
+    want_vals, want_idx = jax.lax.top_k(jnp.asarray(p.detach().numpy()), 2)
     assert idx.tolist() == np.asarray(want_idx).tolist() == [[1, 2], [0, 1]]
-    np.testing.assert_array_equal(vals.numpy(), np.asarray(want_vals))
+    np.testing.assert_array_equal(vals.detach().numpy(), np.asarray(want_vals))
 
 
 def test_moe_no_drop_is_exact_topk_mixture():
@@ -134,7 +134,7 @@ def test_moe_no_drop_is_exact_topk_mixture():
                 e, xt = int(ei[b, s, j]), x[b, s]
                 h = torch.nn.functional.silu(xt @ m.w_gate[e]) * (xt @ m.w_up[e])
                 want[b, s] += gv[b, s, j] * (h @ m.w_down[e])
-    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), want.detach().numpy(), rtol=1e-5, atol=1e-5)
     assert M.drop_counts(m) == (2 * 8 * K, 0)
 
 
@@ -157,7 +157,7 @@ def test_moe_bf16_matches_jax_within_a_bf16_step():
     assert y.dtype == torch.bfloat16
     want = np.asarray(yj, np.float32)
     step = 2.0 ** -7 * (np.abs(want) + np.abs(want).max())
-    assert (np.abs(y.float().numpy() - want) <= step).all()
+    assert (np.abs(y.float().detach().numpy() - want) <= step).all()
     assert abs(float(aux) - float(aj)) <= AUX_TOL
 
 

@@ -59,7 +59,7 @@ def _u(B, S0, seed):
 
 
 def _close(got, want, **tol):
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **(tol or TOL))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **(tol or TOL))
 
 
 JD, TD = JS.SSMDims(**DIMS), S.SSMDims(**DIMS)
@@ -93,7 +93,7 @@ def test_mamba_decode_step_matches_jax(S0):
     _close(y, yj)
     for k in ("conv", "ssm"):
         _close(new[k], newj[k])
-    np.testing.assert_array_equal(st["ssm"].numpy(), np.asarray(stj["ssm"]))  # unwritten
+    np.testing.assert_array_equal(st["ssm"].detach().numpy(), np.asarray(stj["ssm"]))  # unwritten
 
 
 @pytest.mark.parametrize("S0", [1, 2])
@@ -108,10 +108,10 @@ def test_short_prompt_state_is_zero_padded_and_continues(S0):
     assert not st["conv"][:, : 3 - S0].any()
     raw = torch.from_numpy(u[:, :S0]) @ m.in_proj.w
     xBC = raw[..., TD.d_inner : 2 * TD.d_inner + 2 * TD.d_state]
-    _close(st["conv"][:, 3 - S0:], xBC.numpy())
+    _close(st["conv"][:, 3 - S0:], xBC.detach().numpy())
     y_last, _ = S.mamba_decode_step(m, TD, torch.from_numpy(u[:, S0:]), st)
     full = S.mamba_fwd(m, TD, torch.from_numpy(u))
-    _close(y_last[:, 0], full[:, S0].numpy(), **STEP_TOL)
+    _close(y_last[:, 0], full[:, S0].detach().numpy(), **STEP_TOL)
     _close(y_last[:, 0], np.asarray(JS.mamba_fwd(tree, JD, jnp.asarray(u)))[:, S0],
            **STEP_TOL)
 
@@ -128,7 +128,7 @@ def test_mamba_fwd_equals_stepwise_decode():
     for t in range(24):
         y_t, state = S.mamba_decode_step(m, TD, u[:, t : t + 1], state)
         ys.append(y_t)
-    _close(y_chunked, torch.cat(ys, 1).numpy(), **STEP_TOL)
+    _close(y_chunked, torch.cat(ys, 1).detach().numpy(), **STEP_TOL)
 
 
 def test_mamba_prefill_state_continues_correctly():
@@ -140,7 +140,7 @@ def test_mamba_prefill_state_continues_correctly():
     _, st = S.mamba_fwd(m, TD, u[:, :19], return_state=True)
     y_last, _ = S.mamba_decode_step(m, TD, u[:, 19:20], st)
     y_full = S.mamba_fwd(m, TD, u)
-    _close(y_last[:, 0], y_full[:, 19].numpy(), **STEP_TOL)
+    _close(y_last[:, 0], y_full[:, 19].detach().numpy(), **STEP_TOL)
 
 
 def test_mamba_block_keeps_float32_leaves():

@@ -163,10 +163,10 @@ def check_own_forward(arch, impl, n=P):
     full, _ = T.forward(model, b, tc)
     cache = T.init_cache(tc, B, n + 1, dtype=torch.float32, device="cpu")
     lp, cache = T.prefill(model, prompt(b, n), cache, tc)
-    close(lp, full[:, :n].numpy(), **STEP_TOL)
+    close(lp, full[:, :n].detach().numpy(), **STEP_TOL)
     ld, _ = T.decode_step(model, {"token": b["tokens"][:, n:], "pos": torch.tensor(n)},
                           cache, tc)
-    close(ld[:, 0], full[:, n].numpy(), **STEP_TOL)
+    close(ld[:, 0], full[:, n].detach().numpy(), **STEP_TOL)
 
 
 def check_bf16(arch, impl):
