@@ -34,7 +34,19 @@ micro-batches of 2, remat, AdamW, WSD, through
 each timed step, 320 a step; step seconds, tokens/s, the model-FLOP
 share, peak memory, a traced step's busy share, falling losses) and
 ``train_cli`` (the train CLI for 6 steps and again for 9, resuming from
-its own checkpoint; a bit-exact kill-and-resume at 2 layers).  Then it holds
+its own checkpoint; a bit-exact kill-and-resume at 2 layers; the
+resilient loop's retry of a step that fails after its update with no
+checkpoint on disk, bit-equal to a clean run, and the cost of its
+pre-step host snapshot).  Then the sharded LM paths, ``lm_shard_check``:
+a rank of this script (``--shard-rank``) on card 0 over NCCL at mesh (1,
+1), a sharded minicpm-2b train step (2 layers, f32) against the
+single-process step and qwen2.5-3b serving (2 layers, f32, 4 x 512
+prompt tokens, 8 decode steps over the sharded cache) against one
+process, the rank's flash launches by route (four ranks at meshes (2,
+2) and (1, 4) with ``--multi-card``: gloo cannot carry DTensor's
+all-gather on CUDA tensors); and ``examples``, the port's two LM examples (``activations_ccm``:
+its CCM through ``knn_topk`` and ``ccm_lookup``; ``train_lm``: a falling
+loss).  Then it holds
 each EDM kernel against its plain PyTorch version on the card at the
 shapes of the paths that run it, drives two paths of ``repro_torch.launch.edm_run`` at
 the series length and E_max of the paper's Fish1_Normo recording — the
@@ -122,7 +134,11 @@ repro_torch.engine.check --engine cuda``) and ``extensions``
 card, the S-Map sweep on the card within 1e-5 of the CPU).  With
 ``--multi-card``, ``ranks_cards``: one gloo rank a card over every
 visible card at the main path's N, against card 0 alone, with each
-card's busy share.  The ranks' logs go to ``build/smoke_ranks_*/``.
+card's busy share; and last ``lm_shard_check`` on four ranks and ``lm_shard_multi``: four NCCL ranks, a card
+each, minicpm-2b whole trained at mesh (2, 2) (FSDP and TP; step s,
+tokens/s, the 6NT share, peak memory a card, each card's busy share, the
+first loss against one card's) and qwen2.5-3b whole served at mesh (1,
+4) (prefill s, decode ms a step, peak a card).  The ranks' logs go to ``build/smoke_ranks_*/``.
 
 The telemetry trio (``runtime/history.py``, ``trace.py``,
 ``autotune.py``): every ``edm_run`` of the smoke records its telemetry
@@ -1770,14 +1786,590 @@ def train_cli(torch, dev, smi):
     same = n_restored == 3 and leaves_equal(torch, sA, sB)
     del s0, sA, sB
     torch.cuda.empty_cache()
+    retry = retry_case(torch, dev)
     out = dict(cli=runs, cli_ok=ok_cli, resume_arch=TRAIN_ARCH,
                resume_n_layers=TRAIN_CHECK_LAYERS, resume_dtype=cfg.dtype,
                resume_B=RESUME_B, resume_S=RESUME_S, resume_restored_step=n_restored,
-               resume_bit_exact=same, smi=smi)
+               resume_bit_exact=same, retry=retry, smi=smi)
     emit("train_cli", **out)
-    if not (ok_cli and same):
+    if not (ok_cli and same and retry["bit_exact"]):
         raise AssertionError(f"train_cli failed: {out}")
     return out
+
+
+def retry_case(torch, dev) -> dict:
+    """The resilient loop's retry with no checkpoint on disk: the train
+    CLI's smollm-135m smoke model and train config (4 steps, its batch and
+    sequence), the step raising after its update on its second call,
+    save_every past the run; the final state bit-equal to a clean run's.
+    Then the pre-step host snapshot's cost: one ``take`` of the CLI's
+    smollm-135m state (full width) timed to a synchronize, five times,
+    its bytes and rate, and minicpm-2b's state (TRAIN_ARCH: 2.72 B
+    parameters, bf16 with float32 moments) reckoned at that rate."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.runtime.fault import HostSnapshot, ResilientLoop
+
+    n_steps = 4
+    B, S = int(TRAIN_CLI_ARGS[3]), int(TRAIN_CLI_ARGS[5])
+    cfg = get_config("smollm-135m", smoke=True)
+    tc = TrainConfig(lr=3e-4, total_steps=n_steps, warmup_steps=max(1, n_steps // 20))
+    stream = TokenStream(cfg.vocab_size, B, S, seed=tc.seed)
+    step = make_train_step(cfg, tc, device=dev)
+    calls = {"n": 0}
+
+    def fails_after_update(st, batch):
+        calls["n"] += 1
+        out = step(st, batch)
+        torch.cuda.synchronize()
+        if calls["n"] == 2:
+            raise RuntimeError("injected failure after the update")
+        return out
+
+    ck = ROOT / "build" / "smoke_retry_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    loop = ResilientLoop(fails_after_update, CheckpointManager(ck), save_every=100)
+    got, n_done, _ = loop.run(TrainState.create(cfg, tc, device=dev), stream.batch_at,
+                              n_steps=n_steps)
+    clean = TrainState.create(cfg, tc, device=dev)
+    for i in range(n_steps):
+        clean, _ = step(clean, stream.batch_at(i))
+    same = n_done == n_steps and calls["n"] == n_steps + 1 and leaves_equal(torch, got, clean)
+    del got, clean
+    # the snapshot's cost at the CLI's model
+    full = get_config("smollm-135m")
+    st = TrainState.create(full, tc, device=dev)
+    snap = HostSnapshot()
+    take_s = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap.take(st)
+        torch.cuda.synchronize()
+        take_s.append(time.perf_counter() - t0)
+    nbytes = snap.bytes()
+    fstep = make_train_step(full, tc, device=dev)
+    batch = stream.batch_at(0)
+    st, _ = fstep(st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = fstep(st, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del st, snap
+    torch.cuda.empty_cache()
+    mean_take = sum(take_s[1:]) / len(take_s[1:])  # the first take pins its buffers
+    minicpm_bytes = 2_724_000_000 * (2 + 4 + 4)
+    return dict(arch=cfg.name, steps=n_steps, B=B, S=S, failed_call=2,
+                calls=calls["n"], bit_exact=same, snapshot_takes=loop.snapshot.takes,
+                snapshot_arch="smollm-135m", snapshot_bytes=nbytes,
+                snapshot_take_s=take_s, snapshot_take_s_mean=mean_take,
+                snapshot_GBps=nbytes / mean_take / 1e9, cli_step_s=step_s,
+                snapshot_share_of_step=mean_take / step_s,
+                minicpm_2b_bytes=minicpm_bytes,
+                minicpm_2b_take_s_reckoned=minicpm_bytes / (nbytes / mean_take))
+
+
+# ------------------------------------------------------------ LM sharding
+# The sharded LM paths (sharding/, launch/mesh.py): a world of rank
+# processes of this script (``--shard-rank JOB``) joined through the
+# EDM_* contract.  ``lm_shard_check``: minicpm-2b at full width cut to 2
+# layers in float32, one sharded train step (FSDP on data, TP on model)
+# against the single-process step at JAX's sharded tolerances (loss rtol
+# 2e-5, parameters rtol 2e-3 / atol 2e-5); qwen2.5-3b at full width cut
+# to 2 layers in float32, 4 x 512 prompt tokens and 8 greedy decode
+# steps against the single-process run within LM_GATE_TOL.  Four ranks
+# cannot share card 0: NCCL refuses two ranks on one card, and gloo
+# crashes (SIGSEGV, every rank) in the functional all-gather that DTensor
+# issues on CUDA tensors (``_c10d_functional.all_gather_into_tensor``;
+# PERF.md, PR 26).  So the default run checks one NCCL rank at mesh (1,
+# 1) -- the same code, every redistribution and the kernel on the rank's
+# local heads -- and ``--multi-card`` four NCCL ranks, a card each, at
+# mesh (2, 2) for the step and (1, 4) and (2, 2) for serving, then
+# ``lm_shard_multi``: minicpm-2b whole (TRAIN_* above) at mesh (2, 2),
+# and qwen2.5-3b whole at mesh (1, 4), 4 x 2,048 prompt tokens and 32
+# decode steps.
+SHARD_TIMEOUT_S = 600
+SHARD_TRAIN_B, SHARD_TRAIN_S = 4, 256
+SHARD_SERVE_B, SHARD_SERVE_S, SHARD_DECODE = 4, 512, 8
+SHARD_MESHES = ((1, 4), (2, 2))
+SHARD_TRAIN_TOL = dict(loss_rtol=2e-5, rtol=2e-3, atol=2e-5)
+MULTI_TIMED = 3
+
+
+def run_shard_world(world, job, tag, backend, ids=None, timeout=SHARD_TIMEOUT_S):
+    """``world`` processes of ``chip_smoke.py --shard-rank job``, one a rank,
+    joined through the EDM_* contract on localhost (rank r on card
+    ``ids[r]``, else card r) on ``backend``; every rank is killed at the
+    time limit.  Returns the ranks' records and return codes."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = ROOT / "build" / f"smoke_shard_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "EDM_COORDINATOR": f"localhost:{port}", "EDM_NUM_PROCESSES": str(world),
+               "EDM_PROCESS_ID": str(r), "EDM_SHARD_BACKEND": backend}
+        env.pop("EDM_LOCAL_DEVICE_IDS", None)
+        if ids is not None:
+            env["EDM_LOCAL_DEVICE_IDS"] = str(ids[r])
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank", job,
+             "--shard-out", str(out)], env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+    t_end = time.time() + timeout
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, t_end - time.time())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in logs:
+        f.close()
+    recs = []
+    for r in range(world):
+        f = out / f"rank{r}.json"
+        recs.append(json.loads(f.read_text()) if f.exists() else
+                    {"log_tail": (out / f"rank{r}.log").read_text()[-3000:]})
+    return recs, rcs
+
+
+def _flash_counts():
+    from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
+
+    flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+    return flash_attn.ROUTE_LAUNCHES
+
+
+def shard_meshes(world: int):
+    """(the train step's mesh, the serving meshes) of a world of ranks."""
+    if world == 1:
+        return (1, 1), ((1, 1),)
+    return (2, 2), SHARD_MESHES
+
+
+def shard_check_rank(torch, dev, rank) -> dict:
+    """A rank of ``lm_shard_check`` (module comment above).  Rank 0 runs the
+    single-process references first, alone on its card, and holds every
+    sharded result to them; each rank reports its flash launches by route."""
+    import torch.distributed as dist
+
+    train_mesh, serve_meshes = shard_meshes(dist.get_world_size())
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (TrainState, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    rec = {}
+    # -- one train step, minicpm-2b (2 layers, f32) at mesh (2, 2)
+    cfg = lm_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS, dtype="float32")
+    tc = TrainConfig(remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
+    batch = {"tokens": TokenStream(cfg.vocab_size, SHARD_TRAIN_B, SHARD_TRAIN_S,
+                                   seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    if rank == 0:
+        ref, m = step(TrainState.create(cfg, tc, gen(), device=dev), batch)
+        ref_loss = float(m["loss"])
+        ref_params = {k: p.detach().cpu() for k, p in ref.params.named_parameters()}
+        del ref, m
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_local_mesh(model=train_mesh[1], device=dev)
+    pol = ShardingPolicy(mesh=mesh, fsdp=True)
+    st = PL.shard_train_state(TrainState.create(cfg, tc, gen(), device=dev), pol, tc)
+    counts = _flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = step(st, batch)
+    torch.cuda.synchronize()
+    rec["train"] = {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                    "mesh": list(train_mesh), "fsdp": True, "B": SHARD_TRAIN_B,
+                    "S": SHARD_TRAIN_S,
+                    "step_s": time.perf_counter() - t0, "flash_launches": dict(counts),
+                    "loss": float(m["loss"]),
+                    "placement": st.params.placement_record["n_sharded"]}
+    worst = float("-inf")
+    for k, p in st.params.named_parameters():
+        whole = PL.full(p).detach()
+        if rank == 0:
+            want = ref_params[k].to(dev)
+            excess = ((whole - want).abs() - SHARD_TRAIN_TOL["atol"]
+                      - SHARD_TRAIN_TOL["rtol"] * want.abs()).max()
+            worst = max(worst, float(excess))
+    del st, m
+    torch.cuda.empty_cache()
+    if rank == 0:
+        rec["train"].update(ref_loss=ref_loss, loss_rel_diff=abs(
+            rec["train"]["loss"] - ref_loss) / abs(ref_loss),
+            params_worst_excess=worst, tol=SHARD_TRAIN_TOL)
+        rec["train"]["ok"] = (rec["train"]["loss_rel_diff"] <= SHARD_TRAIN_TOL["loss_rtol"]
+                              and worst <= 0.0)
+    # -- qwen2.5-3b (2 layers, f32): prefill 4 x 512, 8 greedy decode steps
+    cfg = lm_config(LM_ARCH, 2, dtype="float32")
+    B, S, n = SHARD_SERVE_B, SHARD_SERVE_S, SHARD_DECODE
+    toks = TokenStream(cfg.vocab_size, B, S, seed=1).batch_at(0)["tokens"]
+    tok_file = ROOT / "build" / "smoke_shard_serve_tokens.pt"
+    decode = make_decode_step(cfg, device=dev)
+    if rank == 0:
+        params = T.init_params(cfg, gen(), dev)
+        logits, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks})
+        want = {"prefill": logits.cpu()}
+        cache = grown_cache(T, cfg, cache, B, S, S + n, dev)
+        tok = logits[:, -1:].argmax(-1)
+        dec = []
+        for i in range(n):
+            dec.append(tok.cpu())
+            lg, cache = decode(params, {"token": tok, "pos": S + i}, cache)
+            want[f"decode{i}"] = lg.cpu()
+            tok = lg.argmax(-1)
+        torch.save(dec, tok_file)
+        del params, cache, logits, lg
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dec = torch.load(tok_file)
+    rec["serve"] = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                    "B": B, "prompt": S, "decode_steps": n, "meshes": {}}
+    for shape in serve_meshes:
+        mesh = make_local_mesh(model=shape[1], device=dev)
+        pol = ShardingPolicy(mesh=mesh)
+        params = PL.shard_module(T.init_params(cfg, gen(), dev), pol)
+        counts = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(cfg, policy=pol, device=dev)(params,
+                                                                         {"tokens": toks})
+        torch.cuda.synchronize()
+        out = {"prefill_s": time.perf_counter() - t0, "flash_launches": dict(counts),
+               "cache_local_k": list(PL.local(cache["k"]).shape)}
+        errs = {"prefill": PL.full(logits)}
+        cache = PL.grow_cache(cache, cfg, S + n, pol)
+        for i in range(n):
+            lg, cache = decode(params, {"token": dec[i].to(dev), "pos": S + i}, cache)
+            errs[f"decode{i}"] = PL.full(lg)
+        if rank == 0:
+            out["max_abs_err"] = {k: float((v.float().cpu() - want[k]).abs().max())
+                                  for k, v in errs.items()}
+            out["ok"] = max(out["max_abs_err"].values()) <= LM_GATE_TOL
+        rec["serve"]["meshes"]["x".join(map(str, shape))] = out
+        del params, cache, logits, lg, errs
+        torch.cuda.empty_cache()
+    if rank == 0:
+        rec["ok"] = rec["train"]["ok"] and all(v["ok"] for v in
+                                               rec["serve"]["meshes"].values())
+    return rec
+
+
+def shard_multi_rank(torch, dev, rank) -> dict:
+    """A rank of ``lm_shard_multi``: minicpm-2b whole trained at mesh (2, 2)
+    (auto_policy: FSDP on data, TP on model), a warm-up step and
+    MULTI_TIMED timed steps; then qwen2.5-3b whole served at mesh (1, 4)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (TrainState, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy, auto_policy
+
+    rec = {}
+    cfg = lm_config(TRAIN_ARCH)
+    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
+                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
+                     total_steps=1 + MULTI_TIMED)
+    mesh = make_local_mesh(model=2, device=dev)
+    pol = auto_policy(cfg, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in st.params.parameters())
+    st = PL.shard_train_state(st, pol, tc)
+    torch.cuda.empty_cache()
+    batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    st, m = step(st, batch)
+    losses = [float(m["loss"])]
+    warm = time.perf_counter() - t0
+    step_s, launches = [], []
+    for _ in range(MULTI_TIMED):
+        counts = _flash_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        dist.barrier()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(dict(counts))
+    rec["train"] = {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "params": n_params,
+                    "dtype": cfg.dtype, "mesh": [2, 2], "fsdp": pol.fsdp,
+                    "B": TRAIN_B, "S": TRAIN_S, "microbatch": TRAIN_MICRO,
+                    "warmup_step_s": warm, "step_s": step_s, "losses": losses,
+                    "flash_launches_per_step": launches,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "placement": {k: v for k, v in st.params.placement_record.items()
+                                  if k != "degraded"},
+                    "degraded": len(st.params.placement_record["degraded"])}
+    del st, m
+    torch.cuda.empty_cache()
+    # qwen2.5-3b whole, mesh (1, 4)
+    cfg = lm_config(LM_ARCH)
+    mesh = make_local_mesh(model=4, device=dev)
+    pol = ShardingPolicy(mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = PL.shard_module(T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev),
+                             pol)
+    torch.cuda.empty_cache()
+    toks = TokenStream(cfg.vocab_size, SERVE_B, SERVE_S, seed=1).batch_at(0)["tokens"]
+    prefill = make_prefill_step(cfg, policy=pol, device=dev)
+    decode = make_decode_step(cfg, device=dev)
+    prefill(params, {"tokens": toks})  # warm-up
+    counts = _flash_counts()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    flash = dict(counts)
+    cache = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS, pol)
+    tok = PL.full(logits[:, -1:]).argmax(-1)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        lg, cache = decode(params, {"token": tok, "pos": SERVE_S + i}, cache)
+        tok = PL.full(lg).argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    finite = bool(torch.isfinite(PL.local(lg)).all())
+    # where one sharded decode step's host time goes (rank 0 reports it)
+    from torch.profiler import ProfilerActivity, profile
+
+    grown = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS + 1, pol)
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(params, {"token": tok, "pos": SERVE_S + DECODE_STEPS}, grown)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_top = [{"name": e.key[:80], "self_cpu_s": e.self_cpu_time_total / 1e6,
+                 "calls": e.count} for e in rows[:10]]
+    busy_s = sum(r[0] for r in _device_time_by_kernel(prof)) / 1e6
+    rec["serve"] = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                    "mesh": [1, 4], "B": SERVE_B, "prompt": SERVE_S,
+                    "decode_steps": DECODE_STEPS, "prefill_s": prefill_s,
+                    "decode_ms_per_step": decode_ms, "flash_launches": flash,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "finite": finite, "traced_decode_s": traced_s,
+                    "traced_decode_device_busy_s": busy_s,
+                    "traced_decode_host_top": host_top}
+    rec["ok"] = (all(math.isfinite(x) for x in losses) and finite
+                 and all(sum(n.values()) > 0 for n in launches))
+    return rec
+
+
+def shard_rank(job, out) -> int:
+    """``--shard-rank``: this process is a rank of ``run_shard_world``."""
+    import faulthandler
+    import os
+    import traceback
+
+    import torch
+
+    from repro_torch.runtime.platform import distributed_spec_from_env, init_distributed
+
+    faulthandler.enable()  # a crash in a collective prints its Python stack
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = distributed_spec_from_env()
+    info = init_distributed(spec, backend=os.environ.get("EDM_SHARD_BACKEND") or None)
+    rank = spec["process_id"]
+    dev = torch.device(info["device"])
+    rec = {"rank": rank, "device": str(dev), "backend": info["backend"]}
+    try:
+        fn = {"check": shard_check_rank, "multi": shard_multi_rank}[job]
+        rec.update(fn(torch, dev, rank))
+        rc = 0
+    except Exception:  # noqa: BLE001 -- reported, and the rank exits non-zero
+        rec["error"] = traceback.format_exc()[-4000:]
+        rc = 1
+    pathlib.Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return rc
+
+
+def lm_shard_check(torch, smi, world=1):
+    """``world`` NCCL ranks, rank r on card r (module comment above)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() < world:
+        emit("lm_shard_check", world=world, note=f"not run: {world} cards needed, "
+             f"{torch.cuda.device_count()} visible", smi=smi)
+        return None
+    ids = tuple(range(world))
+    t0 = time.perf_counter()
+    recs, rcs = run_shard_world(world, "check", f"check{world}", "nccl", ids=ids)
+    r0 = recs[0]
+    out = dict(world=world, backend="nccl", card_ids=list(ids), rcs=rcs,
+               seconds=time.perf_counter() - t0,
+               train=r0.get("train"), serve=r0.get("serve"),
+               flash_launches_by_rank=[{"train": r.get("train", {}).get("flash_launches"),
+                                        **{f"serve_{m}": v.get("flash_launches") for m, v in
+                                           r.get("serve", {}).get("meshes", {}).items()}}
+                                       for r in recs],
+               errors=[r.get("error") or r.get("log_tail") for r in recs
+                       if "error" in r or "log_tail" in r], smi=smi)
+    emit("lm_shard_check", **out)
+    if rcs != [0] * world or not r0.get("ok"):
+        raise AssertionError(f"lm_shard_check failed: rcs {rcs}")
+    for r in recs:
+        for name, n in out["flash_launches_by_rank"][r["rank"]].items():
+            if not n or sum(n.values()) == 0:
+                raise AssertionError(f"rank {r['rank']} {name}: no flash launch {n}")
+    return out
+
+
+def lm_shard_multi(torch, dev, smi):
+    """``--multi-card``: the single-card minicpm-2b step's loss (the
+    sharded steps' reference), then four ranks, a card each, over NCCL
+    (module comment above), each card's busy share sampled."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.runtime.device import BusySampler
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        emit("lm_shard_multi", note=f"not run: {n_cards} card(s) visible, four needed",
+             smi=smi)
+        return None
+    cfg = lm_config(TRAIN_ARCH)
+    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
+                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
+                     total_steps=1 + MULTI_TIMED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
+    batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
+    st, m = make_train_step(cfg, tc, device=dev)(st, batch)
+    one_card_loss = float(m["loss"])
+    del st, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = BusySampler(n_cards)
+    t0 = time.perf_counter()
+    recs, rcs = run_shard_world(4, "multi", "multi", "nccl", ids=(0, 1, 2, 3), timeout=900)
+    wall = time.perf_counter() - t0
+    sampled = busy.stop()
+    tr = [r.get("train", {}) for r in recs]
+    sv = [r.get("serve", {}) for r in recs]
+    out = dict(world=4, backend="nccl", rcs=rcs, wall_s=wall, card_busy=sampled,
+               errors=[r.get("error") or r.get("log_tail") for r in recs
+                       if "error" in r or "log_tail" in r], smi=smi)
+    if rcs == [0] * 4 and all(r.get("ok") for r in recs):
+        mean_s = max(sum(t["step_s"]) / len(t["step_s"]) for t in tr)
+        tokens = TRAIN_B * TRAIN_S
+        flops = 6.0 * tr[0]["params"] * tokens
+        out["train"] = dict(
+            {k: tr[0][k] for k in ("arch", "n_layers", "params", "dtype", "mesh", "fsdp",
+                                   "B", "S", "microbatch", "placement", "degraded")},
+            step_s_by_rank=[t["step_s"] for t in tr], step_s_mean=mean_s,
+            warmup_step_s=[t["warmup_step_s"] for t in tr],
+            tokens_per_s=tokens / mean_s,
+            mfu_6NT_of_4x989=flops / mean_s / (4 * PEAK_BF16_FLOPS),
+            peak_device_bytes_by_rank=[t["peak_device_bytes"] for t in tr],
+            losses=tr[0]["losses"], one_card_first_loss=one_card_loss,
+            first_loss_rel_diff=abs(tr[0]["losses"][0] - one_card_loss) / one_card_loss,
+            flash_launches_per_step_by_rank=[t["flash_launches_per_step"] for t in tr])
+        out["serve"] = dict(
+            {k: sv[0][k] for k in ("arch", "n_layers", "dtype", "mesh", "B", "prompt",
+                                   "decode_steps")},
+            prefill_s_by_rank=[s["prefill_s"] for s in sv],
+            decode_ms_per_step_by_rank=[s["decode_ms_per_step"] for s in sv],
+            peak_device_bytes_by_rank=[s["peak_device_bytes"] for s in sv],
+            flash_launches_by_rank=[s["flash_launches"] for s in sv],
+            traced_decode=dict(wall_s=sv[0]["traced_decode_s"],
+                               device_busy_s=sv[0]["traced_decode_device_busy_s"],
+                               host_top=sv[0]["traced_decode_host_top"]))
+    emit("lm_shard_multi", **out)
+    if "train" not in out:
+        raise AssertionError(f"lm_shard_multi failed: rcs {rcs}")
+    return out
+
+
+# --------------------------------------------------------------- examples
+def examples_phase(torch, dev, smi):
+    """The port's two LM examples on the card: ``activations_ccm`` (40
+    training steps of smollm-135m smoke, its neurons' series, the CCM map
+    through ``knn_topk`` and ``ccm_lookup``, whose launch counts start at
+    0 just before it and must not stay there), then ``train_lm --steps
+    20 --token-range 64`` (the train CLI; tokens from [0, 64), a stream
+    with structure), whose loss must fall from step 1 to step 20."""
+    import numpy as np
+
+    from repro_torch.examples import activations_ccm, train_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        got = activations_ccm.main([])
+    torch.cuda.synchronize()
+    act_s = time.perf_counter() - t0
+    launches = read_launches()
+    rho = got["rho"]
+    act = dict(seconds=act_s, losses=[got["losses"][0], got["losses"][-1]],
+               neurons=int(got["ts"].shape[0]), T=int(got["ts"].shape[1]),
+               rho_finite=bool(np.isfinite(rho).all()),
+               launches={k: launches[k] for k in ("knn_topk", "ccm_lookup")},
+               last_lines=log.getvalue().strip().splitlines()[-2:])
+    del got
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, step_n, metrics = train_lm.main(["--steps", "20", "--token-range", "64"])
+    torch.cuda.synchronize()
+    steps = [ln for ln in log.getvalue().splitlines() if ln.startswith("step ")]
+    first = float(steps[0].split("loss=")[1].split()[0])
+    tl = dict(seconds=time.perf_counter() - t0, step=step_n, first_loss=first,
+              final_loss=metrics["loss"], lines=steps)
+    emit("examples", activations_ccm=act, train_lm=tl, smi=smi)
+    if not (act["rho_finite"] and launches["knn_topk"] > 0 and launches["ccm_lookup"] > 0
+            and step_n == 20 and metrics["loss"] < first):
+        raise AssertionError(f"examples failed: {act} {tl}")
+    return act, tl
 
 
 # ------------------------------------------------------------------ fleet
@@ -2777,6 +3369,8 @@ def multi_card_only(torch, dev, smi, n) -> int:
     shutil.rmtree(ref, ignore_errors=True)
     sharded_knn_phase(torch, dev, smi)
     distributed_phase(torch, smi)
+    lm_shard_check(torch, smi, world=4)
+    lm_shard_multi(torch, dev, smi)
     print(smi, flush=True)
     return 0
 
@@ -2787,6 +3381,13 @@ def main(argv=None) -> int:
                     help="series in the main-path run (Fish1_Normo has 53,053)")
     ap.add_argument("--sig-n", type=int, default=1024,
                     help="series in the significance-path run")
+    ap.add_argument("--only", default=None,
+                    help="run only these phases after the build, comma-separated: "
+                    "train_cli, lm_shard_check, lm_shard_check4, examples, "
+                    "lm_shard_multi")
+    ap.add_argument("--shard-rank", choices=("check", "multi"), default=None,
+                    help=argparse.SUPPRESS)  # a rank of run_shard_world
+    ap.add_argument("--shard-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--multi-card", action="store_true",
                     help="only the phases across cards and ranks, for a "
                     "machine with several cards: the main path on card 0, "
@@ -2806,6 +3407,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false: no CUDA card",
               file=sys.stderr)
         return 1
+    if args.shard_rank:
+        return shard_rank(args.shard_rank, args.shard_out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2836,6 +3439,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report = kernels.build_all()
     emit("build", seconds=time.perf_counter() - t0, kernels=report)
+    if args.only:
+        only = {"train_cli": lambda: train_cli(torch, dev, smi),
+                "lm_shard_check": lambda: lm_shard_check(torch, smi),
+                "lm_shard_check4": lambda: lm_shard_check(torch, smi, world=4),
+                "examples": lambda: examples_phase(torch, dev, smi),
+                "lm_shard_multi": lambda: lm_shard_multi(torch, dev, smi)}
+        for name in args.only.split(","):
+            only[name]()
+        print(smi, flush=True)
+        return 0
     if args.multi_card:
         return multi_card_only(torch, dev, smi, args.n)
 
@@ -2869,6 +3482,9 @@ def main(argv=None) -> int:
     tcheck = train_check(torch, dev, smi)
     tstep = train_step_phase(torch, dev, smi, tcheck)
     train_cli(torch, dev, smi)
+    # the sharded LM paths (one NCCL rank, mesh (1, 1)) and the LM examples
+    lm_shard_check(torch, smi)
+    examples_phase(torch, dev, smi)
 
     from repro_torch.core import knn as tknn
     from repro_torch.data.synthetic import dummy_brain

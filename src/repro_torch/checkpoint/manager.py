@@ -22,6 +22,12 @@ A tree is a ``TrainState`` (its ``params``, ``opt``, ``step``), an
 ``LM`` module (its parameters), a dict, or a tensor.  ``restore`` builds
 a new tree shaped like ``like`` (the module anew from its ``cfg``, so
 the live one can be dropped) on ``device`` (default each leaf's own).
+
+Sharded (JAX's "elastic: any mesh"): a DTensor leaf is gathered whole
+on save (a collective: every rank calls ``save``), rank 0 writes, and
+``wait`` meets every rank after the write; ``restore`` places each leaf
+as ``like``'s is placed (a sharded module is sharded again by its
+policy), so a checkpoint written at one world size resumes at another.
 """
 from __future__ import annotations
 
@@ -56,8 +62,19 @@ def _flatten(tree, prefix: str = "") -> dict:
     raise TypeError(f"checkpoint leaf {prefix!r}: {type(tree).__name__} is not a tensor")
 
 
+def _world():
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _snapshot(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` (never an alias) and its dtype's name."""
+    """A host copy of ``t`` (never an alias; a DTensor gathered whole) and
+    its dtype's name."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     host = t.detach().to("cpu", copy=True)
     name = str(host.dtype).removeprefix("torch.")
     if host.dtype == torch.bfloat16:
@@ -75,14 +92,23 @@ def _load(path: pathlib.Path, dtype: str) -> torch.Tensor:
 def _rebuild(like, loaded: dict, device, prefix: str = ""):
     pre = prefix + _SEP if prefix else ""
     if isinstance(like, torch.Tensor):
+        if hasattr(like, "device_mesh"):  # a DTensor: placed as ``like`` is
+            from repro_torch.sharding.place import place
+
+            return place(loaded[prefix].to(like.dtype), like.device_mesh, like.placements)
         return loaded[prefix].to(device=like.device if device is None else device,
                                  dtype=like.dtype)
     if isinstance(like, nn.Module):
         dev = next(like.parameters()).device if device is None else torch.device(device)
+        policy = getattr(like, "sharding_policy", None)
         fresh = type(like)(like.cfg, dev)
         with torch.no_grad():
             for k, p in fresh.named_parameters():
                 p.copy_(loaded[pre + k])
+        if policy is not None:
+            from repro_torch.sharding.place import shard_module
+
+            shard_module(fresh, policy)
         return fresh
     if dataclasses.is_dataclass(like):
         return dataclasses.replace(like, **{
@@ -121,8 +147,13 @@ class CheckpointManager:
             tmp.rename(final)
             self._gc()
 
+        if _world()[0] != 0:  # rank 0 writes the gathered tree
+            if blocking:
+                self.wait()
+            return
         if blocking:
             _write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
@@ -131,6 +162,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _world()[1] > 1:  # every rank sees rank 0's last write
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()

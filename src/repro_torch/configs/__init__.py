@@ -2,13 +2,16 @@
 
 The same ten architectures as the JAX package's ``configs/``, each a
 pure-data module copied from it, with the same full and smoke configs
-(``get_config`` equals the JAX one field for field).  The JAX
-``input_specs`` / ``cache_specs`` build ``ShapeDtypeStruct``s for its
-dry-run and have no counterpart here.
+(``get_config`` equals the JAX one field for field).  ``input_specs``
+and ``cache_specs`` give every model input and the decode cache of a
+shape cell as meta-device tensors (shape and dtype, nothing allocated),
+where JAX gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     SHAPE_CELLS,
@@ -59,3 +62,29 @@ def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
     if cell.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
         return False, "pure full-attention arch: no sub-quadratic path at 512k"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Meta-device stand-ins for every model input of this cell.
+
+    train / prefill: the full batch (tokens, and the audio frames or image
+    patches of those families in the config's dtype); decode: one new
+    token and its position (the cache is :func:`cache_specs`)."""
+    B, S = cell.global_batch, cell.seq_len
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    act = getattr(torch, cfg.dtype)
+    if cell.kind in ("train", "prefill"):
+        batch = {"tokens": meta((B, S), torch.int32)}
+        if cfg.family == "audio":
+            batch["audio"] = meta((B, cfg.n_frontend_tokens, cfg.d_model), act)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = meta((B, cfg.n_frontend_tokens, cfg.d_model), act)
+        return batch
+    return {"token": meta((B, 1), torch.int32), "pos": meta((), torch.int32)}
+
+
+def cache_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """The decode cache of this cell on the meta device (no allocation)."""
+    from repro_torch.models import transformer
+
+    return transformer.init_cache(cfg, cell.global_batch, cell.seq_len, device="meta")

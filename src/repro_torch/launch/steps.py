@@ -8,7 +8,17 @@ closed over the ModelConfig (and TrainConfig), on the device given to
 steps run under ``torch.inference_mode()``; the train step takes the
 gradient of ``models.transformer.loss_fn`` with autograd and updates
 the state's tensors in place.  ``train_state_from_jax`` carries a JAX
-TrainState across.  Sharding policies are not ported yet.
+TrainState across.
+
+Sharded (the dense family, ``sharding/``): ``make_train_step`` takes a
+state placed by ``place.shard_train_state``: the loss's mean runs over
+every rank's tokens, the gradients reduce over the data axes inside
+DTensor's backward, the global-norm clip spans every shard, and AdamW
+updates each rank's local shards in place (Adafactor's factored means
+and RMS run on the DTensors).  ``make_prefill_step(cfg, policy)`` places
+its cache by ``cache_specs_tree`` (KV along the sequence on "model",
+batch on the data axes); ``make_decode_step`` attends over that cache
+with the flash-decode all-reduce (``sharding/attention.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adafactor, adamw
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.runtime.device import resolve_device
+from repro_torch.sharding.place import full, local
 
 
 @dataclasses.dataclass
@@ -78,6 +89,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         model = state.params
+        if T.is_sharded(model):
+            T.check_shardable(cfg)
+            # the whole host batch: each micro-batch is placed by the batch specs
+            batch = {k: full(v) if torch.is_tensor(v) else v for k, v in batch.items()}
         if tc.microbatch > 0:
             grads, (loss, metrics) = _accumulated_grads(loss_of, model, batch,
                                                         tc.microbatch)
@@ -90,10 +105,15 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
         lr = sched(state.step)
         named = dict(model.named_parameters())
         # the leaf rules read the JAX leaf each tensor is a slice of
-        if tc.optimizer == "adamw":
-            _, opt = adamw.update(grads, state.opt, named, lr,
-                                  weight_decay=tc.weight_decay,
-                                  leaf_ndim=T.jax_leaf_ndims(model))
+        if tc.optimizer == "adamw":  # elementwise: on each rank's local shards
+            opt = state.opt
+            lopt = {"m": {k: local(t) for k, t in opt["m"].items()},
+                    "v": {k: local(t) for k, t in opt["v"].items()},
+                    "count": opt["count"]}
+            adamw.update({k: local(g) for k, g in grads.items()}, lopt,
+                         {k: local(p) for k, p in named.items()}, lr,
+                         weight_decay=tc.weight_decay, leaf_ndim=T.jax_leaf_ndims(model))
+            opt["count"] = lopt["count"]
         else:
             _, opt = adafactor.update(grads, state.opt, named, lr,
                                       weight_decay=tc.weight_decay,
@@ -106,9 +126,15 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
 
 
 def _grads(loss: torch.Tensor, model: T.LM) -> dict:
-    """{name: d loss / d parameter} in the parameters' dtypes."""
+    """{name: d loss / d parameter} in the parameters' dtypes (a DTensor
+    parameter's gradient in the parameter's placements)."""
     named = dict(model.named_parameters())
-    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    if T.is_sharded(model):
+        grads = {k: g if list(g.placements) == list(named[k].placements)
+                 else g.redistribute(named[k].device_mesh, named[k].placements)
+                 for k, g in grads.items()}
+    return grads
 
 
 def _accumulated_grads(loss_of, params: T.LM, batch: dict, microbatch: int):
@@ -120,7 +146,7 @@ def _accumulated_grads(loss_of, params: T.LM, batch: dict, microbatch: int):
         raise ValueError(f"batch {B} is not a multiple of the micro-batch {microbatch}")
     n_micro = B // microbatch
     dev = params.embed.tok.device
-    g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in params.named_parameters()}
     l_sum = torch.zeros((), dtype=torch.float32, device=dev)
     metrics = {}
@@ -178,25 +204,34 @@ def make_prefill_step(cfg: ModelConfig, policy=None, device=None):
     """prefill_step(params, batch) -> (logits, cache): the cache is sized
     to the prompt, as in JAX (the full-cache branch of attention).  The
     batch's audio frames or image patches go to the device in the
-    config's dtype."""
+    config's dtype.  ``policy`` (a ``ShardingPolicy``; the dense family
+    only, on params placed by ``place.shard_module`` under it): the cache
+    is placed by its ``cache_specs_tree`` -- KV along the sequence on
+    "model", batch on the data axes -- and the logits come back as a
+    DTensor."""
     if policy is not None:
-        raise NotImplementedError(
-            "a sharding policy for the prefill cache needs sharding, which the "
-            "port does not have yet"
-        )
+        T.check_shardable(cfg)
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
         with torch.inference_mode():
-            B, S = batch["tokens"].shape
-            cache = T.init_cache(cfg, B, S, device=dev)
+            B, S = tuple(batch["tokens"].shape)
+            if policy is not None:
+                from repro_torch.sharding.place import sharded_cache
+
+                cache = sharded_cache(cfg, B, S, policy)
+            else:
+                cache = T.init_cache(cfg, B, S, device=dev)
             return T.prefill(params, T.frontend_batch(batch, cfg, dev), cache, cfg)
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, device=None):
-    """decode_step(params, batch, cache) -> (logits (B, 1, V_pad), cache)."""
+    """decode_step(params, batch, cache) -> (logits (B, 1, V_pad), cache);
+    a sharded cache (``make_prefill_step(policy=)``, or
+    ``place.sharded_cache``) is attended with the flash-decode all-reduce
+    and written at ``pos`` on the rank that owns it."""
     resolve_device(device)
 
     def decode_step(params, batch, cache):

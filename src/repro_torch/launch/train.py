@@ -1,5 +1,6 @@
-"""Training launcher of the port: --arch <id> on one device, with async
-checkpointing and the resilient step loop.
+"""Training launcher of the port: --arch <id> on one device or a mesh of
+ranks, with sharded state, async checkpointing and the resilient step
+loop.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 300 --batch 8 --seq 512 --smoke --ckpt-dir "$TMPDIR/ckpt"
@@ -7,8 +8,19 @@ checkpointing and the resilient step loop.
 The counterpart of the JAX package's ``launch/train.py``, with its flags
 and defaults (the checkpoint directory under the temporary directory),
 plus ``--device`` (default the card; ``--device cpu`` runs the plain
-versions on the CPU).  A run resumes from the latest checkpoint in
-``--ckpt-dir``.  The production mesh needs sharding and raises.
+versions on the CPU) and ``--token-range`` (the stream's tokens from
+[0, R): a stream with structure to learn).
+
+One process is one device, as before.  Under the EDM_* contract
+(``EDM_COORDINATOR`` / ``EDM_NUM_PROCESSES`` / ``EDM_PROCESS_ID``, one
+process a rank; ``runtime/platform.py::init_distributed``: NCCL with a
+card a rank, gloo on the CPU) the ranks form ``make_local_mesh``
+(all data-parallel, as JAX's ``make_cpu_mesh``), the state is placed by
+``auto_policy`` (FSDP above ~2 B parameters) and every step's batch by
+its batch specs.  A run resumes from the latest checkpoint in
+``--ckpt-dir``, whatever world wrote it (JAX's "elastic: any mesh").
+``--production-mesh`` builds the 16 x 16 mesh over a world of exactly
+256 ranks and refuses any other (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -23,9 +35,14 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import TokenStream
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.launch.steps import TrainState, make_train_step
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.fault import ResilientLoop
+from repro_torch.runtime.platform import (distributed_spec_from_env, init_distributed,
+                                          rank_device)
+from repro_torch.sharding import place as PL
+from repro_torch.sharding import policy as POL
 
 
 def main(argv=None):
@@ -43,18 +60,29 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; cpu: the plain versions)")
+    ap.add_argument("--token-range", type=int, default=None,
+                    help="draw the stream's tokens from [0, R) (default: the "
+                    "whole vocabulary, JAX's stream)")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh shards the state over a mesh, which needs "
-            "sharding, which the port does not have yet"
-        )
-    dev = resolve_device(args.device)
+    spec = distributed_spec_from_env()
+    if args.production_mesh and spec is None:
+        make_production_mesh()  # refuses a world of one, naming its shape
+    dev = resolve_device(args.device) if spec is None else rank_device(spec, args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     tc = TrainConfig(lr=args.lr, total_steps=args.steps,
                      warmup_steps=max(1, args.steps // 20))
+    if spec is not None:
+        init_distributed(spec, device=args.device)
     state = TrainState.create(cfg, tc, device=dev)
+    if spec is not None:
+        mesh = (make_production_mesh(device=dev) if args.production_mesh
+                else make_local_mesh(device=dev))
+        policy = POL.auto_policy(cfg, mesh)
+        state = PL.shard_train_state(state, policy, tc)
+        print(f"rank {spec['process_id']}/{spec['num_processes']}: mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, fsdp {policy.fsdp}, "
+              f"placement {state.params.placement_record}", flush=True)
     step_fn = make_train_step(cfg, tc, device=dev)
 
     extra = {}
@@ -63,8 +91,8 @@ def main(argv=None):
     if cfg.family == "vlm":
         extra["image_embeds"] = ((args.batch, cfg.n_frontend_tokens, cfg.d_model),
                                  np.float32)
-    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=tc.seed,
-                         extra_specs=extra)
+    stream = TokenStream(args.token_range or cfg.vocab_size, args.batch, args.seq,
+                         seed=tc.seed, extra_specs=extra)
     ckpt = CheckpointManager(args.ckpt_dir, keep_last=2)
 
     # resume if a checkpoint exists

@@ -17,8 +17,18 @@ backward recomputes the plain version ``chunk`` query rows at a time,
 the memory shape of JAX's checkpointed chunks (JAX's unroll flag has no
 counterpart).  ``q_pos`` (decode, prefill into a longer cache) is the
 dense version, as in JAX.  Every self-attention with a cache goes
-through :func:`cached_attention`.  Sequence-parallel attention needs
-sharding and raises.
+through :func:`cached_attention`.  Sequence-parallel attention
+(``attn_seq_shard``) is not ported and raises.
+
+Sharded (the dense family under a ``ShardingPolicy``, ``sharding/``):
+the parameters are DTensors.  A linear gathers the weight's FSDP axis
+(:func:`gather_fsdp`, JAX's per-layer all-gather) and multiplies in the
+Megatron layout its spec gives (column: the output sharded on "model";
+row: a partial sum); :func:`as_activation` brings a block's output back
+to the activation layout (batch on the data axes, the rest replicated:
+the row-parallel all-reduce); an attention whose q is a DTensor goes to
+``sharding/attention.py`` (each rank on its own heads, the flash-decode
+over a sequence-sharded cache).
 
 Parameters are trainable (``requires_grad``); serving runs under
 ``torch.inference_mode()`` (``launch/steps.py``).
@@ -52,10 +62,92 @@ class Linear(nn.Module):
         self.b = _param((d_out,), dtype, device) if bias else None
 
 
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight with its data-parallel mesh dims ("pod", "data")
+    replicated (the FSDP all-gather); any other tensor as it is."""
+    if not _is_dt(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    plc = [Replicate() if n in ("pod", "data") else p
+           for n, p in zip(names, w.placements)]
+    return w if plc == list(w.placements) else w.redistribute(w.device_mesh, plc)
+
+
+def as_activation(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation with every placement but a batch shard (dim 0)
+    replicated: partial sums reduced, heads or features gathered; any
+    other tensor as it is."""
+    if not _is_dt(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    plc = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in x.placements]
+    return x if plc == list(x.placements) else x.redistribute(x.device_mesh, plc)
+
+
+def embedding(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, w)``.  For a DTensor table, vocab-parallel: the
+    FSDP axis gathered, each rank looks up the ids in its vocab rows (zero
+    elsewhere), and the partial sums are reduced into the activation
+    layout."""
+    if not _is_dt(w):
+        return F.embedding(ids, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    w = gather_fsdp(w)  # vocab on "model" or replicated, d replicated
+    mesh = w.device_mesh
+    vocab = [m for m, p in enumerate(w.placements) if isinstance(p, Shard) and p.dim == 0]
+    id_plc = [Replicate() if m in vocab or not (isinstance(p, Shard) and p.dim == 0)
+              else p for m, p in enumerate(ids.placements)]
+    ids_l = (ids if list(ids.placements) == id_plc
+             else ids.redistribute(mesh, id_plc)).to_local()
+    # each rank's rows' gradient: a partial sum over the batch shards
+    wl = w.to_local(grad_placements=[Partial() if p.is_shard() else w.placements[m]
+                                     for m, p in enumerate(id_plc)])
+    V_l = wl.shape[0]
+    coord = mesh.get_coordinate()
+    v0 = 0
+    for m in vocab:  # the first vocab row of this rank
+        v0 = v0 * mesh.size(m) + coord[m]
+    v0 *= V_l
+    rows = ids_l - v0
+    inside = (rows >= 0) & (rows < V_l)
+    out = F.embedding(rows.clamp(0, V_l - 1), wl) * inside[..., None].to(wl.dtype)
+    plc = [Partial() if m in vocab else p for m, p in enumerate(id_plc)]
+    shape = tuple(ids.shape) + (w.shape[1],)
+    return as_activation(DTensor.from_local(out, mesh, plc, run_check=False,
+                                            shape=torch.Size(shape),
+                                            stride=torch.empty(shape, device="meta").stride()))
+
+
+def split_heads(y: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
+    """(B, S, n d_head) -> (B, S, n, d_head).  A DTensor feature shard that
+    does not fall on head boundaries (the model axis does not divide n) is
+    gathered first."""
+    if _is_dt(y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = y.device_mesh
+        plc = [Replicate() if isinstance(p, Shard) and p.dim == 2 and n % mesh.size(m)
+               else p for m, p in enumerate(y.placements)]
+        if plc != list(y.placements):
+            y = y.redistribute(mesh, plc)
+    return y.reshape(y.shape[0], y.shape[1], n, d_head)
+
+
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    y = x @ gather_fsdp(p.w)
     if p.b is not None:
-        y = y + p.b
+        y = y + gather_fsdp(p.b)
     return y
 
 
@@ -104,6 +196,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     ang = positions[..., None].float() * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
+    if _is_dt(x):  # replicated factors of a sharded x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        rep = [Replicate()] * x.device_mesh.ndim
+        cos = DTensor.from_local(cos, x.device_mesh, rep, run_check=False)
+        sin = DTensor.from_local(sin, x.device_mesh, rep, run_check=False)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
 
@@ -124,7 +222,7 @@ class AttnDims:
     kv_d_model: Optional[int] = None  # cross-attn source width
     impl: str = "xla"  # xla (dense S^2) | chunked (the flash kernel)
     chunk: int = 1024  # query rows of a chunk of the flash backward
-    seq_shard: bool = False  # sequence-parallel attention: needs sharding
+    seq_shard: bool = False  # sequence-parallel attention: not ported
 
 
 class Attention(nn.Module):
@@ -141,9 +239,13 @@ def _sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla",
           chunk: int = 1024, seq_shard: bool = False):
     if seq_shard:
         raise NotImplementedError(
-            "sequence-parallel attention (attn_seq_shard) needs sharding, which "
-            "the port does not have yet"
+            "sequence-parallel attention (attn_seq_shard) is not ported: its "
+            "sequence sharding comes with the LM dry run (ROADMAP queue 1)"
         )
+    if _is_dt(q):
+        from repro_torch.sharding import attention as SA
+
+        return SA.sdpa(q, k, v, causal, q_pos=q_pos, impl=impl, chunk=chunk)
     if impl == "chunked" and q.shape[1] > 1 and q_pos is None:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             return FlashAttnFn.apply(q, k, v, causal, chunk)
@@ -166,6 +268,15 @@ def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
     write (decode, a prefill into a longer cache) attends over the cache
     with ``q_pos``, which hides the unwritten slots, on the plain version.
     """
+    if seq_shard:
+        raise NotImplementedError(
+            "sequence-parallel attention (attn_seq_shard) is not ported: its "
+            "sequence sharding comes with the LM dry run (ROADMAP queue 1)"
+        )
+    if _is_dt(cache["k"]):
+        from repro_torch.sharding import attention as SA
+
+        return SA.cached_attention(q, k, v, cache, cache_pos, impl=impl, chunk=chunk)
     Sq, S_max = q.shape[1], cache["k"].shape[1]
     if not 0 <= cache_pos <= S_max - Sq:
         raise ValueError(
@@ -198,7 +309,7 @@ def attention_fwd(
     cross-attention source, and no key or value is projected from ``x``.
     """
     B, Sq, _ = x.shape
-    q = linear(p.wq, x).reshape(B, Sq, a.n_heads, a.d_head)
+    q = split_heads(linear(p.wq, x), a.n_heads, a.d_head)
     kw = dict(impl=a.impl, chunk=a.chunk, seq_shard=a.seq_shard)
     self_cache = cache is not None and cache_pos is not None and kv_src is None
     if cache is not None and not self_cache:  # cross-attn, precomputed source kv
@@ -206,8 +317,8 @@ def attention_fwd(
         return linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head)), cache
 
     src = x if kv_src is None else kv_src
-    k = linear(p.wk, src).reshape(B, src.shape[1], a.n_kv_heads, a.d_head)
-    v = linear(p.wv, src).reshape(B, src.shape[1], a.n_kv_heads, a.d_head)
+    k = split_heads(linear(p.wk, src), a.n_kv_heads, a.d_head)
+    v = split_heads(linear(p.wv, src), a.n_kv_heads, a.d_head)
     if a.use_rope and kv_src is None:
         if positions is None:
             start = 0 if cache_pos is None else cache_pos
@@ -219,7 +330,7 @@ def attention_fwd(
         o = cached_attention(q, k, v, cache, cache_pos, **kw)
     else:
         o = _sdpa(q, k, v, causal=a.causal and kv_src is None, **kw)
-    y = linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head))
+    y = as_activation(linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head)))
     return y, cache if self_cache else None
 
 
@@ -243,6 +354,7 @@ class MLP(nn.Module):
 
 def mlp_fwd(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
-        return linear(p.w_down, F.silu(linear(p.w_gate, x)) * linear(p.w_up, x))
+        return as_activation(linear(p.w_down, F.silu(linear(p.w_gate, x))
+                                    * linear(p.w_up, x)))
     # jax.nn.gelu's default is the tanh approximation
-    return linear(p.w_down, F.gelu(linear(p.w_up, x), approximate="tanh"))
+    return as_activation(linear(p.w_down, F.gelu(linear(p.w_up, x), approximate="tanh")))

@@ -47,6 +47,13 @@ when grad mode is on, as JAX wraps its scan body in ``jax.checkpoint``;
 the recompute pass does not count MoE assignments again.
 ``loss_fn`` is JAX's next-token loss.  ``jax_leaf_groups`` names the
 JAX leaf each parameter is a slice of, for the optimizers' leaf rules.
+
+Sharded: the dense family runs on DTensor parameters
+(``sharding/place.py::shard_module``): tokens are placed by the batch
+specs, the embedding and head gather their FSDP axis, the blocks run in
+the Megatron layouts of ``models/layers.py``.  The other five
+families refuse a sharded module (``NotImplementedError``): their
+sharded execution is ROADMAP queue 1's next item.
 """
 from __future__ import annotations
 
@@ -330,7 +337,7 @@ def _cross_kv(p_attn: L.Attention, cfg: ModelConfig, src: torch.Tensor) -> dict:
 def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0):
     # a gather; F.embedding's backward sums each row's uses in a fixed
     # order on the card, where indexing's (index_put_) accumulates atomically
-    x = F.embedding(tokens, p.tok)
+    x = L.embedding(p.tok, tokens)
     if cfg.pos == "learned":
         x = x + p.pos[pos_offset : pos_offset + tokens.shape[1]]
     return x
@@ -338,7 +345,7 @@ def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0
 
 def _head(p: Embed, cfg: ModelConfig, x):
     x = L.apply_norm(cfg.norm, p.ln_f, x)
-    w = p.tok.t() if cfg.tie_embeddings else p.lm_head
+    w = L.gather_fsdp(p.tok).t() if cfg.tie_embeddings else L.gather_fsdp(p.lm_head)
     return (x @ w).float()
 
 
@@ -350,7 +357,41 @@ def _prefill_head(params: LM, cfg: ModelConfig, x):
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
-    return torch.as_tensor(tokens, device=params.embed.tok.device).long()
+    """Token ids as a long tensor on the parameters' device; for a sharded
+    module, a DTensor placed by the batch specs (the same host tokens on
+    every rank)."""
+    tok = params.embed.tok
+    if not L._is_dt(tok):
+        return torch.as_tensor(tokens, device=tok.device).long()
+    if L._is_dt(tokens):
+        return tokens.long()
+    from repro_torch.sharding import place as PL
+
+    t = torch.as_tensor(tokens).long()
+    pol = params.sharding_policy
+    return PL.place_spec(t, pol, (pol._fit(pol.batch_axes, t.shape[0]), None))
+
+
+def is_sharded(params: LM) -> bool:
+    """True where the module's parameters are DTensors."""
+    return L._is_dt(params.embed.tok)
+
+
+def _refuse_sharded(params: LM, cfg: ModelConfig) -> None:
+    """A sharded module of any family but dense raises."""
+    if is_sharded(params):
+        check_shardable(cfg)
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is of the one family that runs sharded (dense)."""
+    if cfg.family != "dense" or cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"sharding of the {cfg.family} family ({cfg.name}) is not ported: "
+            "only the dense family runs on DTensor parameters; the moe "
+            "(expert-parallel), ssm, hybrid, audio and vlm families are ROADMAP "
+            "queue 1's next item"
+        )
 
 
 #: the frontend's precomputed embeddings a batch of each family carries
@@ -372,8 +413,23 @@ def _frontend(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def _layer_cache(cache: dict, *i: int) -> dict:
-    """The views of one layer's entries (index ``i`` on the stacked axes)."""
-    return {name: val[i] for name, val in cache.items()}
+    """The views of one layer's entries (index ``i`` on the stacked axes;
+    of a DTensor entry, its local shard's view as a DTensor)."""
+    return {name: _layer_view(val, i) if L._is_dt(val) else val[i]
+            for name, val in cache.items()}
+
+
+def _layer_view(val, i: tuple):
+    """A DTensor cache entry's layer ``i`` (its stacked dims replicated):
+    the local shard's view, its placements shifted past the dropped dims."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    n = len(i)
+    plc = [Shard(p.dim - n) if isinstance(p, Shard) else p for p in val.placements]
+    shape = tuple(val.shape[n:])
+    return DTensor.from_local(val.to_local()[i], val.device_mesh, plc, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _write_state(cache: dict, i: tuple, st: dict) -> None:
@@ -779,6 +835,7 @@ def forward(params: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
     / vlm families.  ``remat``: each scan body under activation
     recomputation where grad mode is on (module docstring)."""
     fam = _family(cfg)
+    _refuse_sharded(params, cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
     aux = torch.zeros((), device=x.device)
@@ -804,6 +861,8 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, tc: TrainConfig):
     labels = _tokens(params, batch["tokens"])[:, 1:]
     lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     ce = F.nll_loss(lp.reshape(-1, lp.shape[-1]), labels.reshape(-1))
+    if L._is_dt(ce):  # the mean over every rank's tokens
+        ce = ce.full_tensor()
     loss = ce + tc.moe_aux_weight * aux
     return loss, {"ce": ce, "moe_aux": aux}
 
@@ -827,6 +886,7 @@ def prefill(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """Fill the cache from a full prompt -> (logits (B, S, V_pad), or
     (B, 1, V_pad) with ``prefill_last_only``; the cache, written in place)."""
     fam = _family(cfg)
+    _refuse_sharded(params, cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
     if fam in ("dense", "moe"):
@@ -848,6 +908,7 @@ def decode_step(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     at ``pos``, and the new Mamba2 states).  A ``pos`` at or past the
     cache length raises, except in the ssm family, which takes any."""
     fam = _family(cfg)
+    _refuse_sharded(params, cfg)
     token = _tokens(params, batch["token"])
     pos = int(batch["pos"])
     x = _embed(params.embed, cfg, token, pos_offset=pos)

@@ -31,9 +31,15 @@ def init(params: dict, moment_dtype=torch.float32) -> dict:
     }
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduction's value (all-reduced); a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def global_norm(tree) -> torch.Tensor:
+    """The norm over every leaf; over every shard of DTensor leaves."""
     leaves = tree.values() if isinstance(tree, dict) else tree
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(x.float()))) for x in leaves))
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):

@@ -3,9 +3,10 @@ mirrors of tests/test_checkpoint_fault.py's training cases (round trip
 bit-exact, a bfloat16 state included; 6 straight steps equal to 3 + crash
 + restore + 3; keep_last; an async save; the resilient loop recovering
 from an injected failure and giving up after max_retries; straggler
-telemetry), plus the snapshot copy under in-place steps and
-``python -m repro_torch.launch.train --device cpu`` resuming from its own
-checkpoint."""
+telemetry), plus the snapshot copy under in-place steps, a retry with
+no checkpoint on disk that ends on a clean run's bits (the loop's host
+snapshot of the pre-step state) and ``python -m repro_torch.launch.train
+--device cpu`` resuming from its own checkpoint."""
 import dataclasses
 import json
 
@@ -155,6 +156,59 @@ def test_resilient_loop_recovers_from_injected_failure(tmp_path):
     _assert_same(ref.params, final.params)
 
 
+def test_retry_without_a_checkpoint_replays_the_pre_step_state(tmp_path):
+    """A step that fails after writing its update, before any checkpoint
+    exists (save_every past the run): the loop copies its pre-step host
+    snapshot back and retries the same step, so the run ends on a clean
+    run's bits -- and on JAX's jitted steps from the same state within
+    1e-5 max(1, max |want|)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget
+    from repro.configs.base import TrainConfig as JTrainConfig
+    from repro.launch import steps as JS
+    from repro_torch.launch.steps import train_state_from_jax
+    from repro_torch.models import transformer as T
+
+    kw = dict(remat=False, lr=1e-3, warmup_steps=1, total_steps=20)
+    jc = jget("smollm-135m", smoke=True)
+    jstate = JS.TrainState.create(jc, JTrainConfig(**kw), jax.random.PRNGKey(0))
+    cfg = get_config("smollm-135m", smoke=True)
+    tc = TrainConfig(**kw)
+    fresh = lambda: train_state_from_jax(jax.tree.map(np.asarray, jstate), cfg, tc,
+                                         device="cpu")
+    step = make_train_step(cfg, tc, device="cpu")
+    stream = TokenStream(cfg.vocab_size, 2, 16, seed=0)
+    calls = {"n": 0}
+
+    def fails_after_update(s, b):
+        calls["n"] += 1
+        out = step(s, b)  # the parameters and moments are written in place
+        if calls["n"] == 2:
+            raise RuntimeError("simulated failure after the update")
+        return out
+
+    loop = ResilientLoop(fails_after_update, CheckpointManager(tmp_path, keep_last=1),
+                         save_every=100, max_retries=2)
+    final, step_n, _ = loop.run(fresh(), stream.batch_at, n_steps=4)
+    assert step_n == 4 and calls["n"] == 5
+    assert loop.snapshot.takes == 4  # one a step, none for the retry
+    clean = fresh()
+    for i in range(4):
+        clean, _ = step(clean, stream.batch_at(i))
+    _assert_same(clean, final)
+    jstep = jax.jit(JS.make_train_step(jc, JTrainConfig(**kw)))
+    for i in range(4):
+        jstate, _ = jstep(jstate, jax.tree.map(jnp.asarray, stream.batch_at(i)))
+    want = T.unstack_jax_tree(jax.tree.map(np.asarray, jstate.params))
+    for name, p in final.params.named_parameters():
+        w = want[name]
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(w).max())),
+                                   err_msg=name)
+
+
 def test_resilient_loop_gives_up_after_max_retries(tmp_path):
     _, _, state, _, stream = _setup()
     ckpt = CheckpointManager(tmp_path, keep_last=1)
@@ -204,7 +258,8 @@ def test_train_cli_resumes_from_its_own_checkpoint(tmp_path, capsys):
 
 
 def test_train_cli_refuses_the_production_mesh_and_defaults_to_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # the 16 x 16 mesh needs a world of exactly 256 ranks
+    with pytest.raises(ValueError, match="exactly 256 ranks"):
         train.main(["--smoke", "--production-mesh", "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

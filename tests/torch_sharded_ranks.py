@@ -1,0 +1,133 @@
+"""Rank-side jobs of tests/test_torch_sharded_step.py: one process a rank
+of a gloo world on the CPU, joined through the EDM_* contract.
+
+    python tests/torch_sharded_ranks.py <job> <dir>
+
+``main`` (four ranks, mesh (2, 2)): qwen2-1.5b smoke's sharded train step
+from the state in ``<dir>/train_in.npz``, its sharded prefill and four
+decode steps from ``<dir>/serve_in.npz``, ``compressed_psum`` of the
+per-rank gradients in ``<dir>/psum_in.npz``, a non-dense family under a
+policy, and the Prefetcher placing batches by a policy.  ``tp4`` (four
+ranks, mesh (1, 4)): qwen2.5-3b smoke's sharded prefill and decode, its
+two kv heads replicated under four query-head shards.  Each rank writes
+``<dir>/<job>_rank<r>.npz``.
+"""
+import dataclasses
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import Prefetcher, TokenStream
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (TrainState, make_decode_step, make_prefill_step,
+                                      make_train_step)
+from repro_torch.models import transformer as T
+from repro_torch.optim.grad_compress import compressed_psum
+from repro_torch.runtime.platform import init_distributed
+from repro_torch.sharding import place as PL
+from repro_torch.sharding import policy as POL
+
+#: the JAX sharded test's step (tests/test_sharding.py)
+TRAIN_KW = dict(remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
+TRAIN_B, TRAIN_S = 4, 16
+SERVE_B, SERVE_P, SERVE_DECODE = 4, 8, 4
+
+
+def _load_params(model, flat: dict) -> None:
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(flat[name]))
+
+
+def _serve(cfg, policy, d: pathlib.Path) -> dict:
+    """Sharded prefill (the flash path: cache sized to the prompt), the
+    cache grown to P + SERVE_DECODE, and the decode steps on the given
+    tokens -> the whole logits of each."""
+    data = np.load(d / "serve_in.npz")
+    params = T.LM(cfg, torch.device("cpu"))
+    _load_params(params, {k[2:]: data[k] for k in data.files if k.startswith("p.")})
+    PL.shard_module(params, policy)
+    logits, cache = make_prefill_step(cfg, policy=policy, device="cpu")(
+        params, {"tokens": data["tokens"]})
+    out = {"prefill": PL.full(logits).numpy(),
+           "cache_local_k": PL.local(cache["k"]).shape}
+    cache = PL.grow_cache(cache, cfg, SERVE_P + SERVE_DECODE, policy)
+    decode = make_decode_step(cfg, device="cpu")
+    for i in range(SERVE_DECODE):
+        lg, cache = decode(params, {"token": data["dec_tokens"][i], "pos": SERVE_P + i},
+                           cache)
+        out[f"decode{i}"] = PL.full(lg).numpy()
+    return out
+
+
+def main_job(rank: int, d: pathlib.Path) -> dict:
+    mesh = make_local_mesh(model=2, device="cpu")
+    out = {}
+    # the train step, from the JAX state's parameters (zero moments, step 0)
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    tc = TrainConfig(**TRAIN_KW)
+    pol = POL.ShardingPolicy(mesh=mesh, fsdp=True)
+    data = np.load(d / "train_in.npz")
+    state = TrainState.create(cfg, tc, device="cpu")
+    _load_params(state.params, {k[2:]: data[k] for k in data.files if k.startswith("p.")})
+    state = PL.shard_train_state(state, pol, tc)
+    state, metrics = make_train_step(cfg, tc, device="cpu")(state, {"tokens": data["tokens"]})
+    for name, p in state.params.named_parameters():
+        out[f"p.{name}"] = PL.full(p).detach().numpy()
+    out["loss"] = float(metrics["loss"])
+    out["grad_norm"] = float(metrics["grad_norm"])
+    out["n_degraded"] = len(state.params.placement_record["degraded"])
+    out["local_tok_shape"] = tuple(PL.local(state.params.embed.tok).shape)
+    # serving, the flash-decode over the sequence-sharded cache
+    scfg = dataclasses.replace(cfg, attn_impl="chunked")
+    out.update({f"serve.{k}": v for k, v in _serve(scfg, POL.ShardingPolicy(mesh=mesh),
+                                                  d).items()})
+    # compressed_psum over the data group... and over the whole world
+    g = np.load(d / "psum_in.npz")
+    mean, err = compressed_psum(torch.from_numpy(g["g"][rank]),
+                                torch.from_numpy(g["err"][rank]))
+    out["psum_mean"], out["psum_err"] = mean.numpy(), err.numpy()
+    # a non-dense family under a policy refuses
+    refused = []
+    ssm = get_config("mamba2-2.7b", smoke=True)
+    lm = PL.shard_module(T.init_params(ssm, device="cpu"), pol)
+    for call in (lambda: T.forward(lm, {"tokens": np.zeros((2, 4), np.int32)}, ssm),
+                 lambda: make_prefill_step(ssm, policy=pol, device="cpu")):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused.append(str(e))
+    out["refused"] = np.array(refused)
+    # the Prefetcher places each batch by the batch specs
+    stream = TokenStream(cfg.vocab_size, 4, 8, seed=3)
+    got = list(Prefetcher(stream, policy=pol, n_steps=3))
+    out["prefetch_n"] = len(got)
+    out["prefetch_local"] = tuple(PL.local(got[0]["tokens"]).shape)
+    out["prefetch_equal"] = all(
+        np.array_equal(PL.full(b["tokens"]).numpy(), stream.batch_at(i)["tokens"])
+        for i, b in enumerate(got))
+    return out
+
+
+def tp4_job(rank: int, d: pathlib.Path) -> dict:
+    mesh = make_local_mesh(model=4, device="cpu")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), attn_impl="chunked")
+    return {f"serve.{k}": v for k, v in _serve(cfg, POL.ShardingPolicy(mesh=mesh),
+                                              d).items()}
+
+
+if __name__ == "__main__":
+    job, d = sys.argv[1], pathlib.Path(sys.argv[2])
+    torch.set_num_threads(1)
+    info = init_distributed(device="cpu")
+    rank = info["process_id"]
+    out = {"main": main_job, "tp4": tp4_job}[job](rank, d)
+    np.savez(d / f"{job}_rank{rank}.npz", **{k: np.asarray(v) for k, v in out.items()})
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
