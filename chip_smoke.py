@@ -42,9 +42,14 @@ a rank of this script (``--shard-rank``) on card 0 over NCCL at mesh (1,
 1), a sharded minicpm-2b train step (2 layers, f32) against the
 single-process step and qwen2.5-3b serving (2 layers, f32, 4 x 512
 prompt tokens, 8 decode steps over the sharded cache) against one
-process, the rank's flash launches by route (four ranks at meshes (2,
-2) and (1, 4) with ``--multi-card``: gloo cannot carry DTensor's
-all-gather on CUDA tensors); and ``examples``, the port's two LM examples (``activations_ccm``:
+process; then the moe and ssm families, their state created shard by
+shard: dbrx-132b at full width in f32, one Adafactor step at 1 layer and
+serving at 2, and mamba2-2.7b at full width, 2 layers in f32, one AdamW
+step and serving, each against one process (the loss within 1e-6
+relative, the routed and dropped counts summed over the ranks equal);
+the rank's flash launches by route, none in an ssm run (four ranks at
+meshes (2, 2) and (1, 4) with ``--multi-card``: gloo cannot carry
+DTensor's all-gather on CUDA tensors); and ``examples``, the port's two LM examples (``activations_ccm``:
 its CCM through ``knn_topk`` and ``ccm_lookup``; ``train_lm``: a falling
 loss).  Then it holds
 each EDM kernel against its plain PyTorch version on the card at the
@@ -134,11 +139,15 @@ repro_torch.engine.check --engine cuda``) and ``extensions``
 card, the S-Map sweep on the card within 1e-5 of the CPU).  With
 ``--multi-card``, ``ranks_cards``: one gloo rank a card over every
 visible card at the main path's N, against card 0 alone, with each
-card's busy share; and last ``lm_shard_check`` on four ranks and ``lm_shard_multi``: four NCCL ranks, a card
-each, minicpm-2b whole trained at mesh (2, 2) (FSDP and TP; step s,
-tokens/s, the 6NT share, peak memory a card, each card's busy share, the
-first loss against one card's) and qwen2.5-3b whole served at mesh (1,
-4) (prefill s, decode ms a step, peak a card).  The ranks' logs go to ``build/smoke_ranks_*/``.
+card's busy share; and last ``lm_shard_check`` on four ranks and
+``lm_shard_multi``: four NCCL ranks, a card each, minicpm-2b whole
+trained at mesh (2, 2) (FSDP and TP; step s, tokens/s, the 6NT share,
+peak memory a card, each card's busy share, the first loss against one
+card's), qwen2.5-3b whole served at mesh (1, 4) (prefill s, decode ms a
+step, peak a card), dbrx-132b whole (40 layers, bf16, created shard by
+shard) served at (1, 4) (the share of assignments dropped) and trained
+at (1, 4) at 8 layers (Adafactor, remat; the 6NT share of its active
+parameters), mamba2-2.7b whole trained at (2, 2) and served at (1, 4).  The ranks' logs go to ``build/smoke_ranks_*/``.
 
 The telemetry trio (``runtime/history.py``, ``trace.py``,
 ``autotune.py``): every ``edm_run`` of the smoke records its telemetry
@@ -1881,7 +1890,8 @@ def retry_case(torch, dev) -> dict:
 # against the single-process step at JAX's sharded tolerances (loss rtol
 # 2e-5, parameters rtol 2e-3 / atol 2e-5); qwen2.5-3b at full width cut
 # to 2 layers in float32, 4 x 512 prompt tokens and 8 greedy decode
-# steps against the single-process run within LM_GATE_TOL.  Four ranks
+# steps against the single-process run within LM_GATE_TOL; the moe and
+# ssm families the same way (below).  Four ranks
 # cannot share card 0: NCCL refuses two ranks on one card, and gloo
 # crashes (SIGSEGV, every rank) in the functional all-gather that DTensor
 # issues on CUDA tensors (``_c10d_functional.all_gather_into_tensor``;
@@ -1891,13 +1901,38 @@ def retry_case(torch, dev) -> dict:
 # mesh (2, 2) for the step and (1, 4) and (2, 2) for serving, then
 # ``lm_shard_multi``: minicpm-2b whole (TRAIN_* above) at mesh (2, 2),
 # and qwen2.5-3b whole at mesh (1, 4), 4 x 2,048 prompt tokens and 32
-# decode steps.
-SHARD_TIMEOUT_S = 600
+# decode steps; the moe and ssm runs below.
+SHARD_TIMEOUT_S, MULTI_TIMEOUT_S = 900, 2400
 SHARD_TRAIN_B, SHARD_TRAIN_S = 4, 256
 SHARD_SERVE_B, SHARD_SERVE_S, SHARD_DECODE = 4, 512, 8
 SHARD_MESHES = ((1, 4), (2, 2))
 SHARD_TRAIN_TOL = dict(loss_rtol=2e-5, rtol=2e-3, atol=2e-5)
 MULTI_TIMED = 3
+# The moe and ssm families sharded (``lm_shard_check``, beside the dense
+# checks above): dbrx-132b at full width in float32, one Adafactor step
+# at 1 layer (4.5 B parameters, 18 GB, its gradients as much again) and
+# serving at 2 layers; mamba2-2.7b at full width, 2 layers in float32,
+# one AdamW step and serving; the state created shard by shard
+# (``TrainState.create(policy=)``, ``place.init_sharded``); the loss
+# within 1e-6 relative of the single-process step, every parameter within
+# SHARD_TRAIN_TOL, the logits within LM_GATE_TOL, the routed and dropped
+# counts summed over the ranks equal to the single process's.  With
+# ``--multi-card`` each at meshes (1, 4) (expert-parallel: four of dbrx's
+# 16 experts and 20 of mamba2's 80 SSD heads a rank) and (2, 2) (FSDP;
+# the step's one MoE group of 1,024 tokens spans both data shards).
+SHARD_MOE_TRAIN_LAYERS, SHARD_MOE_SERVE_LAYERS, SHARD_SSM_LAYERS = 1, 2, 2
+SHARD_FAMILY_LOSS_RTOL = 1e-6
+# ``lm_shard_multi``'s moe and ssm runs: dbrx-132b whole (40 layers,
+# 131.6 B parameters, 263 GB in bf16: 65.8 GB a card at (1, 4), four of
+# its 16 experts a card) served at (1, 4), 4 x 2,048 prompt tokens and 32
+# greedy decode steps; dbrx-132b trained at (1, 4), its depth cut to
+# MULTI_MOE_TRAIN_LAYERS (27.3 B parameters; 13.7 GB a card and its
+# gradients as much), Adafactor, bf16, remat, train_4k's 4,096 tokens a
+# sequence with its batch of 256 cut to MULTI_MOE_TRAIN_B; mamba2-2.7b
+# whole trained at (2, 2) (AdamW, cosine, remat, 8 x 4,096 tokens in
+# micro-batches of 2) and served at (1, 4) (4 x 2,048 and 32 decode
+# steps).
+MULTI_MOE_TRAIN_LAYERS, MULTI_MOE_TRAIN_B = 8, 4
 
 
 def run_shard_world(world, job, tag, backend, ids=None, timeout=SHARD_TIMEOUT_S):
@@ -1955,81 +1990,137 @@ def _flash_counts():
 
 
 def shard_meshes(world: int):
-    """(the train step's mesh, the serving meshes) of a world of ranks."""
+    """(the dense train step's mesh, the meshes of the other checks) of a
+    world of ranks."""
     if world == 1:
         return (1, 1), ((1, 1),)
     return (2, 2), SHARD_MESHES
 
 
-def shard_check_rank(torch, dev, rank) -> dict:
-    """A rank of ``lm_shard_check`` (module comment above).  Rank 0 runs the
-    single-process references first, alone on its card, and holds every
-    sharded result to them; each rank reports its flash launches by route."""
+def _world_counts(torch, dev, model) -> list:
+    """The MoE layers' (routed, dropped) assignments summed over every rank."""
     import torch.distributed as dist
 
-    train_mesh, serve_meshes = shard_meshes(dist.get_world_size())
+    from repro_torch.models import moe as MOE
+
+    c = torch.tensor(MOE.drop_counts(model), dtype=torch.int64, device=dev)
+    dist.all_reduce(c)
+    return [int(v) for v in c.tolist()]
+
+
+def _local_bytes(tensors) -> int:
+    from repro_torch.sharding.place import local
+
+    return sum(local(t).numel() * local(t).element_size() for t in tensors)
+
+
+def _opt_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _opt_tensors(v)
+    else:
+        yield tree
+
+
+def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
+                      loss_rtol) -> dict:
+    """One train step of ``arch`` (full width, ``n_layers``, float32) at each
+    mesh, the state created shard by shard, against the single-process
+    step (rank 0 runs it first, alone on its card): the loss within
+    ``loss_rtol`` relative, every parameter within SHARD_TRAIN_TOL, the
+    summed routed and dropped counts equal."""
+    import torch.distributed as dist
+
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.steps import (TrainState, make_decode_step,
-                                          make_prefill_step, make_train_step)
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    cfg = lm_config(arch, n_layers, dtype="float32")
+    tc = TrainConfig(optimizer=optimizer, remat=False, lr=1e-3, warmup_steps=1,
+                     total_steps=5)
+    batch = {"tokens": TokenStream(cfg.vocab_size, SHARD_TRAIN_B, SHARD_TRAIN_S,
+                                   seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    if rank == 0:
+        ref = TrainState.create(cfg, tc, gen(), device=dev)
+        MOE.reset_drop_counts(ref.params)
+        ref, m = step(ref, batch)
+        ref_loss = float(m["loss"])
+        ref_counts = list(MOE.drop_counts(ref.params))
+        ref_params = {k: p.detach().cpu() for k, p in ref.params.named_parameters()}
+        del ref, m
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = {"arch": arch, "n_layers": n_layers, "dtype": "float32", "optimizer": optimizer,
+           "B": SHARD_TRAIN_B, "S": SHARD_TRAIN_S, "meshes": {}}
+    for shape in meshes:
+        pol = ShardingPolicy(mesh=make_local_mesh(model=shape[1], device=dev), fsdp=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        st = TrainState.create(cfg, tc, gen(), device=dev, policy=pol)
+        rec = {"create_peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+               "local_state_bytes": _local_bytes(list(st.params.parameters())
+                                                 + list(_opt_tensors(st.opt))),
+               "placement": st.params.placement_record["n_sharded"]}
+        MOE.reset_drop_counts(st.params)
+        counts = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        rec.update(step_s=time.perf_counter() - t0, flash_launches=dict(counts),
+                   loss=float(m["loss"]), counts=_world_counts(torch, dev, st.params))
+        worst = float("-inf")
+        for k, p in st.params.named_parameters():
+            whole = PL.full(p).detach()
+            if rank == 0:
+                want = ref_params[k].to(dev)
+                excess = ((whole - want).abs() - SHARD_TRAIN_TOL["atol"]
+                          - SHARD_TRAIN_TOL["rtol"] * want.abs()).max()
+                worst = max(worst, float(excess))
+            del whole
+        del st, m
+        torch.cuda.empty_cache()
+        if rank == 0:
+            rel = abs(rec["loss"] - ref_loss) / abs(ref_loss)
+            rec.update(ref_loss=ref_loss, loss_rel_diff=rel, params_worst_excess=worst,
+                       ref_counts=ref_counts, loss_rtol=loss_rtol,
+                       ok=rel <= loss_rtol and worst <= 0.0 and rec["counts"] == ref_counts)
+        out["meshes"]["x".join(map(str, shape))] = rec
+    return out
+
+
+def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
+    """``arch`` (full width, ``n_layers``, float32) served at each mesh
+    (created shard by shard): SHARD_SERVE_B x SHARD_SERVE_S prompt tokens
+    and SHARD_DECODE greedy decode steps over the sharded cache, against
+    the single-process run (rank 0, first) within LM_GATE_TOL; the summed
+    routed and dropped counts equal."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     from repro_torch.sharding import place as PL
     from repro_torch.sharding.policy import ShardingPolicy
 
     gen = lambda: torch.Generator(dev).manual_seed(0)
-    rec = {}
-    # -- one train step, minicpm-2b (2 layers, f32) at mesh (2, 2)
-    cfg = lm_config(TRAIN_ARCH, TRAIN_CHECK_LAYERS, dtype="float32")
-    tc = TrainConfig(remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
-    batch = {"tokens": TokenStream(cfg.vocab_size, SHARD_TRAIN_B, SHARD_TRAIN_S,
-                                   seed=0).batch_at(0)["tokens"]}
-    step = make_train_step(cfg, tc, device=dev)
-    if rank == 0:
-        ref, m = step(TrainState.create(cfg, tc, gen(), device=dev), batch)
-        ref_loss = float(m["loss"])
-        ref_params = {k: p.detach().cpu() for k, p in ref.params.named_parameters()}
-        del ref, m
-        torch.cuda.empty_cache()
-    dist.barrier()
-    mesh = make_local_mesh(model=train_mesh[1], device=dev)
-    pol = ShardingPolicy(mesh=mesh, fsdp=True)
-    st = PL.shard_train_state(TrainState.create(cfg, tc, gen(), device=dev), pol, tc)
-    counts = _flash_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, m = step(st, batch)
-    torch.cuda.synchronize()
-    rec["train"] = {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-                    "mesh": list(train_mesh), "fsdp": True, "B": SHARD_TRAIN_B,
-                    "S": SHARD_TRAIN_S,
-                    "step_s": time.perf_counter() - t0, "flash_launches": dict(counts),
-                    "loss": float(m["loss"]),
-                    "placement": st.params.placement_record["n_sharded"]}
-    worst = float("-inf")
-    for k, p in st.params.named_parameters():
-        whole = PL.full(p).detach()
-        if rank == 0:
-            want = ref_params[k].to(dev)
-            excess = ((whole - want).abs() - SHARD_TRAIN_TOL["atol"]
-                      - SHARD_TRAIN_TOL["rtol"] * want.abs()).max()
-            worst = max(worst, float(excess))
-    del st, m
-    torch.cuda.empty_cache()
-    if rank == 0:
-        rec["train"].update(ref_loss=ref_loss, loss_rel_diff=abs(
-            rec["train"]["loss"] - ref_loss) / abs(ref_loss),
-            params_worst_excess=worst, tol=SHARD_TRAIN_TOL)
-        rec["train"]["ok"] = (rec["train"]["loss_rel_diff"] <= SHARD_TRAIN_TOL["loss_rtol"]
-                              and worst <= 0.0)
-    # -- qwen2.5-3b (2 layers, f32): prefill 4 x 512, 8 greedy decode steps
-    cfg = lm_config(LM_ARCH, 2, dtype="float32")
+    cfg = lm_config(arch, n_layers, dtype="float32")
     B, S, n = SHARD_SERVE_B, SHARD_SERVE_S, SHARD_DECODE
     toks = TokenStream(cfg.vocab_size, B, S, seed=1).batch_at(0)["tokens"]
-    tok_file = ROOT / "build" / "smoke_shard_serve_tokens.pt"
+    tok_file = ROOT / "build" / f"smoke_shard_serve_tokens_{arch}.pt"
     decode = make_decode_step(cfg, device=dev)
     if rank == 0:
         params = T.init_params(cfg, gen(), dev)
+        MOE.reset_drop_counts(params)
         logits, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks})
         want = {"prefill": logits.cpu()}
         cache = grown_cache(T, cfg, cache, B, S, S + n, dev)
@@ -2040,80 +2131,87 @@ def shard_check_rank(torch, dev, rank) -> dict:
             lg, cache = decode(params, {"token": tok, "pos": S + i}, cache)
             want[f"decode{i}"] = lg.cpu()
             tok = lg.argmax(-1)
+        ref_counts = list(MOE.drop_counts(params))
         torch.save(dec, tok_file)
         del params, cache, logits, lg
         torch.cuda.empty_cache()
     dist.barrier()
     dec = torch.load(tok_file)
-    rec["serve"] = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-                    "B": B, "prompt": S, "decode_steps": n, "meshes": {}}
-    for shape in serve_meshes:
-        mesh = make_local_mesh(model=shape[1], device=dev)
-        pol = ShardingPolicy(mesh=mesh)
-        params = PL.shard_module(T.init_params(cfg, gen(), dev), pol)
+    out = {"arch": arch, "n_layers": n_layers, "dtype": "float32", "B": B, "prompt": S,
+           "decode_steps": n, "meshes": {}}
+    for shape in meshes:
+        pol = ShardingPolicy(mesh=make_local_mesh(model=shape[1], device=dev))
+        params = PL.init_sharded(cfg, pol, gen())
+        MOE.reset_drop_counts(params)
         counts = _flash_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = make_prefill_step(cfg, policy=pol, device=dev)(params,
                                                                          {"tokens": toks})
         torch.cuda.synchronize()
-        out = {"prefill_s": time.perf_counter() - t0, "flash_launches": dict(counts),
-               "cache_local_k": list(PL.local(cache["k"]).shape)}
+        rec = {"prefill_s": time.perf_counter() - t0, "flash_launches": dict(counts),
+               "cache_local": {k: list(PL.local(v).shape) for k, v in cache.items()}}
         errs = {"prefill": PL.full(logits)}
         cache = PL.grow_cache(cache, cfg, S + n, pol)
         for i in range(n):
             lg, cache = decode(params, {"token": dec[i].to(dev), "pos": S + i}, cache)
             errs[f"decode{i}"] = PL.full(lg)
+        rec["counts"] = _world_counts(torch, dev, params)
         if rank == 0:
-            out["max_abs_err"] = {k: float((v.float().cpu() - want[k]).abs().max())
+            rec["max_abs_err"] = {k: float((v.float().cpu() - want[k]).abs().max())
                                   for k, v in errs.items()}
-            out["ok"] = max(out["max_abs_err"].values()) <= LM_GATE_TOL
-        rec["serve"]["meshes"]["x".join(map(str, shape))] = out
+            rec.update(ref_counts=ref_counts,
+                       ok=(max(rec["max_abs_err"].values()) <= LM_GATE_TOL
+                           and rec["counts"] == ref_counts))
+        out["meshes"]["x".join(map(str, shape))] = rec
         del params, cache, logits, lg, errs
         torch.cuda.empty_cache()
+    return out
+
+
+#: lm_shard_check's runs: (record key, kind, arch, n_layers, optimizer, loss rtol)
+SHARD_CHECKS = (
+    ("train", "train", TRAIN_ARCH, TRAIN_CHECK_LAYERS, "adamw", SHARD_TRAIN_TOL["loss_rtol"]),
+    ("serve", "serve", LM_ARCH, 2, None, None),
+    ("moe_train", "train", MOE_ARCH, SHARD_MOE_TRAIN_LAYERS, "adafactor",
+     SHARD_FAMILY_LOSS_RTOL),
+    ("moe_serve", "serve", MOE_ARCH, SHARD_MOE_SERVE_LAYERS, None, None),
+    ("ssm_train", "train", SSM_ARCH, SHARD_SSM_LAYERS, "adamw", SHARD_FAMILY_LOSS_RTOL),
+    ("ssm_serve", "serve", SSM_ARCH, SHARD_SSM_LAYERS, None, None),
+)
+
+
+def shard_check_rank(torch, dev, rank, rec: dict) -> dict:
+    """A rank of ``lm_shard_check`` (module comment above), its runs'
+    records into ``rec``: the dense family's step (minicpm-2b, at the
+    dense step's mesh) and serving (qwen2.5-3b), then the moe and ssm
+    families' steps and serving, each against the single-process run;
+    each rank reports its flash launches by route."""
+    import torch.distributed as dist
+
+    dense_mesh, meshes = shard_meshes(dist.get_world_size())
+    for key, kind, arch, n_layers, opt, loss_rtol in SHARD_CHECKS:
+        if kind == "train":
+            rec[key] = shard_train_check(torch, dev, rank, arch, n_layers, opt,
+                                         (dense_mesh,) if key == "train" else meshes,
+                                         loss_rtol)
+        else:
+            rec[key] = shard_serve_check(torch, dev, rank, arch, n_layers, meshes)
     if rank == 0:
-        rec["ok"] = rec["train"]["ok"] and all(v["ok"] for v in
-                                               rec["serve"]["meshes"].values())
+        rec["ok"] = all(m["ok"] for key, *_ in SHARD_CHECKS
+                        for m in rec[key]["meshes"].values())
     return rec
 
 
-def shard_multi_rank(torch, dev, rank) -> dict:
-    """A rank of ``lm_shard_multi``: minicpm-2b whole trained at mesh (2, 2)
-    (auto_policy: FSDP on data, TP on model), a warm-up step and
-    MULTI_TIMED timed steps; then qwen2.5-3b whole served at mesh (1, 4)."""
-    import torch.distributed as dist
-
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import TokenStream
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.steps import (TrainState, make_decode_step,
-                                          make_prefill_step, make_train_step)
-    from repro_torch.models import transformer as T
-    from repro_torch.sharding import place as PL
-    from repro_torch.sharding.policy import ShardingPolicy, auto_policy
-
-    rec = {}
-    cfg = lm_config(TRAIN_ARCH)
-    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
-                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
-                     total_steps=1 + MULTI_TIMED)
-    mesh = make_local_mesh(model=2, device=dev)
-    pol = auto_policy(cfg, mesh)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
-    n_params = sum(p.numel() for p in st.params.parameters())
-    st = PL.shard_train_state(st, pol, tc)
-    torch.cuda.empty_cache()
-    batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
-    step = make_train_step(cfg, tc, device=dev)
-    dist.barrier()
+def _timed_steps(torch, dist, step, st, batch, n_timed):
+    """A warm-up step, then ``n_timed`` timed ones (each between barriers),
+    the flash launches of each."""
     t0 = time.perf_counter()
     st, m = step(st, batch)
     losses = [float(m["loss"])]
     warm = time.perf_counter() - t0
     step_s, launches = [], []
-    for _ in range(MULTI_TIMED):
+    for _ in range(n_timed):
         counts = _flash_counts()
         torch.cuda.synchronize()
         dist.barrier()
@@ -2124,37 +2222,99 @@ def shard_multi_rank(torch, dev, rank) -> dict:
         dist.barrier()
         step_s.append(time.perf_counter() - t0)
         launches.append(dict(counts))
-    rec["train"] = {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "params": n_params,
-                    "dtype": cfg.dtype, "mesh": [2, 2], "fsdp": pol.fsdp,
-                    "B": TRAIN_B, "S": TRAIN_S, "microbatch": TRAIN_MICRO,
-                    "warmup_step_s": warm, "step_s": step_s, "losses": losses,
-                    "flash_launches_per_step": launches,
-                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-                    "placement": {k: v for k, v in st.params.placement_record.items()
-                                  if k != "degraded"},
-                    "degraded": len(st.params.placement_record["degraded"])}
-    del st, m
+    return st, {"warmup_step_s": warm, "step_s": step_s, "losses": losses,
+                "flash_launches_per_step": launches}
+
+
+def _sampler(rank):
+    """Rank 0 samples every card's busy share over a window."""
+    from repro_torch.runtime.device import BusySampler
+
+    import torch
+
+    return BusySampler(torch.cuda.device_count()) if rank == 0 else None
+
+
+def _sampled(sampler):
+    return sampler.stop() if sampler is not None else None
+
+
+def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True) -> dict:
+    """``cfg`` trained at ``mesh_shape`` (auto_policy), the state created
+    shard by shard: a warm-up step and MULTI_TIMED timed steps, each card's
+    busy share sampled over them."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.sharding.policy import auto_policy, estimate_params
+
+    pol = auto_policy(cfg, make_local_mesh(model=mesh_shape[1], device=dev))
     torch.cuda.empty_cache()
-    # qwen2.5-3b whole, mesh (1, 4)
-    cfg = lm_config(LM_ARCH)
-    mesh = make_local_mesh(model=4, device=dev)
-    pol = ShardingPolicy(mesh=mesh)
     torch.cuda.reset_peak_memory_stats(dev)
-    params = PL.shard_module(T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev),
-                             pol)
+    t0 = time.perf_counter()
+    st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev,
+                           policy=pol)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    create_peak = torch.cuda.max_memory_allocated(dev)
+    batch = {"tokens": TokenStream(cfg.vocab_size, B, S, seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    dist.barrier()
+    sampler = _sampler(rank) if sampler_on else None
+    st, rec = _timed_steps(torch, dist, step, st, batch, MULTI_TIMED)
+    rec.update(busy=_sampled(sampler), arch=cfg.name, n_layers=cfg.n_layers,
+               params=estimate_params(cfg), dtype=cfg.dtype, mesh=list(mesh_shape),
+               fsdp=pol.fsdp, optimizer=tc.optimizer, B=B, S=S, microbatch=tc.microbatch,
+               create_s=create_s, create_peak_bytes=create_peak,
+               peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+               placement={k: v for k, v in st.params.placement_record.items()
+                          if k != "degraded"},
+               degraded=len(st.params.placement_record["degraded"]))
+    del st
     torch.cuda.empty_cache()
+    return rec
+
+
+def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict:
+    """``cfg`` served at ``mesh_shape`` (created shard by shard): a warm-up
+    prefill, the timed prefill of SERVE_B x SERVE_S tokens (flash launches
+    counted) and DECODE_STEPS greedy decode steps, each card's busy share
+    sampled over them; the MoE assignments routed and dropped."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    pol = ShardingPolicy(mesh=make_local_mesh(model=mesh_shape[1], device=dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = PL.init_sharded(cfg, pol, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    create_peak = torch.cuda.max_memory_allocated(dev)
+    local_bytes = _local_bytes(params.parameters())
     toks = TokenStream(cfg.vocab_size, SERVE_B, SERVE_S, seed=1).batch_at(0)["tokens"]
     prefill = make_prefill_step(cfg, policy=pol, device=dev)
     decode = make_decode_step(cfg, device=dev)
     prefill(params, {"tokens": toks})  # warm-up
+    MOE.reset_drop_counts(params)
     counts = _flash_counts()
     torch.cuda.synchronize()
     dist.barrier()
+    sampler = _sampler(rank)
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     flash = dict(counts)
+    prefill_counts = _world_counts(torch, dev, params)
     cache = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS, pol)
     tok = PL.full(logits[:, -1:]).argmax(-1)
     torch.cuda.synchronize()
@@ -2165,31 +2325,72 @@ def shard_multi_rank(torch, dev, rank) -> dict:
         tok = PL.full(lg).argmax(-1)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
-    finite = bool(torch.isfinite(PL.local(lg)).all())
-    # where one sharded decode step's host time goes (rank 0 reports it)
-    from torch.profiler import ProfilerActivity, profile
+    busy = _sampled(sampler)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "mesh": list(mesh_shape), "B": SERVE_B, "prompt": SERVE_S,
+           "decode_steps": DECODE_STEPS, "create_s": create_s,
+           "create_peak_bytes": create_peak, "local_param_bytes": local_bytes,
+           "prefill_s": prefill_s, "decode_ms_per_step": decode_ms, "flash_launches": flash,
+           "prefill_counts": prefill_counts, "busy": busy,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "finite": bool(torch.isfinite(PL.local(lg)).all())}
+    if profile_decode:  # where one sharded decode step's host time goes
+        from torch.profiler import ProfilerActivity, profile
 
-    grown = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS + 1, pol)
-    dist.barrier()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        decode(params, {"token": tok, "pos": SERVE_S + DECODE_STEPS}, grown)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
-    host_top = [{"name": e.key[:80], "self_cpu_s": e.self_cpu_time_total / 1e6,
-                 "calls": e.count} for e in rows[:10]]
-    busy_s = sum(r[0] for r in _device_time_by_kernel(prof)) / 1e6
-    rec["serve"] = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-                    "mesh": [1, 4], "B": SERVE_B, "prompt": SERVE_S,
-                    "decode_steps": DECODE_STEPS, "prefill_s": prefill_s,
-                    "decode_ms_per_step": decode_ms, "flash_launches": flash,
-                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-                    "finite": finite, "traced_decode_s": traced_s,
-                    "traced_decode_device_busy_s": busy_s,
-                    "traced_decode_host_top": host_top}
-    rec["ok"] = (all(math.isfinite(x) for x in losses) and finite
-                 and all(sum(n.values()) > 0 for n in launches))
+        grown = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS + 1, pol)
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(params, {"token": tok, "pos": SERVE_S + DECODE_STEPS}, grown)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)
+        rec.update(traced_decode_s=traced_s,
+                   traced_decode_device_busy_s=sum(
+                       r[0] for r in _device_time_by_kernel(prof)) / 1e6,
+                   traced_decode_host_top=[{"name": e.key[:80],
+                                            "self_cpu_s": e.self_cpu_time_total / 1e6,
+                                            "calls": e.count} for e in rows[:10]])
+        del grown
+    del params, cache, logits, lg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def shard_multi_rank(torch, dev, rank, rec: dict) -> dict:
+    """A rank of ``lm_shard_multi``, its runs' records into ``rec``:
+    minicpm-2b whole trained at mesh (2, 2) and qwen2.5-3b whole served at
+    (1, 4); dbrx-132b whole served at (1, 4) and trained at (1, 4) at
+    MULTI_MOE_TRAIN_LAYERS; mamba2-2.7b whole trained at (2, 2) and served
+    at (1, 4) (module comment above)."""
+    from repro_torch.configs.base import TrainConfig
+
+    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
+                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
+                     total_steps=1 + MULTI_TIMED)
+    rec["train"] = multi_train(torch, dev, rank, lm_config(TRAIN_ARCH), tc, (2, 2),
+                               TRAIN_B, TRAIN_S)
+    rec["serve"] = multi_serve(torch, dev, rank, lm_config(LM_ARCH), (1, 4),
+                               profile_decode=True)
+    rec["moe_serve"] = multi_serve(torch, dev, rank, lm_config(MOE_ARCH), (1, 4),
+                                   profile_decode=True)
+    tc = TrainConfig(optimizer="adafactor", schedule="cosine", remat=True,
+                     warmup_steps=1, total_steps=1 + MULTI_TIMED)
+    rec["moe_train"] = multi_train(torch, dev, rank,
+                                   lm_config(MOE_ARCH, MULTI_MOE_TRAIN_LAYERS), tc, (1, 4),
+                                   MULTI_MOE_TRAIN_B, TRAIN_S)
+    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="cosine",
+                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
+                     total_steps=1 + MULTI_TIMED)
+    rec["ssm_train"] = multi_train(torch, dev, rank, lm_config(SSM_ARCH), tc, (2, 2),
+                                   TRAIN_B, TRAIN_S)
+    rec["ssm_serve"] = multi_serve(torch, dev, rank, lm_config(SSM_ARCH), (1, 4))
+    rec["ok"] = (all(math.isfinite(x) for k in ("train", "moe_train", "ssm_train")
+                     for x in rec[k]["losses"])
+                 and all(rec[k]["finite"] for k in ("serve", "moe_serve", "ssm_serve"))
+                 and all(sum(n.values()) > 0 for k in ("train", "moe_train")
+                         for n in rec[k]["flash_launches_per_step"]))
     return rec
 
 
@@ -2214,7 +2415,7 @@ def shard_rank(job, out) -> int:
     rec = {"rank": rank, "device": str(dev), "backend": info["backend"]}
     try:
         fn = {"check": shard_check_rank, "multi": shard_multi_rank}[job]
-        rec.update(fn(torch, dev, rank))
+        fn(torch, dev, rank, rec)  # fills rec run by run: a failure keeps the runs before
         rc = 0
     except Exception:  # noqa: BLE001 -- reported, and the rank exits non-zero
         rec["error"] = traceback.format_exc()[-4000:]
@@ -2227,7 +2428,9 @@ def shard_rank(job, out) -> int:
 
 
 def lm_shard_check(torch, smi, world=1):
-    """``world`` NCCL ranks, rank r on card r (module comment above)."""
+    """``world`` NCCL ranks, rank r on card r (module comment above): every
+    check within its gate on rank 0, the flash kernel launched on every
+    rank in each dense and moe run and never in an ssm run."""
     gc.collect()
     torch.cuda.empty_cache()
     if torch.cuda.device_count() < world:
@@ -2238,32 +2441,97 @@ def lm_shard_check(torch, smi, world=1):
     t0 = time.perf_counter()
     recs, rcs = run_shard_world(world, "check", f"check{world}", "nccl", ids=ids)
     r0 = recs[0]
+    launches = [{f"{key}_{m}": v.get("flash_launches")
+                 for key, *_ in SHARD_CHECKS
+                 for m, v in r.get(key, {}).get("meshes", {}).items()} for r in recs]
     out = dict(world=world, backend="nccl", card_ids=list(ids), rcs=rcs,
                seconds=time.perf_counter() - t0,
-               train=r0.get("train"), serve=r0.get("serve"),
-               flash_launches_by_rank=[{"train": r.get("train", {}).get("flash_launches"),
-                                        **{f"serve_{m}": v.get("flash_launches") for m, v in
-                                           r.get("serve", {}).get("meshes", {}).items()}}
-                                       for r in recs],
+               **{key: r0.get(key) for key, *_ in SHARD_CHECKS},
+               flash_launches_by_rank=launches,
                errors=[r.get("error") or r.get("log_tail") for r in recs
                        if "error" in r or "log_tail" in r], smi=smi)
     emit("lm_shard_check", **out)
     if rcs != [0] * world or not r0.get("ok"):
         raise AssertionError(f"lm_shard_check failed: rcs {rcs}")
-    for r in recs:
-        for name, n in out["flash_launches_by_rank"][r["rank"]].items():
-            if not n or sum(n.values()) == 0:
-                raise AssertionError(f"rank {r['rank']} {name}: no flash launch {n}")
+    for r, by_run in enumerate(launches):
+        for name, n in by_run.items():
+            if name.startswith("ssm_"):
+                if n is None or sum(n.values()) != 0:
+                    raise AssertionError(f"rank {r} {name}: a flash launch {n}")
+            elif not n or sum(n.values()) == 0:
+                raise AssertionError(f"rank {r} {name}: no flash launch {n}")
+    return out
+
+
+def active_params(cfg) -> int:
+    """The parameters one token passes through: every parameter but the
+    experts it is not routed to (top-k of E)."""
+    from repro_torch.sharding.policy import estimate_params
+
+    n = estimate_params(cfg)
+    if cfg.n_experts:
+        per = (3 if cfg.mlp_act == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+        n -= cfg.n_layers * per * (cfg.n_experts - cfg.experts_per_tok)
+    return n
+
+
+def _multi_train_summary(tr, one_card_loss=None) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS
+
+    t = tr[0]
+    mean_s = max(sum(x["step_s"]) / len(x["step_s"]) for x in tr)
+    tokens = t["B"] * t["S"]
+    arch = t["arch"]
+    cfg = dataclasses.replace(get_config(arch), n_layers=t["n_layers"])
+    n_active = active_params(cfg)
+    out = dict({k: t[k] for k in ("arch", "n_layers", "params", "dtype", "mesh", "fsdp",
+                                  "optimizer", "B", "S", "microbatch", "placement",
+                                  "degraded")},
+               active_params=n_active,
+               step_s_by_rank=[x["step_s"] for x in tr], step_s_mean=mean_s,
+               warmup_step_s=[x["warmup_step_s"] for x in tr],
+               tokens_per_s=tokens / mean_s,
+               mfu_6NT_of_4x989=6.0 * n_active * tokens / mean_s / (4 * PEAK_BF16_FLOPS),
+               create_s_by_rank=[x["create_s"] for x in tr],
+               create_peak_bytes_by_rank=[x["create_peak_bytes"] for x in tr],
+               peak_device_bytes_by_rank=[x["peak_device_bytes"] for x in tr],
+               busy=t["busy"], losses=t["losses"],
+               flash_launches_per_step_by_rank=[x["flash_launches_per_step"] for x in tr])
+    if one_card_loss is not None:
+        out.update(one_card_first_loss=one_card_loss,
+                   first_loss_rel_diff=abs(t["losses"][0] - one_card_loss) / one_card_loss)
+    return out
+
+
+def _multi_serve_summary(sv) -> dict:
+    s = sv[0]
+    routed, dropped = s["prefill_counts"]
+    out = dict({k: s[k] for k in ("arch", "n_layers", "dtype", "mesh", "B", "prompt",
+                                  "decode_steps")},
+               prefill_s_by_rank=[x["prefill_s"] for x in sv],
+               decode_ms_per_step_by_rank=[x["decode_ms_per_step"] for x in sv],
+               create_s_by_rank=[x["create_s"] for x in sv],
+               create_peak_bytes_by_rank=[x["create_peak_bytes"] for x in sv],
+               local_param_bytes_by_rank=[x["local_param_bytes"] for x in sv],
+               peak_device_bytes_by_rank=[x["peak_device_bytes"] for x in sv],
+               flash_launches_by_rank=[x["flash_launches"] for x in sv],
+               busy=s["busy"], prefill_routed=routed, prefill_dropped=dropped,
+               prefill_dropped_share=dropped / routed if routed else None)
+    if "traced_decode_s" in s:
+        out["traced_decode"] = dict(wall_s=s["traced_decode_s"],
+                                    device_busy_s=s["traced_decode_device_busy_s"],
+                                    host_top=s["traced_decode_host_top"])
     return out
 
 
 def lm_shard_multi(torch, dev, smi):
     """``--multi-card``: the single-card minicpm-2b step's loss (the
     sharded steps' reference), then four ranks, a card each, over NCCL
-    (module comment above), each card's busy share sampled."""
+    (module comment above), each card's busy share sampled over the world
+    and over each run's timed window."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import TokenStream
-    from repro_torch.launch.roofline import PEAK_BF16_FLOPS
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.runtime.device import BusySampler
 
@@ -2287,39 +2555,19 @@ def lm_shard_multi(torch, dev, smi):
     torch.cuda.empty_cache()
     busy = BusySampler(n_cards)
     t0 = time.perf_counter()
-    recs, rcs = run_shard_world(4, "multi", "multi", "nccl", ids=(0, 1, 2, 3), timeout=900)
+    recs, rcs = run_shard_world(4, "multi", "multi", "nccl", ids=(0, 1, 2, 3),
+                                timeout=MULTI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     sampled = busy.stop()
-    tr = [r.get("train", {}) for r in recs]
-    sv = [r.get("serve", {}) for r in recs]
     out = dict(world=4, backend="nccl", rcs=rcs, wall_s=wall, card_busy=sampled,
                errors=[r.get("error") or r.get("log_tail") for r in recs
                        if "error" in r or "log_tail" in r], smi=smi)
     if rcs == [0] * 4 and all(r.get("ok") for r in recs):
-        mean_s = max(sum(t["step_s"]) / len(t["step_s"]) for t in tr)
-        tokens = TRAIN_B * TRAIN_S
-        flops = 6.0 * tr[0]["params"] * tokens
-        out["train"] = dict(
-            {k: tr[0][k] for k in ("arch", "n_layers", "params", "dtype", "mesh", "fsdp",
-                                   "B", "S", "microbatch", "placement", "degraded")},
-            step_s_by_rank=[t["step_s"] for t in tr], step_s_mean=mean_s,
-            warmup_step_s=[t["warmup_step_s"] for t in tr],
-            tokens_per_s=tokens / mean_s,
-            mfu_6NT_of_4x989=flops / mean_s / (4 * PEAK_BF16_FLOPS),
-            peak_device_bytes_by_rank=[t["peak_device_bytes"] for t in tr],
-            losses=tr[0]["losses"], one_card_first_loss=one_card_loss,
-            first_loss_rel_diff=abs(tr[0]["losses"][0] - one_card_loss) / one_card_loss,
-            flash_launches_per_step_by_rank=[t["flash_launches_per_step"] for t in tr])
-        out["serve"] = dict(
-            {k: sv[0][k] for k in ("arch", "n_layers", "dtype", "mesh", "B", "prompt",
-                                   "decode_steps")},
-            prefill_s_by_rank=[s["prefill_s"] for s in sv],
-            decode_ms_per_step_by_rank=[s["decode_ms_per_step"] for s in sv],
-            peak_device_bytes_by_rank=[s["peak_device_bytes"] for s in sv],
-            flash_launches_by_rank=[s["flash_launches"] for s in sv],
-            traced_decode=dict(wall_s=sv[0]["traced_decode_s"],
-                               device_busy_s=sv[0]["traced_decode_device_busy_s"],
-                               host_top=sv[0]["traced_decode_host_top"]))
+        out["train"] = _multi_train_summary([r["train"] for r in recs], one_card_loss)
+        for key in ("moe_train", "ssm_train"):
+            out[key] = _multi_train_summary([r[key] for r in recs])
+        for key in ("serve", "moe_serve", "ssm_serve"):
+            out[key] = _multi_serve_summary([r[key] for r in recs])
     emit("lm_shard_multi", **out)
     if "train" not in out:
         raise AssertionError(f"lm_shard_multi failed: rcs {rcs}")

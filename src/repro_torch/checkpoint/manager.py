@@ -26,8 +26,11 @@ the live one can be dropped) on ``device`` (default each leaf's own).
 Sharded (JAX's "elastic: any mesh"): a DTensor leaf is gathered whole
 on save (a collective: every rank calls ``save``), rank 0 writes, and
 ``wait`` meets every rank after the write; ``restore`` places each leaf
-as ``like``'s is placed (a sharded module is sharded again by its
-policy), so a checkpoint written at one world size resumes at another.
+as ``like``'s is placed (a sharded module is built again shard by shard
+by its policy, ``place.build_sharded``; the expert-parallel weights and
+Adafactor's accumulators by their specs), reading each leaf from disk
+when it is placed, so a checkpoint written at one world size resumes at
+another.
 """
 from __future__ import annotations
 
@@ -89,6 +92,18 @@ def _load(path: pathlib.Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+class _Leaves:
+    """{flat key: tensor} of a checkpoint directory, each leaf read from
+    disk when it is asked for (a sharded restore holds one whole leaf at a
+    time)."""
+
+    def __init__(self, d: pathlib.Path, dtypes: dict):
+        self.d, self.dtypes = d, dtypes
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return _load(self.d / (key + ".npy"), self.dtypes[key])
+
+
 def _rebuild(like, loaded: dict, device, prefix: str = ""):
     pre = prefix + _SEP if prefix else ""
     if isinstance(like, torch.Tensor):
@@ -99,16 +114,16 @@ def _rebuild(like, loaded: dict, device, prefix: str = ""):
         return loaded[prefix].to(device=like.device if device is None else device,
                                  dtype=like.dtype)
     if isinstance(like, nn.Module):
-        dev = next(like.parameters()).device if device is None else torch.device(device)
         policy = getattr(like, "sharding_policy", None)
+        if policy is not None:  # shard by shard: each leaf whole only while placed
+            from repro_torch.sharding.place import build_sharded
+
+            return build_sharded(like.cfg, policy, lambda k, p: loaded[pre + k].to(p.dtype))
+        dev = next(like.parameters()).device if device is None else torch.device(device)
         fresh = type(like)(like.cfg, dev)
         with torch.no_grad():
             for k, p in fresh.named_parameters():
                 p.copy_(loaded[pre + k])
-        if policy is not None:
-            from repro_torch.sharding.place import shard_module
-
-            shard_module(fresh, policy)
         return fresh
     if dataclasses.is_dataclass(like):
         return dataclasses.replace(like, **{
@@ -193,8 +208,7 @@ class CheckpointManager:
         missing = sorted(set(keys) - set(dtypes))
         if missing:
             raise KeyError(f"checkpoint step {step} lacks {missing[:5]}")
-        loaded = {k: _load(d / (k + ".npy"), dtypes[k]) for k in keys}
-        return _rebuild(like, loaded, device)
+        return _rebuild(like, _Leaves(d, dtypes), device)
 
     def restore_latest(self, like, device=None):
         step = self.latest_step()

@@ -10,15 +10,18 @@ gradient of ``models.transformer.loss_fn`` with autograd and updates
 the state's tensors in place.  ``train_state_from_jax`` carries a JAX
 TrainState across.
 
-Sharded (the dense family, ``sharding/``): ``make_train_step`` takes a
-state placed by ``place.shard_train_state``: the loss's mean runs over
-every rank's tokens, the gradients reduce over the data axes inside
-DTensor's backward, the global-norm clip spans every shard, and AdamW
-updates each rank's local shards in place (Adafactor's factored means
-and RMS run on the DTensors).  ``make_prefill_step(cfg, policy)`` places
-its cache by ``cache_specs_tree`` (KV along the sequence on "model",
-batch on the data axes); ``make_decode_step`` attends over that cache
-with the flash-decode all-reduce (``sharding/attention.py``).
+Sharded (the dense, moe and ssm families, ``sharding/``):
+``make_train_step`` takes a state created shard by shard
+(``TrainState.create(policy=)``) or placed by
+``place.shard_train_state``: the loss's mean runs over every rank's
+tokens, the gradients reduce over the data axes inside DTensor's
+backward, the global-norm clip spans every shard, AdamW updates each
+rank's local shards in place, and Adafactor's factored means and RMS
+reduce over the mesh dims that shard them.  ``make_prefill_step(cfg,
+policy)`` places its cache by ``cache_specs_tree`` (KV along the
+sequence on "model", Mamba2 states on heads and conv channels, batch on
+the data axes); ``make_decode_step`` attends over that cache with the
+flash-decode all-reduce (``sharding/attention.py``).
 """
 from __future__ import annotations
 
@@ -49,13 +52,26 @@ class TrainState:
 
     @staticmethod
     def create(cfg: ModelConfig, tc: TrainConfig,
-               generator: Optional[torch.Generator] = None, device=None) -> "TrainState":
+               generator: Optional[torch.Generator] = None, device=None,
+               policy=None) -> "TrainState":
         """``init_params`` on ``device`` (default the card; raises without
         one), the optimizer's zero state, step 0.  ``generator``: default
-        one seeded with ``tc.seed``."""
+        one seeded with ``tc.seed``.  ``policy`` (a ``ShardingPolicy``;
+        ``device`` is then the rank's): the state created shard by shard
+        (``place.init_sharded``, ``place.zero_opt``), equal to
+        ``shard_train_state`` of the whole one, bit for bit, without any
+        rank holding the whole model (JAX's ``jit(TrainState.create,
+        out_shardings=)``)."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(dev).manual_seed(tc.seed)
+        if policy is not None:
+            from repro_torch.sharding import place as PL
+
+            T.check_shardable(cfg)
+            params = PL.init_sharded(cfg, policy, generator)
+            return TrainState(params=params, opt=PL.zero_opt(params, tc, policy),
+                              step=torch.zeros((), dtype=torch.int32, device=dev))
         params = T.init_params(cfg, generator, dev)
         return TrainState(params=params, opt=init_opt(params, tc),
                           step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -204,11 +220,11 @@ def make_prefill_step(cfg: ModelConfig, policy=None, device=None):
     """prefill_step(params, batch) -> (logits, cache): the cache is sized
     to the prompt, as in JAX (the full-cache branch of attention).  The
     batch's audio frames or image patches go to the device in the
-    config's dtype.  ``policy`` (a ``ShardingPolicy``; the dense family
-    only, on params placed by ``place.shard_module`` under it): the cache
-    is placed by its ``cache_specs_tree`` -- KV along the sequence on
-    "model", batch on the data axes -- and the logits come back as a
-    DTensor."""
+    config's dtype.  ``policy`` (a ``ShardingPolicy``; the dense, moe
+    and ssm families, on params placed under it): the cache is placed by
+    its ``cache_specs_tree`` -- KV along the sequence on "model", Mamba2
+    states on heads and conv channels, batch on the data axes -- and the
+    logits come back as a DTensor."""
     if policy is not None:
         T.check_shardable(cfg)
     dev = resolve_device(device)

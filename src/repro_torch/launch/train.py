@@ -16,9 +16,12 @@ One process is one device, as before.  Under the EDM_* contract
 process a rank; ``runtime/platform.py::init_distributed``: NCCL with a
 card a rank, gloo on the CPU) the ranks form ``make_local_mesh``
 (all data-parallel, as JAX's ``make_cpu_mesh``), the state is placed by
-``auto_policy`` (FSDP above ~2 B parameters) and every step's batch by
-its batch specs.  A run resumes from the latest checkpoint in
-``--ckpt-dir``, whatever world wrote it (JAX's "elastic: any mesh").
+``auto_policy`` (FSDP above ~2 B parameters), created shard by shard
+(``TrainState.create(policy=)``: no rank holds the whole model), and
+every step's batch by its batch specs.  The dense, moe and ssm families
+run so (``--arch dbrx-132b``, ``mamba2-2.7b``).  A run resumes from the
+latest checkpoint in ``--ckpt-dir``, whatever world wrote it (JAX's
+"elastic: any mesh").
 ``--production-mesh`` builds the 16 x 16 mesh over a world of exactly
 256 ranks and refuses any other (``launch/mesh.py``).
 """
@@ -41,7 +44,6 @@ from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.fault import ResilientLoop
 from repro_torch.runtime.platform import (distributed_spec_from_env, init_distributed,
                                           rank_device)
-from repro_torch.sharding import place as PL
 from repro_torch.sharding import policy as POL
 
 
@@ -72,14 +74,15 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     tc = TrainConfig(lr=args.lr, total_steps=args.steps,
                      warmup_steps=max(1, args.steps // 20))
-    if spec is not None:
+    if spec is None:
+        state = TrainState.create(cfg, tc, device=dev)
+    else:
         init_distributed(spec, device=args.device)
-    state = TrainState.create(cfg, tc, device=dev)
-    if spec is not None:
         mesh = (make_production_mesh(device=dev) if args.production_mesh
                 else make_local_mesh(device=dev))
         policy = POL.auto_policy(cfg, mesh)
-        state = PL.shard_train_state(state, policy, tc)
+        # created shard by shard: no rank holds the whole model
+        state = TrainState.create(cfg, tc, device=dev, policy=policy)
         print(f"rank {spec['process_id']}/{spec['num_processes']}: mesh "
               f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, fsdp {policy.fsdp}, "
               f"placement {state.params.placement_record}", flush=True)

@@ -78,7 +78,21 @@ def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
     names = w.device_mesh.mesh_dim_names
     plc = [Replicate() if n in ("pod", "data") else p
            for n, p in zip(names, w.placements)]
-    return w if plc == list(w.placements) else w.redistribute(w.device_mesh, plc)
+    return w if plc == list(w.placements) else redistribute(w, plc)
+
+
+def redistribute(w: torch.Tensor, plc) -> torch.Tensor:
+    """DTensor ``w`` redistributed to ``plc``.  With grad mode off a weight
+    that requires grad is first rewrapped from its local tensor, which
+    does not: the redistribute of one would detach its output in place,
+    which DTensor has no strategy for (and ``detach`` of a DTensor fails
+    under inference mode)."""
+    if w.requires_grad and not torch.is_grad_enabled():
+        from torch.distributed.tensor import DTensor
+
+        w = DTensor.from_local(w.to_local(), w.device_mesh, w.placements,
+                               run_check=False, shape=w.shape, stride=w.stride())
+    return w.redistribute(w.device_mesh, plc)
 
 
 def as_activation(x: torch.Tensor) -> torch.Tensor:

@@ -48,12 +48,17 @@ the recompute pass does not count MoE assignments again.
 ``loss_fn`` is JAX's next-token loss.  ``jax_leaf_groups`` names the
 JAX leaf each parameter is a slice of, for the optimizers' leaf rules.
 
-Sharded: the dense family runs on DTensor parameters
-(``sharding/place.py::shard_module``): tokens are placed by the batch
-specs, the embedding and head gather their FSDP axis, the blocks run in
-the Megatron layouts of ``models/layers.py``.  The other five
-families refuse a sharded module (``NotImplementedError``): their
-sharded execution is ROADMAP queue 1's next item.
+Sharded: the dense, moe and ssm families run on DTensor parameters
+(``sharding/place.py::shard_module`` or ``init_sharded``): tokens are
+placed by the batch specs, the embedding and head gather their FSDP
+axis, the attention blocks run in the Megatron layouts of
+``models/layers.py``, the MoE layer expert-parallel (or tensor-parallel
+inside each expert) and the Mamba2 block on head-split local tensors
+(``models/moe.py``, ``models/ssm.py``, ``sharding/local.py``); a Mamba2
+state is written into a sharded cache as each rank's shard of it.  The
+hybrid, audio and vlm families refuse a sharded module
+(``NotImplementedError``): their sharded execution is ROADMAP queue 1's
+next item.
 """
 from __future__ import annotations
 
@@ -378,19 +383,22 @@ def is_sharded(params: LM) -> bool:
 
 
 def _refuse_sharded(params: LM, cfg: ModelConfig) -> None:
-    """A sharded module of any family but dense raises."""
+    """A sharded module of a family that does not run sharded raises."""
     if is_sharded(params):
         check_shardable(cfg)
 
 
+#: the families that run on DTensor parameters
+SHARDED_FAMILIES = ("dense", "moe", "ssm")
+
+
 def check_shardable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of the one family that runs sharded (dense)."""
-    if cfg.family != "dense" or cfg.n_experts > 0:
+    """Raise unless ``cfg``'s family runs sharded (dense, moe, ssm)."""
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"sharding of the {cfg.family} family ({cfg.name}) is not ported: "
-            "only the dense family runs on DTensor parameters; the moe "
-            "(expert-parallel), ssm, hybrid, audio and vlm families are ROADMAP "
-            "queue 1's next item"
+            "the dense, moe and ssm families run on DTensor parameters; the "
+            "hybrid, audio and vlm families are ROADMAP queue 1's next item"
         )
 
 
@@ -433,9 +441,18 @@ def _layer_view(val, i: tuple):
 
 
 def _write_state(cache: dict, i: tuple, st: dict) -> None:
-    """A Mamba2 state into its slot, cast to the cache's dtypes."""
+    """A Mamba2 state into its slot, cast to the cache's dtypes; into a
+    DTensor cache, the state redistributed to the slot's layout and each
+    rank's shard written."""
     for name, val in st.items():
-        cache[name][i] = val
+        c = cache[name]
+        if L._is_dt(c):
+            view = _layer_view(c, i)
+            if list(val.placements) != list(view.placements):
+                val = val.redistribute(val.device_mesh, view.placements)
+            view.to_local().copy_(val.to_local())
+        else:
+            c[i] = val
 
 
 def _remat(remat: bool, fn, *args):
@@ -719,6 +736,22 @@ _ZEROS = ("b", "bias", "conv_b", "dt_bias", "b_q", "b_k", "b_v", "gate_attn",
 _STD = {"conv_w": 0.1}
 
 
+def init_leaf(name: str, shape, dtype, generator: torch.Generator, device) -> torch.Tensor:
+    """Parameter ``name``'s initial value, whole, on ``device`` (the
+    scheme of ``init_params``'s docstring); a drawn leaf takes its draws
+    from ``generator``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _ONES:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if leaf in _ZEROS:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if leaf == "A_log":
+        return torch.linspace(1.0, 16.0, shape[0], dtype=torch.float32,
+                              device=device).log().to(dtype)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return w.normal_(0.0, _STD.get(leaf, _INIT_STD), generator=generator).to(dtype)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> LM:
     """Random init on ``device`` (default the card; raises without one),
@@ -727,24 +760,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     one, biases, ``conv_b``, ``dt_bias``, the LoRA ``b_q`` / ``b_k`` /
     ``b_v`` and the vlm gates at zero, ``A_log`` = log(linspace(1, 16,
     H)) (the draws differ from JAX's).  ``generator``: a
-    ``torch.Generator`` on that device (default: one seeded with 0)."""
+    ``torch.Generator`` on that device (default: one seeded with 0).
+    ``sharding/place.py::init_sharded`` draws the same leaves in the same
+    order, one at a time, and keeps each rank's slice."""
     dev = resolve_device(device)
     model = LM(cfg, dev)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     with torch.no_grad():
         for name, prm in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in _ONES:
-                prm.fill_(1.0)
-            elif leaf in _ZEROS:
-                prm.zero_()
-            elif leaf == "A_log":
-                prm.copy_(torch.linspace(1.0, 16.0, prm.shape[0], dtype=torch.float32,
-                                         device=dev).log())
-            else:
-                w = torch.empty(prm.shape, dtype=torch.float32, device=dev)
-                prm.copy_(w.normal_(0.0, _STD.get(leaf, _INIT_STD), generator=generator))
+            prm.copy_(init_leaf(name, prm.shape, prm.dtype, generator, dev))
     return model
 
 

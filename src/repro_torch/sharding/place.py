@@ -12,6 +12,12 @@ spec (``policy.py``):
     collective;
   * :func:`shard_module`, :func:`shard_train_state`, :func:`shard_batch`
     -- an ``LM``, a ``TrainState`` and a batch by their specs;
+  * :func:`init_sharded`, :func:`build_sharded`, :func:`zero_opt` -- the
+    state created shard by shard: the module built on the meta device,
+    each leaf made whole on the rank's device one at a time (drawn as
+    ``init_params`` draws it, or loaded) and only the rank's slice kept,
+    so no rank ever holds the whole model; the optimizer's zeros
+    allocated shard by shard;
   * :func:`full` -- the whole tensor back (a gather) from a DTensor.
 
 A dim the axis does not divide is replicated (``ShardingPolicy._fit``);
@@ -59,14 +65,14 @@ def place(t: torch.Tensor, mesh, plc) -> torch.Tensor:
     placements ``plc``: each rank keeps its slice (a copy), mesh dim by
     mesh dim in mesh order, as DTensor lays shards out."""
     dt = _dt()
-    local = t.detach().to(mesh_device(mesh))
+    local = t.detach()
     coord = mesh.get_coordinate()
     for mdim, p in enumerate(plc):
         if isinstance(p, dt.Shard):
             n = mesh.size(mdim)
             size = local.shape[p.dim] // n
             local = local.narrow(p.dim, coord[mdim] * size, size)
-    local = local.clone().contiguous()
+    local = local.to(mesh_device(mesh)).clone(memory_format=torch.contiguous_format)
     return dt.DTensor.from_local(local, mesh, plc, run_check=False,
                                  shape=t.shape, stride=t.contiguous().stride())
 
@@ -106,25 +112,85 @@ def _degraded(policy: POL.ShardingPolicy, model) -> list:
     return [(k, want[k], got[k]) for k in got if want[k] != got[k]]
 
 
-def shard_module(lm: nn.Module, policy: POL.ShardingPolicy) -> nn.Module:
-    """Every parameter of ``lm`` (the same values on every rank) replaced
-    in place by a DTensor parameter placed by its spec; returns ``lm``,
-    with ``placement_record``: the parameter count, how many are sharded
-    on some axis, and the degradations."""
+def _replace_leaves(lm: nn.Module, policy: POL.ShardingPolicy, whole) -> nn.Module:
+    """Every parameter of ``lm``, in ``named_parameters`` order, replaced by
+    a DTensor parameter placed by its spec from ``whole(name, parameter)``
+    (the leaf whole, on any device; dropped once the rank's slice is
+    kept); returns ``lm`` with ``placement_record`` (the parameter count,
+    how many are sharded on some axis, the degradations) and
+    ``sharding_policy``."""
     specs = POL.param_specs(policy, lm)
     degraded = _degraded(policy, lm)
     n_sharded = 0
-    for name, spec in specs.items():
-        mod_name, _, leaf = name.rpartition(".")
-        mod = lm.get_submodule(mod_name) if mod_name else lm
-        old = getattr(mod, leaf)
-        new = place_spec(old.data, policy, spec)
-        n_sharded += any(ax is not None for ax in spec)
-        mod.register_parameter(leaf, nn.Parameter(new, requires_grad=old.requires_grad))
+    with torch.no_grad():
+        for name, old in list(lm.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = lm.get_submodule(mod_name) if mod_name else lm
+            new = place_spec(whole(name, old), policy, specs[name])
+            n_sharded += any(ax is not None for ax in specs[name])
+            mod.register_parameter(leaf, nn.Parameter(new, requires_grad=old.requires_grad))
     lm.placement_record = {"n_params": len(specs), "n_sharded": n_sharded,
                            "degraded": degraded}
     lm.sharding_policy = policy
     return lm
+
+
+def shard_module(lm: nn.Module, policy: POL.ShardingPolicy) -> nn.Module:
+    """Every parameter of ``lm`` (the same values on every rank) replaced
+    in place by a DTensor parameter placed by its spec; returns ``lm``,
+    with ``placement_record``."""
+    return _replace_leaves(lm, policy, lambda name, p: p.data)
+
+
+def build_sharded(cfg, policy: POL.ShardingPolicy, whole) -> nn.Module:
+    """An ``LM`` of ``cfg`` built shard by shard: the module on the meta
+    device, each parameter made whole by ``whole(name, meta parameter)``
+    one at a time, in ``named_parameters`` order, and only the rank's
+    slice kept; buffers made on the rank's device."""
+    from repro_torch.models import transformer as T
+
+    dev = mesh_device(policy.mesh)
+    lm = T.LM(cfg, torch.device("meta"))
+    for mod in lm.modules():
+        for name, buf in list(mod._buffers.items()):
+            if buf is not None:
+                mod._buffers[name] = torch.zeros(buf.shape, dtype=buf.dtype, device=dev)
+    return _replace_leaves(lm, policy, whole)
+
+
+def init_sharded(cfg, policy: POL.ShardingPolicy, generator=None) -> nn.Module:
+    """``init_params`` shard by shard: the same leaves drawn from the same
+    generator in the same order (so the gathered module equals
+    ``init_params``'s bit for bit), each whole on the rank's device only
+    while its slice is taken.  ``generator``: default one seeded with 0."""
+    from repro_torch.models import transformer as T
+
+    dev = mesh_device(policy.mesh)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    return build_sharded(cfg, policy, lambda name, p: T.init_leaf(
+        name, p.shape, p.dtype, generator, dev))
+
+
+def zero_opt(model: nn.Module, tc, policy: POL.ShardingPolicy) -> dict:
+    """The optimizer's zero state of ``model`` (``steps.init_opt``'s tree)
+    placed by ``policy.opt_specs``, each rank allocating only its shards;
+    0-d tensors (the count) plain on the mesh's device."""
+    from repro_torch.launch.steps import init_opt
+    from repro_torch.models import transformer as T
+
+    meta = T.LM(model.cfg, torch.device("meta"))
+    specs = POL.opt_specs(policy, POL.param_specs(policy, meta), meta, tc)
+    dev = mesh_device(policy.mesh)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if tree.ndim == 0:
+            return torch.zeros((), dtype=tree.dtype, device=dev)
+        return zeros(tuple(tree.shape), tree.dtype, policy, spec)
+
+    return walk(init_opt(meta, tc), specs)
 
 
 def shard_train_state(state, policy: POL.ShardingPolicy, tc):
@@ -167,8 +233,9 @@ def zeros(shape, dtype, policy: POL.ShardingPolicy, spec) -> torch.Tensor:
 def sharded_cache(cfg, B: int, cache_len: int, policy: POL.ShardingPolicy,
                   dtype=None) -> dict:
     """``init_cache``'s zero cache as DTensors placed by
-    ``policy.cache_specs_tree`` (dense: KV along the sequence on "model",
-    batch on the data axes)."""
+    ``policy.cache_specs_tree`` (dense and moe: KV along the sequence on
+    "model", batch on the data axes; ssm: the ``ssm`` states on heads, the
+    ``conv`` windows on channels), each rank allocating only its shards."""
     from repro_torch.models import transformer as T
 
     meta = T.init_cache(cfg, B, cache_len, dtype=dtype, device="meta")
@@ -183,9 +250,13 @@ def sharded_cache(cfg, B: int, cache_len: int, policy: POL.ShardingPolicy,
 
 
 def grow_cache(cache: dict, cfg, S_new: int, policy: POL.ShardingPolicy) -> dict:
-    """A sharded dense cache made room for decode steps: a cache of S_new
-    positions placed by the cache specs, with ``cache``'s positions on the
-    sequence axis (a gather of the old cache, then each rank's slice)."""
+    """A sharded dense or moe cache made room for decode steps: a cache of
+    S_new positions placed by the cache specs, with ``cache``'s positions
+    on the sequence axis (a gather of the old cache, then each rank's
+    slice).  An ssm cache (its states do not grow with the length) comes
+    back as it is."""
+    if "k" not in cache:
+        return cache
     k = full(cache["k"])
     B = k.shape[1]
     new = sharded_cache(cfg, B, S_new, policy, dtype=k.dtype)

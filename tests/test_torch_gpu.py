@@ -952,3 +952,84 @@ def test_autotune_stores_equal_with_telemetry_on_off_and_tuned_on_the_card(
     assert tuned == autotune.recommend(a)
     assert tuned["recommend"]["chunk_rows"] == 96  # clamped to N
     assert launches["b"] == 2 < launches["c"]  # one chunk in each phase
+
+
+@pytest.fixture
+def one_rank_world():
+    """A world of one NCCL rank on card 0 (mesh (1, 1)), torn down after."""
+    dev = _card()
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,opt", [("dbrx-132b", "adafactor"), ("mamba2-2.7b", "adamw")])
+def test_moe_and_ssm_sharded_at_one_by_one_equal_one_process_on_the_card(one_rank_world,
+                                                                         arch, opt):
+    """Smoke dbrx-132b and mamba2-2.7b in float32 on one NCCL rank at mesh
+    (1, 1), the state created shard by shard: one train step against the
+    single-process step (loss within 1e-6 relative, parameters rtol 2e-3 /
+    atol 2e-5), prefill and two decode steps within 1e-5, the flash
+    kernel once a layer in the sharded prefill (mamba2: never), and the
+    routed and dropped counts equal."""
+    dev = one_rank_world
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (TrainState, make_decode_step, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), attn_impl="chunked")
+    tc = TrainConfig(optimizer=opt, remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
+    pol = ShardingPolicy(mesh=make_local_mesh(model=1, device=dev), fsdp=True)
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 18)).astype(np.int32)
+    step = make_train_step(cfg, tc, device=dev)
+    one, sharded = (TrainState.create(cfg, tc, gen(), device=dev),
+                    TrainState.create(cfg, tc, gen(), device=dev, policy=pol))
+    got = []
+    for st in (one, sharded):
+        MOE.reset_drop_counts(st.params)
+        st, m = step(st, {"tokens": toks[:, :16]})
+        got.append((float(m["loss"]), MOE.drop_counts(st.params), st))
+    assert abs(got[1][0] - got[0][0]) <= 1e-6 * abs(got[0][0])
+    assert got[1][1] == got[0][1]
+    for (k, a), (_, b) in zip(got[0][2].params.named_parameters(),
+                              got[1][2].params.named_parameters()):
+        np.testing.assert_allclose(PL.full(b).detach().cpu().numpy(),
+                                   a.detach().cpu().numpy(), rtol=2e-3, atol=2e-5,
+                                   err_msg=k)
+    params = T.init_params(cfg, gen(), dev)
+    sparams = PL.init_sharded(cfg, ShardingPolicy(mesh=pol.mesh), gen())
+    want, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks[:, :16]})
+    before = sum(flash_attn.ROUTE_LAUNCHES.values())
+    lg, scache = make_prefill_step(cfg, policy=ShardingPolicy(mesh=pol.mesh), device=dev)(
+        sparams, {"tokens": toks[:, :16]})
+    assert sum(flash_attn.ROUTE_LAUNCHES.values()) - before == (
+        cfg.n_layers if cfg.family == "moe" else 0)
+    assert float((PL.full(lg) - want).abs().max()) <= 1e-5
+    if "k" in cache:
+        big = T.init_cache(cfg, 4, 18, device=dev)
+        big["k"][:, :, :16], big["v"][:, :, :16] = cache["k"], cache["v"]
+        cache = big
+    scache = PL.grow_cache(scache, cfg, 18, ShardingPolicy(mesh=pol.mesh))
+    decode = make_decode_step(cfg, device=dev)
+    for i in (16, 17):
+        want, cache = decode(params, {"token": toks[:, i : i + 1], "pos": i}, cache)
+        lg, scache = decode(sparams, {"token": toks[:, i : i + 1], "pos": i}, scache)
+        assert float((PL.full(lg) - want).abs().max()) <= 1e-5

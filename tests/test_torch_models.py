@@ -333,10 +333,10 @@ def test_seq_shard_and_sharding_policy_raise():
     model = T.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="sharding"):
         T.forward(model, {"tokens": _tokens(cfg, n=8)}, cfg)
-    # a sharding policy is taken by the dense family only
-    ssm = get_config("mamba2-2.7b", smoke=True)
+    # a sharding policy is taken by the dense, moe and ssm families only
+    hybrid = get_config("zamba2-7b", smoke=True)
     with pytest.raises(NotImplementedError, match="sharding"):
-        S.make_prefill_step(ssm, policy=object(), device="cpu")
+        S.make_prefill_step(hybrid, policy=object(), device="cpu")
 
 
 @pytest.mark.parametrize("pos,n", [(P + 1, 1), (P + 5, 1), (P, 2)])

@@ -6,13 +6,19 @@ of a gloo world on the CPU, joined through the EDM_* contract.
 ``main`` (four ranks, mesh (2, 2)): qwen2-1.5b smoke's sharded train step
 from the state in ``<dir>/train_in.npz``, its sharded prefill and four
 decode steps from ``<dir>/serve_in.npz``, ``compressed_psum`` of the
-per-rank gradients in ``<dir>/psum_in.npz``, a non-dense family under a
-policy, and the Prefetcher placing batches by a policy.  ``tp4`` (four
+per-rank gradients in ``<dir>/psum_in.npz``, the hybrid, audio and vlm
+families under a policy (they refuse), and the Prefetcher placing batches by a policy.  ``tp4`` (four
 ranks, mesh (1, 4)): qwen2.5-3b smoke's sharded prefill and decode, its
-two kv heads replicated under four query-head shards.  Each rank writes
+two kv heads replicated under four query-head shards.  ``moe_ssm``
+(four ranks, the mesh and the cases in ``<dir>/cases.json``; for
+tests/test_torch_sharded_moe_ssm.py): the moe and ssm families' sharded
+train steps, prefills and decodes from the JAX states in
+``<dir>/<case>_in.npz``, the state created shard by shard, and a
+checkpoint saved at one mesh and restored at another.  Each rank writes
 ``<dir>/<job>_rank<r>.npz``.
 """
 import dataclasses
+import json
 import pathlib
 import sys
 
@@ -20,11 +26,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import Prefetcher, TokenStream
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.steps import (TrainState, make_decode_step, make_prefill_step,
                                       make_train_step)
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.optim.grad_compress import compressed_psum
 from repro_torch.runtime.platform import init_distributed
@@ -35,6 +43,8 @@ from repro_torch.sharding import policy as POL
 TRAIN_KW = dict(remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
 TRAIN_B, TRAIN_S = 4, 16
 SERVE_B, SERVE_P, SERVE_DECODE = 4, 8, 4
+#: the families that refuse sharding, an arch of each
+REFUSED = {"hybrid": "zamba2-7b", "audio": "whisper-medium", "vlm": "llama-3.2-vision-11b"}
 
 
 def _load_params(model, flat: dict) -> None:
@@ -91,17 +101,18 @@ def main_job(rank: int, d: pathlib.Path) -> dict:
     mean, err = compressed_psum(torch.from_numpy(g["g"][rank]),
                                 torch.from_numpy(g["err"][rank]))
     out["psum_mean"], out["psum_err"] = mean.numpy(), err.numpy()
-    # a non-dense family under a policy refuses
-    refused = []
-    ssm = get_config("mamba2-2.7b", smoke=True)
-    lm = PL.shard_module(T.init_params(ssm, device="cpu"), pol)
-    for call in (lambda: T.forward(lm, {"tokens": np.zeros((2, 4), np.int32)}, ssm),
-                 lambda: make_prefill_step(ssm, policy=pol, device="cpu")):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(str(e))
-    out["refused"] = np.array(refused)
+    # a family that does not run sharded refuses a sharded module and a policy
+    for fam, arch in REFUSED.items():
+        cfg_r = get_config(arch, smoke=True)
+        lm = PL.shard_module(T.init_params(cfg_r, device="cpu"), pol)
+        refused = []
+        for call in (lambda: T.forward(lm, {"tokens": np.zeros((2, 4), np.int32)}, cfg_r),
+                     lambda: make_prefill_step(cfg_r, policy=pol, device="cpu")):
+            try:
+                call()
+            except NotImplementedError as e:
+                refused.append(str(e))
+        out[f"refused_{fam}"] = np.array(refused)
     # the Prefetcher places each batch by the batch specs
     stream = TokenStream(cfg.vocab_size, 4, 8, seed=3)
     got = list(Prefetcher(stream, policy=pol, n_steps=3))
@@ -120,12 +131,126 @@ def tp4_job(rank: int, d: pathlib.Path) -> dict:
                                               d).items()}
 
 
+def _case_cfg(case: dict):
+    return dataclasses.replace(get_config(case["arch"], smoke=True), **case.get("over", {}))
+
+
+def _flat(data) -> dict:
+    return {k[2:]: data[k] for k in data.files if k.startswith("p.")}
+
+
+def _from_flat(cfg, pol, flat: dict):
+    """The module built shard by shard from whole numpy leaves."""
+    return PL.build_sharded(cfg, pol, lambda k, p: torch.from_numpy(flat[k]).to(p.dtype))
+
+
+def _whole_state(state, rank: int) -> dict:
+    """Every parameter and optimizer tensor gathered (a collective: every
+    rank calls it); rank 0 keeps them."""
+    out = {}
+    for k, p in state.params.named_parameters():
+        w = PL.full(p).detach().numpy()
+        if rank == 0:
+            out[f"p.{k}"] = w
+    for k, t in sorted(_opt_leaves(state.opt).items()):
+        w = PL.full(t).numpy()
+        if rank == 0:
+            out[f"opt.{k}"] = w
+        out[f"opt_local.{k}"] = tuple(PL.local(t).shape)
+    return out
+
+
+def _opt_leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_opt_leaves(v, f"{prefix}{k}:"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _counts(params) -> dict:
+    routed, dropped = MOE.drop_counts(params)
+    return {"routed": routed, "dropped": dropped}
+
+
+def _train_case(case, mesh, rank, d) -> dict:
+    cfg = _case_cfg(case)
+    tc = TrainConfig(optimizer=case["opt"], **TRAIN_KW)
+    pol = POL.ShardingPolicy(mesh=mesh, fsdp=True)
+    data = np.load(d / f"{case['name']}_in.npz")
+    params = _from_flat(cfg, pol, _flat(data))
+    state = TrainState(params, PL.zero_opt(params, tc, pol), torch.zeros((), dtype=torch.int32))
+    MOE.reset_drop_counts(params)
+    state, metrics = make_train_step(cfg, tc, device="cpu")(state, {"tokens": data["tokens"]})
+    out = {"loss": float(metrics["loss"]), **_counts(params), **_whole_state(state, rank)}
+    if cfg.n_experts:
+        out["local_w_up"] = tuple(PL.local(params.blocks[0].moe.w_up).shape)
+    if case.get("save"):
+        CheckpointManager(d / "ckpt").save(1, state, blocking=True)
+    return out
+
+
+def _serve_case(case, mesh, rank, d) -> dict:
+    cfg = dataclasses.replace(_case_cfg(case), attn_impl="chunked")
+    pol = POL.ShardingPolicy(mesh=mesh)
+    data = np.load(d / f"{case['name']}_in.npz")
+    params = _from_flat(cfg, pol, _flat(data))
+    MOE.reset_drop_counts(params)
+    P = data["tokens"].shape[1]
+    logits, cache = make_prefill_step(cfg, policy=pol, device="cpu")(
+        params, {"tokens": data["tokens"]})
+    out = {"prefill": PL.full(logits).numpy(),
+           **{f"cache_local.{k}": tuple(PL.local(v).shape) for k, v in cache.items()}}
+    n = len(data["dec_tokens"])
+    cache = PL.grow_cache(cache, cfg, P + n, pol)
+    decode = make_decode_step(cfg, device="cpu")
+    for i in range(n):
+        lg, cache = decode(params, {"token": data["dec_tokens"][i], "pos": P + i}, cache)
+        out[f"decode{i}"] = PL.full(lg).numpy()
+    return {**out, **_counts(params)}
+
+
+def _init_case(case, mesh, rank, d) -> dict:
+    cfg = _case_cfg(case)
+    tc = TrainConfig(optimizer=case["opt"], **TRAIN_KW)
+    pol = POL.ShardingPolicy(mesh=mesh, fsdp=True)
+    state = TrainState.create(cfg, tc, torch.Generator("cpu").manual_seed(0), device="cpu",
+                              policy=pol)
+    return _whole_state(state, rank)
+
+
+def _restore_case(case, mesh, rank, d) -> dict:
+    """The checkpoint another mesh saved, restored into this one's layout."""
+    cfg = _case_cfg(case)
+    tc = TrainConfig(optimizer=case["opt"], **TRAIN_KW)
+    pol = POL.ShardingPolicy(mesh=mesh, fsdp=True)
+    like = TrainState.create(cfg, tc, torch.Generator("cpu").manual_seed(1), device="cpu",
+                             policy=pol)
+    state = CheckpointManager(pathlib.Path(case["from"]) / "ckpt").restore(1, like)
+    out = _whole_state(state, rank)
+    out["local_w_up"] = tuple(PL.local(state.params.blocks[0].moe.w_up).shape)
+    return out
+
+
+def moe_ssm_job(rank: int, d: pathlib.Path) -> dict:
+    spec = json.loads((d / "cases.json").read_text())
+    mesh = make_local_mesh(model=spec["model"], device="cpu")
+    jobs = {"train": _train_case, "serve": _serve_case, "init": _init_case,
+            "restore": _restore_case}
+    out = {}
+    for case in spec["cases"]:
+        got = jobs[case["kind"]](case, mesh, rank, d)
+        out.update({f"{case['name']}.{k}": v for k, v in got.items()})
+    return out
+
+
 if __name__ == "__main__":
     job, d = sys.argv[1], pathlib.Path(sys.argv[2])
     torch.set_num_threads(1)
     info = init_distributed(device="cpu")
     rank = info["process_id"]
-    out = {"main": main_job, "tp4": tp4_job}[job](rank, d)
+    out = {"main": main_job, "tp4": tp4_job, "moe_ssm": moe_ssm_job}[job](rank, d)
     np.savez(d / f"{job}_rank{rank}.npz", **{k: np.asarray(v) for k, v in out.items()})
     import torch.distributed as dist
 
