@@ -45,11 +45,18 @@ prompt tokens, 8 decode steps over the sharded cache) against one
 process; then the moe and ssm families, their state created shard by
 shard: dbrx-132b at full width in f32, one Adafactor step at 1 layer and
 serving at 2, and mamba2-2.7b at full width, 2 layers in f32, one AdamW
-step and serving, each against one process (the loss within 1e-6
-relative, the routed and dropped counts summed over the ranks equal);
-the rank's flash launches by route, none in an ssm run (four ranks at
-meshes (2, 2) and (1, 4) with ``--multi-card``: gloo cannot carry
-DTensor's all-gather on CUDA tensors); and ``examples``, the port's two LM examples (``activations_ccm``:
+step and serving; then the hybrid, audio and vlm families, the LoRA b
+and gates drawn non-zero: zamba2-7b cut to one unit and whisper-medium
+whole, one AdamW step each, and llama-3.2-vision-11b cut to one unit,
+one Adafactor step, each with serving (whisper's 1,500 frames in a cross
+cache along the frames, the vlm's 1,601 patches on kv heads where the
+model axis does not divide them), each against one process (the loss
+within 1e-6 relative, the routed and dropped counts summed over the
+ranks equal, creation's peak above the local state by at most one leaf
+drawn whole); each rank's flash launches by route equal to one
+process's, none in an ssm run (four ranks at meshes (2, 2) and (1, 4)
+with ``--multi-card``: gloo cannot carry DTensor's all-gather on CUDA
+tensors); and ``examples``, the port's two LM examples (``activations_ccm``:
 its CCM through ``knn_topk`` and ``ccm_lookup``; ``train_lm``: a falling
 loss).  Then it holds
 each EDM kernel against its plain PyTorch version on the card at the
@@ -147,7 +154,12 @@ card's), qwen2.5-3b whole served at mesh (1, 4) (prefill s, decode ms a
 step, peak a card), dbrx-132b whole (40 layers, bf16, created shard by
 shard) served at (1, 4) (the share of assignments dropped) and trained
 at (1, 4) at 8 layers (Adafactor, remat; the 6NT share of its active
-parameters), mamba2-2.7b whole trained at (2, 2) and served at (1, 4).  The ranks' logs go to ``build/smoke_ranks_*/``.
+parameters), mamba2-2.7b whole trained at (2, 2) and served at (1, 4),
+zamba2-7b, whisper-medium and llama-3.2-vision-11b whole served at (1,
+4), zamba2-7b and llama-3.2-vision-11b whole trained at (2, 2) (bf16,
+AdamW, remat, 4 x 4,096 tokens; the vlm's ~117 GB of state fits only
+across cards).  The ranks' logs go to
+``build/smoke_ranks_*/`` and ``build/smoke_shard_*/``.
 
 The telemetry trio (``runtime/history.py``, ``trace.py``,
 ``autotune.py``): every ``edm_run`` of the smoke records its telemetry
@@ -229,7 +241,7 @@ SERVE_B, SERVE_S, DECODE_STEPS = 4, 2048, 32
 # The moe and ssm families, the same requests: dbrx-132b at full width (d
 # 6144, 48 / 8 heads of 128, 16 experts top-4 of d_ff 10,752, vocab
 # 100,352), its depth cut from 40 layers to 8 (the whole model is ~264 GB
-# in bf16 and sharding is not ported; 8 layers are ~54.6 GB) and to 2 for
+# in bf16, more than one card holds; 8 layers are ~54.6 GB) and to 2 for
 # the float32 gate (~31 GB); mamba2-2.7b whole (64 layers, d 2560, 80 SSD
 # heads of 64, state 128, vocab 50,280 padded to 50,432; ~5.7 GB in bf16,
 # ~11.3 GB in float32).
@@ -1276,7 +1288,11 @@ def frontend(torch, T, cfg, B, dev, seed=0) -> dict:
 def nonzero_zero_leaves(torch, params, dev, seed=1) -> list:
     """Draw the leaves JAX initialises at zero and that switch a branch off
     (ZERO_LEAVES: the LoRA b, the vlm gates) non-zero: b N(0, 0.02), gates
-    0.3 + 0.6 U(0, 1).  Returns the leaf names it drew."""
+    0.3 + 0.6 U(0, 1); each drawn whole (a DTensor parameter keeps the
+    rank's slice: the same values as one process's).  Returns the leaf
+    names it drew."""
+    from repro_torch.sharding import place as PL
+
     g = torch.Generator(dev).manual_seed(seed)
     drawn = set()
     with torch.no_grad():
@@ -1289,7 +1305,9 @@ def nonzero_zero_leaves(torch, params, dev, seed=1) -> list:
                 r = 0.3 + 0.6 * r.uniform_(generator=g)
             else:
                 r = r.normal_(0.0, 0.02, generator=g)
-            prm.copy_(r)
+            if PL.is_sharded(prm):
+                r = PL.local(PL.place(r.to(prm.dtype), prm.device_mesh, prm.placements))
+            PL.local(prm).copy_(r)
             drawn.add(leaf)
     return sorted(drawn)
 
@@ -1933,13 +1951,55 @@ SHARD_FAMILY_LOSS_RTOL = 1e-6
 # micro-batches of 2) and served at (1, 4) (4 x 2,048 and 32 decode
 # steps).
 MULTI_MOE_TRAIN_LAYERS, MULTI_MOE_TRAIN_B = 8, 4
+# The hybrid, audio and vlm families sharded (``lm_shard_check``):
+# zamba2-7b at full width cut to one unit (2 Mamba2 blocks and the shared
+# block with the unit's LoRA: 3 of 81 layers), whisper-medium whole (0.88
+# B: 24 encoder and 24 decoder layers over 1,500 frames; serving
+# AUDIO_PROMPT tokens) and llama-3.2-vision-11b cut to one unit (4 self
+# blocks and the gated cross block over 1,601 patches: 2.14 B
+# parameters, 8.6 GB in float32, where AdamW's state would be ~34 GB, so
+# one Adafactor step), each in float32, created shard by shard, the LoRA
+# b and the gates drawn non-zero first (ZERO_LEAVES), against one process:
+# the loss within SHARD_FAMILY_LOSS_RTOL, every parameter within
+# SHARD_TRAIN_TOL, the logits within LM_GATE_TOL.  For every run of
+# ``lm_shard_check``: each rank's flash launches by route equal to the one
+# process's, and creation's peak above the local state by at most one
+# leaf drawn whole (float32, its largest), plus CREATE_SLACK_BYTES of
+# allocator rounding.  ``lm_shard_multi``'s runs of these families:
+# llama-3.2-vision-11b whole trained at (2, 2) (bf16, AdamW, remat, train_4k's
+# 4,096 tokens a sequence with its batch cut to MULTI_NEW_TRAIN_B, in
+# micro-batches of TRAIN_MICRO, 1,601 patches a sequence; ~117 GB of state,
+# ~29 GB a card) and served at (1, 4) (4 x 2,048 prompt tokens, 32 decode
+# steps over the image cache on kv heads: 4 does not divide 1,601);
+# whisper-medium whole served at (1, 4) (1,500 frames, 416 prompt tokens,
+# 32 decode steps over the cross cache along the frames, 375 a card);
+# zamba2-7b whole served at (1, 4) (4 x 2,048, 32 decode steps) and
+# trained at (2, 2) (4 x 4,096, micro-batches of 2).  Each trains a
+# warm-up step and MULTI_NEW_TIMED timed steps (the time limit is
+# MULTI_TIMEOUT_S: timed steps are cut, never widths).
+SHARD_HYBRID_LAYERS, SHARD_VLM_LAYERS = 3, 5
+CREATE_SLACK_BYTES = 256 << 20
+MULTI_NEW_TRAIN_B, MULTI_NEW_TIMED = 4, 2
 
 
 def run_shard_world(world, job, tag, backend, ids=None, timeout=SHARD_TIMEOUT_S):
     """``world`` processes of ``chip_smoke.py --shard-rank job``, one a rank,
     joined through the EDM_* contract on localhost (rank r on card
     ``ids[r]``, else card r) on ``backend``; every rank is killed at the
-    time limit.  Returns the ranks' records and return codes."""
+    time limit.  Returns the ranks' records and return codes.
+
+    The free port is picked before the ranks start, so another socket
+    can take it in between (a client's connect to it may bind it as its
+    own source port): where rank 0 could not listen on it, the world
+    never formed, and it is started once more on a new port."""
+    recs, rcs = _shard_world(world, job, tag, backend, ids, timeout)
+    if "EADDRINUSE" in recs[0].get("log_tail", ""):
+        recs, rcs = _shard_world(world, job, tag, backend, ids, timeout)
+    return recs, rcs
+
+
+def _shard_world(world, job, tag, backend, ids, timeout):
+    """One start of :func:`run_shard_world`'s world."""
     import os
     import socket
 
@@ -2008,6 +2068,16 @@ def _world_counts(torch, dev, model) -> list:
     return [int(v) for v in c.tolist()]
 
 
+def _cache_leaves(cache, prefix=""):
+    """(path, tensor) of a cache, its nested dicts (the hybrid's ``ssm`` and
+    ``attn``) joined with ':'."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, f"{prefix}{k}:")
+        else:
+            yield prefix + k, v
+
+
 def _local_bytes(tensors) -> int:
     from repro_torch.sharding.place import local
 
@@ -2022,13 +2092,26 @@ def _opt_tensors(tree):
         yield tree
 
 
+def _leaf_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s largest parameter drawn whole in float32 (as
+    ``init_leaf`` draws it)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    return 4 * max(p.numel() for p in T.LM(cfg, torch.device("meta")).parameters())
+
+
 def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
                       loss_rtol) -> dict:
-    """One train step of ``arch`` (full width, ``n_layers``, float32) at each
-    mesh, the state created shard by shard, against the single-process
-    step (rank 0 runs it first, alone on its card): the loss within
-    ``loss_rtol`` relative, every parameter within SHARD_TRAIN_TOL, the
-    summed routed and dropped counts equal."""
+    """One train step of ``arch`` (full width, ``n_layers``, float32; audio
+    frames or image patches from ``frontend``) at each mesh, the state
+    created shard by shard, against the single-process step (rank 0 runs
+    it first, alone on its card), the ZERO_LEAVES drawn non-zero in both:
+    the loss within ``loss_rtol`` relative, every parameter within
+    SHARD_TRAIN_TOL, the summed routed and dropped counts equal;
+    creation's peak above the local state by at most one leaf drawn
+    whole."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import TrainConfig
@@ -2036,6 +2119,7 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
     from repro_torch.sharding import place as PL
     from repro_torch.sharding.policy import ShardingPolicy
 
@@ -2044,12 +2128,16 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
     tc = TrainConfig(optimizer=optimizer, remat=False, lr=1e-3, warmup_steps=1,
                      total_steps=5)
     batch = {"tokens": TokenStream(cfg.vocab_size, SHARD_TRAIN_B, SHARD_TRAIN_S,
-                                   seed=0).batch_at(0)["tokens"]}
+                                   seed=0).batch_at(0)["tokens"],
+             **frontend(torch, T, cfg, SHARD_TRAIN_B, dev)}
     step = make_train_step(cfg, tc, device=dev)
     if rank == 0:
         ref = TrainState.create(cfg, tc, gen(), device=dev)
+        nonzero_zero_leaves(torch, ref.params, dev)
         MOE.reset_drop_counts(ref.params)
+        counts = _flash_counts()
         ref, m = step(ref, batch)
+        ref_launches = dict(counts)
         ref_loss = float(m["loss"])
         ref_counts = list(MOE.drop_counts(ref.params))
         ref_params = {k: p.detach().cpu() for k, p in ref.params.named_parameters()}
@@ -2067,7 +2155,11 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
         rec = {"create_peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
                "local_state_bytes": _local_bytes(list(st.params.parameters())
                                                  + list(_opt_tensors(st.opt))),
+               "leaf_bytes": _leaf_bytes(cfg),
                "placement": st.params.placement_record["n_sharded"]}
+        rec["create_ok"] = (rec["create_peak_bytes"] - rec["local_state_bytes"]
+                            <= rec["leaf_bytes"] + CREATE_SLACK_BYTES)
+        nonzero_zero_leaves(torch, st.params, dev)
         MOE.reset_drop_counts(st.params)
         counts = _flash_counts()
         torch.cuda.synchronize()
@@ -2091,17 +2183,21 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
             rel = abs(rec["loss"] - ref_loss) / abs(ref_loss)
             rec.update(ref_loss=ref_loss, loss_rel_diff=rel, params_worst_excess=worst,
                        ref_counts=ref_counts, loss_rtol=loss_rtol,
-                       ok=rel <= loss_rtol and worst <= 0.0 and rec["counts"] == ref_counts)
+                       ref_flash_launches=ref_launches,
+                       ok=(rel <= loss_rtol and worst <= 0.0
+                           and rec["counts"] == ref_counts and rec["create_ok"]))
         out["meshes"]["x".join(map(str, shape))] = rec
     return out
 
 
 def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
     """``arch`` (full width, ``n_layers``, float32) served at each mesh
-    (created shard by shard): SHARD_SERVE_B x SHARD_SERVE_S prompt tokens
-    and SHARD_DECODE greedy decode steps over the sharded cache, against
-    the single-process run (rank 0, first) within LM_GATE_TOL; the summed
-    routed and dropped counts equal."""
+    (created shard by shard, the ZERO_LEAVES drawn non-zero):
+    SHARD_SERVE_B x SHARD_SERVE_S prompt tokens (whisper: AUDIO_PROMPT)
+    with their frames or patches, and SHARD_DECODE greedy decode steps
+    over the sharded cache, against the single-process run (rank 0,
+    first) within LM_GATE_TOL; the summed routed and dropped counts
+    equal."""
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import TokenStream
@@ -2114,14 +2210,19 @@ def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
 
     gen = lambda: torch.Generator(dev).manual_seed(0)
     cfg = lm_config(arch, n_layers, dtype="float32")
-    B, S, n = SHARD_SERVE_B, SHARD_SERVE_S, SHARD_DECODE
+    B, n = SHARD_SERVE_B, SHARD_DECODE
+    S = AUDIO_PROMPT if cfg.family == "audio" else SHARD_SERVE_S
     toks = TokenStream(cfg.vocab_size, B, S, seed=1).batch_at(0)["tokens"]
+    prompt = {"tokens": toks, **frontend(torch, T, cfg, B, dev, seed=1)}
     tok_file = ROOT / "build" / f"smoke_shard_serve_tokens_{arch}.pt"
     decode = make_decode_step(cfg, device=dev)
     if rank == 0:
         params = T.init_params(cfg, gen(), dev)
+        nonzero_zero_leaves(torch, params, dev)
         MOE.reset_drop_counts(params)
-        logits, cache = make_prefill_step(cfg, device=dev)(params, {"tokens": toks})
+        counts = _flash_counts()
+        logits, cache = make_prefill_step(cfg, device=dev)(params, prompt)
+        ref_launches = dict(counts)
         want = {"prefill": logits.cpu()}
         cache = grown_cache(T, cfg, cache, B, S, S + n, dev)
         tok = logits[:, -1:].argmax(-1)
@@ -2142,15 +2243,15 @@ def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
     for shape in meshes:
         pol = ShardingPolicy(mesh=make_local_mesh(model=shape[1], device=dev))
         params = PL.init_sharded(cfg, pol, gen())
+        nonzero_zero_leaves(torch, params, dev)
         MOE.reset_drop_counts(params)
         counts = _flash_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = make_prefill_step(cfg, policy=pol, device=dev)(params,
-                                                                         {"tokens": toks})
+        logits, cache = make_prefill_step(cfg, policy=pol, device=dev)(params, prompt)
         torch.cuda.synchronize()
         rec = {"prefill_s": time.perf_counter() - t0, "flash_launches": dict(counts),
-               "cache_local": {k: list(PL.local(v).shape) for k, v in cache.items()}}
+               "cache_local": {k: list(PL.local(v).shape) for k, v in _cache_leaves(cache)}}
         errs = {"prefill": PL.full(logits)}
         cache = PL.grow_cache(cache, cfg, S + n, pol)
         for i in range(n):
@@ -2160,7 +2261,7 @@ def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
         if rank == 0:
             rec["max_abs_err"] = {k: float((v.float().cpu() - want[k]).abs().max())
                                   for k, v in errs.items()}
-            rec.update(ref_counts=ref_counts,
+            rec.update(ref_counts=ref_counts, ref_flash_launches=ref_launches,
                        ok=(max(rec["max_abs_err"].values()) <= LM_GATE_TOL
                            and rec["counts"] == ref_counts))
         out["meshes"]["x".join(map(str, shape))] = rec
@@ -2178,15 +2279,22 @@ SHARD_CHECKS = (
     ("moe_serve", "serve", MOE_ARCH, SHARD_MOE_SERVE_LAYERS, None, None),
     ("ssm_train", "train", SSM_ARCH, SHARD_SSM_LAYERS, "adamw", SHARD_FAMILY_LOSS_RTOL),
     ("ssm_serve", "serve", SSM_ARCH, SHARD_SSM_LAYERS, None, None),
+    ("hybrid_train", "train", HYBRID_ARCH, SHARD_HYBRID_LAYERS, "adamw",
+     SHARD_FAMILY_LOSS_RTOL),
+    ("hybrid_serve", "serve", HYBRID_ARCH, SHARD_HYBRID_LAYERS, None, None),
+    ("audio_train", "train", AUDIO_ARCH, None, "adamw", SHARD_FAMILY_LOSS_RTOL),
+    ("audio_serve", "serve", AUDIO_ARCH, None, None, None),
+    ("vlm_train", "train", VLM_ARCH, SHARD_VLM_LAYERS, "adafactor", SHARD_FAMILY_LOSS_RTOL),
+    ("vlm_serve", "serve", VLM_ARCH, SHARD_VLM_LAYERS, None, None),
 )
 
 
 def shard_check_rank(torch, dev, rank, rec: dict) -> dict:
     """A rank of ``lm_shard_check`` (module comment above), its runs'
     records into ``rec``: the dense family's step (minicpm-2b, at the
-    dense step's mesh) and serving (qwen2.5-3b), then the moe and ssm
-    families' steps and serving, each against the single-process run;
-    each rank reports its flash launches by route."""
+    dense step's mesh) and serving (qwen2.5-3b), then the moe, ssm,
+    hybrid, audio and vlm families' steps and serving, each against the
+    single-process run; each rank reports its flash launches by route."""
     import torch.distributed as dist
 
     dense_mesh, meshes = shard_meshes(dist.get_world_size())
@@ -2239,15 +2347,18 @@ def _sampled(sampler):
     return sampler.stop() if sampler is not None else None
 
 
-def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True) -> dict:
+def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True,
+                n_timed=MULTI_TIMED) -> dict:
     """``cfg`` trained at ``mesh_shape`` (auto_policy), the state created
-    shard by shard: a warm-up step and MULTI_TIMED timed steps, each card's
-    busy share sampled over them."""
+    shard by shard: a warm-up step and ``n_timed`` timed steps, each card's
+    busy share sampled over them; the batch's frames or patches from
+    ``frontend``."""
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models import transformer as T
     from repro_torch.sharding.policy import auto_policy, estimate_params
 
     pol = auto_policy(cfg, make_local_mesh(model=mesh_shape[1], device=dev))
@@ -2259,11 +2370,12 @@ def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True) ->
     torch.cuda.synchronize()
     create_s = time.perf_counter() - t0
     create_peak = torch.cuda.max_memory_allocated(dev)
-    batch = {"tokens": TokenStream(cfg.vocab_size, B, S, seed=0).batch_at(0)["tokens"]}
+    batch = {"tokens": TokenStream(cfg.vocab_size, B, S, seed=0).batch_at(0)["tokens"],
+             **frontend(torch, T, cfg, B, dev)}
     step = make_train_step(cfg, tc, device=dev)
     dist.barrier()
     sampler = _sampler(rank) if sampler_on else None
-    st, rec = _timed_steps(torch, dist, step, st, batch, MULTI_TIMED)
+    st, rec = _timed_steps(torch, dist, step, st, batch, n_timed)
     rec.update(busy=_sampled(sampler), arch=cfg.name, n_layers=cfg.n_layers,
                params=estimate_params(cfg), dtype=cfg.dtype, mesh=list(mesh_shape),
                fsdp=pol.fsdp, optimizer=tc.optimizer, B=B, S=S, microbatch=tc.microbatch,
@@ -2279,15 +2391,17 @@ def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True) ->
 
 def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict:
     """``cfg`` served at ``mesh_shape`` (created shard by shard): a warm-up
-    prefill, the timed prefill of SERVE_B x SERVE_S tokens (flash launches
-    counted) and DECODE_STEPS greedy decode steps, each card's busy share
-    sampled over them; the MoE assignments routed and dropped."""
+    prefill, the timed prefill of SERVE_B x ``serve_prompt`` tokens with
+    their frames or patches (flash launches counted) and DECODE_STEPS
+    greedy decode steps, each card's busy share sampled over them; the MoE
+    assignments routed and dropped."""
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
     from repro_torch.sharding import place as PL
     from repro_torch.sharding.policy import ShardingPolicy
 
@@ -2300,34 +2414,36 @@ def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict
     create_s = time.perf_counter() - t0
     create_peak = torch.cuda.max_memory_allocated(dev)
     local_bytes = _local_bytes(params.parameters())
-    toks = TokenStream(cfg.vocab_size, SERVE_B, SERVE_S, seed=1).batch_at(0)["tokens"]
+    S = serve_prompt(cfg)
+    prompt = {"tokens": TokenStream(cfg.vocab_size, SERVE_B, S, seed=1).batch_at(0)["tokens"],
+              **frontend(torch, T, cfg, SERVE_B, dev, seed=1)}
     prefill = make_prefill_step(cfg, policy=pol, device=dev)
     decode = make_decode_step(cfg, device=dev)
-    prefill(params, {"tokens": toks})  # warm-up
+    prefill(params, prompt)  # warm-up
     MOE.reset_drop_counts(params)
     counts = _flash_counts()
     torch.cuda.synchronize()
     dist.barrier()
     sampler = _sampler(rank)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": toks})
+    logits, cache = prefill(params, prompt)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     flash = dict(counts)
     prefill_counts = _world_counts(torch, dev, params)
-    cache = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS, pol)
+    cache = PL.grow_cache(cache, cfg, S + DECODE_STEPS, pol)
     tok = PL.full(logits[:, -1:]).argmax(-1)
     torch.cuda.synchronize()
     dist.barrier()
     t0 = time.perf_counter()
     for i in range(DECODE_STEPS):
-        lg, cache = decode(params, {"token": tok, "pos": SERVE_S + i}, cache)
+        lg, cache = decode(params, {"token": tok, "pos": S + i}, cache)
         tok = PL.full(lg).argmax(-1)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
     busy = _sampled(sampler)
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "mesh": list(mesh_shape), "B": SERVE_B, "prompt": SERVE_S,
+           "mesh": list(mesh_shape), "B": SERVE_B, "prompt": S,
            "decode_steps": DECODE_STEPS, "create_s": create_s,
            "create_peak_bytes": create_peak, "local_param_bytes": local_bytes,
            "prefill_s": prefill_s, "decode_ms_per_step": decode_ms, "flash_launches": flash,
@@ -2337,11 +2453,11 @@ def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict
     if profile_decode:  # where one sharded decode step's host time goes
         from torch.profiler import ProfilerActivity, profile
 
-        grown = PL.grow_cache(cache, cfg, SERVE_S + DECODE_STEPS + 1, pol)
+        grown = PL.grow_cache(cache, cfg, S + DECODE_STEPS + 1, pol)
         dist.barrier()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            decode(params, {"token": tok, "pos": SERVE_S + DECODE_STEPS}, grown)
+            decode(params, {"token": tok, "pos": S + DECODE_STEPS}, grown)
             torch.cuda.synchronize()
             traced_s = time.perf_counter() - t0
         rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
@@ -2358,39 +2474,62 @@ def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict
     return rec
 
 
+#: lm_shard_multi's runs in order: ("train", record key, arch, n_layers, mesh,
+#: B, TrainConfig keywords, timed steps) or ("serve", record key, arch, a
+#: traced decode), served at (1, 4)
+_ADAMW_REMAT = dict(optimizer="adamw", moment_dtype="float32", remat=True,
+                    microbatch=TRAIN_MICRO, warmup_steps=1)
+MULTI_RUNS = (
+    ("train", "train", TRAIN_ARCH, None, (2, 2), TRAIN_B,
+     dict(_ADAMW_REMAT, schedule="wsd"), MULTI_TIMED),
+    ("serve", "serve", LM_ARCH, True),
+    ("serve", "moe_serve", MOE_ARCH, True),
+    ("train", "moe_train", MOE_ARCH, MULTI_MOE_TRAIN_LAYERS, (1, 4), MULTI_MOE_TRAIN_B,
+     dict(optimizer="adafactor", schedule="cosine", remat=True, warmup_steps=1),
+     MULTI_TIMED),
+    ("train", "ssm_train", SSM_ARCH, None, (2, 2), TRAIN_B,
+     dict(_ADAMW_REMAT, schedule="cosine"), MULTI_TIMED),
+    ("serve", "ssm_serve", SSM_ARCH, False),
+    ("serve", "hybrid_serve", HYBRID_ARCH, False),
+    ("serve", "audio_serve", AUDIO_ARCH, False),
+    ("serve", "vlm_serve", VLM_ARCH, False),
+    ("train", "hybrid_train", HYBRID_ARCH, None, (2, 2), MULTI_NEW_TRAIN_B,
+     dict(_ADAMW_REMAT, schedule="cosine"), MULTI_NEW_TIMED),
+    ("train", "vlm_train", VLM_ARCH, None, (2, 2), MULTI_NEW_TRAIN_B,
+     dict(_ADAMW_REMAT, schedule="cosine"), MULTI_NEW_TIMED),
+)
+
+
 def shard_multi_rank(torch, dev, rank, rec: dict) -> dict:
-    """A rank of ``lm_shard_multi``, its runs' records into ``rec``:
-    minicpm-2b whole trained at mesh (2, 2) and qwen2.5-3b whole served at
-    (1, 4); dbrx-132b whole served at (1, 4) and trained at (1, 4) at
-    MULTI_MOE_TRAIN_LAYERS; mamba2-2.7b whole trained at (2, 2) and served
-    at (1, 4) (module comment above)."""
+    """A rank of ``lm_shard_multi``, its runs' records into ``rec`` (the
+    runs of MULTI_RUNS): minicpm-2b whole trained at
+    mesh (2, 2) and qwen2.5-3b whole served at (1, 4); dbrx-132b whole
+    served at (1, 4) and trained at (1, 4) at MULTI_MOE_TRAIN_LAYERS;
+    mamba2-2.7b whole trained at (2, 2) and served at (1, 4); zamba2-7b,
+    whisper-medium and llama-3.2-vision-11b whole served at (1, 4), and
+    zamba2-7b and llama-3.2-vision-11b whole trained at (2, 2) (module
+    comment above)."""
     from repro_torch.configs.base import TrainConfig
 
-    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
-                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
-                     total_steps=1 + MULTI_TIMED)
-    rec["train"] = multi_train(torch, dev, rank, lm_config(TRAIN_ARCH), tc, (2, 2),
-                               TRAIN_B, TRAIN_S)
-    rec["serve"] = multi_serve(torch, dev, rank, lm_config(LM_ARCH), (1, 4),
-                               profile_decode=True)
-    rec["moe_serve"] = multi_serve(torch, dev, rank, lm_config(MOE_ARCH), (1, 4),
-                                   profile_decode=True)
-    tc = TrainConfig(optimizer="adafactor", schedule="cosine", remat=True,
-                     warmup_steps=1, total_steps=1 + MULTI_TIMED)
-    rec["moe_train"] = multi_train(torch, dev, rank,
-                                   lm_config(MOE_ARCH, MULTI_MOE_TRAIN_LAYERS), tc, (1, 4),
-                                   MULTI_MOE_TRAIN_B, TRAIN_S)
-    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="cosine",
-                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
-                     total_steps=1 + MULTI_TIMED)
-    rec["ssm_train"] = multi_train(torch, dev, rank, lm_config(SSM_ARCH), tc, (2, 2),
-                                   TRAIN_B, TRAIN_S)
-    rec["ssm_serve"] = multi_serve(torch, dev, rank, lm_config(SSM_ARCH), (1, 4))
-    rec["ok"] = (all(math.isfinite(x) for k in ("train", "moe_train", "ssm_train")
-                     for x in rec[k]["losses"])
-                 and all(rec[k]["finite"] for k in ("serve", "moe_serve", "ssm_serve"))
-                 and all(sum(n.values()) > 0 for k in ("train", "moe_train")
-                         for n in rec[k]["flash_launches_per_step"]))
+    for kind, key, arch, *more in MULTI_RUNS:
+        if kind == "serve":
+            rec[key] = multi_serve(torch, dev, rank, lm_config(arch), (1, 4),
+                                   profile_decode=more[0])
+        else:
+            n_layers, mesh, B, kw, n_timed = more
+            tc = TrainConfig(total_steps=1 + n_timed, **kw)
+            rec[key] = multi_train(torch, dev, rank, lm_config(arch, n_layers), tc, mesh,
+                                   B, TRAIN_S, n_timed=n_timed)
+
+    def run_ok(kind, key, arch) -> bool:  # finite; a flash launch a step but in ssm
+        r = rec[key]
+        if kind == "serve":
+            return r["finite"]
+        return (all(math.isfinite(x) for x in r["losses"])
+                and (arch == SSM_ARCH
+                     or all(sum(n.values()) > 0 for n in r["flash_launches_per_step"])))
+
+    rec["ok"] = all(run_ok(kind, key, arch) for kind, key, arch, *_ in MULTI_RUNS)
     return rec
 
 
@@ -2444,22 +2583,28 @@ def lm_shard_check(torch, smi, world=1):
     launches = [{f"{key}_{m}": v.get("flash_launches")
                  for key, *_ in SHARD_CHECKS
                  for m, v in r.get(key, {}).get("meshes", {}).items()} for r in recs]
+    want = {f"{key}_{m}": v.get("ref_flash_launches")
+            for key, *_ in SHARD_CHECKS for m, v in r0.get(key, {}).get("meshes", {}).items()}
     out = dict(world=world, backend="nccl", card_ids=list(ids), rcs=rcs,
                seconds=time.perf_counter() - t0,
                **{key: r0.get(key) for key, *_ in SHARD_CHECKS},
-               flash_launches_by_rank=launches,
+               flash_launches_by_rank=launches, one_process_flash_launches=want,
                errors=[r.get("error") or r.get("log_tail") for r in recs
                        if "error" in r or "log_tail" in r], smi=smi)
     emit("lm_shard_check", **out)
     if rcs != [0] * world or not r0.get("ok"):
         raise AssertionError(f"lm_shard_check failed: rcs {rcs}")
     for r, by_run in enumerate(launches):
-        for name, n in by_run.items():
+        for name in want:
+            n = by_run.get(name)
             if name.startswith("ssm_"):
                 if n is None or sum(n.values()) != 0:
                     raise AssertionError(f"rank {r} {name}: a flash launch {n}")
             elif not n or sum(n.values()) == 0:
                 raise AssertionError(f"rank {r} {name}: no flash launch {n}")
+            if n != want[name]:
+                raise AssertionError(f"rank {r} {name}: flash launches {n}, one "
+                                     f"process's {want[name]}")
     return out
 
 
@@ -2541,9 +2686,7 @@ def lm_shard_multi(torch, dev, smi):
              smi=smi)
         return None
     cfg = lm_config(TRAIN_ARCH)
-    tc = TrainConfig(optimizer="adamw", moment_dtype="float32", schedule="wsd",
-                     remat=True, microbatch=TRAIN_MICRO, warmup_steps=1,
-                     total_steps=1 + MULTI_TIMED)
+    tc = TrainConfig(total_steps=1 + MULTI_TIMED, schedule="wsd", **_ADAMW_REMAT)
     gc.collect()
     torch.cuda.empty_cache()
     st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev)
@@ -2562,14 +2705,16 @@ def lm_shard_multi(torch, dev, smi):
     out = dict(world=4, backend="nccl", rcs=rcs, wall_s=wall, card_busy=sampled,
                errors=[r.get("error") or r.get("log_tail") for r in recs
                        if "error" in r or "log_tail" in r], smi=smi)
-    if rcs == [0] * 4 and all(r.get("ok") for r in recs):
-        out["train"] = _multi_train_summary([r["train"] for r in recs], one_card_loss)
-        for key in ("moe_train", "ssm_train"):
-            out[key] = _multi_train_summary([r[key] for r in recs])
-        for key in ("serve", "moe_serve", "ssm_serve"):
-            out[key] = _multi_serve_summary([r[key] for r in recs])
+    ok = rcs == [0] * 4 and all(r.get("ok") for r in recs)
+    if ok:
+        for kind, key, *_ in MULTI_RUNS:
+            if kind == "train":
+                out[key] = _multi_train_summary([r[key] for r in recs],
+                                                one_card_loss if key == "train" else None)
+            else:
+                out[key] = _multi_serve_summary([r[key] for r in recs])
     emit("lm_shard_multi", **out)
-    if "train" not in out:
+    if not ok:
         raise AssertionError(f"lm_shard_multi failed: rcs {rcs}")
     return out
 

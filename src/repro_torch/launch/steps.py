@@ -10,18 +10,21 @@ gradient of ``models.transformer.loss_fn`` with autograd and updates
 the state's tensors in place.  ``train_state_from_jax`` carries a JAX
 TrainState across.
 
-Sharded (the dense, moe and ssm families, ``sharding/``):
-``make_train_step`` takes a state created shard by shard
-(``TrainState.create(policy=)``) or placed by
-``place.shard_train_state``: the loss's mean runs over every rank's
-tokens, the gradients reduce over the data axes inside DTensor's
-backward, the global-norm clip spans every shard, AdamW updates each
+Sharded (every family, ``sharding/``): ``make_train_step`` takes a
+state created shard by shard (``TrainState.create(policy=)``) or placed
+by ``place.shard_train_state``: each micro-batch's tokens and frontend
+frames or patches are placed by the batch specs, the loss's mean runs
+over every rank's tokens, the gradients reduce over the data axes
+inside DTensor's backward (the hybrid's shared block summed over its
+units), the global-norm clip spans every shard, AdamW updates each
 rank's local shards in place, and Adafactor's factored means and RMS
 reduce over the mesh dims that shard them.  ``make_prefill_step(cfg,
 policy)`` places its cache by ``cache_specs_tree`` (KV along the
-sequence on "model", Mamba2 states on heads and conv channels, batch on
-the data axes); ``make_decode_step`` attends over that cache with the
-flash-decode all-reduce (``sharding/attention.py``).
+sequence on "model", cross keys and values along the source sequence or
+on kv heads, Mamba2 states on heads and conv channels, batch on the
+data axes); ``make_decode_step`` attends over that cache with the
+flash-decode all-reduce (``sharding/attention.py``) and takes no
+frontend input.
 """
 from __future__ import annotations
 
@@ -68,7 +71,6 @@ class TrainState:
         if policy is not None:
             from repro_torch.sharding import place as PL
 
-            T.check_shardable(cfg)
             params = PL.init_sharded(cfg, policy, generator)
             return TrainState(params=params, opt=PL.zero_opt(params, tc, policy),
                               step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -106,7 +108,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         model = state.params
         if T.is_sharded(model):
-            T.check_shardable(cfg)
             # the whole host batch: each micro-batch is placed by the batch specs
             batch = {k: full(v) if torch.is_tensor(v) else v for k, v in batch.items()}
         if tc.microbatch > 0:
@@ -220,13 +221,10 @@ def make_prefill_step(cfg: ModelConfig, policy=None, device=None):
     """prefill_step(params, batch) -> (logits, cache): the cache is sized
     to the prompt, as in JAX (the full-cache branch of attention).  The
     batch's audio frames or image patches go to the device in the
-    config's dtype.  ``policy`` (a ``ShardingPolicy``; the dense, moe
-    and ssm families, on params placed under it): the cache is placed by
-    its ``cache_specs_tree`` -- KV along the sequence on "model", Mamba2
-    states on heads and conv channels, batch on the data axes -- and the
-    logits come back as a DTensor."""
-    if policy is not None:
-        T.check_shardable(cfg)
+    config's dtype.  ``policy`` (a ``ShardingPolicy``, on params placed
+    under it): the cache is placed by its ``cache_specs_tree`` (module
+    docstring), the frames or patches by the batch specs, and the logits
+    come back as a DTensor."""
     dev = resolve_device(device)
 
     def prefill_step(params, batch):

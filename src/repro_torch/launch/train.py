@@ -18,8 +18,10 @@ card a rank, gloo on the CPU) the ranks form ``make_local_mesh``
 (all data-parallel, as JAX's ``make_cpu_mesh``), the state is placed by
 ``auto_policy`` (FSDP above ~2 B parameters), created shard by shard
 (``TrainState.create(policy=)``: no rank holds the whole model), and
-every step's batch by its batch specs.  The dense, moe and ssm families
-run so (``--arch dbrx-132b``, ``mamba2-2.7b``).  A run resumes from the
+every step's batch (tokens, and whisper's audio frames or the vlm's
+image patches) by its batch specs.  Every family runs so (``--arch
+dbrx-132b``, ``mamba2-2.7b``, ``zamba2-7b``, ``whisper-medium``,
+``llama-3.2-vision-11b``).  A run resumes from the
 latest checkpoint in ``--ckpt-dir``, whatever world wrote it (JAX's
 "elastic: any mesh").
 ``--production-mesh`` builds the 16 x 16 mesh over a world of exactly

@@ -28,7 +28,7 @@ row: a partial sum); :func:`as_activation` brings a block's output back
 to the activation layout (batch on the data axes, the rest replicated:
 the row-parallel all-reduce); an attention whose q is a DTensor goes to
 ``sharding/attention.py`` (each rank on its own heads, the flash-decode
-over a sequence-sharded cache).
+over a sequence-sharded cache, self or cross).
 
 Parameters are trainable (``requires_grad``); serving runs under
 ``torch.inference_mode()`` (``launch/steps.py``).
@@ -93,6 +93,32 @@ def redistribute(w: torch.Tensor, plc) -> torch.Tensor:
         w = DTensor.from_local(w.to_local(), w.device_mesh, w.placements,
                                run_check=False, shape=w.shape, stride=w.stride())
     return w.redistribute(w.device_mesh, plc)
+
+
+def replicate(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor with every mesh dim replicated (a small parameter added to
+    an activation: the learned positions, whisper's ``enc_pos``); any
+    other tensor as it is."""
+    if not _is_dt(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    plc = [Replicate()] * w.device_mesh.ndim
+    return w if list(w.placements) == plc else redistribute(w, plc)
+
+
+def rows(w: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """``w[a:b]`` of a weight whose dim 0 is not sharded; of a DTensor, its
+    local rows with its placements (DTensor's own slice of a weight that
+    requires grad fails under inference mode)."""
+    if not _is_dt(w):
+        return w[a:b]
+    from torch.distributed.tensor import DTensor
+
+    shape = (b - a,) + tuple(w.shape[1:])
+    return DTensor.from_local(w.to_local()[a:b], w.device_mesh, w.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def as_activation(x: torch.Tensor) -> torch.Tensor:
@@ -327,8 +353,13 @@ def attention_fwd(
     kw = dict(impl=a.impl, chunk=a.chunk, seq_shard=a.seq_shard)
     self_cache = cache is not None and cache_pos is not None and kv_src is None
     if cache is not None and not self_cache:  # cross-attn, precomputed source kv
-        o = _sdpa(q, cache["k"], cache["v"], causal=False, **kw)
-        return linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head)), cache
+        if _is_dt(q) and not a.seq_shard:
+            from repro_torch.sharding import attention as SA
+
+            o = SA.cross_attention(q, cache["k"], cache["v"], impl=a.impl, chunk=a.chunk)
+        else:
+            o = _sdpa(q, cache["k"], cache["v"], causal=False, **kw)
+        return as_activation(linear(p.wo, o.reshape(B, Sq, a.n_heads * a.d_head))), cache
 
     src = x if kv_src is None else kv_src
     k = split_heads(linear(p.wk, src), a.n_kv_heads, a.d_head)

@@ -48,17 +48,18 @@ the recompute pass does not count MoE assignments again.
 ``loss_fn`` is JAX's next-token loss.  ``jax_leaf_groups`` names the
 JAX leaf each parameter is a slice of, for the optimizers' leaf rules.
 
-Sharded: the dense, moe and ssm families run on DTensor parameters
-(``sharding/place.py::shard_module`` or ``init_sharded``): tokens are
-placed by the batch specs, the embedding and head gather their FSDP
-axis, the attention blocks run in the Megatron layouts of
-``models/layers.py``, the MoE layer expert-parallel (or tensor-parallel
-inside each expert) and the Mamba2 block on head-split local tensors
-(``models/moe.py``, ``models/ssm.py``, ``sharding/local.py``); a Mamba2
-state is written into a sharded cache as each rank's shard of it.  The
-hybrid, audio and vlm families refuse a sharded module
-(``NotImplementedError``): their sharded execution is ROADMAP queue 1's
-next item.
+Sharded: every family runs on DTensor parameters
+(``sharding/place.py::shard_module`` or ``init_sharded``): tokens and the
+frontend's frames or patches are placed by the batch specs, the
+embedding and head gather their FSDP axis, the attention blocks (the
+hybrid's shared block with its LoRA, the cross-attention of audio and
+vlm) run in the Megatron layouts of ``models/layers.py``, the MoE layer
+expert-parallel (or tensor-parallel inside each expert) and the Mamba2
+block on head-split local tensors (``models/moe.py``, ``models/ssm.py``,
+``sharding/local.py``).  A prefill writes its Mamba2 states and cross
+keys and values into a sharded cache as each rank's shard of them
+(``_write_layer``); a decode reads a cross cache where it lies, along
+the source sequence or on kv heads (``sharding/attention.py``).
 """
 from __future__ import annotations
 
@@ -332,11 +333,12 @@ def _cross_block_fwd(p: CrossBlock, cfg: ModelConfig, x, src_kv: dict):
 
 
 def _cross_kv(p_attn: L.Attention, cfg: ModelConfig, src: torch.Tensor) -> dict:
-    """Cross-attention keys and values of a source, once a sequence."""
-    B, S_src, _ = src.shape
+    """Cross-attention keys and values of a source, once a sequence (a
+    DTensor source: its kv heads in the column layout, gathered where the
+    model axis does not divide them)."""
     a = _attn_dims(cfg, cross=True)
-    return {"k": L.linear(p_attn.wk, src).reshape(B, S_src, a.n_kv_heads, a.d_head),
-            "v": L.linear(p_attn.wv, src).reshape(B, S_src, a.n_kv_heads, a.d_head)}
+    return {"k": L.split_heads(L.linear(p_attn.wk, src), a.n_kv_heads, a.d_head),
+            "v": L.split_heads(L.linear(p_attn.wv, src), a.n_kv_heads, a.d_head)}
 
 
 def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0):
@@ -344,7 +346,7 @@ def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0
     # order on the card, where indexing's (index_put_) accumulates atomically
     x = L.embedding(p.tok, tokens)
     if cfg.pos == "learned":
-        x = x + p.pos[pos_offset : pos_offset + tokens.shape[1]]
+        x = x + L.replicate(L.rows(p.pos, pos_offset, pos_offset + tokens.shape[1]))
     return x
 
 
@@ -373,33 +375,12 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
     from repro_torch.sharding import place as PL
 
     t = torch.as_tensor(tokens).long()
-    pol = params.sharding_policy
-    return PL.place_spec(t, pol, (pol._fit(pol.batch_axes, t.shape[0]), None))
+    return PL.shard_batch({"tokens": t}, params.sharding_policy)["tokens"]
 
 
 def is_sharded(params: LM) -> bool:
     """True where the module's parameters are DTensors."""
     return L._is_dt(params.embed.tok)
-
-
-def _refuse_sharded(params: LM, cfg: ModelConfig) -> None:
-    """A sharded module of a family that does not run sharded raises."""
-    if is_sharded(params):
-        check_shardable(cfg)
-
-
-#: the families that run on DTensor parameters
-SHARDED_FAMILIES = ("dense", "moe", "ssm")
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg``'s family runs sharded (dense, moe, ssm)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"sharding of the {cfg.family} family ({cfg.name}) is not ported: "
-            "the dense, moe and ssm families run on DTensor parameters; the "
-            "hybrid, audio and vlm families are ROADMAP queue 1's next item"
-        )
 
 
 #: the frontend's precomputed embeddings a batch of each family carries
@@ -408,16 +389,28 @@ FRONTEND = {"audio": "audio", "vlm": "image_embeds"}
 
 def frontend_batch(batch: dict, cfg: ModelConfig, device) -> dict:
     """``batch`` with the frontend's embeddings (audio frames, image
-    patches) as a tensor on ``device`` in the config's dtype."""
+    patches) as a tensor on ``device`` in the config's dtype (a DTensor
+    stays one, cast)."""
     key = FRONTEND.get(cfg.family)
     if key is None:
         return batch
-    return {**batch, key: torch.as_tensor(batch[key]).to(device=device,
-                                                         dtype=_dtype(cfg))}
+    src = batch[key]
+    if L._is_dt(src):
+        return {**batch, key: src.to(_dtype(cfg))}
+    return {**batch, key: torch.as_tensor(src).to(device=device, dtype=_dtype(cfg))}
 
 
 def _frontend(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    return frontend_batch(batch, cfg, params.embed.tok.device)[FRONTEND[cfg.family]]
+    """The batch's frames or patches (``frontend_batch``); for a sharded
+    module, a DTensor placed by the batch specs (batch on the data axes),
+    as ``_tokens`` places tokens."""
+    key = FRONTEND[cfg.family]
+    x = frontend_batch(batch, cfg, params.embed.tok.device)[key]
+    if L._is_dt(x) or not is_sharded(params):
+        return x
+    from repro_torch.sharding import place as PL
+
+    return PL.shard_batch({key: x}, params.sharding_policy)[key]
 
 
 def _layer_cache(cache: dict, *i: int) -> dict:
@@ -440,10 +433,11 @@ def _layer_view(val, i: tuple):
                               stride=torch.empty(shape, device="meta").stride())
 
 
-def _write_state(cache: dict, i: tuple, st: dict) -> None:
-    """A Mamba2 state into its slot, cast to the cache's dtypes; into a
-    DTensor cache, the state redistributed to the slot's layout and each
-    rank's shard written."""
+def _write_layer(cache: dict, i: tuple, st: dict) -> None:
+    """One layer's entries (a Mamba2 state, cross keys and values) into
+    their slot ``i``, cast to the cache's dtypes; into a DTensor cache,
+    each entry redistributed to the slot's layout and each rank's shard
+    written (no DTensor ``__setitem__``)."""
     for name, val in st.items():
         c = cache[name]
         if L._is_dt(c):
@@ -532,7 +526,7 @@ def _mamba_step(blk: MambaBlock, cfg: ModelConfig, x, cache: Optional[dict],
         y, st = SSM.mamba_decode_step(blk.mixer, dims, hn, _layer_cache(cache, *i))
     else:
         y, st = SSM.mamba_fwd(blk.mixer, dims, hn, return_state=True)
-    _write_state(cache, i, st)
+    _write_layer(cache, i, st)
     return x + y
 
 
@@ -551,14 +545,16 @@ def _shared_block_fwd(sp: SharedBlock, lora: LoRA, cfg: ModelConfig, x, x0,
                       cache: Optional[dict] = None, cache_pos: Optional[int] = None):
     """The shared block with a unit's LoRA: q / k / v = h w + (h a) b, RoPE
     at cache_pos + arange(S), causal attention (through the cache when
-    one is given), then the gelu MLP over concat(x, x0)."""
+    one is given), then the gelu MLP over concat(x, x0).  Sharded: w and
+    b in the column layout (heads on "model"), a gathered on its FSDP
+    axis, as the dense block's projections."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     h = L.apply_norm(cfg.norm, sp.ln1, torch.cat([x, x0], dim=-1))
 
     def proj(nm, lin, nh):
-        y = h @ lin.w + (h @ getattr(lora, f"a_{nm}")) @ getattr(lora, f"b_{nm}")
-        return y.reshape(B, S, nh, hd)
+        a, b = getattr(lora, f"a_{nm}"), getattr(lora, f"b_{nm}")
+        return L.split_heads(L.linear(lin, h) + (h @ L.gather_fsdp(a)) @ b, nh, hd)
 
     start = 0 if cache_pos is None else cache_pos
     positions = torch.arange(start, start + S, device=x.device)
@@ -570,9 +566,10 @@ def _shared_block_fwd(sp: SharedBlock, lora: LoRA, cfg: ModelConfig, x, x0,
         o = L.cached_attention(q, k, v, cache, cache_pos, **kw)
     else:
         o = L._sdpa(q, k, v, causal=True, **kw)
-    x = x + L.linear(sp.wo, o.reshape(B, S, cfg.n_heads * hd))
+    x = x + L.as_activation(L.linear(sp.wo, o.reshape(B, S, cfg.n_heads * hd)))
     h2 = L.apply_norm(cfg.norm, sp.ln2, torch.cat([x, x0], dim=-1))
-    return x + L.linear(sp.w_down, F.gelu(L.linear(sp.w_up, h2), approximate="tanh"))
+    return x + L.as_activation(
+        L.linear(sp.w_down, F.gelu(L.linear(sp.w_up, h2), approximate="tanh")))
 
 
 def _hybrid_unit(params: LM, cfg: ModelConfig, u: int, x, x0,
@@ -628,7 +625,7 @@ def _enc_block_fwd(blk: EncBlock, cfg: ModelConfig, x):
 
 def _encode_audio(params: LM, cfg: ModelConfig, audio: torch.Tensor,
                   remat: bool = False):
-    x = audio + params.enc_pos
+    x = audio + L.replicate(params.enc_pos)
     for blk in params.enc_blocks:
         x = _remat(remat, _enc_block_fwd, blk, cfg, x)
     return L.apply_norm(cfg.norm, params.enc_ln_f, x)
@@ -664,13 +661,21 @@ def _step_audio(params: LM, cfg: ModelConfig, x, audio=None, cache=None, pos=Non
             continue
         if enc is not None:
             enc_kv = _cross_kv(blk.xattn, cfg, enc)
-            if cache is not None:
-                cache["xk"][i], cache["xv"][i] = enc_kv["k"], enc_kv["v"]
+            _write_layer(cache, (i,), {"xk": enc_kv["k"], "xv": enc_kv["v"]})
         else:
-            enc_kv = {"k": cache["xk"][i], "v": cache["xv"][i]}
-        self_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _dec_block_fwd(blk, cfg, x, enc_kv, cache=self_cache, cache_pos=pos)
+            enc_kv = _cross_view(cache, i)
+        x = _dec_block_fwd(blk, cfg, x, enc_kv, cache=_self_view(cache, i), cache_pos=pos)
     return x
+
+
+def _self_view(cache: dict, *i: int) -> dict:
+    """Layer ``i``'s self-attention {"k", "v"} of an audio or vlm cache."""
+    return _layer_cache({"k": cache["k"], "v": cache["v"]}, *i)
+
+
+def _cross_view(cache: dict, i: int) -> dict:
+    """Layer or unit ``i``'s cross keys and values {"k", "v"} of a cache."""
+    return _layer_cache({"k": cache["xk"], "v": cache["xv"]}, i)
 
 
 def _cross_cache(cfg: ModelConfig, n: int, B, dtype, dev) -> dict:
@@ -696,13 +701,13 @@ def _vlm_unit(params: LM, cfg: ModelConfig, u: int, x, img=None, cache=None, pos
     if img is not None:
         img_kv = _cross_kv(cross.xattn, cfg, img)
         if cache is not None:
-            cache["xk"][u], cache["xv"][u] = img_kv["k"], img_kv["v"]
+            _write_layer(cache, (u,), {"xk": img_kv["k"], "xv": img_kv["v"]})
     else:
-        img_kv = {"k": cache["xk"][u], "v": cache["xv"][u]}
+        img_kv = _cross_view(cache, u)
     for j, blk in enumerate(params.selfs[u]):
         if j == period - 2:
             x = _cross_block_fwd(cross, cfg, x, img_kv)
-        cl = None if cache is None else {"k": cache["k"][u, j], "v": cache["v"][u, j]}
+        cl = None if cache is None else _self_view(cache, u, j)
         x, _ = _dense_block_fwd(blk, cfg, x, cache=cl, cache_pos=pos)
     return x
 
@@ -860,7 +865,6 @@ def forward(params: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
     / vlm families.  ``remat``: each scan body under activation
     recomputation where grad mode is on (module docstring)."""
     fam = _family(cfg)
-    _refuse_sharded(params, cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
     aux = torch.zeros((), device=x.device)
@@ -911,7 +915,6 @@ def prefill(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """Fill the cache from a full prompt -> (logits (B, S, V_pad), or
     (B, 1, V_pad) with ``prefill_last_only``; the cache, written in place)."""
     fam = _family(cfg)
-    _refuse_sharded(params, cfg)
     tokens = _tokens(params, batch["tokens"])
     x = _embed(params.embed, cfg, tokens)
     if fam in ("dense", "moe"):
@@ -933,7 +936,6 @@ def decode_step(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     at ``pos``, and the new Mamba2 states).  A ``pos`` at or past the
     cache length raises, except in the ssm family, which takes any."""
     fam = _family(cfg)
-    _refuse_sharded(params, cfg)
     token = _tokens(params, batch["token"])
     pos = int(batch["pos"])
     x = _embed(params.embed, cfg, token, pos_offset=pos)

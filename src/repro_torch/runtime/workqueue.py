@@ -351,6 +351,23 @@ class LeaseQueue:
         except OSError:
             pass
 
+    def _drop_done_leases(self, units: list[WorkUnit]) -> None:
+        """Unlink every lease left over a unit of ``units``, all done.
+
+        A holder SIGKILLed between its done marker and its lease unlink
+        (the last two steps of :meth:`mark_done`) leaves a lease that no
+        claim ever touches again: claims skip done units, and a relaunch
+        under the same id never revisits one.  The done marker wins, so
+        such a lease guards nothing; every worker leaving the barrier
+        removes what is left (one directory listing a stage)."""
+        names = set(os.listdir(self.dir))
+        for u in units:
+            if f"{u.uid}.lease" in names:
+                try:
+                    self._lease(u).unlink()
+                except OSError:
+                    pass  # another worker leaving the barrier got there first
+
     # ---------------------------------------------------- bounded retries
     def record_failure(self, unit: WorkUnit, error: str,
                        fatal: bool = False) -> int:
@@ -485,6 +502,7 @@ class LeaseQueue:
                 continue
             with telemetry.span(kind, "queue_wait"):
                 if not self.pending(units):
+                    self._drop_done_leases(units)
                     return computed
                 if timeout is not None and time.monotonic() - t0 > timeout:
                     raise TimeoutError(

@@ -11,6 +11,11 @@ flash-decode over a sequence-sharded KV cache.
     of 4) the rank slices the kv heads its query heads read -- query head
     h reads kv head h // (H // K) -- and, for the gradient, hands k / v
     back as partial sums over the model axis.
+  * :func:`cross_attention` -- non-causal attention over a cross-attention
+    source's cached keys and values: over a cache sharded along the
+    source (a decode over whisper's cross cache, its frames on "model")
+    the split softmax of :func:`_flash_decode` without a mask, over each
+    rank's shard where it lies (no k / v moves); otherwise :func:`sdpa`.
   * :func:`cached_attention` -- writes the new keys and values into a
     cache placed by ``policy.cache_specs_tree`` (each position to the rank
     that owns it) and attends: a prefill that fills the cache attends
@@ -141,12 +146,20 @@ def _write(cache_t, new, cache_pos: int, seq_mdim):
 
 
 def _flash_decode(q, ck, cv, q_pos, seq_mdim):
-    """Causal attention of q (B, Sq, H, dh) at positions q_pos over a cache
-    sharded along the sequence on mesh dim ``seq_mdim``: each rank's
-    partial softmax over its positions, the max, sum and weighted values
-    all-reduced over that mesh dim; the plain version's arithmetic
-    (float32 logits scaled by 1/sqrt(dh), masked keys at -1e30)."""
+    """Attention of q (B, Sq, H, dh) over a cache sharded along the
+    sequence on mesh dim ``seq_mdim``, causal at positions ``q_pos`` (None:
+    not causal, every key): each rank's partial softmax over its
+    positions, the max, sum and weighted values all-reduced over that mesh
+    dim; the plain version's arithmetic (float32 logits scaled by
+    1/sqrt(dh), masked keys at -1e30).  Serving only: the raw
+    all-reduces carry no gradient across ranks."""
     import torch.distributed as dist
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, ck, cv)):
+        raise NotImplementedError(
+            "the flash-decode over a sequence-sharded cache has no backward "
+            "across ranks; run it under torch.inference_mode()"
+        )
 
     dt = _dt()
     mesh = q.device_mesh
@@ -162,9 +175,9 @@ def _flash_decode(q, ck, cv, q_pos, seq_mdim):
     lo = mesh.get_coordinate()[seq_mdim] * S_l
     qf = ql.float() / math.sqrt(dh)
     logits = torch.einsum("bqkrd,bskd->bkrqs", qf.reshape(B, Sq, K, rep, dh), kl.float())
-    kpos = torch.arange(lo, lo + S_l, device=ql.device)
-    mask = q_pos[:, None] >= kpos[None, :]
-    logits = logits.masked_fill(~mask, -1e30)
+    if q_pos is not None:
+        kpos = torch.arange(lo, lo + S_l, device=ql.device)
+        logits = logits.masked_fill(~(q_pos[:, None] >= kpos[None, :]), -1e30)
     m = logits.amax(dim=-1, keepdim=True)
     group = mesh.get_group(seq_mdim)
     m_all = m.clone()
@@ -198,3 +211,14 @@ def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
     if seq_mdim is not None:
         return _flash_decode(q, ck, cv, q_pos, seq_mdim)
     return sdpa(q, ck, cv, causal=True, q_pos=q_pos, impl=impl, chunk=chunk)
+
+
+def cross_attention(q, ck, cv, impl: str = "xla", chunk: int = 1024):
+    """Non-causal attention of DTensor q over a cross-attention source's
+    keys and values ``ck`` / ``cv`` (B, S_src, K, dh): over a cache
+    sharded along the source, the split softmax on each rank's shard;
+    otherwise each rank on its heads (module docstring)."""
+    seq_mdim = _seq_shard_dim(ck)
+    if seq_mdim is not None:
+        return _flash_decode(q, ck, cv, None, seq_mdim)
+    return sdpa(q, ck, cv, causal=False, impl=impl, chunk=chunk)

@@ -232,10 +232,13 @@ def zeros(shape, dtype, policy: POL.ShardingPolicy, spec) -> torch.Tensor:
 
 def sharded_cache(cfg, B: int, cache_len: int, policy: POL.ShardingPolicy,
                   dtype=None) -> dict:
-    """``init_cache``'s zero cache as DTensors placed by
-    ``policy.cache_specs_tree`` (dense and moe: KV along the sequence on
-    "model", batch on the data axes; ssm: the ``ssm`` states on heads, the
-    ``conv`` windows on channels), each rank allocating only its shards."""
+    """``init_cache``'s zero cache, nested as it is (the hybrid's ``ssm``
+    and ``attn`` dicts), as DTensors placed by ``policy.cache_specs_tree``
+    (self-attention KV along the sequence on "model"; cross keys and
+    values along the source sequence where "model" divides it, else on kv
+    heads; Mamba2 ``ssm`` states on heads, ``conv`` windows on channels;
+    batch, ``x0`` included, on the data axes), each rank allocating only
+    its shards."""
     from repro_torch.models import transformer as T
 
     meta = T.init_cache(cfg, B, cache_len, dtype=dtype, device="meta")
@@ -250,21 +253,33 @@ def sharded_cache(cfg, B: int, cache_len: int, policy: POL.ShardingPolicy,
 
 
 def grow_cache(cache: dict, cfg, S_new: int, policy: POL.ShardingPolicy) -> dict:
-    """A sharded dense or moe cache made room for decode steps: a cache of
-    S_new positions placed by the cache specs, with ``cache``'s positions
-    on the sequence axis (a gather of the old cache, then each rank's
-    slice).  An ssm cache (its states do not grow with the length) comes
-    back as it is."""
-    if "k" not in cache:
+    """A sharded cache made room for decode steps: its self-attention KV
+    (``k`` / ``v``, under ``attn`` in the hybrid's cache; (layers..., B, S,
+    K, dh), the vlm's two stacked axes included) grown to S_new positions
+    placed by the cache specs, ``cache``'s positions first (a gather of
+    the old KV, then each rank's slice); every other entry (cross keys
+    and values, Mamba2 states, ``x0``) as it is.  An ssm cache comes back
+    as it is."""
+    from repro_torch.models import transformer as T
+
+    kv = cache.get("attn", cache)
+    if "k" not in kv:
         return cache
-    k = full(cache["k"])
-    B = k.shape[1]
-    new = sharded_cache(cfg, B, S_new, policy, dtype=k.dtype)
+    k = kv["k"]
+    lead = k.ndim - 4  # stacked layer / unit dims before (B, S, K, dh)
+    meta = T.init_cache(cfg, k.shape[lead], S_new, dtype=k.dtype, device="meta")
+    specs = POL.cache_specs_tree(policy, meta, cfg)
+    if "attn" in meta:
+        meta, specs = meta["attn"], specs["attn"]
+    grown = {}
     for name in ("k", "v"):
-        whole = torch.zeros(tuple(new[name].shape), dtype=k.dtype, device=k.device)
-        whole[:, :, : k.shape[2]] = full(cache[name])
-        new[name] = place(whole, policy.mesh, new[name].placements)
-    return new
+        whole = torch.zeros(tuple(meta[name].shape), dtype=k.dtype, device=local(k).device)
+        whole.narrow(lead + 1, 0, k.shape[lead + 1]).copy_(full(kv[name]))
+        grown[name] = place_spec(whole, policy, specs[name])
+        del whole
+    if "attn" in cache:
+        return {**cache, "attn": grown}
+    return {**cache, **grown}
 
 
 def shard_batch(batch: dict, policy: POL.ShardingPolicy, kind: str = "train") -> dict:

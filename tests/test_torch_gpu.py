@@ -1033,3 +1033,121 @@ def test_moe_and_ssm_sharded_at_one_by_one_equal_one_process_on_the_card(one_ran
         want, cache = decode(params, {"token": toks[:, i : i + 1], "pos": i}, cache)
         lg, scache = decode(sparams, {"token": toks[:, i : i + 1], "pos": i}, scache)
         assert float((PL.full(lg) - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_split_softmax_over_a_seq_sharded_cache_equals_plain_attention_on_the_card(
+        one_rank_world, dtype):
+    """Non-causal attention of one decode token over a cross cache sharded
+    along the source sequence (whisper-medium's 1,500 frames, H = K = 16,
+    dh 64) on one NCCL rank at mesh (1, 1): the split softmax of
+    ``sharding/attention.py`` against the plain attention on the whole
+    tensors (float32 within 2e-6; bfloat16 within one bf16 step)."""
+    dev = one_rank_world
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import attention as SA
+    from repro_torch.sharding import place as PL
+
+    mesh = make_local_mesh(model=1, device=dev)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((4, 1, 16, 64), (4, 1500, 16, 64), (4, 1500, 16, 64)))
+    want = flash_attn_ref(q, k, v, False)
+    rep = [Replicate(), Replicate()]
+    with torch.inference_mode():
+        got = SA.cross_attention(PL.place(q, mesh, [Replicate(), Shard(2)]),
+                                 PL.place(k, mesh, [Replicate(), Shard(1)]),
+                                 PL.place(v, mesh, [Replicate(), Shard(1)]))
+    assert SA._seq_shard_dim(PL.place(k, mesh, [Replicate(), Shard(1)])) == 1
+    got = PL.full(got.redistribute(mesh, rep))
+    tol = 2e-6 if dtype == "float32" else 2.0 ** -7
+    err = (got.float() - want.float()).abs() - tol * (1 + want.float().abs())
+    assert float(err.max()) <= 0.0
+
+
+@pytest.mark.parametrize("arch,opt", [("zamba2-7b", "adamw"), ("whisper-medium", "adamw"),
+                                      ("llama-3.2-vision-11b", "adafactor")])
+def test_hybrid_audio_vlm_sharded_at_one_by_one_equal_one_process_on_the_card(
+        one_rank_world, arch, opt):
+    """Smoke zamba2-7b, whisper-medium and llama-3.2-vision-11b in float32
+    on one NCCL rank at mesh (1, 1), the state created shard by shard and
+    the zero-initialised LoRA b and gates drawn non-zero: one train step
+    against the single-process step (loss within 1e-6 relative,
+    parameters rtol 2e-3 / atol 2e-5), prefill and two decode steps (the
+    cross cache along the source sequence) within 1e-5, and the flash
+    kernel as often in the sharded prefill as in one process's."""
+    dev = one_rank_world
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (TrainState, make_decode_step, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), attn_impl="chunked")
+    tc = TrainConfig(optimizer=opt, remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
+    pol = ShardingPolicy(mesh=make_local_mesh(model=1, device=dev), fsdp=True)
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 18)).astype(np.int32)
+    key = T.FRONTEND.get(cfg.family)
+    front = ({} if key is None else {key: (0.1 * rng.standard_normal(
+        (4, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32)})
+
+    def drawn(lm):  # the zero leaves, drawn whole on the card, each rank's slice kept
+        g = torch.Generator(dev).manual_seed(1)
+        with torch.no_grad():
+            for name, p in lm.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf in ("b_q", "b_k", "b_v", "gate_attn", "gate_mlp"):
+                    r = 0.3 + 0.6 * torch.rand(p.shape, generator=g, device=dev)
+                    PL.local(p).copy_(PL.local(PL.place(r, p.device_mesh, p.placements))
+                                      if PL.is_sharded(p) else r)
+        return lm
+
+    step = make_train_step(cfg, tc, device=dev)
+    got = []
+    for st in (TrainState.create(cfg, tc, gen(), device=dev),
+               TrainState.create(cfg, tc, gen(), device=dev, policy=pol)):
+        drawn(st.params)
+        st, m = step(st, {"tokens": toks[:, :16], **front})
+        got.append((float(m["loss"]), st))
+    assert abs(got[1][0] - got[0][0]) <= 1e-6 * abs(got[0][0])
+    for (k, a), (_, b) in zip(got[0][1].params.named_parameters(),
+                              got[1][1].params.named_parameters()):
+        np.testing.assert_allclose(PL.full(b).detach().cpu().numpy(),
+                                   a.detach().cpu().numpy(), rtol=2e-3, atol=2e-5,
+                                   err_msg=k)
+    spol = ShardingPolicy(mesh=pol.mesh)
+    params = drawn(T.init_params(cfg, gen(), dev))
+    sparams = drawn(PL.init_sharded(cfg, spol, gen()))
+    prompt = {"tokens": toks[:, :16], **front}
+    launches = []
+    for p, pl in ((params, None), (sparams, spol)):
+        before = sum(flash_attn.ROUTE_LAUNCHES.values())
+        out = make_prefill_step(cfg, policy=pl, device=dev)(p, prompt)
+        launches.append(sum(flash_attn.ROUTE_LAUNCHES.values()) - before)
+        if pl is None:
+            want, cache = out
+        else:
+            lg, scache = out
+    assert launches[0] == launches[1] > 0
+    assert float((PL.full(lg) - want).abs().max()) <= 1e-5
+    scache = PL.grow_cache(scache, cfg, 18, spol)
+    big = T.init_cache(cfg, 4, 18, device=dev)
+    src, dst = (cache["attn"], big["attn"]) if "attn" in cache else (cache, big)
+    for name in ("k", "v"):
+        dst[name].narrow(src[name].ndim - 3, 0, 16).copy_(src[name])
+    cache = {**cache, **{n: big[n] for n in ("k", "v", "attn") if n in big}}
+    decode = make_decode_step(cfg, device=dev)
+    for i in (16, 17):
+        want, cache = decode(params, {"token": toks[:, i : i + 1], "pos": i}, cache)
+        lg, scache = decode(sparams, {"token": toks[:, i : i + 1], "pos": i}, scache)
+        assert float((PL.full(lg) - want).abs().max()) <= 1e-5

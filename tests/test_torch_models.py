@@ -333,10 +333,18 @@ def test_seq_shard_and_sharding_policy_raise():
     model = T.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="sharding"):
         T.forward(model, {"tokens": _tokens(cfg, n=8)}, cfg)
-    # a sharding policy is taken by the dense, moe and ssm families only
-    hybrid = get_config("zamba2-7b", smoke=True)
+    # so it does in the audio family's attention; a sharding policy is
+    # taken by every family (the hybrid's too: no family refuses one)
+    audio = dataclasses.replace(get_config("whisper-medium", smoke=True),
+                                attn_seq_shard=True)
+    b = _tokens(audio, n=8)
+    rng = np.random.default_rng(0)
     with pytest.raises(NotImplementedError, match="sharding"):
-        S.make_prefill_step(hybrid, policy=object(), device="cpu")
+        T.forward(T.init_params(audio, device="cpu"),
+                  {"tokens": b, "audio": rng.standard_normal(
+                      (b.shape[0], audio.n_frontend_tokens, audio.d_model))}, audio)
+    assert callable(S.make_prefill_step(get_config("zamba2-7b", smoke=True),
+                                        policy=object(), device="cpu"))
 
 
 @pytest.mark.parametrize("pos,n", [(P + 1, 1), (P + 5, 1), (P, 2)])

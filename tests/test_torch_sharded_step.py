@@ -13,8 +13,6 @@ deadline), against the JAX package's single-device runs:
   replicated under four query-head shards;
 - ``compressed_psum`` over four ranks within 1e-6 of JAX's, run on four
   fake CPU devices in a subprocess, on the same per-worker gradients;
-- each family that does not run sharded (hybrid, audio, vlm) refuses a
-  sharded module and a policy, naming ROADMAP queue 1;
 - the Prefetcher places batches by the batch specs;
 - the train CLI as two ranks saves a checkpoint that a world of one
   resumes, to the bits of a world-of-one run from the same checkpoint,
@@ -200,14 +198,6 @@ def test_compressed_psum_matches_jax_over_four_ranks(main_world):
     for r, g in enumerate(got):
         np.testing.assert_allclose(g["psum_mean"], want["psum"]["mean"][r], atol=1e-6, rtol=0)
         np.testing.assert_allclose(g["psum_err"], want["psum"]["err"][r], atol=1e-6, rtol=0)
-
-
-@pytest.mark.parametrize("family", list(R.REFUSED))
-def test_non_dense_family_under_a_policy_refuses(main_world, family):
-    got, _ = main_world
-    refused = list(got[0][f"refused_{family}"])
-    assert len(refused) == 2 and all(f"sharding of the {family} family" in m
-                                     and "ROADMAP queue 1" in m for m in refused)
 
 
 def test_prefetcher_places_batches_by_the_batch_specs(main_world):

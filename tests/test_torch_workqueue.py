@@ -189,6 +189,22 @@ def test_run_stage_reclaims_crashed_holder_after_expiry(tmp_path):
     assert q.run_stage(units, lambda u: None, timeout=10) == 1
 
 
+@pytest.mark.parametrize("survivor", ["w0", "w1"])
+def test_barrier_drops_the_lease_of_a_holder_killed_after_its_done_marker(
+        tmp_path, survivor):
+    """w0 dies between mark_done's marker and its lease unlink: the unit
+    is done, its lease is left.  Whoever leaves the stage's barrier, w0
+    relaunched under its id or another worker, removes it."""
+    units = plan_units("phase2", 12, 4)
+    assert LeaseQueue(tmp_path, "w0", ttl=3600).try_claim(units[1])
+    (tmp_path / f"{units[1].uid}.done").write_text(
+        json.dumps({"worker": "w0", "t": time.time()}))
+    q = LeaseQueue(tmp_path, survivor, ttl=3600, poll=0.01)
+    assert q.run_stage(units, lambda u: None, timeout=10) == 2
+    assert not list(tmp_path.glob("*.lease"))
+    assert len(list(tmp_path.glob("*.done"))) == 3
+
+
 def test_slow_but_alive_worker_keeps_lease_via_renew(tmp_path):
     """The fleet's per-chunk keepalive (FleetWorker._renew_chunk): a
     compute whose total time outlives the TTL, but which renews between

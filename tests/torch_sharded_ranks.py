@@ -6,15 +6,18 @@ of a gloo world on the CPU, joined through the EDM_* contract.
 ``main`` (four ranks, mesh (2, 2)): qwen2-1.5b smoke's sharded train step
 from the state in ``<dir>/train_in.npz``, its sharded prefill and four
 decode steps from ``<dir>/serve_in.npz``, ``compressed_psum`` of the
-per-rank gradients in ``<dir>/psum_in.npz``, the hybrid, audio and vlm
-families under a policy (they refuse), and the Prefetcher placing batches by a policy.  ``tp4`` (four
-ranks, mesh (1, 4)): qwen2.5-3b smoke's sharded prefill and decode, its
-two kv heads replicated under four query-head shards.  ``moe_ssm``
-(four ranks, the mesh and the cases in ``<dir>/cases.json``; for
-tests/test_torch_sharded_moe_ssm.py): the moe and ssm families' sharded
-train steps, prefills and decodes from the JAX states in
-``<dir>/<case>_in.npz``, the state created shard by shard, and a
-checkpoint saved at one mesh and restored at another.  Each rank writes
+per-rank gradients in ``<dir>/psum_in.npz``, and the Prefetcher placing
+batches by a policy.  ``tp4`` (four ranks, mesh (1, 4)): qwen2.5-3b
+smoke's sharded prefill and decode, its two kv heads replicated under
+four query-head shards.  ``moe_ssm`` and ``hybrid_cross`` (four ranks,
+the mesh and the cases in ``<dir>/cases.json``; for
+tests/test_torch_sharded_moe_ssm.py and
+tests/test_torch_sharded_hybrid_cross.py): a family's sharded train
+steps, prefills and decodes from the JAX states and batches (tokens,
+audio frames, image patches) in ``<dir>/<case>_in.npz``, the state
+created shard by shard, and a checkpoint saved at one mesh and restored
+at another; a serve case with ``watch`` records the shapes of the
+DTensors redistributed during its decode steps.  Each rank writes
 ``<dir>/<job>_rank<r>.npz``.
 """
 import dataclasses
@@ -43,8 +46,8 @@ from repro_torch.sharding import policy as POL
 TRAIN_KW = dict(remat=False, lr=1e-3, warmup_steps=1, total_steps=5)
 TRAIN_B, TRAIN_S = 4, 16
 SERVE_B, SERVE_P, SERVE_DECODE = 4, 8, 4
-#: the families that refuse sharding, an arch of each
-REFUSED = {"hybrid": "zamba2-7b", "audio": "whisper-medium", "vlm": "llama-3.2-vision-11b"}
+#: a case's batch keys besides the parameters
+BATCH_KEYS = ("tokens", "audio", "image_embeds")
 
 
 def _load_params(model, flat: dict) -> None:
@@ -101,18 +104,6 @@ def main_job(rank: int, d: pathlib.Path) -> dict:
     mean, err = compressed_psum(torch.from_numpy(g["g"][rank]),
                                 torch.from_numpy(g["err"][rank]))
     out["psum_mean"], out["psum_err"] = mean.numpy(), err.numpy()
-    # a family that does not run sharded refuses a sharded module and a policy
-    for fam, arch in REFUSED.items():
-        cfg_r = get_config(arch, smoke=True)
-        lm = PL.shard_module(T.init_params(cfg_r, device="cpu"), pol)
-        refused = []
-        for call in (lambda: T.forward(lm, {"tokens": np.zeros((2, 4), np.int32)}, cfg_r),
-                     lambda: make_prefill_step(cfg_r, policy=pol, device="cpu")):
-            try:
-                call()
-            except NotImplementedError as e:
-                refused.append(str(e))
-        out[f"refused_{fam}"] = np.array(refused)
     # the Prefetcher places each batch by the batch specs
     stream = TokenStream(cfg.vocab_size, 4, 8, seed=3)
     got = list(Prefetcher(stream, policy=pol, n_steps=3))
@@ -137,6 +128,35 @@ def _case_cfg(case: dict):
 
 def _flat(data) -> dict:
     return {k[2:]: data[k] for k in data.files if k.startswith("p.")}
+
+
+def _batch(data) -> dict:
+    return {k: data[k] for k in BATCH_KEYS if k in data.files}
+
+
+class _Watch:
+    """The global shapes of the DTensors redistributed while it is on, an
+    explicit ``redistribute`` or one an operator's sharding asks for."""
+
+    def __init__(self):
+        from torch.distributed.tensor import _dispatch, _redistribute
+
+        self.on, self.shapes = False, []
+        self._mods = (_dispatch, _redistribute)
+        inner = _redistribute.redistribute_local_tensor
+
+        def recorded(local_tensor, current_spec, *a, **kw):
+            if self.on:
+                self.shapes.append(tuple(current_spec.shape))
+            return inner(local_tensor, current_spec, *a, **kw)
+
+        for mod in self._mods:
+            mod.redistribute_local_tensor = recorded
+        self._inner = inner
+
+    def close(self):
+        for mod in self._mods:
+            mod.redistribute_local_tensor = self._inner
 
 
 def _from_flat(cfg, pol, flat: dict):
@@ -182,10 +202,12 @@ def _train_case(case, mesh, rank, d) -> dict:
     params = _from_flat(cfg, pol, _flat(data))
     state = TrainState(params, PL.zero_opt(params, tc, pol), torch.zeros((), dtype=torch.int32))
     MOE.reset_drop_counts(params)
-    state, metrics = make_train_step(cfg, tc, device="cpu")(state, {"tokens": data["tokens"]})
+    state, metrics = make_train_step(cfg, tc, device="cpu")(state, _batch(data))
     out = {"loss": float(metrics["loss"]), **_counts(params), **_whole_state(state, rank)}
     if cfg.n_experts:
         out["local_w_up"] = tuple(PL.local(params.blocks[0].moe.w_up).shape)
+    for name in case.get("local", ()):
+        out[f"local.{name}"] = tuple(PL.local(params.get_parameter(name)).shape)
     if case.get("save"):
         CheckpointManager(d / "ckpt").save(1, state, blocking=True)
     return out
@@ -198,16 +220,29 @@ def _serve_case(case, mesh, rank, d) -> dict:
     params = _from_flat(cfg, pol, _flat(data))
     MOE.reset_drop_counts(params)
     P = data["tokens"].shape[1]
-    logits, cache = make_prefill_step(cfg, policy=pol, device="cpu")(
-        params, {"tokens": data["tokens"]})
+    logits, cache = make_prefill_step(cfg, policy=pol, device="cpu")(params, _batch(data))
     out = {"prefill": PL.full(logits).numpy(),
-           **{f"cache_local.{k}": tuple(PL.local(v).shape) for k, v in cache.items()}}
+           **{f"cache_local.{k}": tuple(PL.local(v).shape)
+              for k, v in _opt_leaves(cache).items()}}
     n = len(data["dec_tokens"])
     cache = PL.grow_cache(cache, cfg, P + n, pol)
+    out.update({f"grown_local.{k}": tuple(PL.local(v).shape)
+                for k, v in _opt_leaves(cache).items()})
     decode = make_decode_step(cfg, device="cpu")
-    for i in range(n):
-        lg, cache = decode(params, {"token": data["dec_tokens"][i], "pos": P + i}, cache)
-        out[f"decode{i}"] = PL.full(lg).numpy()
+    watch = _Watch() if case.get("watch") else None
+    try:
+        for i in range(n):
+            if watch:
+                watch.on = True
+            lg, cache = decode(params, {"token": data["dec_tokens"][i], "pos": P + i}, cache)
+            if watch:
+                watch.on = False
+            out[f"decode{i}"] = PL.full(lg).numpy()
+    finally:
+        if watch:
+            watch.close()
+    if watch:
+        out["decode_redistributed"] = json.dumps(watch.shapes)
     return {**out, **_counts(params)}
 
 
@@ -229,11 +264,14 @@ def _restore_case(case, mesh, rank, d) -> dict:
                              policy=pol)
     state = CheckpointManager(pathlib.Path(case["from"]) / "ckpt").restore(1, like)
     out = _whole_state(state, rank)
-    out["local_w_up"] = tuple(PL.local(state.params.blocks[0].moe.w_up).shape)
+    if cfg.n_experts:
+        out["local_w_up"] = tuple(PL.local(state.params.blocks[0].moe.w_up).shape)
+    for name in case.get("local", ()):
+        out[f"local.{name}"] = tuple(PL.local(state.params.get_parameter(name)).shape)
     return out
 
 
-def moe_ssm_job(rank: int, d: pathlib.Path) -> dict:
+def cases_job(rank: int, d: pathlib.Path) -> dict:
     spec = json.loads((d / "cases.json").read_text())
     mesh = make_local_mesh(model=spec["model"], device="cpu")
     jobs = {"train": _train_case, "serve": _serve_case, "init": _init_case,
@@ -250,7 +288,8 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     info = init_distributed(device="cpu")
     rank = info["process_id"]
-    out = {"main": main_job, "tp4": tp4_job, "moe_ssm": moe_ssm_job}[job](rank, d)
+    out = {"main": main_job, "tp4": tp4_job, "moe_ssm": cases_job,
+           "hybrid_cross": cases_job}[job](rank, d)
     np.savez(d / f"{job}_rank{rank}.npz", **{k: np.asarray(v) for k, v in out.items()})
     import torch.distributed as dist
 
