@@ -273,6 +273,16 @@ ZERO_LEAVES = ("b_q", "b_k", "b_v", "gate_attn", "gate_mlp")
 # error in the same (batch, query, head) row, so that a row with a small
 # output (late causal rows, ~2048 keys) is held to its own error level.
 FLASH_TOL_F32 = (2e-5, 2e-5)
+# The kernel with per-row positions (q_pos), at one rank's shapes of
+# sequence-parallel attention: minicpm-2b's prefill_32k (36 heads, MHA, dh
+# 64) over a model axis of 16 (2,048 of 32,768 rows a rank) and
+# smollm-135m's (9 heads, 3 kv heads) over 4 (8,192 rows), chunks of
+# 1,024 (striped: 64 and 256 rows of each chunk); B 1.
+# name, B, S (the whole sequence), H, K, dh, n (model axis), chunk
+FLASH_POSITIONS = (
+    ("minicpm-2b_prefill_32k_model16", 1, 32768, 36, 36, 64, 16, 1024),
+    ("smollm-135m_prefill_32k_model4", 1, 32768, 9, 3, 64, 4, 1024),
+)
 FLASH_TOL_BF16_CUDA_CORE = (1e-6, 2.0 ** -7)
 FLASH_BF16_LIBRARY_FACTOR, FLASH_BF16_CEILING = 2.0, 0.04
 FLASH_BF16_STEP = 2.0 ** -7
@@ -301,6 +311,17 @@ TRAIN_GATE_TOL = 1e-3
 TRAIN_CLI_ARGS = ("--arch", "smollm-135m", "--batch", "8", "--seq", "1024",
                   "--save-every", "3", "--log-every", "1")
 RESUME_B, RESUME_S = 2, 512
+# The LM dry run (``launch/dryrun.py``: one step on fake tensors over a
+# fake world, no card) of production cells at 16 x 16 (DRY_CELLS: arch,
+# cell, optimized), each in a process of its own started with the smoke
+# and read in ``lm_dryrun``; and of ``train_step``'s own setup at a world
+# of one, held to the card: its predicted peak within DRY_PEAK_TOL of
+# ``max_memory_allocated`` and its operations within DRY_FLOPS_TOL of
+# ``FlopCounterMode`` over one real step.  ``--multi-card`` holds the dry
+# run of the same step at (2, 2) to rank 0 of the real NCCL step.
+DRY_CELLS = (("minicpm-2b", "prefill_32k", True), ("qwen2-1.5b", "train_4k", False))
+DRY_PEAK_TOL, DRY_FLOPS_TOL = 0.15, 1e-3
+DRY_TIMEOUT_S = 900
 
 
 T_START = time.perf_counter()
@@ -1229,6 +1250,247 @@ def time_flash(torch, dev, smi, arch=LM_ARCH, part="self"):
     return out
 
 
+def _positions_layouts(Sq_total: int, n: int, chunk: int) -> dict:
+    """{layout: (rows a block, period)} of a rank's rows: striped (C / n
+    rows of every chunk of C, ``attn_impl="chunked"``) and contiguous
+    (Sq / n rows, ``"xla"``)."""
+    return {"striped": (chunk // n, chunk), "contiguous": (Sq_total // n, Sq_total)}
+
+
+def _positions_ok(torch, got, want_f32, lib_row, dtype):
+    """flash's gates for a call with positions: float32 FLASH_TOL_F32;
+    bfloat16 (tensor-core route) the check_flash rule against the plain
+    version's float32 result, ``lib_row`` SDPA's row errors on the same
+    inputs.  Returns (ok, max abs error, tolerance record)."""
+    diff = (got.float() - want_f32).abs()
+    err = float(diff.max())
+    if dtype == "float32":
+        atol, rtol = FLASH_TOL_F32
+        return bool((diff <= atol + rtol * want_f32.abs()).all()), err, dict(atol=atol, rtol=rtol)
+    lib_err = float(lib_row.max())
+    limit = min(FLASH_BF16_LIBRARY_FACTOR * lib_err, FLASH_BF16_CEILING)
+    elem = FLASH_BF16_STEP * want_f32.abs() + FLASH_BF16_LIBRARY_FACTOR * lib_row[..., None]
+    share = float((diff / elem.clamp_min(1e-30)).max())
+    return (err <= limit and share <= 1.0, err,
+            dict(library_max_abs_err=lib_err, tol=limit, elem_limit_share=share))
+
+
+def _masked_sdpa(torch, q, k, v, pos):
+    """One library call at positions: SDPA with the boolean mask q_pos[i]
+    >= j, (B, H, S, dh) in and out (GQA)."""
+    import torch.nn.functional as F
+
+    mask = pos[:, None] >= torch.arange(k.shape[-2], device=q.device)[None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def flash_positions(torch, dev, smi):
+    """The flash kernel with per-row positions (q_pos) against its plain
+    version at one rank's shapes of sequence-parallel attention
+    (FLASH_POSITIONS): both routes (float32 on the CUDA cores, bfloat16 on
+    the tensor cores), both layouts (striped and contiguous), the last
+    rank's rows within flash's gates; every rank's rows, stitched, against
+    the unsharded kernel within the same gates; and, bfloat16 striped,
+    CUDA-event ms of the kernel, the plain version and SDPA with the
+    positions' mask on the same rows, beside the bound from the positions.
+    The launches with positions by route."""
+    from repro_torch.kernels.flash_attn.ops import (ROUTES, block_positions, flash_attn,
+                                                    flash_route, host_positions)
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.launch.roofline import PEAK_BF16_FLOPS, bound_ms, flash_counts
+    from repro_torch.sharding.attention import seq_rank_rows, seq_stitch
+
+    flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+    flash_attn.POSITION_LAUNCHES = dict.fromkeys(ROUTES, 0)
+    out = {"cases": [], "times": {}}
+    worst = 0.0
+    for i, (name, B, S, H, K, dh, n, chunk) in enumerate(FLASH_POSITIONS):
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = qkv(torch, dev, B, S, S, H, K, dh, dtype, seed=300 + i)
+            whole = flash_attn(q, k, v, True)
+            for layout, (block, period) in _positions_layouts(S, n, chunk).items():
+                r = n - 1  # the last rank: the largest positions
+                rows = seq_rank_rows(q, r, n, block, period).contiguous()
+                pos = block_positions(S // n, block, period, r * block, dev)
+                got = flash_attn(rows, k, v, True, pos)
+                want = flash_attn_ref(rows.float(), k.float(), v.float(), True, pos)
+                lib_row = None
+                if dtype == "bfloat16":
+                    lib = _masked_sdpa(torch, *(t.transpose(1, 2) for t in (rows, k, v)), pos)
+                    lib_row = (lib.transpose(1, 2).float() - want).abs().amax(-1)
+                    del lib
+                ok, err, tol = _positions_ok(torch, got, want, lib_row, dtype)
+                del want, lib_row
+                # every rank's rows, stitched, against the unsharded kernel
+                parts = [flash_attn(seq_rank_rows(q, j, n, block, period).contiguous(), k, v,
+                                   True, block_positions(S // n, block, period, j * block, dev))
+                         for j in range(n)]
+                sdiff = (seq_stitch(parts, n, block, period).float() - whole.float()).abs()
+                del parts
+                atol, rtol = (FLASH_TOL_F32 if dtype == "float32"
+                              else FLASH_TOL_BF16_CUDA_CORE)
+                s_ok = bool((sdiff <= atol + rtol * whole.float().abs()).all())
+                rec = dict(case=name, dtype=dtype, layout=layout, B=B, Sq=S // n, Sk=S,
+                           H=H, K=K, dh=dh, n=n, rank=r, chunk=chunk,
+                           route=flash_route("cuda", q.dtype, dh), max_abs_err=err, **tol,
+                           stitched_max_abs_err=float(sdiff.max()),
+                           stitched_tol=dict(atol=atol, rtol=rtol), ok=ok and s_ok)
+                emit("flash_positions", **rec)
+                out["cases"].append(rec)
+                if not rec["ok"]:
+                    raise AssertionError(f"flash_attn with positions ({name}, {dtype}, "
+                                         f"{layout}): {rec}")
+                worst = max(worst, err if dtype == "float32" else 0.0)
+                del rows, got, sdiff
+            if dtype == "bfloat16":  # the route sequence-parallel prefills take
+                block, period = _positions_layouts(S, n, chunk)["striped"]
+                rows = seq_rank_rows(q, n - 1, n, block, period).contiguous()
+                pos = block_positions(S // n, block, period, (n - 1) * block, dev)
+                ms = time_ms(torch, lambda: flash_attn(rows, k, v, True, pos), 10)
+                plain = time_ms(torch, lambda: flash_attn_ref(rows, k, v, True, pos), 1)
+                qt, kt, vt = (t.transpose(1, 2) for t in (rows, k, v))
+                lib = time_ms(torch, lambda: _masked_sdpa(torch, qt, kt, vt, pos), 5)
+                bound, by = bound_ms(*flash_counts(B, S // n, S, H, K, dh, 2, True,
+                                                   q_pos=host_positions(pos)),
+                                     PEAK_BF16_FLOPS)
+                t = dict(kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                         bound_by=by, share_of_bound=bound / ms)
+                out["times"][name] = t
+                emit("flash_positions_time", case=name, layout="striped", rank=n - 1, B=B,
+                     Sq=S // n, Sk=S, H=H, K=K, dh=dh, dtype=dtype, smi=smi, **t)
+                del rows, qt, kt, vt
+            del q, k, v, whole
+            torch.cuda.empty_cache()
+    out["launches"] = dict(flash_attn.POSITION_LAUNCHES)
+    out["max_abs_err_f32"] = worst
+    emit("flash_positions", launches_by_route=out["launches"],
+         launches_all_by_route=dict(flash_attn.ROUTE_LAUNCHES), smi=smi)
+    return out
+
+
+def train_tc_kw() -> dict:
+    """``train_step``'s train config (TRAIN_* above) as keywords."""
+    return dict(optimizer="adamw", moment_dtype="float32", schedule="wsd", remat=True,
+                microbatch=TRAIN_MICRO, warmup_steps=1, total_steps=1 + TRAIN_TIMED)
+
+
+def dry_spec(name, arch, cell, optimized=False, over=None, tc=None, mesh=None) -> dict:
+    """A dry job's spec: ``cell`` a shape cell's name or (name, kind, seq,
+    batch); ``mesh`` None (the production mesh), [] (one card) or [shape,
+    names]; its JSON to build/dryrun/smoke_<name>.json."""
+    return dict(name=name, arch=arch, cell=cell, optimized=optimized, over=over or {},
+                tc=tc, mesh=mesh, out=str(ROOT / "build" / "dryrun" / f"smoke_{name}.json"))
+
+
+def start_dry_jobs(specs) -> dict:
+    """Each spec's dry job in a process of its own (no card: CUDA hidden,
+    one thread, a lower CPU priority than the phases on the card beside
+    it), started now; ``read_dry_jobs`` waits for them."""
+    import os
+
+    (ROOT / "build" / "dryrun").mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    jobs = {}
+    for spec in specs:
+        pathlib.Path(spec["out"]).unlink(missing_ok=True)
+        log = open(ROOT / "build" / "dryrun" / f"smoke_{spec['name']}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-job", json.dumps(spec)],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+        jobs[spec["name"]] = (spec, proc, log, time.perf_counter())
+    return jobs
+
+
+def smoke_dry_specs() -> list:
+    """The dry runs ``lm_dryrun`` reads: DRY_CELLS at 16 x 16, and
+    ``train_step``'s setup (minicpm-2b whole, chunked, TRAIN_*) at a world
+    of one."""
+    return ([dry_spec(f"{a}__{c}{'__opt' if o else ''}", a, c, optimized=o)
+             for a, c, o in DRY_CELLS]
+            + [dry_spec("train_step_world1", TRAIN_ARCH,
+                        ["train_step", "train", TRAIN_S, TRAIN_B],
+                        over=dict(attn_impl="chunked"), tc=train_tc_kw(), mesh=[])])
+
+
+def read_dry_jobs(jobs, timeout=DRY_TIMEOUT_S) -> dict:
+    """{name: the dry run's JSON} of ``start_dry_jobs``'s jobs; a job that
+    fails or outlives the time limit (killed) raises."""
+    out = {}
+    for name, (spec, proc, log, t0) in jobs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        log.close()
+        path = pathlib.Path(spec["out"])
+        if rc != 0 or not path.exists():
+            tail = (ROOT / "build" / "dryrun" / f"smoke_{name}.log").read_text()[-3000:]
+            raise AssertionError(f"dry job {name}: rc {rc}\n{tail}")
+        out[name] = json.loads(path.read_text())
+        out[name]["job_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dry_job(spec_json: str) -> int:
+    """``--dry-job``: one spec of ``dry_spec`` through launch/dryrun.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell, TrainConfig, shape_cell
+    from repro_torch.launch import dryrun as DR
+
+    spec = json.loads(spec_json)
+    arch = spec["arch"]
+    cfg = dataclasses.replace(get_config(arch), **spec["over"])
+    cell = (shape_cell(spec["cell"]) if isinstance(spec["cell"], str)
+            else ShapeCell(*spec["cell"]))
+    kw = dict(cfg=cfg)
+    if spec["optimized"]:
+        kw = dict(cfg=DR.optimized_cfg(cfg, cell), policy_kw=DR.optimized_policy_kw(cfg, cell),
+                  variant="optimized")
+    if spec["tc"] is not None:
+        kw["tc"] = TrainConfig(**spec["tc"])
+    if spec["mesh"] is not None:
+        kw["mesh"] = ((), ()) if spec["mesh"] == [] else (tuple(spec["mesh"][0]),
+                                                          tuple(spec["mesh"][1]))
+    res = DR.dry_cell(arch, cell, **kw)
+    pathlib.Path(spec["out"]).write_text(json.dumps(res))
+    print(DR.summary_line(res), flush=True)
+    return 0
+
+
+def lm_dryrun(torch, smi, jobs, tstep) -> dict:
+    """The dry runs started with the smoke: each production cell's trace
+    seconds, peak and roofline terms; ``train_step``'s own setup at a world
+    of one against the card (DRY_PEAK_TOL, DRY_FLOPS_TOL)."""
+    res = read_dry_jobs(jobs)
+    out = {}
+    for name, r in res.items():
+        rl = r["roofline"]
+        rec = dict(arch=r["arch"], cell=r["cell"], mesh=r["mesh"], variant=r["variant"],
+                   attn_seq_shard=r["attn_seq_shard"], trace_s=r["trace_s"],
+                   job_wall_s=r["job_wall_s"], memory=r["memory"],
+                   flops_per_chip=rl["flops_per_chip"], bytes_per_chip=rl["bytes_per_chip"],
+                   t_compute_s=rl["t_compute_s"], t_memory_s=rl["t_memory_s"],
+                   t_collective_s=rl["t_collective_s"], bottleneck=rl["bottleneck"],
+                   collectives=r["collectives"], links=rl["links"],
+                   useful_flops_ratio=r["useful_flops_ratio"])
+        if name == "train_step_world1":
+            peak, flops = tstep["peak_device_bytes"], tstep["flops_counted_one_step"]
+            rec.update(measured_peak_bytes=peak, counted_flops=flops,
+                       peak_rel_err=r["memory"]["peak_bytes_per_device"] / peak - 1.0,
+                       flops_rel_err=rl["flops_per_chip"] / flops - 1.0)
+            rec["ok"] = (abs(rec["peak_rel_err"]) <= DRY_PEAK_TOL
+                         and abs(rec["flops_rel_err"]) <= DRY_FLOPS_TOL)
+        emit("lm_dryrun", job=name, smi=smi, **rec)
+        out[name] = rec
+        if rec.get("ok") is False:
+            raise AssertionError(f"the dry run of train_step's setup misses the card: {rec}")
+    return out
+
+
 def lm_config(arch=LM_ARCH, n_layers=None, **kw):
     """``arch`` at full width on the kernel route, its depth cut to
     ``n_layers`` where given."""
@@ -1663,8 +1925,9 @@ def train_check(torch, dev, smi):
 
 def train_step_phase(torch, dev, smi, check):
     """minicpm-2b whole trained through make_train_step (TRAIN_* above):
-    the warm-up step, then TRAIN_TIMED timed steps with the flash launch
-    count set to 0 before each; step seconds, tokens/s, the 6NT model-FLOP
+    the warm-up step (its operations counted by ``FlopCounterMode``: the
+    first step, as the dry run's), then TRAIN_TIMED timed steps with the
+    flash launch count set to 0 before each; step seconds, tokens/s, the 6NT model-FLOP
     share of 989 TFLOP/s (remat's extra forward not counted; the 8NT share
     beside it), peak memory, one traced step's busy share, each step's
     loss.  Every loss finite and the last below the first."""
@@ -1687,10 +1950,16 @@ def train_step_phase(torch, dev, smi, check):
     n_params = sum(p.numel() for p in state.params.parameters())
     batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
     step = make_train_step(cfg, tc, device=dev)
+    # the warm-up step, its operations counted (the dry run is held to them)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
     t0 = time.perf_counter()
-    state, m = step(state, batch)  # warm-up
+    with counter:
+        state, m = step(state, batch)
     losses = [float(m["loss"])]
     warm_s = time.perf_counter() - t0
+    counted_flops = counter.get_total_flops()
     step_s, launches, lrs, gnorms = [], [], [], []
     for _ in range(TRAIN_TIMED):
         flash_attn.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
@@ -1727,7 +1996,8 @@ def train_step_phase(torch, dev, smi, check):
                model_flops_6NT=flops_6nt,
                mfu_6NT_of_989=flops_6nt / mean_s / PEAK_BF16_FLOPS,
                mfu_8NT_with_remat_of_989=flops_6nt * 8 / 6 / mean_s / PEAK_BF16_FLOPS,
-               peak_device_bytes=peak, losses=losses, lr=lrs, grad_norm=gnorms,
+               peak_device_bytes=peak, flops_counted_one_step=counted_flops,
+               losses=losses, lr=lrs, grad_norm=gnorms,
                flash_launches_per_step=launches,
                flash_backward_ms_one=bwd_ms,
                flash_backward_share_of_step=n_bwd * bwd_ms / 1e3 / mean_s,
@@ -2103,7 +2373,7 @@ def _leaf_bytes(cfg) -> int:
 
 
 def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
-                      loss_rtol) -> dict:
+                      loss_rtol, over=None) -> dict:
     """One train step of ``arch`` (full width, ``n_layers``, float32; audio
     frames or image patches from ``frontend``) at each mesh, the state
     created shard by shard, against the single-process step (rank 0 runs
@@ -2111,7 +2381,7 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
     the loss within ``loss_rtol`` relative, every parameter within
     SHARD_TRAIN_TOL, the summed routed and dropped counts equal;
     creation's peak above the local state by at most one leaf drawn
-    whole."""
+    whole.  ``over``: config overrides (``attn_seq_shard``)."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import TrainConfig
@@ -2124,7 +2394,7 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
     from repro_torch.sharding.policy import ShardingPolicy
 
     gen = lambda: torch.Generator(dev).manual_seed(0)
-    cfg = lm_config(arch, n_layers, dtype="float32")
+    cfg = lm_config(arch, n_layers, dtype="float32", **(over or {}))
     tc = TrainConfig(optimizer=optimizer, remat=False, lr=1e-3, warmup_steps=1,
                      total_steps=5)
     batch = {"tokens": TokenStream(cfg.vocab_size, SHARD_TRAIN_B, SHARD_TRAIN_S,
@@ -2190,14 +2460,14 @@ def shard_train_check(torch, dev, rank, arch, n_layers, optimizer, meshes,
     return out
 
 
-def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
+def shard_serve_check(torch, dev, rank, arch, n_layers, meshes, over=None) -> dict:
     """``arch`` (full width, ``n_layers``, float32) served at each mesh
     (created shard by shard, the ZERO_LEAVES drawn non-zero):
     SHARD_SERVE_B x SHARD_SERVE_S prompt tokens (whisper: AUDIO_PROMPT)
     with their frames or patches, and SHARD_DECODE greedy decode steps
     over the sharded cache, against the single-process run (rank 0,
     first) within LM_GATE_TOL; the summed routed and dropped counts
-    equal."""
+    equal.  ``over``: config overrides (``attn_seq_shard``)."""
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import TokenStream
@@ -2209,7 +2479,7 @@ def shard_serve_check(torch, dev, rank, arch, n_layers, meshes) -> dict:
     from repro_torch.sharding.policy import ShardingPolicy
 
     gen = lambda: torch.Generator(dev).manual_seed(0)
-    cfg = lm_config(arch, n_layers, dtype="float32")
+    cfg = lm_config(arch, n_layers, dtype="float32", **(over or {}))
     B, n = SHARD_SERVE_B, SHARD_DECODE
     S = AUDIO_PROMPT if cfg.family == "audio" else SHARD_SERVE_S
     toks = TokenStream(cfg.vocab_size, B, S, seed=1).batch_at(0)["tokens"]
@@ -2533,6 +2803,193 @@ def shard_multi_rank(torch, dev, rank, rec: dict) -> dict:
     return rec
 
 
+# ``lm_seq_multi`` (``--multi-card``): sequence-parallel attention across
+# four cards.  smollm-135m whole (bf16; 9 heads, 3 kv heads: 4 divides
+# neither) served at (1, 4), SEQ_SERVE_B x SEQ_SERVE_S prompt tokens with
+# and without ``attn_seq_shard``, each timed, their logits within
+# LM_GATE_TOL of each other; minicpm-2b at 2 layers in float32 with
+# ``attn_seq_shard``: a train step and serving at (1, 4) against one
+# process (``lm_shard_check``'s gates); and ``lm_shard_multi``'s minicpm-2b
+# step at (2, 2) (TRAIN_* above) on rank 0 -- one step under CommDebugMode
+# and one under the dry run's DeviceCounter, the peak over creation and
+# steps -- against the dry run of that step on a fake (2, 2) world: each
+# collective kind's count (CommDebugMode's) and bytes equal, the peak
+# within DRY_PEAK_TOL.
+SEQ_ARCH, SEQ_SERVE_B, SEQ_SERVE_S, SEQ_TIMED = "smollm-135m", 4, 8192, 3
+
+
+def _coll_kinds(counts: dict) -> dict:
+    """CommDebugMode's counts by collective operator -> by JAX's kind."""
+    from repro_torch.launch.dryrun import _COLL_KINDS
+
+    out = {}
+    for op, n in counts.items():
+        kind = _COLL_KINDS.get(getattr(op, "__name__", str(op)).split(".")[-1], str(op))
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def seq_serve_compare(torch, dev, rank) -> dict:
+    """smollm-135m whole served at (1, 4) with and without
+    ``attn_seq_shard``: a warm-up and SEQ_TIMED timed prefills each, the
+    flash launches (with positions) of one; the largest logit difference
+    over every rank's local shard."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flash_attn.ops import ROUTES, flash_attn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.sharding import place as PL
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    pol = ShardingPolicy(mesh=make_local_mesh(model=4, device=dev))
+    base = lm_config(SEQ_ARCH)
+    params = PL.init_sharded(base, pol, torch.Generator(dev).manual_seed(0))
+    prompt = {"tokens": TokenStream(base.vocab_size, SEQ_SERVE_B, SEQ_SERVE_S,
+                                    seed=2).batch_at(0)["tokens"]}
+    out, logits = {}, {}
+    for tag, flag in (("plain", False), ("seq_shard", True)):
+        step = make_prefill_step(dataclasses.replace(base, attn_seq_shard=flag), pol, dev)
+        lg, _ = step(params, prompt)  # warm-up
+        del lg
+        times = []
+        for _ in range(SEQ_TIMED):
+            counts = _flash_counts()
+            flash_attn.POSITION_LAUNCHES = dict.fromkeys(ROUTES, 0)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            lg, cache = step(params, prompt)
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append(time.perf_counter() - t0)
+            del cache
+        logits[tag] = PL.local(lg)
+        out[tag] = dict(prefill_s=times, flash_launches=dict(counts),
+                        position_launches=dict(flash_attn.POSITION_LAUNCHES))
+    diff = (logits["plain"].float() - logits["seq_shard"].float()).abs().max()
+    dist.all_reduce(diff, op=dist.ReduceOp.MAX)
+    out.update(arch=SEQ_ARCH, B=SEQ_SERVE_B, S=SEQ_SERVE_S, mesh=[1, 4],
+               max_abs_logit_diff=float(diff), tol=LM_GATE_TOL,
+               ok=float(diff) <= LM_GATE_TOL and out["seq_shard"]["position_launches"]
+               .get("tensor_core", 0) == base.n_layers)
+    del params, logits, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def counted_train_step(torch, dev, rank) -> dict:
+    """``lm_shard_multi``'s minicpm-2b step at (2, 2): created shard by
+    shard, a warm-up step, one step under CommDebugMode, one under the dry
+    run's DeviceCounter; the peak over all of it."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.dryrun import DeviceCounter
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.sharding.policy import auto_policy
+
+    cfg = lm_config(TRAIN_ARCH)
+    tc = TrainConfig(**train_tc_kw())
+    mesh = make_local_mesh(model=2, device=dev)
+    pol = auto_policy(cfg, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    st = TrainState.create(cfg, tc, torch.Generator(dev).manual_seed(0), device=dev,
+                           policy=pol)
+    batch = {"tokens": TokenStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).batch_at(0)["tokens"]}
+    step = make_train_step(cfg, tc, device=dev)
+    st, m = step(st, batch)
+    comm = CommDebugMode()
+    with comm:
+        st, m = step(st, batch)
+    counter = DeviceCounter(mesh)
+    with counter:
+        st, m = step(st, batch)
+    torch.cuda.synchronize()
+    rec = dict(arch=TRAIN_ARCH, mesh=[2, 2], fsdp=pol.fsdp, B=TRAIN_B, S=TRAIN_S,
+               microbatch=TRAIN_MICRO, peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+               comm_counts=_coll_kinds(comm.get_comm_counts()),
+               counted=counter.coll_summary(), counted_flops=counter.flops,
+               loss=float(m["loss"]))
+    del st, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq_multi_rank(torch, dev, rank, rec: dict) -> dict:
+    """A rank of ``lm_seq_multi`` (the comment above), its runs into ``rec``."""
+    rec["serve_compare"] = seq_serve_compare(torch, dev, rank)
+    over = {"attn_seq_shard": True}
+    rec["train"] = shard_train_check(torch, dev, rank, TRAIN_ARCH, TRAIN_CHECK_LAYERS,
+                                     "adamw", ((1, 4),), SHARD_TRAIN_TOL["loss_rtol"], over)
+    rec["serve"] = shard_serve_check(torch, dev, rank, TRAIN_ARCH, TRAIN_CHECK_LAYERS,
+                                     ((1, 4),), over)
+    rec["counted_step"] = counted_train_step(torch, dev, rank)
+    if rank == 0:
+        rec["ok"] = (rec["serve_compare"]["ok"]
+                     and all(m["ok"] for k in ("train", "serve")
+                             for m in rec[k]["meshes"].values()))
+    return rec
+
+
+def lm_seq_multi(torch, smi) -> dict:
+    """``--multi-card``: four NCCL ranks, a card each (the comment above),
+    the dry run of the (2, 2) step beside them."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        emit("lm_seq_multi", note=f"not run: {n_cards} card(s) visible, four needed",
+             smi=smi)
+        return None
+    jobs = start_dry_jobs([dry_spec(
+        "train_step_2x2", TRAIN_ARCH, ["train_step", "train", TRAIN_S, TRAIN_B],
+        over=dict(attn_impl="chunked"), tc=train_tc_kw(), mesh=[[2, 2], ["data", "model"]])])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs, rcs = run_shard_world(4, "seq", "seq", "nccl", ids=(0, 1, 2, 3),
+                                timeout=MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = dict(world=4, backend="nccl", rcs=rcs, wall_s=wall, smi=smi,
+               errors=[r.get("error") or r.get("log_tail") for r in recs
+                       if "error" in r or "log_tail" in r])
+    ok = rcs == [0] * 4 and bool(recs[0].get("ok"))
+    if rcs == [0] * 4:
+        r0 = recs[0]
+        out.update(serve_compare=r0["serve_compare"], train=r0["train"], serve=r0["serve"],
+                   flash_launches_by_rank=[r["serve_compare"]["seq_shard"]["position_launches"]
+                                           for r in recs])
+        dry = read_dry_jobs(jobs)["train_step_2x2"]
+        real = r0["counted_step"]
+        pred_counts = {k: sum(ax.values()) for k, ax in dry["collectives"]["counts"].items()}
+        pred_bytes = {k: sum(ax.values()) for k, ax in dry["collectives"]["bytes"].items()}
+        real_bytes = {k: sum(ax.values()) for k, ax in real["counted"]["bytes"].items()}
+        peak_rel = dry["memory"]["peak_bytes_per_device"] / real["peak_device_bytes"] - 1.0
+        out["dryrun_2x2"] = dict(
+            predicted_counts=pred_counts, commdebug_counts=real["comm_counts"],
+            predicted_bytes=pred_bytes, counted_bytes=real_bytes,
+            predicted_peak_bytes=dry["memory"]["peak_bytes_per_device"],
+            measured_peak_bytes=real["peak_device_bytes"], peak_rel_err=peak_rel,
+            predicted_flops=dry["roofline"]["flops_per_chip"],
+            counted_flops=real["counted_flops"], trace_s=dry["trace_s"],
+            links=dry["roofline"]["links"])
+        ok = (ok and pred_counts == real["comm_counts"] and pred_bytes == real_bytes
+              and abs(peak_rel) <= DRY_PEAK_TOL)
+    else:  # the world failed: its dry run is not read
+        for _, proc, log, _ in jobs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    out["ok"] = ok
+    emit("lm_seq_multi", **out)
+    if not ok:
+        raise AssertionError(f"lm_seq_multi failed: rcs {rcs}")
+    return out
+
+
 def shard_rank(job, out) -> int:
     """``--shard-rank``: this process is a rank of ``run_shard_world``."""
     import faulthandler
@@ -2553,7 +3010,8 @@ def shard_rank(job, out) -> int:
     dev = torch.device(info["device"])
     rec = {"rank": rank, "device": str(dev), "backend": info["backend"]}
     try:
-        fn = {"check": shard_check_rank, "multi": shard_multi_rank}[job]
+        fn = {"check": shard_check_rank, "multi": shard_multi_rank,
+              "seq": seq_multi_rank}[job]
         fn(torch, dev, rank, rec)  # fills rec run by run: a failure keeps the runs before
         rc = 0
     except Exception:  # noqa: BLE001 -- reported, and the rank exits non-zero
@@ -3764,23 +4222,25 @@ def multi_card_only(torch, dev, smi, n) -> int:
     distributed_phase(torch, smi)
     lm_shard_check(torch, smi, world=4)
     lm_shard_multi(torch, dev, smi)
+    lm_seq_multi(torch, smi)
     print(smi, flush=True)
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=8192,
+    ap.add_argument("--n", type=int, default=6144,
                     help="series in the main-path run (Fish1_Normo has 53,053)")
     ap.add_argument("--sig-n", type=int, default=1024,
                     help="series in the significance-path run")
     ap.add_argument("--only", default=None,
                     help="run only these phases after the build, comma-separated: "
                     "train_cli, lm_shard_check, lm_shard_check4, examples, "
-                    "lm_shard_multi")
-    ap.add_argument("--shard-rank", choices=("check", "multi"), default=None,
+                    "lm_shard_multi, lm_seq_multi, flash_positions, lm_dryrun")
+    ap.add_argument("--shard-rank", choices=("check", "multi", "seq"), default=None,
                     help=argparse.SUPPRESS)  # a rank of run_shard_world
     ap.add_argument("--shard-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dry-job", default=None, help=argparse.SUPPRESS)  # a dry run
     ap.add_argument("--multi-card", action="store_true",
                     help="only the phases across cards and ranks, for a "
                     "machine with several cards: the main path on card 0, "
@@ -3796,6 +4256,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    if args.dry_job:  # host only: no card
+        return dry_job(args.dry_job)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no CUDA card",
               file=sys.stderr)
@@ -3837,7 +4299,12 @@ def main(argv=None) -> int:
                 "lm_shard_check": lambda: lm_shard_check(torch, smi),
                 "lm_shard_check4": lambda: lm_shard_check(torch, smi, world=4),
                 "examples": lambda: examples_phase(torch, dev, smi),
-                "lm_shard_multi": lambda: lm_shard_multi(torch, dev, smi)}
+                "lm_shard_multi": lambda: lm_shard_multi(torch, dev, smi),
+                "lm_seq_multi": lambda: lm_seq_multi(torch, smi),
+                "lm_dryrun": lambda: lm_dryrun(
+                    torch, smi, start_dry_jobs(smoke_dry_specs()),
+                    train_step_phase(torch, dev, smi, train_check(torch, dev, smi))),
+                "flash_positions": lambda: flash_positions(torch, dev, smi)}
         for name in args.only.split(","):
             only[name]()
         print(smi, flush=True)
@@ -3845,10 +4312,14 @@ def main(argv=None) -> int:
     if args.multi_card:
         return multi_card_only(torch, dev, smi, args.n)
 
+    # ---- the LM dry runs: host only, beside the phases below ------------
+    dry_jobs = start_dry_jobs(smoke_dry_specs())
+
     # ---- the LM serving path: flash kernel checks and times, qwen2.5-3b ---
     # first, in a fresh process: after the EDM paths have run, the same
     # decode steps take about twice as long (PERF.md, open questions)
     flash_err = check_flash(torch, dev)
+    fpos = flash_positions(torch, dev, smi)
     ftimes = time_flash(torch, dev, smi)
     ftimes_moe = time_flash(torch, dev, smi, MOE_ARCH)
     # the hybrid, audio and vlm serve shapes (the decoder's self-attention of
@@ -3874,6 +4345,7 @@ def main(argv=None) -> int:
     # through make_train_step, the train CLI and a bit-exact resume
     tcheck = train_check(torch, dev, smi)
     tstep = train_step_phase(torch, dev, smi, tcheck)
+    lm_dryrun(torch, smi, dry_jobs, tstep)
     train_cli(torch, dev, smi)
     # the sharded LM paths (one NCCL rank, mesh (1, 1)) and the LM examples
     lm_shard_check(torch, smi)
@@ -4615,6 +5087,12 @@ def main(argv=None) -> int:
                               ("library_ms", "library_ms"), ("bound_ms", "bound_ms"))},
          "launches_fleet": {k: v["flash_attn"] for k, v in fleet.items()},
          "launches_train": tstep["flash_launches_per_step"][-1],
+         "launches_flash_positions": fpos["launches"],
+         "max_abs_err_positions_f32": fpos["max_abs_err_f32"],
+         **{f"{key}_positions_{case.split('_')[0]}": t[key] for case, t in fpos["times"].items()
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms") if key in t},
+         **{f"ms_positions_{case.split('_')[0]}": t["kernel_ms"]
+            for case, t in fpos["times"].items()},
          "train_step_s": tstep["step_s_mean"],
          "backward_ms_train_shape": tcheck["bfloat16"]["backward_ms"],
          "checked": True, "checked_grad": True},

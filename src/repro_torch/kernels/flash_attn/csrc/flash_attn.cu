@@ -6,12 +6,25 @@
 //
 // Computes, per batch b and query head h (kv head g = h / (H / K)),
 //   o[b, i, h] = sum_j softmax_j(s_ij) v[b, j, g],  s_ij = (q[b, i, h] / sqrt(dh)) . k[b, j, g]
-// with s_ij = -1e30 where causal and i < j (top-left aligned, as the
-// Pallas kernel), over the keys j < Sk only: a key at or beyond Sk never
+// with s_ij = -1e30 where causal and p_i < j, p_i the position of query
+// row i: i itself (top-left aligned, as the Pallas kernel) or q_pos[i]
+// where a position array is given, over the keys j < Sk only: a key at or beyond Sk never
 // enters the softmax (the JAX wrapper pads keys with zeros, which the
 // non-causal softmax then counts; these kernels mask them themselves).
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o like q; read and written in
 // that layout in place.
+//
+// Positions (q_pos, int32 (Sq,), optional): the rows of one rank of
+// sequence-parallel attention (sharding/attention.py) are a subset of the
+// sequence -- a contiguous run, or C / n rows of every chunk of C --, so
+// row i attends to the keys j <= q_pos[i].  q_pos must be non-decreasing
+// (the wrapper asserts it on the device): a tile's last row then holds its
+// largest position, which bounds the key tiles it reads, and its first row
+// the smallest, which says whether a key tile needs the mask.  With
+// positions the wrapper also passes the tiles' launch order (`order`,
+// int32, one entry a tile: the tiles by their last position, largest
+// first), so the heaviest tiles still go first.  Without them both
+// pointers are null and the kernels are the top-left ones, bit for bit.
 //
 // What bounds it on this card: operations.  4 * B * H * dh * Sq * Sk
 // (halved when causal) against 989 TFLOP/s of bf16 tensor cores; the
@@ -28,7 +41,8 @@
 // asynchronous:
 //  * one block of 288 threads per (128 query rows, batch * head), the
 //    heaviest causal tiles first (the query tile is the slow grid
-//    dimension, so the first wave takes the longest rows of every head);
+//    dimension, so the first wave takes the longest rows of every head:
+//    the highest tile index, or the first entry of `order`);
 //  * warp 8 is the producer: one thread loads the block's q once and then
 //    K and V tiles of 64 keys through TMA (cp.async.bulk.tensor, 4-D maps
 //    over (dh, heads, S, B), so (B, S, K, dh) is read in place with a row
@@ -43,7 +57,7 @@
 //    v from shared memory through the transpose bit (MN-major B);
 //  * keys >= Sk: TMA zero-fills rows past Sk (and columns past dh, which
 //    pad dh to 64 or 128), and the kernel still masks those keys to -inf;
-//    a warpgroup skips the tiles wholly above its rows' diagonal;
+//    a warpgroup skips the tiles wholly past its last row's position;
 //  * p is rounded to bf16 before p v, as in every such kernel, so the
 //    result is not one bf16 rounding of the f32 plain version: the checks
 //    hold it to twice the error of F.scaled_dot_product_attention on the
@@ -53,13 +67,14 @@
 // flash_attn_launch -- every other case (float32, the gate route; bf16 at
 // other head dims) on the CUDA cores: one block of 256 threads per (query
 // tile of 64 rows, batch * head); the heaviest causal tiles are scheduled
-// first.  The block stages its q tile (scaled) in shared memory once,
-// then per tile of 64 keys stages k and v
+// first (the highest tile index, or the first entry of `order`).  The
+// block stages its q tile (scaled) in shared memory once, then per tile
+// of 64 keys stages k and v
 // (zero past Sk and past dh), computes the 64 x 64 logits with each thread
 // owning a 4 x 4 sub-tile, masks, updates the per-row running max m and
 // sum l (the 16 threads of a row reduce with warp shuffles), writes p
 // into the k buffer and accumulates p . v into a 4 x (D / 16) register
-// tile.  Key tiles wholly above the causal diagonal are skipped.  Output
+// tile.  Key tiles wholly past the tile's last position are skipped.  Output
 // acc / max(l, 1e-30), all math in float32.  The products are explicit
 // fmaf calls, so --fmad=false (every kernel's flag; the float32 gate's
 // numbers rest on this code's rounding) does not split them; it does keep
@@ -107,7 +122,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                  int H, int K, int dh, int causal, float scale) {
+                  int H, int K, int dh, int causal, float scale,
+                  const int* __restrict__ qpos, const int* __restrict__ order) {
   constexpr int LD = D + 1;   // odd row stride: column reads are conflict-free
   constexpr int kDC = D / kTX;  // head-dim columns per thread
   constexpr int kKReg = kBK * LD > kBQ * kPLD ? kBK * LD : kBQ * kPLD;
@@ -117,7 +133,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kKReg;      // [kBK][LD]
   float* Ps = Ks;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
+  // heaviest tiles first
+  const int q0 = (order ? order[blockIdx.x] : (int)(gridDim.x - 1 - blockIdx.x)) * kBQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int g = h / (H / K);
   const int tid = threadIdx.x;
@@ -147,8 +164,15 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int p_last = qpos ? qpos[q_last] : q_last;  // the tile's largest position
   int n_kt = (Sk + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, q_last / kBK + 1);  // skip tiles above the diagonal
+  if (causal) n_kt = min(n_kt, p_last / kBK + 1);  // skip tiles past it
+  int qp[kRows];  // each row's position (a row past Sq: the last row's)
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = q0 + ty + kTY * i;
+    qp[i] = qpos ? qpos[min(r, Sq - 1)] : r;
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
@@ -186,13 +210,12 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty + kTY * i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kpos = k0 + tx + kTX * j;
         if (kpos >= Sk) s[i][j] = -INFINITY;  // no such key: exp gives 0
-        else if (causal && qpos < kpos) s[i][j] = kNeg;
+        else if (causal && qp[i] < kpos) s[i][j] = kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -251,7 +274,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int K, int dh, int causal, cudaStream_t stream) {
+           int Sk, int H, int K, int dh, int causal, const int* qpos,
+           const int* order, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -260,16 +284,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale);
+      static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale, qpos, order);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Sk, int H, int K, int dh, int causal, cudaStream_t stream) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, stream);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, stream);
-  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, stream);
+              int Sk, int H, int K, int dh, int causal, const int* qpos,
+              const int* order, cudaStream_t stream) {
+  if (dh <= 32)
+    return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
+  if (dh <= 64)
+    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
+  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
 }
 
 }  // namespace
@@ -454,7 +481,8 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                        int K, int dh, int causal, float scale_log2) {
+                        int K, int dh, int causal, float scale_log2,
+                        const int* __restrict__ qpos, const int* __restrict__ order) {
   constexpr int kNSub = D / kSub;
   constexpr int kQBytes = 2 * kNSub * kSubBytes;     // both warpgroups' q
   constexpr int kTileBytes = kNSub * kSubBytes;      // one K (or V) stage
@@ -469,10 +497,12 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int g = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
+  // heaviest tiles first
+  const int q0 = (order ? order[blockIdx.y] : (int)(gridDim.y - 1 - blockIdx.y)) * kBQ;
   const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int p_last = qpos ? qpos[q_last] : q_last;  // the tile's largest position
   int n_kt = (Sk + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, q_last / kBK + 1);  // skip tiles above the diagonal
+  if (causal) n_kt = min(n_kt, p_last / kBK + 1);  // skip tiles past it
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
@@ -511,6 +541,13 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wq0 = q0 + 64 * wg;
   const int wq_last = min(wq0 + 64, Sq) - 1;  // < wq0: no rows of this warpgroup
   const int row0 = wq0 + (warp & 3) * 16 + (lane >> 2);  // and row0 + 8
+  // positions: the warpgroup's first (smallest) and last (largest), and
+  // this thread's two rows' (a row past Sq: the last row's)
+  const bool has_rows = wq_last >= wq0;
+  const int wp_first = qpos ? (has_rows ? qpos[wq0] : 0) : wq0;
+  const int wp_last = qpos ? (has_rows ? qpos[wq_last] : -1) : wq_last;
+  const int rp0 = qpos ? qpos[min(row0, Sq - 1)] : row0;
+  const int rp1 = qpos ? qpos[min(row0 + 8, Sq - 1)] : row0 + 8;
   const int cq = 2 * (lane & 3);  // column of this thread within each 8-wide chunk
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -523,7 +560,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int s = t % kStages;
     const int k0 = t * kBK;
     mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
-    if (wq_last >= wq0 && !(causal && k0 > wq_last)) {
+    if (has_rows && !(causal && k0 > wp_last)) {
       // S = q k^T over the head dim: 64 x 64 f32 in registers
       float sc[32];
 #pragma unroll
@@ -543,14 +580,14 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs<32>(sc);
 
-      // masks: keys >= Sk never enter; causal -1e30 above the diagonal
-      if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > wq0)) {
+      // masks: keys >= Sk never enter; causal -1e30 past the row's position
+      if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > wp_first)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int col = k0 + 8 * (i >> 2) + cq + (i & 1);
-          const int row = row0 + 8 * ((i >> 1) & 1);
+          const int rp = ((i >> 1) & 1) ? rp1 : rp0;
           if (col >= Sk) sc[i] = -INFINITY;
-          else if (causal && row < col) sc[i] = kNeg;
+          else if (causal && rp < col) sc[i] = kNeg;
         }
       }
       // online softmax in f32, exp2 with scale * log2(e) folded in
@@ -601,7 +638,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
   }
 
-  if (wq_last < wq0) return;
+  if (!has_rows) return;
   const size_t q_row = (size_t)H * dh;
   __nv_bfloat16* ob = o + (size_t)b * Sq * q_row + (size_t)h * dh;
 #pragma unroll
@@ -664,7 +701,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int K, int dh, int causal, cudaStream_t stream) {
+           int Sk, int H, int K, int dh, int causal, const int* qpos,
+           const int* order, cudaStream_t stream) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -7;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -679,7 +717,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, dh, causal,
-      scale_log2);
+      scale_log2, qpos, order);
   return (int)cudaGetLastError();
 }
 
@@ -693,28 +731,36 @@ const char* kernel_error_string(int code) {
 
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous,
 // all of one type: dtype 0 = float32, 1 = bfloat16.  H % K == 0,
-// 1 <= dh <= 128, B * H <= 65535.  Returns 0, a negative argument code,
-// or the CUDA error of the launch.
+// 1 <= dh <= 128, B * H <= 65535.  q_pos: null (row i at position i) or
+// int32 (Sq,), non-decreasing; order: null, or (with q_pos) int32, one
+// entry for each tile of 64 rows, the launch order.  Returns 0, a negative
+// argument code, or the CUDA error of the launch.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
                       int dtype, int B, int Sq, int Sk, int H, int K, int dh,
-                      int causal, void* stream) {
+                      int causal, const int* q_pos, const int* order, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128) return -3;
   if ((long long)B * H > 65535) return -4;
+  if ((q_pos == nullptr) != (order == nullptr)) return -6;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, s);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, s);
+  if (dtype == 0)
+    return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
+  if (dtype == 1)
+    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos,
+                                    order, s);
   return -5;
 }
 
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous
 // bfloat16.  H % K == 0, dh a multiple of 16 in [16, 128],
-// ceil(Sq / 128) <= 65535 (grid.y; B * H is grid.x).  Returns 0, a
-// negative argument code, or the CUDA error of the launch.
+// ceil(Sq / 128) <= 65535 (grid.y; B * H is grid.x).  q_pos / order as
+// flash_attn_launch's, order one entry for each tile of 128 rows.
+// Returns 0, a negative argument code, or the CUDA error of the launch.
 int flash_attn_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                             int B, int Sq, int Sk, int H, int K, int dh,
-                            int causal, void* stream) {
+                            int causal, const int* q_pos, const int* order,
+                            void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128 || dh % 16 != 0) return -3;
@@ -722,8 +768,9 @@ int flash_attn_wgmma_launch(const void* q, const void* k, const void* v, void* o
       ((long long)Sq + tc::kBQ - 1) / tc::kBQ > 65535)
     return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, s);
-  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, s);
+  if ((q_pos == nullptr) != (order == nullptr)) return -6;
+  if (dh <= 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
+  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
 }
 
 }  // extern "C"

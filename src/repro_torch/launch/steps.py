@@ -106,6 +106,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, device=None):
         return T.loss_fn(params, batch, cfg, tc)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        with T.shard_ctx(state.params):  # around the backward's recompute too
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> tuple[TrainState, dict]:
         model = state.params
         if T.is_sharded(model):
             # the whole host batch: each micro-batch is placed by the batch specs

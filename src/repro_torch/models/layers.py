@@ -18,7 +18,10 @@ the memory shape of JAX's checkpointed chunks (JAX's unroll flag has no
 counterpart).  ``q_pos`` (decode, prefill into a longer cache) is the
 dense version, as in JAX.  Every self-attention with a cache goes
 through :func:`cached_attention`.  Sequence-parallel attention
-(``attn_seq_shard``) is not ported and raises.
+(``attn_seq_shard``) spreads the query rows over the "model" axis under
+a sharding context (``sharding/attention.py``, JAX's
+``constrain_seq_parallel``); on tensors that are not DTensors, as outside
+JAX's context, it changes nothing.
 
 Sharded (the dense family under a ``ShardingPolicy``, ``sharding/``):
 the parameters are DTensors.  A linear gathers the weight's FSDP axis
@@ -28,7 +31,9 @@ row: a partial sum); :func:`as_activation` brings a block's output back
 to the activation layout (batch on the data axes, the rest replicated:
 the row-parallel all-reduce); an attention whose q is a DTensor goes to
 ``sharding/attention.py`` (each rank on its own heads, the flash-decode
-over a sequence-sharded cache, self or cross).
+over a sequence-sharded cache, self or cross; with ``seq_shard``, each
+rank of the model axis on its own query rows, the kernel at their
+positions).
 
 Parameters are trainable (``requires_grad``); serving runs under
 ``torch.inference_mode()`` (``launch/steps.py``).
@@ -83,16 +88,24 @@ def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
 
 def redistribute(w: torch.Tensor, plc) -> torch.Tensor:
     """DTensor ``w`` redistributed to ``plc``.  With grad mode off a weight
-    that requires grad is first rewrapped from its local tensor, which
-    does not: the redistribute of one would detach its output in place,
-    which DTensor has no strategy for (and ``detach`` of a DTensor fails
-    under inference mode)."""
-    if w.requires_grad and not torch.is_grad_enabled():
+    that requires grad is first rewrapped (:func:`no_grad_view`): the
+    redistribute of one would detach its output in place, which DTensor
+    has no strategy for (and ``detach`` of a DTensor fails under inference
+    mode)."""
+    return no_grad_view(w).redistribute(w.device_mesh, plc)
+
+
+def no_grad_view(w: torch.Tensor) -> torch.Tensor:
+    """With grad mode off, a DTensor weight that requires grad rewrapped
+    from its local tensor, which does not (a view of one, as the tied
+    head's transpose, fails under inference mode); any other tensor as it
+    is."""
+    if _is_dt(w) and w.requires_grad and not torch.is_grad_enabled():
         from torch.distributed.tensor import DTensor
 
         w = DTensor.from_local(w.to_local(), w.device_mesh, w.placements,
                                run_check=False, shape=w.shape, stride=w.stride())
-    return w.redistribute(w.device_mesh, plc)
+    return w
 
 
 def replicate(w: torch.Tensor) -> torch.Tensor:
@@ -262,7 +275,7 @@ class AttnDims:
     kv_d_model: Optional[int] = None  # cross-attn source width
     impl: str = "xla"  # xla (dense S^2) | chunked (the flash kernel)
     chunk: int = 1024  # query rows of a chunk of the flash backward
-    seq_shard: bool = False  # sequence-parallel attention: not ported
+    seq_shard: bool = False  # sequence-parallel attention (sharding/attention.py)
 
 
 class Attention(nn.Module):
@@ -277,15 +290,15 @@ class Attention(nn.Module):
 
 def _sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla",
           chunk: int = 1024, seq_shard: bool = False):
-    if seq_shard:
-        raise NotImplementedError(
-            "sequence-parallel attention (attn_seq_shard) is not ported: its "
-            "sequence sharding comes with the LM dry run (ROADMAP queue 1)"
-        )
+    """Attention of q (B, Sq, H, dh) over k / v (B, Sk, K, dh) (module
+    docstring).  ``seq_shard`` acts on DTensors only (under a sharding
+    context, ``sharding/attention.py``): on plain tensors the result is
+    the one without it, as JAX's constraint is a no-op there."""
     if _is_dt(q):
         from repro_torch.sharding import attention as SA
 
-        return SA.sdpa(q, k, v, causal, q_pos=q_pos, impl=impl, chunk=chunk)
+        return SA.sdpa(q, k, v, causal, q_pos=q_pos, impl=impl, chunk=chunk,
+                       seq_shard=seq_shard)
     if impl == "chunked" and q.shape[1] > 1 and q_pos is None:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             return FlashAttnFn.apply(q, k, v, causal, chunk)
@@ -307,16 +320,13 @@ def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
     arange(S) -- so it reaches the flash kernel on ``chunked``; any other
     write (decode, a prefill into a longer cache) attends over the cache
     with ``q_pos``, which hides the unwritten slots, on the plain version.
+    ``seq_shard``: the prefill filling the cache as in :func:`_sdpa`.
     """
-    if seq_shard:
-        raise NotImplementedError(
-            "sequence-parallel attention (attn_seq_shard) is not ported: its "
-            "sequence sharding comes with the LM dry run (ROADMAP queue 1)"
-        )
     if _is_dt(cache["k"]):
         from repro_torch.sharding import attention as SA
 
-        return SA.cached_attention(q, k, v, cache, cache_pos, impl=impl, chunk=chunk)
+        return SA.cached_attention(q, k, v, cache, cache_pos, impl=impl, chunk=chunk,
+                                   seq_shard=seq_shard)
     Sq, S_max = q.shape[1], cache["k"].shape[1]
     if not 0 <= cache_pos <= S_max - Sq:
         raise ValueError(
@@ -353,7 +363,7 @@ def attention_fwd(
     kw = dict(impl=a.impl, chunk=a.chunk, seq_shard=a.seq_shard)
     self_cache = cache is not None and cache_pos is not None and kv_src is None
     if cache is not None and not self_cache:  # cross-attn, precomputed source kv
-        if _is_dt(q) and not a.seq_shard:
+        if _is_dt(q) and not (a.seq_shard and Sq > 1):  # a decode reads it where it lies
             from repro_torch.sharding import attention as SA
 
             o = SA.cross_attention(q, cache["k"], cache["v"], impl=a.impl, chunk=a.chunk)

@@ -63,7 +63,9 @@ the source sequence or on kv heads (``sharding/attention.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -352,7 +354,8 @@ def _embed(p: Embed, cfg: ModelConfig, tokens: torch.Tensor, pos_offset: int = 0
 
 def _head(p: Embed, cfg: ModelConfig, x):
     x = L.apply_norm(cfg.norm, p.ln_f, x)
-    w = L.gather_fsdp(p.tok).t() if cfg.tie_embeddings else L.gather_fsdp(p.lm_head)
+    w = (L.no_grad_view(L.gather_fsdp(p.tok)).t() if cfg.tie_embeddings
+         else L.gather_fsdp(p.lm_head))
     return (x @ w).float()
 
 
@@ -381,6 +384,28 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
 def is_sharded(params: LM) -> bool:
     """True where the module's parameters are DTensors."""
     return L._is_dt(params.embed.tok)
+
+
+def shard_ctx(params: LM):
+    """The sharding context (``sharding/ctx.py``) of a sharded module's
+    policy, which sequence-parallel attention reads; a null context for
+    any other module.  ``forward``, ``prefill`` and ``decode_step`` enter
+    it, and the train step around its backward (remat's recompute)."""
+    if not is_sharded(params):
+        return contextlib.nullcontext()
+    from repro_torch.sharding.ctx import sharding_ctx
+
+    pol = params.sharding_policy
+    return sharding_ctx(pol.mesh, pol)
+
+
+def _in_shard_ctx(fn):
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        with shard_ctx(params):
+            return fn(params, *args, **kwargs)
+
+    return run
 
 
 #: the frontend's precomputed embeddings a batch of each family carries
@@ -858,6 +883,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     return model
 
 
+@_in_shard_ctx
 def forward(params: LM, batch: dict, cfg: ModelConfig, remat: bool = True):
     """Full-sequence forward -> (logits (B, S, V_pad) f32, the sum of the
     layers' MoE aux losses (f32; 0 without experts)).  batch: {'tokens'},
@@ -911,6 +937,7 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, dtype=None,
     return make(cfg, B, cache_len, dtype, dev)
 
 
+@_in_shard_ctx
 def prefill(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """Fill the cache from a full prompt -> (logits (B, S, V_pad), or
     (B, 1, V_pad) with ``prefill_last_only``; the cache, written in place)."""
@@ -930,6 +957,7 @@ def prefill(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     return _prefill_head(params, cfg, x), cache
 
 
+@_in_shard_ctx
 def decode_step(params: LM, batch: dict, cache: dict, cfg: ModelConfig):
     """One-token decode.  batch: {'token': (B, 1), 'pos': int} -> (logits
     (B, 1, V_pad), the cache, written in place: the token's keys and values

@@ -25,8 +25,28 @@ flash-decode over a sequence-sharded KV cache.
     over the model axis (JAX's flash-decode layout); over a cache sharded
     on heads, or not at all, each rank attends over its local heads.
 
-Outputs keep q's placements.  The values equal the plain version's on
-the whole tensors up to the summation order of the split softmax.
+Sequence-parallel attention (``attn_seq_shard``, JAX's
+``constrain_seq_parallel`` inside ``_sdpa`` / ``_sdpa_chunked``): under a
+sharding context (``sharding/ctx.py``) whose policy has a model axis of
+n > 1 and is not ``dp_only``, :func:`sdpa` gives each rank of "model" its
+own query rows -- on ``impl="chunked"`` C / n rows of every ``attn_chunk``
+block of C (JAX's layout: each rank holds a share of every chunk, which
+balances the causal work), on ``impl="xla"`` a contiguous run of Sq / n --
+where n divides the chunk (the sequence); elsewhere the sequence stays
+whole and the heads route above runs, as the constraint decides.  k and v
+stay whole on "model" (gathered where they were on kv heads); each rank
+runs the kernel on its rows at their positions (:func:`seq_rank_attention`,
+a plain function of one rank, which one card can call for each); the
+output comes back replicated on "model", one all-gather: the only
+collective the route adds to a forward.  Training: q's gradient comes
+back through the constraint (an all-gather), k's and v's as partial sums
+over "model".  Cross attention takes the route with ``causal=False``; a
+decode (Sq == 1) or a prefill into a longer cache (``q_pos`` given) does
+not.
+
+Outputs keep q's placements (the sequence-parallel route: replicated on
+"model").  The values equal the plain version's on the whole tensors up
+to the summation order of the split softmax.
 """
 from __future__ import annotations
 
@@ -74,9 +94,113 @@ def _kv_heads(kl, h0: int, H_l: int, g: int):
     return kl.index_select(2, idx)
 
 
-def sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla", chunk: int = 1024):
+def seq_layout(Sq: int, n: int, impl: str, chunk: int):
+    """(rows a block, period) of a rank's rows in sequence-parallel
+    attention over n ranks: rank r holds rows r * block .. (r + 1) * block
+    - 1 of every ``period`` rows; None where the sequence stays whole (n
+    does not divide the chunk, or on ``chunked`` the chunk does not divide
+    Sq: JAX's dense fallback)."""
+    if n <= 1 or Sq <= 1:
+        return None
+    if impl == "chunked":
+        C = min(chunk, Sq)
+        if Sq % C or C % n:
+            return None
+        return C // n, C
+    return (Sq // n, Sq) if Sq % n == 0 else None
+
+
+def seq_rank_rows(x: torch.Tensor, rank: int, n: int, block: int, period: int):
+    """Rank ``rank``'s rows (dim 1) of a whole (B, Sq, ...) tensor."""
+    B, Sq = x.shape[:2]
+    v = x.reshape(B, Sq // period, period, *x.shape[2:])
+    return v[:, :, rank * block:(rank + 1) * block].reshape(B, Sq // n, *x.shape[2:])
+
+
+def seq_stitch(outs, n: int, block: int, period: int) -> torch.Tensor:
+    """The whole (B, Sq, ...) tensor from every rank's rows, rank order."""
+    B, rows = outs[0].shape[:2]
+    tail = outs[0].shape[2:]
+    parts = [o.reshape(B, rows // block, block, *tail) for o in outs]
+    return torch.cat(parts, dim=2).reshape(B, rows * n, *tail)
+
+
+def _rows_attention(rows, k, v, rank: int, block: int, period: int, chunk: int,
+                    causal: bool, impl: str):
+    """Attention of a rank's query rows (B, rows, H, dh) over whole k / v at
+    the rows' positions (``block`` of every ``period``, from ``rank *
+    block``): on ``chunked`` the flash kernel (``FlashAttnFn`` where it
+    trains), on ``xla`` the plain dense version."""
+    from repro_torch.kernels.flash_attn.ops import FlashAttnFn, block_positions, flash_attn
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+
+    rows = rows.contiguous()
+    pos = (block_positions(rows.shape[1], block, period, rank * block, rows.device)
+           if causal else None)
+    if impl != "chunked":
+        return flash_attn_ref(rows, k, v, causal, pos)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (rows, k, v)):
+        return FlashAttnFn.apply(rows, k, v, causal, chunk, pos)
+    return flash_attn(rows, k, v, causal, pos)
+
+
+def seq_rank_attention(q, k, v, rank: int, n: int, chunk: int, causal: bool = True,
+                       impl: str = "chunked"):
+    """One rank of sequence-parallel attention on plain tensors: q (B, Sq,
+    H, dh) whole, k / v (B, Sk, K, dh) whole -> the rank's output rows (B,
+    Sq / n, H, dh), at their positions (:func:`_rows_attention`).  The
+    layout is :func:`seq_layout`'s, which must not be None;
+    :func:`seq_stitch` puts the ranks' rows back together."""
+    block, period = seq_layout(q.shape[1], n, impl, chunk)
+    return _rows_attention(seq_rank_rows(q, rank, n, block, period), k.contiguous(),
+                           v.contiguous(), rank, block, period, chunk, causal, impl)
+
+
+def _seq_sdpa(q, k, v, causal: bool, impl: str, chunk: int):
+    """:func:`sdpa`'s sequence-parallel route (module docstring), or None
+    where the sequence stays whole."""
+    from repro_torch.sharding.ctx import constrain_seq_parallel, current_policy
+
+    dt = _dt()
+    policy = current_policy()
+    mesh = q.device_mesh
+    if policy is None or policy.dp_only or "model" not in mesh.mesh_dim_names:
+        return None
+    mdim = mesh.mesh_dim_names.index("model")
+    n = mesh.size(mdim)
+    B, Sq, H, dh = q.shape
+    lay = seq_layout(Sq, n, impl, chunk)
+    if lay is None:
+        return None
+    block, period = lay
+    # q as (B, Sq / period, period, H, dh), its period dim on "model"
+    q5 = constrain_seq_parallel(q.reshape(B, Sq // period, period, H, dh), seq_axis=2)
+    if not (isinstance(q5.placements[mdim], dt.Shard) and q5.placements[mdim].dim == 2):
+        return None
+    kv_plc = [dt.Replicate() if m == mdim or not (isinstance(p, dt.Shard) and p.dim == 0)
+              else p for m, p in enumerate(q5.placements)]
+    grad_plc = [dt.Partial() if m == mdim else p for m, p in enumerate(kv_plc)]
+    kl = _to_plain(k, kv_plc).to_local(grad_placements=grad_plc)
+    vl = _to_plain(v, kv_plc).to_local(grad_placements=grad_plc)
+    ql = q5.to_local()
+    Bl = ql.shape[0]
+    ol = _rows_attention(ql.reshape(Bl, -1, H, dh), kl.contiguous(), vl.contiguous(),
+                         mesh.get_local_rank(mdim), block, period, chunk, causal, impl)
+    o5 = _from_local(ol.reshape(Bl, Sq // period, block, H, dh), mesh, q5.placements,
+                     (B, Sq // period, period, H, dh))
+    rep = [dt.Replicate() if m == mdim else p for m, p in enumerate(o5.placements)]
+    return _to_plain(o5, rep).reshape(B, Sq, H, dh)
+
+
+def sdpa(q, k, v, causal: bool, q_pos=None, impl: str = "xla", chunk: int = 1024,
+         seq_shard: bool = False):
     """Attention of DTensor q (B, Sq, H, dh), k / v (B, Sk, K, dh): each rank
-    on its local query heads (module docstring)."""
+    on its local query heads, or with ``seq_shard`` on its own query rows
+    (module docstring)."""
+    if seq_shard and q_pos is None:
+        o = _seq_sdpa(q, k, v, causal, impl, chunk)
+        if o is not None:
+            return o
     dt = _dt()
     mesh = q.device_mesh
     H, K = q.shape[2], k.shape[2]
@@ -192,7 +316,7 @@ def _flash_decode(q, ck, cv, q_pos, seq_mdim):
 
 
 def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
-                     chunk: int = 1024):
+                     chunk: int = 1024, seq_shard: bool = False):
     """``layers.cached_attention`` on a DTensor cache layer (module
     docstring); the same range check."""
     ck, cv = cache["k"], cache["v"]
@@ -206,7 +330,7 @@ def cached_attention(q, k, v, cache: dict, cache_pos: int, impl: str = "xla",
     _write(ck, k, cache_pos, seq_mdim)
     _write(cv, v, cache_pos, seq_mdim)
     if Sq == S_max:
-        return sdpa(q, k, v, causal=True, impl=impl, chunk=chunk)
+        return sdpa(q, k, v, causal=True, impl=impl, chunk=chunk, seq_shard=seq_shard)
     q_pos = torch.arange(cache_pos, cache_pos + Sq, device=ck.to_local().device)
     if seq_mdim is not None:
         return _flash_decode(q, ck, cv, q_pos, seq_mdim)

@@ -529,6 +529,81 @@ def test_flash_attn_kernel_refuses_what_it_does_not_take():
         flash_attn(t, t, t)
 
 
+#: (B, S, H, K, dh, n ranks, chunk): a rank's rows of sequence-parallel attention
+POSITION_CASES = [(1, 2048, 36, 36, 64, 16, 512), (2, 1024, 9, 3, 64, 4, 256),
+                  (1, 1000, 4, 2, 16, 4, 200)]
+
+
+def _pos_gate(got, want, lib_row, dtype):
+    """flash's gates (as test_flash_attn_kernel_equals_plain_version)."""
+    diff = (got.float() - want).abs()
+    if dtype == "float32":
+        return bool((diff <= 2e-5 + 2e-5 * want.abs()).all())
+    return (float(diff.max()) <= min(2 * float(lib_row.max()), 0.04)
+            and bool((diff <= 2.0 ** -7 * want.abs() + 2 * lib_row).all()))
+
+
+@pytest.mark.parametrize("layout", ["striped", "contiguous"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,dh,n,chunk", POSITION_CASES)
+def test_flash_attn_kernel_with_positions_equals_plain_version(B, S, H, K, dh, n, chunk,
+                                                               dtype, layout):
+    """Every rank's rows at their positions (striped: C / n rows of every
+    chunk of C; contiguous: S / n rows) against the plain version within
+    flash's gates, on both routes; stitched, against the unsharded kernel
+    within the same gates (float32, or one bf16 step)."""
+    dev = _card()
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn.ops import block_positions, flash_attn, flash_route
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.sharding.attention import seq_rank_rows, seq_stitch
+
+    rng = np.random.default_rng(S + n)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev).to(dt)
+               for s in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+    if layout == "striped":
+        if chunk % n or S % chunk:
+            pytest.skip("the chunk is not split evenly")
+        block, period = chunk // n, chunk
+    else:
+        block, period = S // n, S
+    route = flash_route("cuda", dt, dh)
+    before = flash_attn.POSITION_LAUNCHES[route]
+    parts = []
+    for r in range(n):
+        rows = seq_rank_rows(q, r, n, block, period).contiguous()
+        pos = block_positions(S // n, block, period, r * block, dev)
+        got = flash_attn(rows, k, v, True, pos)
+        want = flash_attn_ref(rows.float(), k.float(), v.float(), True, pos)
+        lib_row = None
+        if dtype == "bfloat16":
+            mask = pos[:, None] >= torch.arange(S, device=dev)[None, :]
+            lib = F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (rows, k, v)), attn_mask=mask,
+                enable_gqa=True).transpose(1, 2)
+            lib_row = (lib.float() - want).abs().amax(-1, keepdim=True)
+        assert _pos_gate(got, want, lib_row, dtype), (r, float((got.float() - want).abs().max()))
+        parts.append(got)
+    assert flash_attn.POSITION_LAUNCHES[route] == before + n
+    whole = flash_attn(q, k, v, True).float()
+    stitched = seq_stitch(parts, n, block, period).float()
+    atol, rtol = (2e-5, 2e-5) if dtype == "float32" else (1e-6, 2.0 ** -7)
+    assert bool(((stitched - whole).abs() <= atol + rtol * whole.abs()).all())
+
+
+def test_flash_attn_positions_refused_where_the_kernel_cannot_take_them():
+    dev = _card()
+    from repro_torch.kernels.flash_attn.ops import flash_attn
+
+    x = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="q_pos"):
+        flash_attn(x, x, x, True, torch.arange(7, device=dev))
+    with pytest.raises(ValueError, match="q_pos"):
+        flash_attn(x, x, x, True, torch.arange(8))
+
+
 def test_lm_kernel_route_equals_plain_route_on_the_card():
     """A smoke qwen2.5-3b in float32: chunked (the flash kernel, once per
     layer in prefill) against xla (the dense version) within 1e-5."""

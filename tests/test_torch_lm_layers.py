@@ -206,9 +206,16 @@ def test_chunked_routes_to_the_flash_kernel_exactly_where_jax_would_chunk(branch
 
 
 def test_seq_shard_raises_naming_sharding():
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        L._sdpa(q, q, q, True, impl="chunked", seq_shard=True)
+    """Sequence-parallel attention acts on DTensors only: on plain tensors
+    (JAX's constraint outside its context) the flag changes nothing, and
+    nothing raises any more (tests/test_torch_seq_shard.py holds the
+    sharded route to JAX)."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 8, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    for impl in ("xla", "chunked"):
+        got = L._sdpa(q, k, v, True, impl=impl, seq_shard=True)
+        assert torch.equal(got, L._sdpa(q, k, v, True, impl=impl))
 
 
 @pytest.mark.parametrize("cache_pos,Sq", [(24, 1), (20, 8), (-1, 1)])

@@ -329,20 +329,28 @@ def test_unknown_family_raises_value_error():
 
 
 def test_seq_shard_and_sharding_policy_raise():
-    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), attn_seq_shard=True)
+    """Neither raises any more: without a sharding policy ``attn_seq_shard``
+    gives the logits it gives without the flag, as JAX's does outside its
+    sharding context (tests/test_torch_seq_shard.py holds the sharded route
+    to JAX), in the dense family and in the audio family's attentions; a
+    sharding policy is taken by every family (the hybrid's too)."""
+    cfg = get_config("qwen2.5-3b", smoke=True)
     model = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        T.forward(model, {"tokens": _tokens(cfg, n=8)}, cfg)
-    # so it does in the audio family's attention; a sharding policy is
-    # taken by every family (the hybrid's too: no family refuses one)
-    audio = dataclasses.replace(get_config("whisper-medium", smoke=True),
-                                attn_seq_shard=True)
+    toks = {"tokens": _tokens(cfg, n=8)}
+    with torch.no_grad():
+        want, _ = T.forward(model, toks, cfg)
+        got, _ = T.forward(model, toks, dataclasses.replace(cfg, attn_seq_shard=True))
+    assert torch.equal(got, want)
+    audio = get_config("whisper-medium", smoke=True)
     b = _tokens(audio, n=8)
     rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        T.forward(T.init_params(audio, device="cpu"),
-                  {"tokens": b, "audio": rng.standard_normal(
-                      (b.shape[0], audio.n_frontend_tokens, audio.d_model))}, audio)
+    batch = {"tokens": b, "audio": rng.standard_normal(
+        (b.shape[0], audio.n_frontend_tokens, audio.d_model))}
+    params = T.init_params(audio, device="cpu")
+    with torch.no_grad():
+        want, _ = T.forward(params, batch, audio)
+        got, _ = T.forward(params, batch, dataclasses.replace(audio, attn_seq_shard=True))
+    assert torch.equal(got, want)
     assert callable(S.make_prefill_step(get_config("zamba2-7b", smoke=True),
                                         policy=object(), device="cpu"))
 

@@ -18,7 +18,11 @@ audio frames, image patches) in ``<dir>/<case>_in.npz``, the state
 created shard by shard, and a checkpoint saved at one mesh and restored
 at another; a serve case with ``watch`` records the shapes of the
 DTensors redistributed during its decode steps.  Each rank writes
-``<dir>/<job>_rank<r>.npz``.
+``<dir>/<job>_rank<r>.npz``.  ``seq`` (four ranks, mesh (1, 4); for
+tests/test_torch_seq_shard.py): smollm-135m smoke's prefill with
+``attn_seq_shard`` on and off (chunked and xla attention), the
+collectives each moves (``launch/dryrun.py::DeviceCounter``), and one
+train step with it on, from the JAX parameters in ``<dir>/seq_in.npz``.
 """
 import dataclasses
 import json
@@ -271,6 +275,39 @@ def _restore_case(case, mesh, rank, d) -> dict:
     return out
 
 
+def seq_job(rank: int, d: pathlib.Path) -> dict:
+    from repro_torch.launch.dryrun import DeviceCounter
+
+    mesh = make_local_mesh(model=4, device="cpu")
+    data = np.load(d / "seq_in.npz")
+    base = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                               **json.loads(str(data["over"])))
+    pol = POL.ShardingPolicy(mesh=mesh)
+    out = {}
+    for tag, over in (("seq", dict(attn_seq_shard=True)), ("plain", {}),
+                      ("xla", dict(attn_seq_shard=True, attn_impl="xla"))):
+        cfg = dataclasses.replace(base, **over)
+        params = _from_flat(cfg, pol, _flat(data))
+        counter = DeviceCounter(mesh)
+        with counter:
+            logits, _ = make_prefill_step(cfg, policy=pol, device="cpu")(
+                params, {"tokens": data["tokens"]})
+        out[f"{tag}.prefill"] = PL.full(logits).numpy()
+        out[f"{tag}.coll"] = json.dumps(counter.coll_summary())
+    cfg = dataclasses.replace(base, attn_seq_shard=True)
+    tc = TrainConfig(**TRAIN_KW)
+    tpol = POL.ShardingPolicy(mesh=mesh, fsdp=True)
+    params = _from_flat(cfg, tpol, _flat(data))
+    state = TrainState(params, PL.zero_opt(params, tc, tpol),
+                       torch.zeros((), dtype=torch.int32))
+    state, metrics = make_train_step(cfg, tc, device="cpu")(
+        state, {"tokens": data["train_tokens"]})
+    out["loss"] = float(metrics["loss"])
+    for k, p in state.params.named_parameters():
+        out[f"p.{k}"] = PL.full(p).detach().numpy()
+    return out
+
+
 def cases_job(rank: int, d: pathlib.Path) -> dict:
     spec = json.loads((d / "cases.json").read_text())
     mesh = make_local_mesh(model=spec["model"], device="cpu")
@@ -289,7 +326,7 @@ if __name__ == "__main__":
     info = init_distributed(device="cpu")
     rank = info["process_id"]
     out = {"main": main_job, "tp4": tp4_job, "moe_ssm": cases_job,
-           "hybrid_cross": cases_job}[job](rank, d)
+           "hybrid_cross": cases_job, "seq": seq_job}[job](rank, d)
     np.savez(d / f"{job}_rank{rank}.npz", **{k: np.asarray(v) for k, v in out.items()})
     import torch.distributed as dist
 
