@@ -556,20 +556,26 @@ def significance_bench(b: Bench, N, L, E_max, rows, n_sizes):
 
 # ------------------------------------------------------------------ roofline
 def roofline_summary(b: Bench, dryrun_dir=DRYRUN_DIR):
-    """One row per dry-run JSON (``launch/edm_dryrun.py``): the chunk's
-    compute term, its bottleneck and compute fraction, peak memory and the
-    extrapolated whole run."""
+    """One row per dry-run JSON (``launch/edm_dryrun.py``, and the LM dry
+    run's ``launch/dryrun.py`` beside it): the compute term, its bottleneck
+    and compute fraction, peak memory and, for an EDM chunk, the
+    extrapolated whole run; a skipped or failed LM cell a row of 0 that
+    says so."""
     d = pathlib.Path(dryrun_dir)
     for p in sorted(d.glob("*.json")) if d.is_dir() else ():
         r = json.loads(p.read_text())
+        name = f"roofline_{r['arch']}_{r['cell']}_{str(r.get('mesh')).replace(' ', '')}"
+        if "skipped" in r or "failed" in r:
+            b.row(name, 0.0, "SKIP" if "skipped" in r else "FAIL")
+            continue
         rl = r["roofline"]
         peak = r["memory"]["peak_bytes_per_device"]
-        b.row(f"roofline_{r['arch']}_{r['cell']}_{r['mesh'].replace(' ', '')}",
-              rl["t_compute_s"],
+        whole = r.get("whole_run_extrapolated_s")
+        b.row(name, rl["t_compute_s"],
               f"bottleneck={rl['bottleneck']};frac={rl['roofline_fraction']:.3f};"
               f"mem_GiB={'n/a' if peak is None else f'{peak / 2**30:.1f}'};"
-              f"whole_run_s={r['whole_run_extrapolated_s']['total']:.0f};"
-              f"device={r['device']}")
+              + (f"whole_run_s={whole['total']:.0f};" if whole else "")
+              + f"device={r['device']}")
     return b.write_rows("roofline")
 
 

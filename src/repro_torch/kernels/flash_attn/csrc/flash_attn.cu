@@ -20,11 +20,11 @@
 // row i attends to the keys j <= q_pos[i].  q_pos must be non-decreasing
 // (the wrapper asserts it on the device): a tile's last row then holds its
 // largest position, which bounds the key tiles it reads, and its first row
-// the smallest, which says whether a key tile needs the mask.  With
-// positions the wrapper also passes the tiles' launch order (`order`,
-// int32, one entry a tile: the tiles by their last position, largest
-// first), so the heaviest tiles still go first.  Without them both
-// pointers are null and the kernels are the top-left ones, bit for bit.
+// the smallest, which says whether a key tile needs the mask.  A tile's
+// last position does not fall as its index grows, so the launch order of
+// the top-left kernels (the highest tile index first) still runs the
+// heaviest tiles first.  Without positions the pointer is null and the
+// kernels are the top-left ones, bit for bit.
 //
 // What bounds it on this card: operations.  4 * B * H * dh * Sq * Sk
 // (halved when causal) against 989 TFLOP/s of bf16 tensor cores; the
@@ -41,8 +41,7 @@
 // asynchronous:
 //  * one block of 288 threads per (128 query rows, batch * head), the
 //    heaviest causal tiles first (the query tile is the slow grid
-//    dimension, so the first wave takes the longest rows of every head:
-//    the highest tile index, or the first entry of `order`);
+//    dimension, so the first wave takes the longest rows of every head);
 //  * warp 8 is the producer: one thread loads the block's q once and then
 //    K and V tiles of 64 keys through TMA (cp.async.bulk.tensor, 4-D maps
 //    over (dh, heads, S, B), so (B, S, K, dh) is read in place with a row
@@ -67,9 +66,8 @@
 // flash_attn_launch -- every other case (float32, the gate route; bf16 at
 // other head dims) on the CUDA cores: one block of 256 threads per (query
 // tile of 64 rows, batch * head); the heaviest causal tiles are scheduled
-// first (the highest tile index, or the first entry of `order`).  The
-// block stages its q tile (scaled) in shared memory once, then per tile
-// of 64 keys stages k and v
+// first.  The block stages its q tile (scaled) in shared memory once,
+// then per tile of 64 keys stages k and v
 // (zero past Sk and past dh), computes the 64 x 64 logits with each thread
 // owning a 4 x 4 sub-tile, masks, updates the per-row running max m and
 // sum l (the 16 threads of a row reduce with warp shuffles), writes p
@@ -123,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                   int H, int K, int dh, int causal, float scale,
-                  const int* __restrict__ qpos, const int* __restrict__ order) {
+                  const int* __restrict__ qpos) {
   constexpr int LD = D + 1;   // odd row stride: column reads are conflict-free
   constexpr int kDC = D / kTX;  // head-dim columns per thread
   constexpr int kKReg = kBK * LD > kBQ * kPLD ? kBK * LD : kBQ * kPLD;
@@ -133,8 +131,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kKReg;      // [kBK][LD]
   float* Ps = Ks;
 
-  // heaviest tiles first
-  const int q0 = (order ? order[blockIdx.x] : (int)(gridDim.x - 1 - blockIdx.x)) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int g = h / (H / K);
   const int tid = threadIdx.x;
@@ -275,7 +272,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int K, int dh, int causal, const int* qpos,
-           const int* order, cudaStream_t stream) {
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -284,19 +281,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale, qpos, order);
+      static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale, qpos);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int Sq,
               int Sk, int H, int K, int dh, int causal, const int* qpos,
-              const int* order, cudaStream_t stream) {
-  if (dh <= 32)
-    return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
-  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, order, stream);
+              cudaStream_t stream) {
+  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
+  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
+  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
 }
 
 }  // namespace
@@ -482,7 +477,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_v,
                         __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
                         int K, int dh, int causal, float scale_log2,
-                        const int* __restrict__ qpos, const int* __restrict__ order) {
+                        const int* __restrict__ qpos) {
   constexpr int kNSub = D / kSub;
   constexpr int kQBytes = 2 * kNSub * kSubBytes;     // both warpgroups' q
   constexpr int kTileBytes = kNSub * kSubBytes;      // one K (or V) stage
@@ -497,8 +492,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int g = h / (H / K);
-  // heaviest tiles first
-  const int q0 = (order ? order[blockIdx.y] : (int)(gridDim.y - 1 - blockIdx.y)) * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int p_last = qpos ? qpos[q_last] : q_last;  // the tile's largest position
   int n_kt = (Sk + kBK - 1) / kBK;
@@ -702,7 +696,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int K, int dh, int causal, const int* qpos,
-           const int* order, cudaStream_t stream) {
+           cudaStream_t stream) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -7;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -717,7 +711,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, dh, causal,
-      scale_log2, qpos, order);
+      scale_log2, qpos);
   return (int)cudaGetLastError();
 }
 
@@ -732,35 +726,30 @@ const char* kernel_error_string(int code) {
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous,
 // all of one type: dtype 0 = float32, 1 = bfloat16.  H % K == 0,
 // 1 <= dh <= 128, B * H <= 65535.  q_pos: null (row i at position i) or
-// int32 (Sq,), non-decreasing; order: null, or (with q_pos) int32, one
-// entry for each tile of 64 rows, the launch order.  Returns 0, a negative
-// argument code, or the CUDA error of the launch.
+// int32 (Sq,), non-decreasing.  Returns 0, a negative argument code, or
+// the CUDA error of the launch.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
                       int dtype, int B, int Sq, int Sk, int H, int K, int dh,
-                      int causal, const int* q_pos, const int* order, void* stream) {
+                      int causal, const int* q_pos, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128) return -3;
   if ((long long)B * H > 65535) return -4;
-  if ((q_pos == nullptr) != (order == nullptr)) return -6;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
+  if (dtype == 0) return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos,
-                                    order, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
   return -5;
 }
 
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous
 // bfloat16.  H % K == 0, dh a multiple of 16 in [16, 128],
-// ceil(Sq / 128) <= 65535 (grid.y; B * H is grid.x).  q_pos / order as
-// flash_attn_launch's, order one entry for each tile of 128 rows.
-// Returns 0, a negative argument code, or the CUDA error of the launch.
+// ceil(Sq / 128) <= 65535 (grid.y; B * H is grid.x).  q_pos as
+// flash_attn_launch's.  Returns 0, a negative argument code, or the CUDA
+// error of the launch.
 int flash_attn_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                             int B, int Sq, int Sk, int H, int K, int dh,
-                            int causal, const int* q_pos, const int* order,
-                            void* stream) {
+                            int causal, const int* q_pos, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128 || dh % 16 != 0) return -3;
@@ -768,9 +757,8 @@ int flash_attn_wgmma_launch(const void* q, const void* k, const void* v, void* o
       ((long long)Sq + tc::kBQ - 1) / tc::kBQ > 65535)
     return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((q_pos == nullptr) != (order == nullptr)) return -6;
-  if (dh <= 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
-  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, order, s);
+  if (dh <= 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
+  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
 }
 
 }  // extern "C"

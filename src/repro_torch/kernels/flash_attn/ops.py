@@ -47,14 +47,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_HEAD = 128
 #: query rows of one block of the tensor-core kernel (grid.y counts them)
 TC_BLOCK_ROWS = 128
-#: query rows of one block of the CUDA-core kernel
-CC_BLOCK_ROWS = 64
 
 #: the kernel routes of a CUDA call
 ROUTES = ("tensor_core", "cuda_core")
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 
 #: host copies of the position arrays :func:`block_positions` made
 _HOST_POS = WeakIdKeyDictionary()
@@ -189,16 +187,13 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attn tensor-core kernel reads q, k and v through "
                          "TMA, which needs 16-byte aligned data pointers")
-    pos_ptr = order_ptr = None
+    pos_ptr = None
     if q_pos is not None:
         q_pos = q_pos.to(torch.int32).contiguous()
         if Sq > 1:  # the tiles' bounds rest on it
             torch._assert_async(torch.all(q_pos[1:] >= q_pos[:-1]),
                                 "flash_attn: q_pos must be non-decreasing")
-        rows = TC_BLOCK_ROWS if route == "tensor_core" else CC_BLOCK_ROWS
-        last = torch.arange(rows - 1, Sq + rows - 1, rows, device=q.device).clamp_(max=Sq - 1)
-        order = torch.argsort(q_pos[last], descending=True, stable=True).to(torch.int32)
-        pos_ptr, order_ptr = q_pos.data_ptr(), order.data_ptr()
+        pos_ptr = q_pos.data_ptr()
     o = torch.empty_like(q)
     lib = _lib()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
@@ -206,10 +201,10 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = kernels.current_stream(q.device)
         if route == "tensor_core":
             rc = lib.flash_attn_wgmma_launch(*ptrs, B, Sq, Sk, H, K, dh, int(causal),
-                                             pos_ptr, order_ptr, stream)
+                                             pos_ptr, stream)
         else:
             rc = lib.flash_attn_launch(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, Sk, H, K,
-                                       dh, int(causal), pos_ptr, order_ptr, stream)
+                                       dh, int(causal), pos_ptr, stream)
     kernels.check_launch(f"flash_attn ({route})", rc, lib)
     flash_attn.ROUTE_LAUNCHES[route] += 1
     if q_pos is not None:

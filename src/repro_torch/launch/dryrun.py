@@ -29,9 +29,13 @@ package).
 :class:`DeviceCounter` reads what rank 0 runs: the local operators that
 DTensor desugars into (not the global ones its sharding propagation
 traces: those are skipped), with ``torch.utils.flop_counter``'s formulas
-(the flash operator's counts its causal pairs from the positions), each
-operator's tensor operands and results as the bytes it moves (an eager
-count: views and empty allocations move nothing), every collective by
+(the flash operator's counts its causal pairs from the positions), the
+operands and results of those operators (the products and the attention)
+as the bytes the step must move, each read or written once: the traffic
+if every elementwise operator were fused into a product, so the memory
+term stays below what the card takes (a count of every eager operator's
+operands is no bound: for minicpm-2b's training step it is more than HBM
+could move in the time the card takes), every collective by
 kind and mesh axis (count, and bytes as the larger of operand and
 result, the JAX package's rule), and the live bytes of the storages the
 step makes, rounded up to the card's 512-byte allocation granule.  The
@@ -40,9 +44,14 @@ arguments (the state's, batch's and cache's local shards), the output
 live total) and temp = peak - argument are the counterparts of XLA's
 ``memory_analysis``; the roofline (``launch/roofline.py::LMRoofline``)
 takes the H100's peaks and, by mesh axis, NVLink inside an eight-card
-node or InfiniBand across nodes.  Eager mode counts every layer, so
-every cell runs at its full depth (``"depth": "full"``), where JAX
-extrapolates from depth-1 and depth-2 programs.
+node or InfiniBand across nodes.  Eager mode counts every layer, so a
+cell runs at its full depth (``"depth": "full"``) by default, where JAX
+extrapolates from depth-1 and depth-2 programs; ``extrapolate=True``
+(``--extrapolate``) runs one and two repeating units and extrapolates
+every count and byte, the memory's too, to the full depth, as JAX does
+its costs (``"depth": "extrapolated"``): exact where every unit is alike
+(a dense step's operations and peak: the same to 0.01% at minicpm-2b's
+40 layers).
 
 The JSON has the JAX dry run's keys (``memory``, ``roofline``,
 ``model_flops_*``, ``useful_flops_ratio``, ``n_params``, ...) plus the
@@ -141,8 +150,6 @@ _COLL_KINDS = {
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
     "alltoall_base_": "all-to-all", "broadcast": "broadcast", "broadcast_": "broadcast",
 }
-_NO_BYTES = ("empty", "empty_like", "empty_strided", "empty_permuted", "new_empty",
-             "new_empty_strided")
 
 
 def _tensors(x):
@@ -366,7 +373,6 @@ class DeviceCounter(TorchDispatchMode):
             f = self._flops.get(packet)
             if f is not None:
                 self.flops += int(f(*args, **kwargs, out_val=out))
-            if not func.is_view and name not in _NO_BYTES:
                 self.bytes += sum(_nbytes(t) for t in _tensors(args))
                 self.bytes += sum(_nbytes(t) for t in _tensors(out))
         # a result that aliases an input (a view, an in-place or out= op)
@@ -377,15 +383,21 @@ class DeviceCounter(TorchDispatchMode):
         return out
 
     def coll_summary(self) -> dict:
-        """{"by_kind": {kind: bytes}, "by_axis": {axis: bytes},
-        "counts": {kind: {axis: count}}, "bytes": {kind: {axis: bytes}}}."""
-        by_kind, by_axis, counts, nbytes = {}, {}, {}, {}
-        for (kind, axis), (n, b) in sorted(self.coll.items()):
-            by_kind[kind] = by_kind.get(kind, 0) + b
-            by_axis[axis] = by_axis.get(axis, 0) + b
-            counts.setdefault(kind, {})[axis] = n
-            nbytes.setdefault(kind, {})[axis] = b
-        return {"by_kind": by_kind, "by_axis": by_axis, "counts": counts, "bytes": nbytes}
+        """:func:`coll_summary` of the counts."""
+        return coll_summary(self.coll)
+
+
+def coll_summary(coll: dict) -> dict:
+    """{"by_kind": {kind: bytes}, "by_axis": {axis: bytes},
+    "counts": {kind: {axis: count}}, "bytes": {kind: {axis: bytes}}} of
+    {(kind, axis): [count, bytes]}."""
+    by_kind, by_axis, counts, nbytes = {}, {}, {}, {}
+    for (kind, axis), (n, b) in sorted(coll.items()):
+        by_kind[kind] = by_kind.get(kind, 0) + b
+        by_axis[axis] = by_axis.get(axis, 0) + b
+        counts.setdefault(kind, {})[axis] = n
+        nbytes.setdefault(kind, {})[axis] = b
+    return {"by_kind": by_kind, "by_axis": by_axis, "counts": counts, "bytes": nbytes}
 
 
 # --------------------------------------------------------------------------
@@ -504,17 +516,78 @@ def run_step(cfg: ModelConfig, cell, tc: TrainConfig, policy=None, mesh=None) ->
             "trace_s": trace_s}
 
 
+def unit_layers(cfg: ModelConfig) -> int:
+    """Layers a repeating unit (the JAX dry run's ``_unit_layers``)."""
+    if cfg.family == "hybrid":
+        return len(cfg.hybrid_pattern)
+    if cfg.family == "vlm":
+        return cfg.cross_attn_period
+    return 1
+
+
+def n_units(cfg: ModelConfig) -> int:
+    """Repeating units of ``cfg`` (audio: encoder and decoder together)."""
+    if cfg.family == "audio":
+        return cfg.n_layers
+    return cfg.n_layers // unit_layers(cfg)
+
+
+def depth_cfg(cfg: ModelConfig, units: int) -> ModelConfig:
+    """``cfg`` at ``units`` repeating units."""
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, n_layers=units, n_enc_layers=units)
+    return dataclasses.replace(cfg, n_layers=units * unit_layers(cfg))
+
+
+def _counts(cfg, cell, tc, shape, names, policy_kw, n_params) -> dict:
+    """One step's counts on rank 0 (:func:`run_step` inside the fake
+    world of ``shape``; one card without): operations, bytes, collectives
+    {(kind, axis): [count, bytes]}, argument, output and peak bytes, trace
+    seconds; and the policy (``auto_policy`` at the whole model's
+    ``n_params``, at any depth)."""
+    from repro_torch.sharding import policy as POL
+
+    policy = None
+    if shape:
+        with fake_world(shape, names) as dmesh:
+            policy = POL.auto_policy(cfg, dmesh, n_params=n_params)
+            if policy_kw:
+                policy = dataclasses.replace(policy, **policy_kw)
+            run = run_step(cfg, cell, tc, policy, dmesh)
+    else:
+        run = run_step(cfg, cell, tc)
+    c = run["counter"]
+    return {"flops": c.flops, "bytes": c.bytes, "coll": dict(c.coll),
+            "argument": run["argument_bytes"], "output": run["output_bytes"],
+            "peak": run["argument_bytes"] + c.peak, "trace_s": run["trace_s"],
+            "policy": policy}
+
+
+def _extrapolated(m1: dict, m2: dict, units: int) -> dict:
+    """The counts of ``units`` repeating units from those of one and two:
+    m1 + (units - 1) (m2 - m1), each count and byte; the traces' seconds
+    summed."""
+    def ext(a, b):
+        return a + (units - 1) * (b - a)
+
+    coll = {k: [ext(m1["coll"].get(k, [0, 0])[i], m2["coll"].get(k, [0, 0])[i])
+                for i in (0, 1)] for k in set(m1["coll"]) | set(m2["coll"])}
+    out = {k: ext(m1[k], m2[k]) for k in ("flops", "bytes", "argument", "output", "peak")}
+    return {**out, "coll": coll, "trace_s": m1["trace_s"] + m2["trace_s"],
+            "policy": m2["policy"]}
+
+
 def dry_cell(arch: str, cell_name, multi_pod: bool = False, cfg=None,
              policy_kw: dict | None = None, variant: str = "", tc=None,
-             mesh: tuple | None = None) -> dict:
+             mesh: tuple | None = None, extrapolate: bool = False) -> dict:
     """One arch x cell x mesh: JAX's ``lower_cell`` keys from one step on
     fake tensors (module docstring).  ``cell_name``: a shape cell's name,
     or a ``ShapeCell`` of another batch; ``mesh``: (shape, names) of
     another fake world than the production mesh (a world of one: ``((),
     ())``, no policy, plain tensors); ``tc``: the train config (default
-    :func:`train_config_for`)."""
+    :func:`train_config_for`); ``extrapolate``: from one and two repeating
+    units (module docstring)."""
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.sharding import policy as POL
 
     cfg = cfg or get_config(arch)
     cell = cell_name if isinstance(cell_name, ShapeCell) else shape_cell(cell_name)
@@ -529,32 +602,27 @@ def dry_cell(arch: str, cell_name, multi_pod: bool = False, cfg=None,
         return {"arch": arch, "cell": cell_name, "skipped": why, "mesh": mesh_name}
     tc = tc or train_config_for(arch)
     n_chips = int(math.prod(shape)) if shape else 1
-    if shape:
-        with fake_world(shape, names) as dmesh:
-            policy = POL.auto_policy(cfg, dmesh)
-            if policy_kw:
-                policy = dataclasses.replace(policy, **policy_kw)
-            run = run_step(cfg, cell, tc, policy, dmesh)
+    shapes = param_shapes(cfg)
+    n_params = sum(int(np.prod(s)) for s in shapes.values())
+    if extrapolate:
+        m = _extrapolated(*(_counts(depth_cfg(cfg, u), cell, tc, shape, names, policy_kw,
+                                    n_params) for u in (1, 2)), n_units(cfg))
     else:
-        policy = None
-        run = run_step(cfg, cell, tc)
-    c = run["counter"]
-    coll = c.coll_summary()
+        m = _counts(cfg, cell, tc, shape, names, policy_kw, n_params)
+    policy = m["policy"]
+    coll = coll_summary(m["coll"])
     links = RL.axis_links(shape, names) if shape else {}
     if "world" in coll["by_axis"]:  # a collective over the whole world
         links["world"] = RL.axis_links((n_chips,), ("world",))["world"]
-    rl = RL.LMRoofline(flops_per_chip=float(c.flops), bytes_per_chip=float(c.bytes),
+    rl = RL.LMRoofline(flops_per_chip=float(m["flops"]), bytes_per_chip=float(m["bytes"]),
                        coll_by_kind=coll["by_kind"], coll_by_axis=coll["by_axis"],
                        links=links, peak_flops=RL.lm_peak_flops(cfg.dtype))
-    shapes = param_shapes(cfg)
-    n_params = sum(int(np.prod(s)) for s in shapes.values())
     n_active = RL.active_params(cfg, shapes)
     n_tokens = cell.global_batch * (cell.seq_len if cell.kind in ("train", "prefill") else 1)
     mf = RL.model_flops(cfg, n_tokens, n_params, n_active)
     if cell.kind != "train":
         mf /= 3.0  # forward only: 2 N D
-    arg = run["argument_bytes"]
-    peak = arg + c.peak
+    arg, peak = m["argument"], m["peak"]
     return {
         "arch": arch,
         "cell": cell_name,
@@ -570,13 +638,13 @@ def dry_cell(arch: str, cell_name, multi_pod: bool = False, cfg=None,
         "optimizer": tc.optimizer if cell.kind == "train" else None,
         "microbatch": tc.microbatch if cell.kind == "train" else None,
         "device": "NVIDIA H100 SXM 80GB (modelled: fake tensors, no card)",
-        "depth": "full",
-        "trace_s": run["trace_s"],
-        "lower_s": run["trace_s"],
+        "depth": "extrapolated" if extrapolate else "full",
+        "trace_s": m["trace_s"],
+        "lower_s": m["trace_s"],
         "compile_s": 0.0,
         "memory": {
             "argument_bytes": int(arg),
-            "output_bytes": int(run["output_bytes"]),
+            "output_bytes": int(m["output"]),
             "temp_bytes": int(peak - arg),
             "peak_bytes_per_device": int(peak),
             "granule_bytes": GRANULE,
@@ -589,13 +657,15 @@ def dry_cell(arch: str, cell_name, multi_pod: bool = False, cfg=None,
     }
 
 
-def optimized_cell(arch: str, cell: str, multi_pod: bool = False, smoke: bool = False) -> dict:
+def optimized_cell(arch: str, cell: str, multi_pod: bool = False, smoke: bool = False,
+                   extrapolate: bool = False) -> dict:
     """:func:`dry_cell` with :func:`optimized_cfg` and
     :func:`optimized_policy_kw` (variant "optimized")."""
     base = get_config(arch, smoke=smoke)
     sc = shape_cell(cell)
     return dry_cell(arch, cell, multi_pod=multi_pod, cfg=optimized_cfg(base, sc),
-                    policy_kw=optimized_policy_kw(base, sc), variant="optimized")
+                    policy_kw=optimized_policy_kw(base, sc), variant="optimized",
+                    extrapolate=extrapolate)
 
 
 def save_result(res: dict, tag: str = "", out: str | None = None) -> pathlib.Path:
@@ -631,6 +701,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--out", default=None,
                     help="JSON path of a single cell, or a directory for --all "
                          "(default build/dryrun/)")
+    ap.add_argument("--extrapolate", action="store_true",
+                    help="trace one and two repeating units and extrapolate to the "
+                         "full depth (as the JAX dry run does its costs)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="--all: cells traced at once, each in a process of its own")
     args = ap.parse_args(argv)
@@ -650,10 +723,12 @@ def main(argv=None) -> list[dict]:
         t0 = time.perf_counter()
         try:
             if args.optimized:
-                res, tag = optimized_cell(arch, cell, args.multi_pod, args.smoke), "__opt"
+                res, tag = optimized_cell(arch, cell, args.multi_pod, args.smoke,
+                                          args.extrapolate), "__opt"
             else:
                 res = dry_cell(arch, cell, multi_pod=args.multi_pod,
-                               cfg=get_config(arch, smoke=args.smoke))
+                               cfg=get_config(arch, smoke=args.smoke),
+                               extrapolate=args.extrapolate)
                 tag = ""
         except Exception as e:  # the cell's JSON says what failed; --all goes on
             traceback.print_exc()
@@ -684,7 +759,8 @@ def _run_jobs(cells, args) -> list[dict]:
     tag = "__opt" if args.optimized else ""
     outdir = pathlib.Path(args.out) if args.out else RESULTS_DIR
     flags = ((["--multi-pod"] if args.multi_pod else []) + (["--optimized"] if args.optimized else [])
-             + (["--smoke"] if args.smoke else []))
+             + (["--smoke"] if args.smoke else [])
+             + (["--extrapolate"] if args.extrapolate else []))
     todo, running, paths = list(cells), [], []
     while todo or running:
         while todo and len(running) < args.jobs:

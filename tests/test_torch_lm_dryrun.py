@@ -73,6 +73,52 @@ def _fields(c) -> dict:
     return dataclasses.asdict(c)
 
 
+#: JAX's argument bytes of smoke cells on a (2, 4) mesh (argv: archs)
+JAX_ARGS = textwrap.dedent("""
+    import json, sys
+    import jax
+    from jax.sharding import AxisType
+    import repro.launch.dryrun as JD
+    from repro.configs import get_config, shape_cell
+    from repro.sharding import policy as POL
+    mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    for arch in sys.argv[1].split(","):
+        cfg = get_config(arch, smoke=True)
+        for cell in ("train_4k", "prefill_32k", "decode_32k"):
+            low = JD._build_lowered(cfg, shape_cell(cell), mesh, POL.auto_policy(cfg, mesh),
+                                    JD.train_config_for(arch), jax.random.PRNGKey(0))
+            out[f"{arch}/{cell}"] = int(low.compile().memory_analysis().argument_size_in_bytes)
+    print(json.dumps(out))
+""")
+ARG_ARCHS = ("qwen2-1.5b", "dbrx-132b")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_arg_proc():
+    """JAX's lowering of the argument-bytes cells in a process of its own,
+    started with the module's first test so that it runs beside the tests
+    before the argument-bytes ones (the last in this file).  The backend's
+    optimisation is off: it changes the machine code, not the buffers."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8 "
+                        "--xla_backend_optimization_level=0 "
+                        "--xla_llvm_disable_expensive_passes=true"}
+    proc = subprocess.Popen([sys.executable, "-c", JAX_ARGS, ",".join(ARG_ARCHS)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_arg_bytes(jax_arg_proc):
+    out, err = jax_arg_proc.communicate(timeout=300)
+    assert jax_arg_proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_optimized_and_train_configs_equal_jax(arch):
     for cell in SHAPE_CELLS:
@@ -102,56 +148,6 @@ def test_param_counts_and_model_flops_equal_jax(arch):
                 == JRL.model_flops(jc, n_tok, j_params, j_active))
 
 
-#: JAX's argument bytes of smoke cells on a (2, 4) mesh (argv: archs)
-JAX_ARGS = textwrap.dedent("""
-    import json, sys
-    import jax
-    from jax.sharding import AxisType
-    import repro.launch.dryrun as JD
-    from repro.configs import get_config, shape_cell
-    from repro.sharding import policy as POL
-    mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-    out = {}
-    for arch in sys.argv[1].split(","):
-        cfg = get_config(arch, smoke=True)
-        for cell in ("train_4k", "prefill_32k", "decode_32k"):
-            low = JD._build_lowered(cfg, shape_cell(cell), mesh, POL.auto_policy(cfg, mesh),
-                                    JD.train_config_for(arch), jax.random.PRNGKey(0))
-            out[f"{arch}/{cell}"] = int(low.compile().memory_analysis().argument_size_in_bytes)
-    print(json.dumps(out))
-""")
-ARG_ARCHS = ("qwen2-1.5b", "dbrx-132b")
-
-
-@pytest.fixture(scope="module")
-def jax_arg_bytes():
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
-    r = subprocess.run([sys.executable, "-c", JAX_ARGS, ",".join(ARG_ARCHS)], env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    return json.loads(r.stdout.strip().splitlines()[-1])
-
-
-@pytest.mark.parametrize("arch", ARG_ARCHS)
-@pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])
-def test_argument_bytes_equal_jax_on_a_2x4_mesh(jax_arg_bytes, arch, cell):
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    cfg, sc = get_config(arch, smoke=True), shape_cell(cell)
-    with DR.fake_world((2, 4), ("data", "model")) as mesh:
-        pol = POL.auto_policy(cfg, mesh)
-        with FakeTensorMode():
-            args, _, _ = DR.build_step(cfg, sc, DR.train_config_for(arch), pol)
-            exact = DR.storage_bytes(args, 1) + DR.batch_bytes(cfg, sc, pol, 1)
-            alloc = DR.storage_bytes(args) + DR.batch_bytes(cfg, sc, pol)
-    # by design: the decode's position is a host int (JAX: an int32 on the
-    # device); a MoE layer's drop counter lives on the device (int64)
-    explained = (-4 if sc.kind == "decode" else 0) + 8 * (cfg.n_layers if cfg.n_experts else 0)
-    assert exact - jax_arg_bytes[f"{arch}/{cell}"] == explained
-    assert exact <= alloc < exact + DR.GRANULE * 400  # each storage rounded up to 512
-
-
 def test_sharded_matmul_counts_the_local_product():
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -166,13 +162,17 @@ def test_sharded_matmul_counts_the_local_product():
                                     run_check=False)  # (256, 512), columns on "model"
             c = DR.DeviceCounter(mesh)
             with c:
-                a @ w
+                (a @ w).relu()
             c2 = DR.DeviceCounter(mesh)
             with c2:
                 a @ w2
     assert c.flops == 2 * 32 * 256 * 512 != 2 * 64 * 256 * 512
     assert c2.flops == 2 * 32 * 256 * 128
     assert c.coll == c2.coll == {}
+    # bytes: the local product's operands and result, once; the
+    # elementwise relu after it (fusible into the product) moves none
+    assert c.bytes == 4 * (32 * 256 + 256 * 512 + 32 * 512)
+    assert c2.bytes == 4 * (32 * 256 + 256 * 128 + 32 * 128)
 
 
 def test_seq_shard_cuts_the_prefill_operations_a_device():
@@ -192,6 +192,48 @@ def test_seq_shard_cuts_the_prefill_operations_a_device():
     assert {k: n for k, n in added.items() if n} == {"all-gather": base.n_layers}
     mem = on["memory"]
     assert mem["peak_bytes_per_device"] == mem["argument_bytes"] + mem["temp_bytes"]
+
+
+@pytest.mark.parametrize("mesh", [((), ()), ((2, 4), ("data", "model"))],
+                         ids=["world_of_one", "2x4"])
+def test_extrapolated_train_step_equals_the_full_depth(mesh):
+    """From one and two layers to three: every count, byte and the peak of
+    a training step as the three-layer trace gives them."""
+    from repro_torch.configs.base import ShapeCell
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True), n_layers=3)
+    cell = ShapeCell("train_small", "train", 32, 8)
+    full, ext = (DR.dry_cell("qwen2-1.5b", cell, cfg=cfg, mesh=mesh, extrapolate=e)
+                 for e in (False, True))
+    assert (full["depth"], ext["depth"]) == ("full", "extrapolated")
+    for k in ("flops_per_chip", "bytes_per_chip", "coll_by_kind", "coll_by_axis"):
+        assert ext["roofline"][k] == full["roofline"][k], k
+    assert ext["collectives"] == full["collectives"]
+    assert ext["memory"] == full["memory"]
+    assert full["roofline"]["flops_per_chip"] > 0
+    assert bool(full["collectives"]["counts"]) == bool(mesh[0])
+
+
+def test_roofline_bench_reads_lm_dry_runs_beside_the_edm_ones(tmp_path):
+    """``bench.run roofline`` reads every JSON of the dry-run directory,
+    which the LM dry run shares: a cell's row, a skipped cell's SKIP."""
+    import torch as _torch
+
+    from repro_torch.bench import run as brun
+
+    d = tmp_path / "dry"
+    d.mkdir()
+    cell = DR.dry_cell("smollm-135m", "decode_32k", cfg=get_config("smollm-135m", smoke=True),
+                       mesh=((), ()))
+    skipped = DR.dry_cell("qwen2-1.5b", "long_500k")
+    assert "skipped" in skipped
+    for i, r in enumerate((cell, skipped)):
+        (d / f"{i}.json").write_text(json.dumps(r))
+    rows = brun.roofline_summary(brun.Bench(_torch.device("cpu"), tmp_path / "out"), d)["rows"]
+    assert [r["name"] for r in rows] == ["roofline_smollm-135m_decode_32k_1",
+                                         "roofline_qwen2-1.5b_long_500k_16x16"]
+    assert rows[0]["derived"].startswith(f"bottleneck={cell['roofline']['bottleneck']};")
+    assert rows[1]["derived"] == "SKIP"
 
 
 def test_cli_writes_to_out_and_build_dryrun(tmp_path, monkeypatch):
@@ -236,3 +278,22 @@ def test_hillclimb_and_make_experiments_on_tiny_jsons(tmp_path, capsys):
     assert "| smollm-135m | decode_32k |" in text
     assert "edm-subject11" in text and "Baseline vs optimized" in text
     assert text.count("| smollm-135m | decode_32k |") == 2  # baseline row and opt row
+
+
+@pytest.mark.parametrize("arch", ARG_ARCHS)
+@pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])
+def test_argument_bytes_equal_jax_on_a_2x4_mesh(jax_arg_bytes, arch, cell):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg, sc = get_config(arch, smoke=True), shape_cell(cell)
+    with DR.fake_world((2, 4), ("data", "model")) as mesh:
+        pol = POL.auto_policy(cfg, mesh)
+        with FakeTensorMode():
+            args, _, _ = DR.build_step(cfg, sc, DR.train_config_for(arch), pol)
+            exact = DR.storage_bytes(args, 1) + DR.batch_bytes(cfg, sc, pol, 1)
+            alloc = DR.storage_bytes(args) + DR.batch_bytes(cfg, sc, pol)
+    # by design: the decode's position is a host int (JAX: an int32 on the
+    # device); a MoE layer's drop counter lives on the device (int64)
+    explained = (-4 if sc.kind == "decode" else 0) + 8 * (cfg.n_layers if cfg.n_experts else 0)
+    assert exact - jax_arg_bytes[f"{arch}/{cell}"] == explained
+    assert exact <= alloc < exact + DR.GRANULE * 400  # each storage rounded up to 512

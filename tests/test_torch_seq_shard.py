@@ -20,6 +20,7 @@ JAX package on the CPU:
   2e-5, logits 1e-5); and the route adds to the prefill one all-gather on
   "model" a layer, of the attention output's bytes, and moves no k or v.
 """
+import concurrent.futures
 import dataclasses
 import json
 import sys
@@ -129,28 +130,39 @@ def test_flash_fn_with_positions_matches_the_plain_autograd(chunk):
     assert float(got[1][:, 60:].abs().max()) == 0.0 < float(got[1][:, 59].abs().max())
 
 
-@pytest.fixture(scope="module")
-def seq_world(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def seq_world_started(tmp_path_factory):
+    """The gloo world's inputs (JAX's state and tokens), and the world
+    itself started in a thread with the module's first test, so that its
+    ranks run beside the tests before ``seq_world``."""
     d = tmp_path_factory.mktemp("seq_shard")
     jc = dataclasses.replace(jget("smollm-135m", smoke=True), attn_seq_shard=True,
                              **WORLD_OVER)
     jtc = JTrainConfig(**R.TRAIN_KW)
     state = JS.TrainState.create(jc, jtc, jax.random.PRNGKey(2))
-    params = state.params
     rng = np.random.default_rng(7)
     toks = rng.integers(0, jc.vocab_size, (WORLD_B, WORLD_S)).astype(np.int32)
     ttoks = rng.integers(0, jc.vocab_size, (WORLD_B, WORLD_S)).astype(np.int32)
+    flat = T.unstack_jax_tree(jax.tree.map(np.asarray, state.params))
+    np.savez(d / "seq_in.npz", tokens=toks, train_tokens=ttoks,
+             over=json.dumps(WORLD_OVER), **{f"p.{k}": v for k, v in flat.items()})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(run_world, 4, lambda r: [
+            sys.executable, str(REPO / "tests" / "torch_sharded_ranks.py"), "seq", str(d)])
+        yield d, jc, jtc, state, toks, ttoks, world
+
+
+@pytest.fixture(scope="module")
+def seq_world(seq_world_started):
+    d, jc, jtc, state, toks, ttoks, world = seq_world_started
+    params = state.params
     want = {"prefill": np.asarray(JS.make_prefill_step(jc)(params, {"tokens": jnp.asarray(toks)})[0])}
     jx = dataclasses.replace(jc, attn_impl="xla")
     want["xla"] = np.asarray(JS.make_prefill_step(jx)(params, {"tokens": jnp.asarray(toks)})[0])
     after, metrics = jax.jit(JS.make_train_step(jc, jtc))(state, {"tokens": jnp.asarray(ttoks)})
     want["loss"] = float(metrics["loss"])
     want["params"] = T.unstack_jax_tree(jax.tree.map(np.asarray, after.params))
-    flat = T.unstack_jax_tree(jax.tree.map(np.asarray, params))
-    np.savez(d / "seq_in.npz", tokens=toks, train_tokens=ttoks,
-             over=json.dumps(WORLD_OVER), **{f"p.{k}": v for k, v in flat.items()})
-    run_world(4, lambda r: [sys.executable, str(REPO / "tests" / "torch_sharded_ranks.py"),
-                            "seq", str(d)])
+    world.result()
     return [dict(np.load(d / f"seq_rank{r}.npz")) for r in range(4)], want
 
 
