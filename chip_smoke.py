@@ -9,7 +9,7 @@ the LM serving path: the flash-attention kernel against its plain
 version and timed, qwen2.5-3b at full width (random init) served through
 ``repro_torch.launch.steps`` — four prompts of 2048 tokens through
 ``make_prefill_step`` (the flash launch count set to 0 just before it),
-32 greedy decode steps — and the float32 gate of the kernel route
+16 greedy decode steps — and the float32 gate of the kernel route
 against the plain route; then the same for the moe and ssm families:
 ``lm_moe_serve`` (dbrx-132b at full width, its depth cut from 40 layers
 to 8: the flash kernel at its group of 6, once a layer in prefill, and
@@ -72,7 +72,18 @@ set to 0 just before it and read just after, checks them against the
 plain-version engine, and times every kernel (both accumulators of the
 kNN kernels) with CUDA events beside its bound, its plain version and
 (where one exists) one PyTorch library call computing the same
-function.
+function.  Then the EDM kernels' wide routes: phase ``wide_tables``
+(``knn_topk`` at k 48, 96 and 128 and at E_max 40, ``knn_topk_prefix``
+at the same k and at E_max 40 with 70 library sizes, ``ccm_lookup`` at
+the same k, with 150 segments and just past its two staged target rows:
+tables bit-equal to the plain versions in both accumulators, the lookup
+within 1e-6 max|Y|, each timed beside its bound, its plain version and
+its launches a call; the map at E_max 40 on ``cuda``, counts set to 0
+just before it, against ``torch-reference``) and phase
+``long_recording`` (a map of 32 series of 36,020 frames, Lp 36,000,
+whole on ``cuda`` with its counts; one series' tables and a chunk's
+lookup against the plain versions; the lookup at Lp 36,000 beside
+``F.embedding_bag``).
 
 Before the fleet, the kNN selection bench's path: the slab kernel
 (``kernels/knn_slab``, the port of the bench's dense-slab Pallas kernel)
@@ -235,9 +246,10 @@ SUBJECT11_N = 101729
 
 # The LM serving path: qwen2.5-3b at full width (36 layers, d 2048, 16 / 2
 # heads of 128, d_ff 11008, vocab 151,936 padded to 152,064), random
-# init; four requests of 2048 prompt tokens, 32 greedy decode steps.
+# init; four requests of 2048 prompt tokens, 16 greedy decode steps (32
+# until the wide EDM phases came: the smoke's time limit).
 LM_ARCH = "qwen2.5-3b"
-SERVE_B, SERVE_S, DECODE_STEPS = 4, 2048, 32
+SERVE_B, SERVE_S, DECODE_STEPS = 4, 2048, 16
 # The moe and ssm families, the same requests: dbrx-132b at full width (d
 # 6144, 48 / 8 heads of 128, 16 experts top-4 of d_ff 10,752, vocab
 # 100,352), its depth cut from 40 layers to 8 (the whole model is ~264 GB
@@ -253,7 +265,7 @@ SSM_ARCH = "mamba2-2.7b"
 # llama-3.2-vision-11b (40 layers, 8 of them behind a gated cross block over
 # 1,601 image patches; 9.78 B, 19.55 GB) at 2,048 prompt tokens;
 # whisper-medium (24 + 24 layers over 1,500 audio frames; 0.88 B) at 416
-# prompt tokens, its text context of 448 less the 32 decode steps.  Audio
+# prompt tokens, its text context of 448 less 32 for decode steps.  Audio
 # frames and image patches are 0.1 N(0, 1) from a seeded generator on the
 # card.  The float32 gates draw the zero-initialised LoRA b and gates
 # non-zero first (ZERO_LEAVES), so that no branch hides behind a zero.
@@ -1627,7 +1639,7 @@ def lm_serve(torch, dev, smi, arch=LM_ARCH, n_layers=None, phase="lm_serve"):
     """``arch`` at full width in bf16 (depth ``n_layers`` where given)
     through make_prefill_step (four requests of ``serve_prompt`` tokens,
     with their audio frames or image patches; the flash kernel ``want_flash``
-    times on the tensor-core route) and 32 greedy decode steps (no flash
+    times on the tensor-core route) and DECODE_STEPS greedy decode steps (no flash
     launch); the flash launch count and the MoE drop counts start at 0
     just before the prefill.  The LoRA b and gates are drawn non-zero
     first (``drawn_nonzero``).  Then the kernel route vs the plain route
@@ -2240,6 +2252,7 @@ SHARD_FAMILY_LOSS_RTOL = 1e-6
 # micro-batches of 2) and served at (1, 4) (4 x 2,048 and 32 decode
 # steps).
 MULTI_MOE_TRAIN_LAYERS, MULTI_MOE_TRAIN_B = 8, 4
+MULTI_DECODE_STEPS = 32  # the four-card serving runs' greedy decode steps
 # The hybrid, audio and vlm families sharded (``lm_shard_check``):
 # zamba2-7b at full width cut to one unit (2 Mamba2 blocks and the shared
 # block with the unit's LoRA: 3 of 81 layers), whisper-medium whole (0.88
@@ -2681,7 +2694,7 @@ def multi_train(torch, dev, rank, cfg, tc, mesh_shape, B, S, sampler_on=True,
 def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict:
     """``cfg`` served at ``mesh_shape`` (created shard by shard): a warm-up
     prefill, the timed prefill of SERVE_B x ``serve_prompt`` tokens with
-    their frames or patches (flash launches counted) and DECODE_STEPS
+    their frames or patches (flash launches counted) and MULTI_DECODE_STEPS
     greedy decode steps, each card's busy share sampled over them; the MoE
     assignments routed and dropped."""
     import torch.distributed as dist
@@ -2720,20 +2733,20 @@ def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict
     prefill_s = time.perf_counter() - t0
     flash = dict(counts)
     prefill_counts = _world_counts(torch, dev, params)
-    cache = PL.grow_cache(cache, cfg, S + DECODE_STEPS, pol)
+    cache = PL.grow_cache(cache, cfg, S + MULTI_DECODE_STEPS, pol)
     tok = PL.full(logits[:, -1:]).argmax(-1)
     torch.cuda.synchronize()
     dist.barrier()
     t0 = time.perf_counter()
-    for i in range(DECODE_STEPS):
+    for i in range(MULTI_DECODE_STEPS):
         lg, cache = decode(params, {"token": tok, "pos": S + i}, cache)
         tok = PL.full(lg).argmax(-1)
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    decode_ms = (time.perf_counter() - t0) / MULTI_DECODE_STEPS * 1e3
     busy = _sampled(sampler)
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "mesh": list(mesh_shape), "B": SERVE_B, "prompt": S,
-           "decode_steps": DECODE_STEPS, "create_s": create_s,
+           "decode_steps": MULTI_DECODE_STEPS, "create_s": create_s,
            "create_peak_bytes": create_peak, "local_param_bytes": local_bytes,
            "prefill_s": prefill_s, "decode_ms_per_step": decode_ms, "flash_launches": flash,
            "prefill_counts": prefill_counts, "busy": busy,
@@ -2742,11 +2755,11 @@ def multi_serve(torch, dev, rank, cfg, mesh_shape, profile_decode=False) -> dict
     if profile_decode:  # where one sharded decode step's host time goes
         from torch.profiler import ProfilerActivity, profile
 
-        grown = PL.grow_cache(cache, cfg, S + DECODE_STEPS + 1, pol)
+        grown = PL.grow_cache(cache, cfg, S + MULTI_DECODE_STEPS + 1, pol)
         dist.barrier()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            decode(params, {"token": tok, "pos": S + DECODE_STEPS}, grown)
+            decode(params, {"token": tok, "pos": S + MULTI_DECODE_STEPS}, grown)
             torch.cuda.synchronize()
             traced_s = time.perf_counter() - t0
         rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
@@ -4213,6 +4226,310 @@ def extensions_phase(torch, dev, smi):
     return {"knn_topk": launches}
 
 
+# The wide kernels (the routes past the fast path): k 48, 96 and 128 at
+# Fish1_Normo's phase-1 shape (E_max 20, a k_override), E_max 40 (k 41:
+# phase 1's 40 lists, four windows of 12; a phase-2 bucket set spanning
+# past lag 32, two windows), the significance path's prefix shape at the
+# same k and at E_max 40 with 70 library sizes (two launches a window),
+# and at k 21 with 30 buckets and 70 sizes (the wide route at one slot a
+# lane), the lookup at the same k, past 64 segments and just past the two
+# staged rows and the one; and the map at E_max 40 at CHECK_N series
+# against torch-reference.
+WIDE_KS = (48, 96, 128)
+WIDE_E = 40
+WIDE_BUCKETS = (3, 5, 8, 12, 20, 33, 40)
+WIDE_SIG_SIZES = tuple(range(50, 1400, 20)) + (1400, 1410)  # 70 sizes
+WIDE_K_SIZES = (150, 200, 400, 800, 1430)  # the first at least k + 1
+# A recording past the two staged target rows of the lookup (29,056 points
+# on an H100; one staged row up to 58,112): N 32 series of 36,020 frames at
+# E_max 20 (Lp 36,000, an hour of imaging at 10 Hz), and the lookup at its
+# Lp against its library call.
+LONG_N, LONG_L = 32, 36020
+
+
+def _wide_time(torch, fn, plain, counts, launches, **shape):
+    """CUDA-event times of one call of a wide case beside its plain
+    version and its bound (``launch/roofline.py``)."""
+    from repro_torch.launch.roofline import bound_ms
+
+    ms = time_ms(torch, fn, 5)
+    plain_ms = time_ms(torch, plain, 1)
+    bound, by = bound_ms(*counts)
+    return dict(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                share_of_bound=bound / ms, launches_per_call=launches, **shape)
+
+
+def _launches_of(fn, counter):
+    before = counter.LAUNCHES
+    fn()
+    return counter.LAUNCHES - before
+
+
+def wide_tables_phase(torch, dev, smi):
+    """Phase ``wide_tables``: the three EDM kernels past the fast path
+    against their plain versions (tables bit-equal in float32 and
+    bfloat16, the lookup within 1e-6 max|Y|), timed beside their bounds;
+    the map at E_max 40 on ``cuda`` (launch counts from 0 just before it)
+    equal to ``torch-reference``'s within the engine check's tolerances."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import embedding
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import prng
+    from repro_torch.inference.convergence import subsample_permutation
+    from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
+    from repro_torch.launch.roofline import knn_counts, lookup_counts, prefix_counts
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ts8 = dummy_brain(LIB_BLOCK, FISH1_L, seed=1)
+    Lp = FISH1_L - (E_MAX - 1) - 1
+    Lh = Lp // 2
+    V8 = lag_batch(torch, ts8, Lp, dev)
+    Vq1, Vc1 = V8[..., Lh:].contiguous(), V8[..., :Lh].contiguous()
+    Lp40 = FISH1_L - (WIDE_E - 1) - 1  # 1410
+    V40 = embedding.lag_matrix(torch.as_tensor(ts8).to(dev), WIDE_E, 1,
+                               Lp40).contiguous()
+    x = np.random.default_rng(WIDE_E).standard_normal((3, WIDE_E, 400))
+    Vtie = torch.as_tensor((np.round(x * 4) / 4).astype(np.float32)).to(dev)
+    all_E, all_E40 = tuple(range(1, E_MAX + 1)), tuple(range(1, WIDE_E + 1))
+    err = {"knn_topk": 0.0, "knn_topk_prefix": 0.0, "ccm_lookup": 0.0}
+    times = {name: {} for name in err}  # kernel -> case -> times
+
+    # ---- knn_topk: k past 32, E past 32, both accumulators
+    knn_cases = [(f"phase1_k{k}", Vq1, Vc1, k, False, all_E) for k in WIDE_KS]
+    knn_cases += [("phase1_E40_k41", V40[..., Lp40 // 2:].contiguous(),
+                   V40[..., :Lp40 // 2].contiguous(), WIDE_E + 1, False, all_E40),
+                  ("phase2_E40_k41", V40, V40, WIDE_E + 1, True, WIDE_BUCKETS)]
+    for name, Vq, Vc, k, excl, sel in knn_cases:
+        err["knn_topk"] = max(err["knn_topk"],
+                              check_knn(torch, f"wide_{name}", Vq, Vc, k, excl, sel),
+                              check_knn(torch, f"wide_{name}_bf16", Vq, Vc, k, excl,
+                                        sel, "bfloat16"))
+        n = _launches_of(lambda: knn_topk(Vq, Vc, k, excl, sel), knn_topk)
+        times["knn_topk"][name] = _wide_time(
+            torch, lambda: knn_topk(Vq, Vc, k, excl, sel),
+            lambda: knn_topk_ref(Vq, Vc, k, excl, sel),
+            knn_counts(Vq.shape[0], sel[-1], len(sel), Vq.shape[-1], Vc.shape[-1], k),
+            n, S=Vq.shape[0], Lq=Vq.shape[-1], Lc=Vc.shape[-1], k=k,
+            select_Es=list(sel))
+    # tie-heavy lags past lag 32 at k 128, and a column range at k 64
+    err["knn_topk"] = max(
+        err["knn_topk"],
+        check_knn(torch, "wide_tied_k128_E40", Vtie, Vtie, 128, True, (2, 20, 33, 40)),
+        check_knn(torch, "wide_tied_k70_E40_bf16", Vtie, Vtie, 70, True, all_E40,
+                  "bfloat16"),
+        check_knn(torch, "wide_column_range_k64", V40, V40[..., 700:].contiguous(),
+                  64, True, WIDE_BUCKETS, col_offset=700, col_hi=Lp40))
+
+    # ---- knn_topk_prefix: the significance path's shape at the same k, and
+    # E_max 40 with 70 library sizes (two launches a window)
+    perm_key = prng.split(prng.prng_key(0, dev), 2)[0]
+    col_ids = subsample_permutation(perm_key, Lp)
+    col_ids40 = subsample_permutation(perm_key, Lp40)
+    bsel = (3, 5, 8, 12)
+    prefix_cases = [(f"sig_k{k}", V8, k, bsel, WIDE_K_SIZES, col_ids) for k in WIDE_KS]
+    prefix_cases.append(("sig_E40_k41_70_sizes", V40, WIDE_E + 1, WIDE_BUCKETS,
+                         WIDE_SIG_SIZES, col_ids40))
+    # k within the fast width, 30 buckets, 70 sizes: two runs, so the wide
+    # route at one slot a lane, two windows a run
+    prefix_cases.append(("sig_E30_k21_70_sizes", V40, E_MAX + 1, tuple(range(1, 31)),
+                         WIDE_SIG_SIZES, col_ids40))
+    for name, V, k, b, sizes, cids in prefix_cases:
+        err["knn_topk_prefix"] = max(
+            err["knn_topk_prefix"],
+            check_knn_prefix(torch, f"wide_{name}", V, V, k, True, b, sizes, cids),
+            check_knn_prefix(torch, f"wide_{name}_bf16", V, V, k, True, b, sizes, cids,
+                             "bfloat16"))
+        n = _launches_of(lambda: knn_topk_prefix(V, V, k, True, b, sizes,
+                                                 col_ids=cids), knn_topk_prefix)
+        times["knn_topk_prefix"][name] = _wide_time(
+            torch, lambda: knn_topk_prefix(V, V, k, True, b, sizes, col_ids=cids),
+            lambda: knn_topk_prefix_ref(V, V, k, True, b, sizes, col_ids=cids),
+            prefix_counts(V.shape[0], b[-1], len(b), V.shape[-1], sizes[-1],
+                          len(sizes), k),
+            n, B=V.shape[0], Lq=V.shape[-1], k=k, buckets=list(b),
+            n_sizes=len(sizes))
+    err["knn_topk_prefix"] = max(err["knn_topk_prefix"], check_knn_prefix(
+        torch, "wide_tied_k128_E40_natural", Vtie, Vtie, 128, True, (2, 20, 33, 40),
+        (129, 200, 333, 400), None))
+
+    # ---- ccm_lookup: the chunk's 8 tables at the same k (the staged kernel
+    # in chunks of 32), past 64 segments, just past the two staged rows
+    Y = torch.as_tensor(dummy_brain(TARGET_BLOCK, FISH1_L, seed=2)
+                        [:, E_MAX : E_MAX + Lp]).to(dev).contiguous()
+    YT = Y.t().contiguous()
+    for k in WIDE_KS:
+        idx, sqd = knn_topk(V8, V8, k, True, (E_MAX,))
+        idx, w = tknn.tables_with_weights_bucketed(idx, sqd, (E_MAX,))
+        idx, w = idx[:, 0].contiguous(), w[:, 0].contiguous()
+        err["ccm_lookup"] = max(err["ccm_lookup"],
+                                check_lookup(torch, f"wide_chunk_tables_k{k}", idx, w, Y))
+        il, wl = idx.reshape(-1, k).long(), w.reshape(-1, k)
+        case = _wide_time(torch, lambda: ccm_lookup(idx, w, Y),
+                          lambda: ccm_lookup_ref(idx, w, Y),
+                          lookup_counts(LIB_BLOCK, TARGET_BLOCK, Lp, Lp, k), 1,
+                          S=LIB_BLOCK, B=TARGET_BLOCK, Lq=Lp, Lp=Lp, k=k)
+        case["library_ms"] = time_ms(torch, lambda: F.embedding_bag(
+            il, YT, per_sample_weights=wl, mode="sum"), 5)
+        times["ccm_lookup"][f"chunk_tables_k{k}"] = case
+    del idx, w, sqd, il, wl
+    rng = np.random.default_rng(30)
+    counts = rng.integers(0, 30, 150)
+    segs = tuple((i % 4, int(c)) for i, c in enumerate(counts))
+    for name, k, Lp_, segs_, S_ in (("150_segments_k41", 41, Lp, segs, 8),
+                                    ("Lp_past_two_stages", 21,
+                                     lookup_lib().ccm_lookup_max_lp(2) + 1,
+                                     ((0, 40), (1, 24)), 2),
+                                    ("Lp_past_one_stage_k70", 70,
+                                     lookup_lib().ccm_lookup_max_lp(1) + 1,
+                                     ((0, 20), (1, 12)), 2)):
+        B_ = sum(c for _, c in segs_)
+        ri = torch.as_tensor(rng.integers(0, Lp_, (S_, 4, 700, k)).astype(np.int32)).to(dev)
+        rw = torch.as_tensor(rng.uniform(0, 1, (S_, 4, 700, k)).astype(np.float32)).to(dev)
+        rY = torch.as_tensor(rng.standard_normal((B_, Lp_)).astype(np.float32)).to(dev)
+        n = _launches_of(lambda: ccm_lookup(ri, rw, rY, segs_), ccm_lookup)
+        err["ccm_lookup"] = max(err["ccm_lookup"], check_lookup(
+            torch, f"wide_{name}", ri, rw, rY, segs_))
+        times["ccm_lookup"][name] = dict(launches_per_call=n, segments=len(segs_),
+                                           Lp=Lp_, k=k)
+    del ri, rw, rY
+
+    # ---- the map at E_max 40 on the kernels against torch-reference
+    ts = dummy_brain(CHECK_N, FISH1_L, seed=4)
+    knn_topk.LAUNCHES = knn_topk_prefix.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    t1 = time.perf_counter()
+    got = run_causal_inference(ts, EDMConfig(E_max=WIDE_E, engine="cuda"), device=dev)
+    map_s = time.perf_counter() - t1
+    launches = {"knn_topk": knn_topk.LAUNCHES, "ccm_lookup": ccm_lookup.LAUNCHES}
+    want = run_causal_inference(ts, EDMConfig(E_max=WIDE_E, engine="torch-reference"),
+                                device=dev)
+    optE_eq = bool(np.array_equal(got.optE, want.optE))
+    rho_err = float(np.abs(got.rho - want.rho).max())
+    emit("wide_tables", E_max=WIDE_E, map_N=CHECK_N, map_L=FISH1_L, map_s=map_s,
+         map_launches=launches, optE_equal=optE_eq, rho_max_abs_err=rho_err,
+         tol=1e-5, optE_max=int(np.max(got.optE)), max_abs_err=err, times=times,
+         seconds=time.perf_counter() - t0, smi=smi)
+    if not (optE_eq and rho_err <= 1e-5):
+        raise AssertionError(f"wide_tables: the E_max {WIDE_E} map on cuda != "
+                             f"torch-reference (optE equal {optE_eq}, rho {rho_err})")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"wide_tables: the E_max {WIDE_E} map missed a "
+                             f"kernel: {launches}")
+    return {"launches": launches, "max_abs_err": err, "times": times}
+
+
+def long_recording_phase(torch, dev, smi):
+    """Phase ``long_recording``: a map of LONG_N series of LONG_L frames
+    (Lp 36,000, past the lookup's two staged target rows) whole on
+    ``cuda``, launch counts from 0 just before it; one series' tables and
+    one chunk's lookup at that length against the plain versions; the
+    lookup at Lp 36,000 (8 tables, B 2,048, k 21) timed beside its bound
+    and ``F.embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import ccm as tccm
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+    from repro_torch.launch.roofline import bound_ms, lookup_counts
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    Lp = LONG_L - (E_MAX - 1) - 1  # 36,000
+    ts = dummy_brain(LONG_N, LONG_L, seed=11)
+    knn_topk.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    walls = {}
+    res = run_causal_inference(ts, EDMConfig(E_max=E_MAX, engine="cuda"), device=dev,
+                               timings=walls)
+    map_s = time.perf_counter() - t1
+    launches = {"knn_topk": knn_topk.LAUNCHES, "ccm_lookup": ccm_lookup.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    rho = np.asarray(res.rho)
+    if rho.shape != (LONG_N, LONG_N) or not np.isfinite(rho).all():
+        raise AssertionError(f"long_recording: map shape {rho.shape}, finite "
+                             f"{np.isfinite(rho).all()}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"long_recording: the map missed a kernel: {launches}")
+    buckets = tuple(int(b) for b in np.unique(res.optE))
+    kb = buckets[-1] + 1
+
+    # one series' phase-2 tables and one chunk's lookup, against the plain
+    # versions (the plain tables in tiles of 4,096 candidates)
+    V = lag_batch(torch, ts[:LIB_BLOCK], Lp, dev)
+    ki, kd = knn_topk(V[:1], V[:1], kb, True, buckets)
+    ri, rd = knn_topk_ref(V[:1], V[:1], kb, True, buckets, tile_c=4096)
+    tables_equal = bool(torch.equal(ki, ri)) and same_bits(torch, kd, rd)
+    del ki, kd, ri, rd
+    plan, order = tccm.make_bucket_plan(np.asarray(res.optE))
+    idx, sqd = knn_topk(V, V, kb, True, buckets)
+    idx, w = tknn.tables_with_weights_bucketed(idx, sqd, buckets)
+    Yc = torch.as_tensor(ts[order][:, E_MAX : E_MAX + Lp]).to(dev).contiguous()
+    segs = tuple(enumerate(plan.counts))
+    lookup_err = check_lookup(torch, "long_recording_chunk", idx, w, Yc, segs)
+    del idx, w, sqd, Yc
+
+    # the lookup at Lp 36,000: 8 tables, B 2,048, k 21 (the gather route)
+    idx, sqd = knn_topk(V, V, E_MAX + 1, True, (E_MAX,))
+    idx, w = tknn.tables_with_weights_bucketed(idx, sqd, (E_MAX,))
+    idx, w = idx[:, 0].contiguous(), w[:, 0].contiguous()
+    del sqd, V
+    Y = torch.as_tensor(dummy_brain(TARGET_BLOCK, LONG_L, seed=12)
+                        [:, E_MAX : E_MAX + Lp]).to(dev).contiguous()
+    lookup_err = max(lookup_err, check_lookup(torch, "long_recording_Lp36000",
+                                              idx, w, Y))
+    ms = time_ms(torch, lambda: ccm_lookup(idx, w, Y), 3)
+    plain = time_ms(torch, lambda: ccm_lookup_ref(idx, w, Y), 1)
+    YT = Y.t().contiguous()
+    il, wl = idx.reshape(-1, E_MAX + 1).long(), w.reshape(-1, E_MAX + 1)
+    lib = time_ms(torch, lambda: F.embedding_bag(il, YT, per_sample_weights=wl,
+                                                 mode="sum"), 3)
+    bound, by = bound_ms(*lookup_counts(LIB_BLOCK, TARGET_BLOCK, Lp, Lp, E_MAX + 1))
+    del idx, w, Y, YT, il, wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    lookup = dict(kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                  bound_by=by, share_of_bound=bound / ms, S=LIB_BLOCK,
+                  B=TARGET_BLOCK, Lq=Lp, Lp=Lp, k=E_MAX + 1)
+    emit("long_recording", N=LONG_N, L=LONG_L, Lp=Lp, E_max=E_MAX, map_s=map_s,
+         walls=walls,
+         launches=launches, peak_device_bytes=peak, buckets=list(buckets),
+         rho_absmax=float(np.abs(rho).max()), tables_equal=tables_equal,
+         lookup_max_abs_err=lookup_err, lookup_Lp36000=lookup,
+         seconds=time.perf_counter() - t0, smi=smi)
+    if not tables_equal:
+        raise AssertionError("long_recording: knn_topk != plain version at Lp "
+                             f"{Lp}")
+    return {"launches": launches, "lookup": lookup, "max_abs_err": lookup_err}
+
+
+def wide_line(cases) -> dict:
+    """The kernels line's keys of one kernel's timed wide cases: per case
+    its ms, plain ms, bound ms and launches a call."""
+    cases = {c: t for c, t in cases.items() if "kernel_ms" in t}
+    return {"ms_wide": {c: t["kernel_ms"] for c, t in cases.items()},
+            "plain_ms_wide": {c: t["plain_ms"] for c, t in cases.items()},
+            "bound_ms_wide": {c: t["bound_ms"] for c, t in cases.items()},
+            "launches_per_call_wide": {c: t["launches_per_call"]
+                                       for c, t in cases.items()}}
+
+
 def multi_card_only(torch, dev, smi, n) -> int:
     """``--multi-card``: the main path at ``n`` series on card 0 alone
     (EDM_LOCAL_DEVICE_IDS=0, the reference), then ``multi_device_main``
@@ -4255,7 +4572,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="run only these phases after the build, comma-separated: "
                     "train_cli, lm_shard_check, lm_shard_check4, examples, "
-                    "lm_shard_multi, lm_seq_multi, flash_positions, lm_dryrun")
+                    "lm_shard_multi, lm_seq_multi, flash_positions, lm_dryrun, "
+                    "wide_tables, long_recording")
     ap.add_argument("--shard-rank", choices=("check", "multi", "seq"), default=None,
                     help=argparse.SUPPRESS)  # a rank of run_shard_world
     ap.add_argument("--shard-out", default=None, help=argparse.SUPPRESS)
@@ -4323,7 +4641,9 @@ def main(argv=None) -> int:
                 "lm_dryrun": lambda: lm_dryrun(
                     torch, smi, train_step_phase(torch, dev, smi,
                                                  train_check(torch, dev, smi))),
-                "flash_positions": lambda: flash_positions(torch, dev, smi)}
+                "flash_positions": lambda: flash_positions(torch, dev, smi),
+                "wide_tables": lambda: wide_tables_phase(torch, dev, smi),
+                "long_recording": lambda: long_recording_phase(torch, dev, smi)}
         for name in args.only.split(","):
             only[name]()
         print(smi, flush=True)
@@ -4473,15 +4793,14 @@ def main(argv=None) -> int:
             torch.as_tensor(rY).to(dev), seg_small))
     from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
 
-    max_lp = lookup_lib().ccm_lookup_max_lp()
-    try:
-        ccm_lookup(idxb[:1], wb[:1], torch.zeros((1, max_lp + 1), device=dev),
-                   ((0, 1),))
-    except ValueError as e:
-        emit("check_lookup", case="Lp_past_limit_refused", max_lp=max_lp,
-             refused=str(e))
-    else:
-        raise AssertionError(f"ccm_lookup took Lp = {max_lp + 1} past its limit")
+    # past the two staged target rows one row is staged at a time, past
+    # one the gather route runs
+    for name, stages in (("Lp_past_two_stages", 2), ("Lp_past_one_stage", 1)):
+        Lp_ = lookup_lib().ccm_lookup_max_lp(stages) + 1
+        Y_long = torch.as_tensor(rng.standard_normal((3, Lp_)).astype(np.float32))
+        lookup_err = max(lookup_err, check_lookup(
+            torch, name, idxb[:1], wb[:1], Y_long.to(dev), ((0, 1), (3, 2))))
+    del Y_long
 
     # ---- the prefix kernel against its plain version, significance shapes
     # col_ids: the pipeline's subsampling permutation at seed 0
@@ -4958,6 +5277,12 @@ def main(argv=None) -> int:
     if not (drho_err <= 1e-5 and trend_bad == 0 and p_bad == 0):
         raise AssertionError("cuda engine != torch-reference (significance)")
 
+    # ---- the wide kernels (k past 32, E past 32, more than 64 library
+    # sizes or segments a launch) and a recording past the lookup's two
+    # staged target rows, each map's counts set to 0 just before it
+    wide = wide_tables_phase(torch, dev, smi)
+    longrec = long_recording_phase(torch, dev, smi)
+
     # ---- the port's kNN bench (the slab kernel's path) and the dry runs
     # of Fish1_Normo and Subject11 at their own N and L
     bknn = bench_knn(torch, dev, smi)
@@ -5033,7 +5358,12 @@ def main(argv=None) -> int:
          "launches_extensions": ext_launches["knn_topk"],
          "max_abs_err_column_range": range_err,
          "max_abs_err_column_range_bf16": range_bf16_err,
-         "checked": True, "checked_bf16": True, "checked_column_range": True},
+         "launches_wide_map": wide["launches"]["knn_topk"],
+         "launches_long_recording": longrec["launches"]["knn_topk"],
+         "max_abs_err_wide": wide["max_abs_err"]["knn_topk"],
+         **wide_line(wide["times"]["knn_topk"]),
+         "checked": True, "checked_bf16": True, "checked_column_range": True,
+         "checked_wide": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
          "replaces": "src/repro/kernels/ccm_lookup/ccm_lookup.py:24",
@@ -5061,7 +5391,18 @@ def main(argv=None) -> int:
          "launches_multi_device_significance": multi_sig_launches["ccm_lookup"],
          "launches_ranks_main": ranks_main["launches"]["ccm_lookup"],
          "launches_ranks_significance": ranks_sig["launches"]["ccm_lookup"],
-         "checked": True},
+         "launches_wide_map": wide["launches"]["ccm_lookup"],
+         "launches_long_recording": longrec["launches"]["ccm_lookup"],
+         "max_abs_err_wide": max(wide["max_abs_err"]["ccm_lookup"],
+                                 longrec["max_abs_err"]),
+         **wide_line(wide["times"]["ccm_lookup"]),
+         "library_ms_wide": {c: t["library_ms"] for c, t in
+                             wide["times"]["ccm_lookup"].items() if "library_ms" in t},
+         "ms_Lp36000": longrec["lookup"]["kernel_ms"],
+         "plain_ms_Lp36000": longrec["lookup"]["plain_ms"],
+         "bound_ms_Lp36000": longrec["lookup"]["bound_ms"],
+         "library_ms_Lp36000": longrec["lookup"]["library_ms"],
+         "checked": True, "checked_wide": True},
         {"name": "knn_topk_prefix", "route": "cuda",
          "source": "src/repro_torch/kernels/knn_topk/csrc/knn_topk_prefix.cu",
          "replaces": "src/repro/kernels/knn_topk/knn_topk.py:398",
@@ -5077,7 +5418,9 @@ def main(argv=None) -> int:
          "launches_multi_device_significance":
              multi_sig_launches["knn_topk_prefix"],
          "launches_ranks_significance": ranks_sig["launches"]["knn_topk_prefix"],
-         "checked": True, "checked_bf16": True},
+         "max_abs_err_wide": wide["max_abs_err"]["knn_topk_prefix"],
+         **wide_line(wide["times"]["knn_topk_prefix"]),
+         "checked": True, "checked_bf16": True, "checked_wide": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:26",

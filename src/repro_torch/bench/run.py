@@ -24,6 +24,9 @@ where two layouts are compared.
   fig6 / fig7   map time against N / against L, with the fitted exponent
   fig8          one series' kNN tables vs its lookups
   fig9          cumulative-E tables vs a per-E rebuild
+  fig9b         the dense tables' variants (``knn_tables_dense(impl=)``):
+                the per-E rebuild vs the cumulative loop as a scan,
+                unrolled and blocked by 4 and by 2 selections a sort
   knn           the streaming tables vs the dense slab, both engines
                 (torch-reference: plain streaming vs the dense oracle;
                 cuda: the knn_topk kernel vs the knn_slab kernel)
@@ -43,8 +46,8 @@ where two layouts are compared.
                 unsharded table, and the merge alone on the device vs the
                 host oracle
 
-Not ported: ``fig9b`` (its variants are XLA scheduling knobs) and the
-``--check`` regression gate (no committed baselines for the port yet).
+Not ported: the ``--check`` regression gate (no committed baselines for
+the port yet).
 """
 from __future__ import annotations
 
@@ -97,6 +100,7 @@ SIZES = {
     "fig8": {"card": dict(N=2048, L=1450, E_max=20),
              "tiny": dict(N=8, L=120, E_max=4)},
     "fig9": {"card": dict(L=4000, E_max=20), "tiny": dict(L=100, E_max=4)},
+    "fig9b": {"card": dict(L=2000, E_max=20), "tiny": dict(L=100, E_max=4)},
     "knn": {"card": dict(Lc_sweep=(1000, 2000, 4000, 16000, 64000), Lq=128,
                          E_max=20, k=21, N=128, L_ref=1000),
             "tiny": dict(Lc_sweep=(100, 200), Lq=16, E_max=3, k=4, N=6,
@@ -265,6 +269,30 @@ def fig9_multiE_kernel(b: Bench, L, E_max):
     return b.write_rows("fig9")
 
 
+def fig9b_knn_impl_variants(b: Bench, L, E_max):
+    """The dense tables' variants (``knn.knn_tables_dense(impl=)``): the
+    paper-faithful per-E rebuild against the cumulative-E loop as a scan,
+    unrolled, and blocked by 4 and by 2 selections a sort, on one series
+    (the JAX bench's).  Each cumulative variant's tables are first held
+    to the scan's, bit for bit."""
+    cfg = EDMConfig(E_max=E_max)
+    V = embedding.lag_matrix(b.series(1, L), E_max, cfg.tau, cfg.n_points(L))
+    scan_i, scan_d = knn.knn_tables_dense(V, V, cfg.k_max, True, impl="scan")
+    times = {}
+    for impl in ("rebuild", "scan", "unroll", "blocked:4", "blocked:2"):
+        if impl != "rebuild":
+            i, d = knn.knn_tables_dense(V, V, cfg.k_max, True, impl=impl)
+            if not (torch.equal(i, scan_i) and torch.equal(d, scan_d)):
+                raise AssertionError(f"fig9b: impl {impl} != scan")
+        times[impl] = b.time(lambda impl=impl: knn.knn_tables_dense(
+            V, V, cfg.k_max, True, impl=impl))
+    base = times["rebuild"]
+    for impl, t in times.items():
+        b.row(f"fig9b_knn_{impl.replace(':', '')}", t,
+              f"vs_paper_faithful_rebuild={base / t:.2f}x")
+    return b.write_rows("fig9b")
+
+
 # ----------------------------------------------------- kNN selection bench
 def slab_bytes(engine: str, Lq: int, Lc: int) -> int:
     """Distance working set of the slab layout: the cuda kernel's (Lq,
@@ -276,15 +304,23 @@ def slab_bytes(engine: str, Lq: int, Lc: int) -> int:
     return Lq * Lc * (4 + 4 + 8)
 
 
-def stream_bytes_cuda(E_max: int, Lq: int) -> int:
-    """On-chip working set of the knn_topk kernel (``csrc/knn_topk.cu``):
-    per block of 8 query rows its shared candidate tile ([E][256] float32)
-    and query coordinates, per query row (one warp) the register lists
-    (32 lanes x MAXE slots x (float32 + int32)); MAXE is E_max rounded
-    up to 8.  Independent of Lc."""
-    maxe = -(-E_max // 8) * 8
+def stream_bytes_cuda(E_max: int, Lq: int, k: int) -> int:
+    """On-chip working set of the knn_topk kernel (``csrc/knn_topk.cu``)
+    for the all-E tables, independent of Lc.  The fast path (k <= 32,
+    E_max <= 32): per block of 8 query rows its shared candidate tile
+    ([E][256] float32) and query coordinates, per query row (one warp) the
+    register lists (32 lanes x MAXE slots x (float32 + int32)); MAXE is
+    E_max rounded up to 8.  The wide route (past either): a launch a
+    window of the selection, each with the fast path's 32-lag tile and
+    per query row R = ceil(k / 32) slots a lane for the window's lists (at
+    most 24, 12, 8 or 6 for R = 1-4); the largest window's set."""
     blocks = -(-Lq // 8)
-    return blocks * (maxe * 256 * 4 + 8 * maxe * 4) + Lq * 32 * maxe * 8
+    if k <= 32 and E_max <= 32:
+        maxe = -(-E_max // 8) * 8
+        return blocks * (maxe * 256 * 4 + 8 * maxe * 4) + Lq * 32 * maxe * 8
+    R = -(-k // 32)
+    lists = min(E_max, {1: 24, 2: 12, 3: 8, 4: 6}[R])
+    return blocks * (32 * 256 * 4 + 8 * 32 * 4) + Lq * 32 * R * lists * 8
 
 
 def knn_selection_bench(b: Bench, Lc_sweep, Lq, E_max, k, N, L_ref):
@@ -322,7 +358,7 @@ def knn_selection_bench(b: Bench, Lc_sweep, Lq, E_max, k, N, L_ref):
                 f_stream = lambda: knn_topk(Vq[None], Vc[None], k, False, all_E)
                 f_slab = lambda: knn_slab(Vq, Vc, k, False)
                 tile = 256  # the kernel's shared-memory candidate tile
-                ws_stream = stream_bytes_cuda(E_max, Lq)
+                ws_stream = stream_bytes_cuda(E_max, Lq, k)
             else:
                 f_stream = lambda: eng.knn_tables(Vq[None], Vc[None], k,
                                                   exclude_self=False, cfg=cfg)
@@ -734,6 +770,7 @@ BENCHES = {
     "fig7": fig7_scaling_L,
     "fig8": fig8_breakdown,
     "fig9": fig9_multiE_kernel,
+    "fig9b": fig9b_knn_impl_variants,
     "knn": knn_selection_bench,
     "phase2": phase2_engine_bench,
     "significance": significance_bench,

@@ -543,22 +543,58 @@ def knn_tables_prefix_rebuild(
 
 
 def knn_tables_dense(
-    Vq, Vc, k_max: int, exclude_self: bool, dist_dtype=torch.float32
+    Vq, Vc, k_max: int, exclude_self: bool, impl: str = "scan",
+    dist_dtype=torch.float32,
 ):
     """DENSE ORACLE: the full (S, Lq, Lc) distance matrix, selected at
     every E by one stable sort.  Tests hold the streaming table functions (any
-    tile width) and the kernel against it."""
+    tile width) and the kernel against it.
+
+    ``impl``, the variants of the JAX function (its ``fig9b`` bench):
+      scan, unroll -- the cumulative-E loop, one selection after each lag.
+          JAX's are two XLA schedules of it (a ``lax.scan`` and a loop
+          XLA may fuse); eager PyTorch has no fusion schedule to tell them
+          apart, so both run this one loop.
+      rebuild -- each E's distances from scratch in the matrix-product
+          form (:func:`_matmul_sq_dists`, TF32 off): the same neighbours
+          but at near-ties, the distances to float32 round-off.
+      blocked:g -- the cumulative loop with g selections batched into one
+          sort over g stacked matrices; where g does not divide E_max,
+          ``unroll``, as the JAX function falls back.
+    The cumulative variants give the same tables, bit for bit."""
     S, E_rows, Lq = Vq.shape
     Lc = Vc.shape[-1]
     if exclude_self and Lq != Lc:
         raise ValueError("exclude_self requires query set == candidate set")
+    g = 1
+    if impl.startswith("blocked"):
+        g = int(impl.split(":")[1]) if ":" in impl else 4
+        if E_rows % g != 0:
+            g = 1
+    elif impl not in ("scan", "unroll", "rebuild"):
+        raise ValueError(f"knn_tables_dense: unknown impl {impl!r} (scan, unroll, "
+                         "rebuild, blocked:g)")
     dist_dtype = _dtype(dist_dtype)
     invalid = torch.eye(Lq, dtype=torch.bool, device=Vq.device) if exclude_self else None
-    D = torch.zeros((S, Lq, Lc), dtype=dist_dtype, device=Vq.device)
-    outs = []
-    for e in range(E_rows):
-        D = _acc_sq(D, Vq[:, e], Vc[:, e], dist_dtype)
-        outs.append(_select_tile(D, invalid, k_max, 0))
+    if impl == "rebuild":
+        outs = [
+            _select_tile(_matmul_sq_dists(Vq[:, :E], Vc[:, :E]).to(dist_dtype),
+                         invalid, k_max, 0)
+            for E in range(1, E_rows + 1)
+        ]
+    else:
+        D = torch.zeros((S, Lq, Lc), dtype=dist_dtype, device=Vq.device)
+        outs = []
+        for e0 in range(0, E_rows, g):
+            Ds = []
+            for e in range(e0, e0 + g):
+                D = _acc_sq(D, Vq[:, e], Vc[:, e], dist_dtype)
+                Ds.append(D)
+            if g == 1:
+                outs.append(_select_tile(D, invalid, k_max, 0))
+            else:
+                i, d = _select_tile(torch.stack(Ds, dim=1), invalid, k_max, 0)
+                outs.extend(zip(i.unbind(1), d.unbind(1)))
     return (
         torch.stack([o[0] for o in outs], dim=1),
         torch.stack([o[1] for o in outs], dim=1),

@@ -7,7 +7,7 @@ distance), the convergence diagnostic's prefix tables through its
 ``kernels/ccm_lookup``.  For a
 CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.  On the card the kernels take tables of
-at most ``MAX_K`` neighbours and E_max up to ``MAX_E``
+at most ``MAX_K`` neighbours at any E_max and any series length
 (:meth:`CudaEngine.check_limits`).
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.engine.base import Engine
 from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
-from repro_torch.kernels.knn_topk.ops import MAX_E, MAX_K, knn_topk, knn_topk_prefix
+from repro_torch.kernels.knn_topk.ops import MAX_K, knn_topk, knn_topk_prefix
 
 
 class CudaEngine(Engine):
@@ -25,18 +25,18 @@ class CudaEngine(Engine):
     def check_limits(self, cfg, device) -> None:
         """On a card, the widest table of the run (``cfg.k_max``: phase 1
         and the all-E layout; the bucketed and prefix tables are no
-        wider) must fit the kernels' MAX_K neighbours, and E_max their
-        MAX_E lags.  On the CPU the wrappers run the plain versions, which
-        take any config."""
+        wider) must fit the kernels' MAX_K neighbours; any E_max runs.
+        On the CPU the wrappers run the plain versions, which take any
+        config."""
         if torch.device("cuda" if device is None else device).type != "cuda":
             return
-        if cfg.k_max > MAX_K or cfg.E_max > MAX_E:
+        if cfg.k_max > MAX_K:
             raise ValueError(
                 f"the cuda engine's kernels build tables of at most {MAX_K} "
-                f"neighbours for E_max <= {MAX_E}; this config needs "
-                f"k={cfg.k_max} at E_max={cfg.E_max} (k_override="
-                f"{cfg.k_override}).  Run it on the CPU (device='cpu', CLI "
-                "--device cpu) or with engine='torch-reference'"
+                f"neighbours; this config needs k={cfg.k_max} at "
+                f"E_max={cfg.E_max} (k_override={cfg.k_override}).  Run it "
+                "on the CPU (device='cpu', CLI --device cpu) or with "
+                "engine='torch-reference'"
             )
 
     def _select_tables(self, Vq, Vc, k, exclude_self, select_Es, cfg,

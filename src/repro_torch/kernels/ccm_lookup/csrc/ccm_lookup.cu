@@ -75,6 +75,37 @@
 //    KB of shared memory a block); Subject11's Lp = 8508 takes 68 KB.
 //  * Occupancy (-Xptxas=-v, sm_90a): 101 / 102 / 72 / 60 registers for
 //    MAXK 32 / 24 / 16 / 8, so one block (16 warps) an SM at k = 21.
+//
+// Past Lp = optin / 8, up to optin / 4 (58,112 on an H100), the stream
+// kernel stages one row at a time (STAGES 1): the copy of a target's row
+// and the gather over it take turns, two barriers a target.  A block holds
+// the whole SM either way (one 512-thread block an SM), so the second
+// stage would only have overlapped the copy; a row staged once still
+// serves 512 pairs, where the gather route's reads come through L1 and L2
+// one neighbour at a time.  At Lp 36,000 (8 tables, B 2,048, k 21; an
+// H100 80GB HBM3 at 700 W, chip_smoke.py's long_recording phase): 21.0
+// ms, against the gather route's 43.1 and F.embedding_bag's 38.6.
+// -Xptxas=-v (sm_90a), no spills: 56 / 64 / 96 / 98 registers at MAXK 8 /
+// 16 / 24 / 32 and 96 WIDE.
+//
+// Past Lp = optin / 4 the gather route: the stream kernel's pairs and
+// runs of targets with nothing staged (STAGES 0): each neighbour's value
+// is an __ldg of the target row, served by L2 while the run's blocks read
+// the same row, so there is no barrier and any Lp runs.
+//
+// Past k = 32 (WIDE, up to kMaxK = 128): the idx / w row is walked in
+// chunks of 32 held in registers (the MAXK 32 register arrays), the sums
+// carried across chunks, so each sum still runs over j in ascending order
+// with the same rounded ops.  The staged kernel keeps its G sums across
+// the chunks; the stream and gather kernels reload the chunks for every
+// target.  At k <= 32 every route launches the instantiations it did
+// before.  The wrapper splits a segment list longer than kMaxSegs into
+// launches, each over its own run of targets (Y and out offset to its
+// first target, out's rows B_out apart).  -Xptxas=-v (sm_90a), no
+// spills: the staged kernel WIDE at G = 8 / 4 / 2 112 / 100 / 98
+// registers (within __launch_bounds__(256, 2)), the stream kernel WIDE 103,
+// the gather route 34 / 50 / 66 / 82 at MAXK 8 / 16 / 24 / 32 and 86 WIDE
+// (one 512-thread block an SM, as the stream kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +116,8 @@ namespace {
 
 constexpr int kT = 256;        // time points per item, one per thread
 constexpr int kTS = 512;       // (table, time point) pairs a stream block
-constexpr int kMaxK = 32;      // neighbours per table row (register bound)
+constexpr int kMaxK = 128;     // neighbours per table row
+constexpr int kChunk = 32;     // of them held in registers at once (MAXK bound)
 constexpr int kMaxSegs = 64;   // segments per launch (kernel parameter)
 constexpr size_t kTwoBlockBytes = 112 * 1024;  // shared memory for 2 blocks an SM
 constexpr int kMaxDevices = 64;  // device indices the launch caches keep a slot for
@@ -171,7 +203,33 @@ __device__ __forceinline__ void stage(float* buf, const float* __restrict__ Y,
   }
 }
 
+// Add the kc <= MAXK neighbours of one idx / w row (from ix / wv, global)
+// to the G targets' sums, in ascending order.
 template <int G, int MAXK>
+__device__ __forceinline__ void gather_row(const int32_t* __restrict__ ix_row,
+                                           const float* __restrict__ w_row, int kc,
+                                           const float* ys, float (&acc)[G]) {
+  int ix[MAXK];
+  float wv[MAXK];
+#pragma unroll
+  for (int j = 0; j < MAXK; ++j) {
+    if (j >= kc) break;
+    ix[j] = __ldg(ix_row + j);
+    wv[j] = __ldg(w_row + j);
+  }
+#pragma unroll
+  for (int j = 0; j < MAXK; ++j) {
+    if (j >= kc) break;
+    float y[G];
+    load_g<G>(ys, ix[j], y);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = __fadd_rn(acc[g], __fmul_rn(wv[j], y[g]));
+  }
+}
+
+// WIDE (k > MAXK): the row is walked in chunks of MAXK held in registers,
+// the G sums kept across chunks, so the order of the sum is the same.
+template <int G, int MAXK, bool WIDE>
 __global__ void __launch_bounds__(kT, 2)
 ccm_lookup_kernel(const int32_t* __restrict__ idx, const float* __restrict__ w,
                   const float* __restrict__ Y, float* __restrict__ out, int S,
@@ -206,24 +264,15 @@ ccm_lookup_kernel(const int32_t* __restrict__ idx, const float* __restrict__ w,
       if (t >= Lq) continue;
       for (int s = 0; s < S; ++s) {
         const size_t base = (((size_t)s * nb + cur.row) * Lq + t) * k;
-        int ix[MAXK];
-        float wv[MAXK];
-#pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if (j >= k) break;
-          ix[j] = __ldg(idx + base + j);
-          wv[j] = __ldg(w + base + j);
-        }
         float acc[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) acc[g] = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if (j >= k) break;
-          float y[G];
-          load_g<G>(ys, ix[j], y);
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[g] = __fadd_rn(acc[g], __fmul_rn(wv[j], y[g]));
+        if constexpr (WIDE) {
+          for (int j0 = 0; j0 < k; j0 += MAXK)
+            gather_row<G, MAXK>(idx + base + j0, w + base + j0, min(MAXK, k - j0), ys,
+                                acc);
+        } else {
+          gather_row<G, MAXK>(idx + base, w + base, k, ys, acc);
         }
         float* o = out + ((size_t)s * B + cur.b0) * Lq + t;
 #pragma unroll
@@ -247,12 +296,27 @@ __device__ __forceinline__ void stage_row(float* buf, const float* __restrict__ 
   }
 }
 
-template <int MAXK>
+// The neighbour's value of a target row: staged in shared memory, or read
+// through L2 (the gather route).
+template <int STAGES>
+__device__ __forceinline__ float target_at(const float* ys, int i) {
+  if constexpr (STAGES > 0) return ys[i];
+  return __ldg(ys + i);
+}
+
+// STAGES 2: each target row is staged in shared memory while the one
+// before is gathered (Lp up to max_lp(dev, 2)); 1: staged, then gathered,
+// in turns (Lp up to max_lp(dev, 1)); 0: the gather route, the
+// neighbours' values through L2, nothing staged, no barrier.  WIDE (k >
+// MAXK): the row is walked in chunks of MAXK from global memory for every
+// target, the sum carried across chunks; else it stays in registers while
+// the targets' table row does.  Rows of out are B_out apart.
+template <int MAXK, bool WIDE, int STAGES>
 __global__ void __launch_bounds__(kTS, 1)
 ccm_lookup_stream_kernel(const int32_t* __restrict__ idx, const float* __restrict__ w,
                          const float* __restrict__ Y, float* __restrict__ out, int S,
                          int nb, int Lq, int k, int B, int Lp, int n_tiles,
-                         int n_runs, bool vec, Segs sg) {
+                         int n_runs, bool vec, int B_out, Segs sg) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x % n_tiles, run = blockIdx.x / n_tiles;
   const int b0 = (int)((long long)B * run / n_runs);
@@ -264,51 +328,79 @@ ccm_lookup_stream_kernel(const int32_t* __restrict__ idx, const float* __restric
   const int t = live ? (int)(p - (long long)s * Lq) : 0;
 
   int seg = 0, row = -1;
+  size_t base = 0;
   int ix[MAXK];
   float wv[MAXK];
-  stage_row(smem, Y + (size_t)b0 * Lp, Lp, vec);
-  cp_async_commit();
+  if constexpr (STAGES == 2) {
+    stage_row(smem, Y + (size_t)b0 * Lp, Lp, vec);
+    cp_async_commit();
+  }
   for (int b = b0; b < b1; ++b) {
-    const float* ys = smem + (size_t)((b - b0) & 1) * Lp;
-    if (b + 1 < b1) {
-      stage_row(smem + (size_t)((b + 1 - b0) & 1) * Lp, Y + (size_t)(b + 1) * Lp, Lp,
-                vec);
+    const float* ys;
+    if constexpr (STAGES == 2) {
+      ys = smem + (size_t)((b - b0) & 1) * Lp;
+      if (b + 1 < b1) {
+        stage_row(smem + (size_t)((b + 1 - b0) & 1) * Lp, Y + (size_t)(b + 1) * Lp,
+                  Lp, vec);
+        cp_async_commit();
+        cp_async_wait<1>();  // this target's copies have landed (ours)
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // ... and everyone's
+    } else if constexpr (STAGES == 1) {
+      ys = smem;
+      stage_row(smem, Y + (size_t)b * Lp, Lp, vec);
       cp_async_commit();
-      cp_async_wait<1>();  // this target's copies have landed (ours)
-    } else {
       cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      ys = Y + (size_t)b * Lp;
     }
-    __syncthreads();  // ... and everyone's
     while (b >= sg.y0[seg] + sg.count[seg]) ++seg;  // block-uniform
     if (sg.row[seg] != row) {
       row = sg.row[seg];
-      const size_t base = (((size_t)s * nb + row) * Lq + t) * k;
+      base = (((size_t)s * nb + row) * Lq + t) * k;
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int j = 0; j < MAXK; ++j) {
-        if (j >= k) break;
-        ix[j] = __ldg(idx + base + j);
-        wv[j] = __ldg(w + base + j);
+        for (int j = 0; j < MAXK; ++j) {
+          if (j >= k) break;
+          ix[j] = __ldg(idx + base + j);
+          wv[j] = __ldg(w + base + j);
+        }
       }
     }
     if (live) {
       float acc = 0.f;
+      for (int j0 = 0; j0 < (WIDE ? k : 1); j0 += MAXK) {
+        const int kc = WIDE ? min(MAXK, k - j0) : k;
+        if constexpr (WIDE) {
 #pragma unroll
-      for (int j = 0; j < MAXK; ++j) {
-        if (j >= k) break;
-        acc = __fadd_rn(acc, __fmul_rn(wv[j], ys[ix[j]]));
+          for (int j = 0; j < MAXK; ++j) {
+            if (j >= kc) break;
+            ix[j] = __ldg(idx + base + j0 + j);
+            wv[j] = __ldg(w + base + j0 + j);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < MAXK; ++j) {
+          if (j >= kc) break;
+          acc = __fadd_rn(acc, __fmul_rn(wv[j], target_at<STAGES>(ys, ix[j])));
+        }
       }
-      out[((size_t)s * B + b) * Lq + t] = acc;
+      out[((size_t)s * B_out + b) * Lq + t] = acc;
     }
-    __syncthreads();  // the buffer is refilled for the target after next
+    if constexpr (STAGES > 0) __syncthreads();  // the buffer is refilled
   }
 }
 
-int max_lp(int dev) {
+// The longest target row that `stages` staged rows hold on `dev`.
+int max_lp(int dev, int stages) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
-  return optin / (2 * (int)sizeof(float));
+  return optin / (stages * (int)sizeof(float));
 }
 
 // G of the staged kernel, or 1: the stream kernel.
@@ -326,8 +418,8 @@ int choose_g(int Lp) {
 // threads.
 struct LaunchCache {
   std::mutex mu;
-  size_t smem[kMaxDevices] = {};  // 0: not set on that device yet
-  int blocks[kMaxDevices] = {};
+  size_t smem[kMaxDevices] = {};
+  int blocks[kMaxDevices] = {};  // 0: not set on that device yet
 };
 
 // Grid-filling block count of ``kern`` at ``threads`` and ``smem`` on
@@ -337,7 +429,7 @@ int resident_blocks(Kern kern, int threads, size_t smem, int dev,
                     LaunchCache& cache, int* blocks) {
   if (dev < 0 || dev >= kMaxDevices) return -9;
   std::lock_guard<std::mutex> lock(cache.mu);
-  if (cache.smem[dev] != smem) {
+  if (cache.blocks[dev] == 0 || cache.smem[dev] != smem) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -354,42 +446,49 @@ int resident_blocks(Kern kern, int threads, size_t smem, int dev,
   return 0;
 }
 
-template <int G, int MAXK>
+template <int G, int MAXK, bool WIDE>
 int launch(const int32_t* idx, const float* w, const float* Y, float* out,
-           int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+           int S, int nb, int Lq, int k, int B, int Lp, int B_out, const Segs& sg,
            int dev, cudaStream_t stream) {
   static LaunchCache cache;
   const size_t smem = 2 * (size_t)Lp * G * sizeof(float);
   int blocks = 0;
-  const int rc = resident_blocks(ccm_lookup_kernel<G, MAXK>, kT, smem, dev,
+  const int rc = resident_blocks(ccm_lookup_kernel<G, MAXK, WIDE>, kT, smem, dev,
                                  cache, &blocks);
   if (rc != 0) return rc;
   const int n_tb = (Lq + kT - 1) / kT;
   const long long n_items = (long long)sg.g0[sg.n] * n_tb;
   if (n_items == 0) return 0;
   const int grid = (int)(n_items < blocks ? n_items : blocks);
-  ccm_lookup_kernel<G, MAXK><<<grid, kT, smem, stream>>>(idx, w, Y, out, S, nb, Lq,
-                                                       k, B, Lp, n_tb, sg);
+  ccm_lookup_kernel<G, MAXK, WIDE><<<grid, kT, smem, stream>>>(
+      idx, w, Y, out, S, nb, Lq, k, B_out, Lp, n_tb, sg);
   return (int)cudaGetLastError();
 }
 
 template <int G>
 int launch_k(const int32_t* idx, const float* w, const float* Y, float* out,
-             int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
+             int S, int nb, int Lq, int k, int B, int Lp, int B_out, const Segs& sg,
              int dev, cudaStream_t st) {
-  if (k <= 8) return launch<G, 8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  if (k <= 16) return launch<G, 16>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  if (k <= 24) return launch<G, 24>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  return launch<G, 32>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+  if (k <= 8)
+    return launch<G, 8, false>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+  if (k <= 16)
+    return launch<G, 16, false>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+  if (k <= 24)
+    return launch<G, 24, false>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+  if (k <= kChunk)
+    return launch<G, kChunk, false>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg,
+                                    dev, st);
+  return launch<G, kChunk, true>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev,
+                                 st);
 }
 
-template <int MAXK>
+template <int MAXK, bool WIDE, int STAGES>
 int launch_stream(const int32_t* idx, const float* w, const float* Y, float* out,
-                  int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
-                  int dev, cudaStream_t stream) {
+                  int S, int nb, int Lq, int k, int B, int Lp, int B_out,
+                  const Segs& sg, int dev, cudaStream_t stream) {
   static LaunchCache cache;
-  const size_t smem = 2 * (size_t)Lp * sizeof(float);
-  auto kern = ccm_lookup_stream_kernel<MAXK>;
+  const size_t smem = (size_t)STAGES * Lp * sizeof(float);
+  auto kern = ccm_lookup_stream_kernel<MAXK, WIDE, STAGES>;
   int blocks = 0;
   const int rc = resident_blocks(kern, kTS, smem, dev, cache, &blocks);
   if (rc != 0) return rc;
@@ -400,17 +499,28 @@ int launch_stream(const int32_t* idx, const float* w, const float* Y, float* out
   if (n_runs > B) n_runs = B;
   const bool vec = (Lp % 4 == 0) && (reinterpret_cast<uintptr_t>(Y) % 16 == 0);
   kern<<<(int)(n_tiles * n_runs), kTS, smem, stream>>>(
-      idx, w, Y, out, S, nb, Lq, k, B, Lp, (int)n_tiles, (int)n_runs, vec, sg);
+      idx, w, Y, out, S, nb, Lq, k, B, Lp, (int)n_tiles, (int)n_runs, vec, B_out, sg);
   return (int)cudaGetLastError();
 }
 
+template <int STAGES>
 int launch_stream_k(const int32_t* idx, const float* w, const float* Y, float* out,
-                    int S, int nb, int Lq, int k, int B, int Lp, const Segs& sg,
-                    int dev, cudaStream_t st) {
-  if (k <= 8) return launch_stream<8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  if (k <= 16) return launch_stream<16>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  if (k <= 24) return launch_stream<24>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-  return launch_stream<32>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+                    int S, int nb, int Lq, int k, int B, int Lp, int B_out,
+                    const Segs& sg, int dev, cudaStream_t st) {
+  if (k <= 8)
+    return launch_stream<8, false, STAGES>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out,
+                                           sg, dev, st);
+  if (k <= 16)
+    return launch_stream<16, false, STAGES>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out,
+                                            sg, dev, st);
+  if (k <= 24)
+    return launch_stream<24, false, STAGES>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out,
+                                            sg, dev, st);
+  if (k <= kChunk)
+    return launch_stream<kChunk, false, STAGES>(idx, w, Y, out, S, nb, Lq, k, B, Lp,
+                                                B_out, sg, dev, st);
+  return launch_stream<kChunk, true, STAGES>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out,
+                                             sg, dev, st);
 }
 
 }  // namespace
@@ -424,29 +534,32 @@ const char* kernel_error_string(int code) {
 int ccm_lookup_max_k() { return kMaxK; }
 int ccm_lookup_max_segments() { return kMaxSegs; }
 
-// The longest target row (Lp) the kernel takes on the current device.
-int ccm_lookup_max_lp() {
+// The longest target row (Lp) the stream kernel stages on the current
+// device in `stages` (2 or 1) shared-memory rows; past max_lp(1) the
+// gather route runs.
+int ccm_lookup_max_lp(int stages) {
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  return max_lp(dev);
+  if (stages < 1 || stages > 2 || cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return max_lp(dev, stages);
 }
 
 // idx / w (S, nb, Lq, k) int32 / float32, Y (B, Lp) float32, all
-// contiguous; out (S, B, Lq).  Segment i: the next seg_counts[i] targets,
+// contiguous; out (S, B_out, Lq) with B_out >= B: this launch writes rows
+// 0 .. B - 1 of each table's block (the caller offsets Y and out to the
+// launch's first target).  Segment i: the next seg_counts[i] targets,
 // through table row seg_rows[i]; the counts sum to B.  Every idx entry
 // must lie in [0, Lp).  Returns 0, a negative argument code, or the CUDA
 // error of the launch.
 int ccm_lookup_launch(const int32_t* idx, const float* w, const float* Y,
                       float* out, int S, int nb, int Lq, int k, int B, int Lp,
                       const int* seg_rows, const int* seg_counts, int n_seg,
-                      void* stream) {
-  if (S < 1 || nb < 1 || Lq < 1 || B < 1 || Lp < 1) return -1;
+                      int B_out, void* stream) {
+  if (S < 1 || nb < 1 || Lq < 1 || B < 1 || Lp < 1 || B_out < B) return -1;
   if (k < 1 || k > kMaxK) return -2;
   if (n_seg < 1 || n_seg > kMaxSegs) return -3;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (Lp > max_lp(dev)) return -4;
   const int G = choose_g(Lp);
   Segs sg;
   sg.n = n_seg;
@@ -464,10 +577,18 @@ int ccm_lookup_launch(const int32_t* idx, const float* w, const float* Y,
   sg.g0[n_seg] = (int)groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 8: return launch_k<8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-    case 4: return launch_k<4>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-    case 2: return launch_k<2>(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
-    default: return launch_stream_k(idx, w, Y, out, S, nb, Lq, k, B, Lp, sg, dev, st);
+    case 8: return launch_k<8>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+    case 4: return launch_k<4>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+    case 2: return launch_k<2>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev, st);
+    default:
+      if (Lp <= max_lp(dev, 2))
+        return launch_stream_k<2>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev,
+                                  st);
+      if (Lp <= max_lp(dev, 1))
+        return launch_stream_k<1>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev,
+                                  st);
+      return launch_stream_k<0>(idx, w, Y, out, S, nb, Lq, k, B, Lp, B_out, sg, dev,
+                                st);
   }
 }
 

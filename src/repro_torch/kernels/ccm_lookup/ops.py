@@ -2,6 +2,11 @@
 
 For a CUDA tensor it launches the kernel or raises; for a CPU tensor it
 runs the plain version (``ref.py``).  No fallback from a failed launch.
+The kernel takes k up to 128 and any target length Lp (past the two
+staged rows of ``ccm_lookup_max_lp(2)`` it stages one row at a time, past
+``ccm_lookup_max_lp(1)`` its gather route reads the targets through L2);
+a segment list longer than a launch takes is split into launches, each
+writing its own targets' rows of the output.
 """
 from __future__ import annotations
 
@@ -14,9 +19,8 @@ from repro_torch import kernels
 from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-_RC_LP = -4  # the entry point's code for a target row past the kernel's limit
 
 
 def _lib() -> ctypes.CDLL:
@@ -24,10 +28,11 @@ def _lib() -> ctypes.CDLL:
     if lib.ccm_lookup_launch.argtypes is None:
         lib.ccm_lookup_launch.argtypes = _ARGTYPES
         lib.ccm_lookup_launch.restype = ctypes.c_int
-        for fn in (lib.ccm_lookup_max_k, lib.ccm_lookup_max_segments,
-                   lib.ccm_lookup_max_lp):
+        for fn in (lib.ccm_lookup_max_k, lib.ccm_lookup_max_segments):
             fn.argtypes = []
             fn.restype = ctypes.c_int
+        lib.ccm_lookup_max_lp.argtypes = [ctypes.c_int]
+        lib.ccm_lookup_max_lp.restype = ctypes.c_int
     return lib
 
 
@@ -37,6 +42,20 @@ def _seg_arrays(segs: tuple[tuple[int, int], ...]):
     n = len(segs)
     return (ctypes.c_int * n)(*(r for r, _ in segs)), (ctypes.c_int * n)(
         *(c for _, c in segs))
+
+
+def segment_runs(segs, max_segs: int):
+    """The segment list in launches of at most ``max_segs`` segments:
+    [(first target, targets, segments), ...], runs of no target left
+    out (the launch would have nothing to write)."""
+    runs, b0 = [], 0
+    for i in range(0, len(segs), max_segs):
+        part = segs[i : i + max_segs]
+        n = sum(c for _, c in part)
+        if n:
+            runs.append((b0, n, part))
+        b0 += n
+    return runs
 
 
 def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor,
@@ -91,23 +110,17 @@ def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor,
     if k > lib.ccm_lookup_max_k():
         raise ValueError(f"ccm_lookup: k={k} above the kernel's limit "
                          f"{lib.ccm_lookup_max_k()}")
-    if len(segs) > lib.ccm_lookup_max_segments():
-        raise ValueError(f"ccm_lookup: {len(segs)} segments, at most "
-                         f"{lib.ccm_lookup_max_segments()} a launch")
     out = torch.empty((S, B, Lq), dtype=torch.float32, device=Y.device)
-    rows, counts = _seg_arrays(segs)
     with torch.cuda.device(Y.device):
-        rc = lib.ccm_lookup_launch(
-            idx.data_ptr(), w.data_ptr(), Y.data_ptr(), out.data_ptr(),
-            S, nb, Lq, k, B, Lp, rows, counts, len(segs),
-            kernels.current_stream(Y.device),
-        )
-        if rc == _RC_LP:
-            raise ValueError(f"ccm_lookup: Lp={Lp} above the kernel's limit "
-                             f"{lib.ccm_lookup_max_lp()} (two staged target "
-                             "rows in shared memory)")
-    kernels.check_launch("ccm_lookup", rc, lib)
-    ccm_lookup.LAUNCHES += 1
+        for b0, n, part in segment_runs(segs, lib.ccm_lookup_max_segments()):
+            rows, counts = _seg_arrays(part)
+            rc = lib.ccm_lookup_launch(
+                idx.data_ptr(), w.data_ptr(), Y[b0:].data_ptr(),
+                out.data_ptr() + b0 * Lq * out.element_size(), S, nb, Lq, k, n, Lp,
+                rows, counts, len(part), B, kernels.current_stream(Y.device),
+            )
+            kernels.check_launch("ccm_lookup", rc, lib)
+            ccm_lookup.LAUNCHES += 1
     return out[0] if squeeze else out
 
 

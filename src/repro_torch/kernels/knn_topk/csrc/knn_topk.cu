@@ -70,17 +70,66 @@
 //    card (phase 2 at Lq 1,430: 179 x 8 blocks).  The inserts are chains
 //    of dependent shuffles and ballots, so the kernel is latency-bound
 //    and occupancy pays: it is built for 3 blocks (24 warps) an SM, 80
-//    registers a lane (-Xptxas=-v: 64 at MAXE 8; 80 at 16 and 24; 80 with
-//    24 bytes of spill at 32).  Times against 2 blocks an SM: PERF.md.
+//    registers a lane (-Xptxas=-v: 64 at MAXE 8; 80 at 16; 80 with 32 / 72
+//    bytes of spill stores / loads at 24 and 384 / 1,472 at 32).  Times
+//    against 2 blocks an SM: PERF.md.
+//
+// The wide route (any E_hi, k up to 128): the fast path above holds k <=
+// 32 slots, one a lane, and a list for every lag up to E_hi <= 32 (a
+// 32-bit selection mask, a [E][kTileC] tile of at most 32 lags).  Past
+// either bound knn_topk_wide_kernel runs instead; the fast path's
+// instantiations are untouched.
+//  * R = ceil(k / 32) slots a lane: lane j holds slots j, j + 32, ...
+//    An insert moves every slot at or after the insert position up one:
+//    each round shifts up one lane and lane 0 of round r takes lane 31 of
+//    round r - 1 (one shuffle a round: lane 31 sends round r - 1, the
+//    others round r).  The k-th distance is read from slot k - 1 and the
+//    one after an insert is still max(key, old slot k - 2), so the tie
+//    rule and the insert order are the fast path's: the tables stay
+//    bit-equal to the plain version.
+//  * Selection windows: a launch keeps lists for at most W selected E (W
+//    from R, below) whose lags span at most 32, [e_lo, E_hi); its mask is
+//    relative to e_lo and fits 32 bits.  The wrapper splits the selection
+//    into windows, one launch each, and each launch writes its rows of the
+//    output in place (row offset si0 of n_out rows a series).  Each launch
+//    runs the same cumulative recurrence from lag 0 with the same pinned
+//    ops, so the distances at a window's lags are the fast path's, bit for
+//    bit.  The lists are indexed by their rank in the window (the loop over
+//    them is unrolled), so lags the window does not select hold no
+//    registers.
+//  * Staging: only the window's lags (at most 32) are staged a tile, in
+//    the fast path's static [32][kTileC] tile (32 KB), so occupancy stays
+//    at 3 blocks an SM at any E.  The lags below e_lo only accumulate
+//    distance; they are read through L1 (__ldg: a lane's candidate column
+//    is coalesced across the warp and shared by the block's 8 warps), so
+//    no E_max needs more shared memory than the fast path.  Dynamic
+//    shared memory for all E_hi lags would cost occupancy past 48 KB
+//    (E_hi 48 at kTileC 256) and still bound E_max; chunks of lags staged
+//    in turn would hold one distance a candidate group in registers, which
+//    the lists need.
+//  * Registers: 2 R W list registers a lane; W = 24, 12, 8 and 6 for R =
+//    1, 2, 3 and 4 keeps them at 48, within the fast path's budget of 80
+//    at 3 blocks an SM.  -Xptxas=-v (sm_90a): 80 registers and 33,792
+//    bytes of static shared memory at every R, with 24 / 40, 32-36 /
+//    52-60, 40 / 100 and 56-64 / 116-124 bytes of spill stores / loads at
+//    R = 1, 2, 3 and 4 (the offer's R shifted copies), less than the fast
+//    path's at MAXE 24 and 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wide_lists.cuh"
+
 namespace {
 
-constexpr int kMaxE = 32;     // selection set is a 32-bit mask over E-1
-constexpr int kMaxK = 32;     // neighbours per table row = the warp width
+using knn_wide::offer_wide;
+using knn_wide::wide_lists;
+
+constexpr int kMaxE = 32;     // fast path: selection set is a 32-bit mask over E-1
+constexpr int kFastK = 32;    // fast path: neighbours per table row = the warp width
+constexpr int kMaxK = 128;    // wide route: up to 4 slots a lane
+constexpr int kSpan = 32;     // wide route: lags a window's mask spans
 constexpr int kWarps = 8;     // query rows per block, one per warp
 constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
 constexpr int kTileC = 256;   // candidates staged per shared-memory tile
@@ -203,6 +252,110 @@ knn_topk_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
   }
 }
 
+// The wide route: R slots a lane, lists for the selected E of one window
+// (sel_mask relative to e_lo, E_hi - e_lo <= kSpan), written to rows si0 ..
+// of the n_out rows a series.
+template <int R, bool BF16>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+knn_topk_wide_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                     int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
+                     int E_rows, int Lq, int Lc, int k, int e_lo, int E_hi,
+                     uint32_t sel_mask, int si0, int n_out, int exclude_self,
+                     int col_offset, int col_hi) {
+  constexpr int W = wide_lists(R);
+  __shared__ float vc_t[kSpan * kTileC];  // lags e_lo .. E_hi-1: [e - e_lo][kTileC]
+  __shared__ float qv_s[kWarps][kSpan];   // each warp's query coordinates there
+
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = blockIdx.x * kWarps + (tid >> 5);
+  const bool live = q < Lq;  // warp-uniform
+  const int span = E_hi - e_lo;
+  const float* vq_s = vq + (size_t)s * E_rows * Lq;
+  const float* vc_s = vc + (size_t)s * E_rows * Lc;
+
+  float* qv = qv_s[tid >> 5];  // warp-uniform reads: broadcast
+  qv[lane] = (live && lane < span) ? vq_s[(size_t)(e_lo + lane) * Lq + q] : 0.f;
+  __syncwarp();
+  float ld[W][R];
+  int li[W][R];
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      ld[w][r] = f_inf();
+      li[w][r] = 0x7fffffff;
+    }
+
+  for (int c0 = 0; c0 < Lc; c0 += kTileC) {
+    const int width = min(kTileC, Lc - c0);
+    __syncthreads();  // previous tile fully consumed
+    for (int i = tid; i < span * kTileC; i += kWarps * 32) {
+      const int e = i / kTileC, j = i - e * kTileC;
+      vc_t[i] = j < width ? vc_s[(size_t)(e_lo + e) * Lc + c0 + j] : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int g = 0; g < width; g += 32) {
+      const int j = g + lane;  // < kTileC: g <= kTileC - 32
+      const int gid = col_offset + c0 + j;  // the global candidate id
+      const bool valid = j < width;
+      const bool masked = gid >= col_hi || (exclude_self && gid == q);
+      // the lags below the window: distance only, read through L1
+      const float* vcj = vc_s + c0 + (valid ? j : 0);
+      float D = 0.f;
+      for (int e = 0; e < e_lo; ++e)
+        D = acc_sq<BF16>(D, __ldg(vq_s + (size_t)e * Lq + q), __ldg(vcj + (size_t)e * Lc));
+      uint32_t m = sel_mask;
+      int e = 0;  // the window's next lag to accumulate, relative to e_lo
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (m == 0u) break;
+        const int ew = __ffs(m) - 1;  // list w's lag, relative to e_lo
+        m &= m - 1u;
+        for (; e <= ew; ++e) D = acc_sq<BF16>(D, qv[e], vc_t[e * kTileC + j]);
+        const float key = !valid ? f_inf() : (masked ? kBig : D);
+        offer_wide<R>(ld[w], li[w], key, gid, kFull, k, lane);
+      }
+    }
+  }
+
+  if (!live) return;
+  const int n_win = __popc(sel_mask);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (w >= n_win) break;
+    const size_t row = (((size_t)s * n_out + si0 + w) * Lq + q) * k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int slot = r * 32 + lane;
+      if (slot < k) {
+        out_dist[row + slot] = ld[w][r] >= kBig ? f_inf() : ld[w][r];
+        out_idx[row + slot] = li[w][r];
+      }
+    }
+  }
+}
+
+template <int R>
+int launch_wide(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
+                int E_rows, int Lq, int Lc, int k, int e_lo, int E_hi,
+                uint32_t sel_mask, int si0, int n_out, int exclude_self,
+                int col_offset, int col_hi, int bf16, cudaStream_t stream) {
+  if (__builtin_popcount(sel_mask) > wide_lists(R)) return -9;
+  dim3 grid((Lq + kWarps - 1) / kWarps, S);
+  if (bf16)
+    knn_topk_wide_kernel<R, true><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, e_lo, E_hi, sel_mask, si0, n_out,
+        exclude_self, col_offset, col_hi);
+  else
+    knn_topk_wide_kernel<R, false><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, idx, dist, E_rows, Lq, Lc, k, e_lo, E_hi, sel_mask, si0, n_out,
+        exclude_self, col_offset, col_hi);
+  return (int)cudaGetLastError();
+}
+
 template <int MAXE>
 int launch(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
            int E_rows, int Lq, int Lc, int k, int E_hi, uint32_t sel_mask,
@@ -229,40 +382,72 @@ const char* kernel_error_string(int code) {
 }
 
 int knn_topk_max_k() { return kMaxK; }
-int knn_topk_max_e() { return kMaxE; }
+// Selected E a launch holds lists for at k (a window of the selection):
+// the fast path's 32 where k <= 32 and every selected E is at most 32.
+int knn_topk_lists(int k) { return wide_lists((k + 31) / 32); }
+int knn_topk_span() { return kSpan; }
 
 // vq (S, E_rows, Lq), vc (S, E_rows, Lc) float32 contiguous; idx / dist
-// (S, popcount(sel_mask), Lq, k).  Bit e of sel_mask selects E = e + 1;
-// E_hi = highest selected E.  Candidate column c is global id col_offset +
-// c; global ids >= col_hi are masked (0 <= col_hi <= col_offset + Lc; with
-// exclude_self also col_hi <= Lq).  bf16 != 0 accumulates the distance in
-// bfloat16.  Returns 0, a negative argument code, or the CUDA error of the
-// launch.
+// (S, n_out, Lq, k), of which this launch writes rows si0 ..
+// si0 + popcount(sel_mask) - 1 of each series.  Bit e of sel_mask selects
+// E = e_lo + e + 1 (a window of the selection); E_hi = the highest
+// selected E.  Candidate column c is global id col_offset + c; global ids
+// >= col_hi are masked (0 <= col_hi <= col_offset + Lc; with exclude_self
+// also col_hi <= Lq).  bf16 != 0 accumulates the distance in bfloat16.
+// The caller picks the route: fast != 0 runs knn_topk_kernel, which
+// takes the whole selection in one launch (e_lo 0, si0 0, n_out =
+// popcount(sel_mask), E_hi <= 32, k <= 32; -8 otherwise); fast == 0 runs
+// knn_topk_wide_kernel, at most knn_topk_lists(k) selected E a launch.
+// Returns 0, a negative argument code, or the CUDA error of the launch.
 int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
                     float* dist, int S, int E_rows, int Lq, int Lc, int k,
-                    unsigned int sel_mask, int exclude_self, int col_offset,
-                    int col_hi, int bf16, void* stream) {
+                    unsigned int sel_mask, int e_lo, int si0, int n_out,
+                    int exclude_self, int col_offset, int col_hi, int bf16,
+                    int fast, void* stream) {
   if (S < 1 || Lq < 1 || Lc < 1 || S > 65535) return -1;
   if (k < 1 || k > kMaxK || k > Lc) return -2;
-  if (sel_mask == 0u) return -3;
-  const int E_hi = 32 - __builtin_clz(sel_mask);
-  if (E_hi > E_rows || E_hi > kMaxE) return -4;
+  if (sel_mask == 0u || e_lo < 0) return -3;
+  const int E_hi = e_lo + 32 - __builtin_clz(sel_mask);
+  if (E_hi > E_rows) return -4;
   if (col_offset < 0 || col_hi < 0 || (long long)col_hi > (long long)col_offset + Lc)
     return -5;
   if (exclude_self && Lq < col_hi) return -6;
   const int n_sel = __builtin_popcount(sel_mask);
+  if (si0 < 0 || si0 + n_sel > n_out) return -7;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E_hi <= 8)
-    return launch<8>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                     n_sel, exclude_self, col_offset, col_hi, bf16, st);
-  if (E_hi <= 16)
-    return launch<16>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+  if (fast) {
+    if (e_lo != 0 || E_hi > kMaxE || k > kFastK || si0 != 0 || n_out != n_sel)
+      return -8;
+    if (E_hi <= 8)
+      return launch<8>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                       n_sel, exclude_self, col_offset, col_hi, bf16, st);
+    if (E_hi <= 16)
+      return launch<16>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                        n_sel, exclude_self, col_offset, col_hi, bf16, st);
+    if (E_hi <= 24)
+      return launch<24>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
+                        n_sel, exclude_self, col_offset, col_hi, bf16, st);
+    return launch<32>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
                       n_sel, exclude_self, col_offset, col_hi, bf16, st);
-  if (E_hi <= 24)
-    return launch<24>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                      n_sel, exclude_self, col_offset, col_hi, bf16, st);
-  return launch<32>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, E_hi, sel_mask,
-                    n_sel, exclude_self, col_offset, col_hi, bf16, st);
+  }
+  switch ((k + 31) / 32) {
+    case 1:
+      return launch_wide<1>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, e_lo, E_hi,
+                            sel_mask, si0, n_out, exclude_self, col_offset, col_hi,
+                            bf16, st);
+    case 2:
+      return launch_wide<2>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, e_lo, E_hi,
+                            sel_mask, si0, n_out, exclude_self, col_offset, col_hi,
+                            bf16, st);
+    case 3:
+      return launch_wide<3>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, e_lo, E_hi,
+                            sel_mask, si0, n_out, exclude_self, col_offset, col_hi,
+                            bf16, st);
+    default:
+      return launch_wide<4>(vq, vc, idx, dist, S, E_rows, Lq, Lc, k, e_lo, E_hi,
+                            sel_mask, si0, n_out, exclude_self, col_offset, col_hi,
+                            bf16, st);
+  }
 }
 
 }  // extern "C"

@@ -61,15 +61,43 @@
 //    shared memory 34.8 KB at MAXE 32.  The first version held the lists
 //    in shared memory, 32 or 64 rows a block, under 3 warps an SM at the
 //    significance path's shape.
+//
+// The wide route (any E_hi, k up to 128, library sizes past a launch):
+// knn_topk_prefix_wide_kernel, knn_topk.cu's wide route over sweep
+// positions.  R = ceil(k / 32) slots a lane (offer_wide: each round shifts
+// up one lane, lane 31 of round r - 1 into lane 0 of round r); lists for
+// one window of at most W selected E whose lags span at most 32, the mask
+// relative to e_lo, the lags below e_lo accumulated through L1 (__ldg of
+// the gathered column) and only the window's lags staged, in the fast
+// path's 32-lag tile, so shared memory and occupancy are the fast path's
+// at any E.  Each launch writes its window's E rows (si0 of n_out) and
+// its library sizes' rows (s0 of S_out) in place: the wrapper splits the
+// selection into windows and lib_sizes into runs of at most kMaxS, and a
+// size's snapshot depends only on its own prefix, so every split writes
+// the tables of one launch, bit for bit.  The fast path's instantiations
+// run only where one launch writes the whole output at k <= 32 and E_hi
+// <= 32.  Registers: 2 R W list registers a lane, W = 24, 12, 8, 6 for R
+// = 1-4.  -Xptxas=-v (sm_90a): 80 registers, 34,816 bytes of static
+// shared memory, 60-64 / 128-232, 124-132 / 280-288, 132-136 / 384 and
+// 108 / 496-504 bytes of spill stores / loads at R = 1, 2, 3 and 4; the
+// fast path spills 100 / 172 at MAXE 24 and 920 / 1,768 at 32 with this
+// toolkit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wide_lists.cuh"
+
 namespace {
 
-constexpr int kMaxE = 32;     // selection set is a 32-bit mask over E-1
-constexpr int kMaxK = 32;     // neighbours per table row = the warp width
+using knn_wide::offer_wide;
+using knn_wide::wide_lists;
+
+constexpr int kMaxE = 32;     // fast path: selection set is a 32-bit mask over E-1
+constexpr int kFastK = 32;    // fast path: neighbours per table row = the warp width
+constexpr int kMaxK = 128;    // wide route: up to 4 slots a lane
+constexpr int kSpan = 32;     // wide route: lags a window's mask spans
 constexpr int kMaxS = 64;     // library sizes per launch
 constexpr int kWarps = 8;     // query rows per block, one per warp
 constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
@@ -214,6 +242,128 @@ knn_topk_prefix_kernel(const float* __restrict__ vq, const float* __restrict__ v
   }
 }
 
+// The wide route: R slots a lane, lists for the selected E of one window
+// (sel_mask relative to e_lo, E_hi - e_lo <= kSpan), snapshots at the
+// library sizes of `sizes`, written to size rows s0 .. of S_out and E rows
+// si0 .. of n_out.
+template <int R, bool BF16>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+knn_topk_prefix_wide_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                            const int32_t* __restrict__ col_ids,
+                            int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
+                            int E_rows, int Lq, int Lc, int k, int e_lo, int E_hi,
+                            uint32_t sel_mask, int si0, int n_out, int s0, int S_out,
+                            int exclude_self, LibSizes sizes) {
+  constexpr int W = wide_lists(R);
+  __shared__ float vc_t[kSpan * kTileC];  // lags e_lo .. E_hi-1, gathered columns
+  __shared__ int ids_t[kTileC];           // their column ids
+  __shared__ float qv_s[kWarps][kSpan];   // each warp's query coordinates there
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = blockIdx.x * kWarps + (tid >> 5);
+  const bool live = q < Lq;  // warp-uniform
+  const int S = sizes.n;
+  const int P = sizes.v[S - 1];
+  const int span = E_hi - e_lo;
+  const float* vq_b = vq + (size_t)b * E_rows * Lq;
+  const float* vc_b = vc + (size_t)b * E_rows * Lc;
+
+  float* qv = qv_s[tid >> 5];  // warp-uniform reads: broadcast
+  qv[lane] = (live && lane < span) ? vq_b[(size_t)(e_lo + lane) * Lq + q] : 0.f;
+  __syncwarp();
+  float ld[W][R];
+  int li[W][R];
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      ld[w][r] = f_inf();
+      li[w][r] = 0x7fffffff;
+    }
+
+  int s_next = 0;  // first library size not yet snapshot
+  for (int c0 = 0; c0 < P; c0 += kTileC) {
+    const int width = min(kTileC, P - c0);
+    __syncthreads();  // previous tile fully consumed
+    for (int j = tid; j < width; j += kWarps * 32)
+      ids_t[j] = col_ids != nullptr ? col_ids[c0 + j] : c0 + j;
+    __syncthreads();
+    for (int i = tid; i < span * kTileC; i += kWarps * 32) {
+      const int e = i / kTileC, j = i - e * kTileC;
+      vc_t[i] = j < width ? vc_b[(size_t)(e_lo + e) * Lc + ids_t[j]] : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int g = 0; g < width; g += 32) {
+      const int j = g + lane;  // < kTileC: g <= kTileC - 32
+      const bool valid = j < width;
+      const int cid = valid ? ids_t[j] : 0;
+      const bool masked = exclude_self && valid && cid == q;
+      const int base = c0 + g;  // sweep position of lane 0
+      int s_end = s_next;       // sizes ending in this group: s_next .. s_end-1
+      while (s_end < S && sizes.v[s_end] <= base + 32) ++s_end;
+      // the lags below the window: distance only, read through L1
+      float D = 0.f;
+      for (int e = 0; e < e_lo; ++e)
+        D = acc_sq<BF16>(D, __ldg(vq_b + (size_t)e * Lq + q),
+                         __ldg(vc_b + (size_t)e * Lc + cid));
+      uint32_t m = sel_mask;
+      int e = 0;  // the window's next lag to accumulate, relative to e_lo
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (m == 0u) break;
+        const int ew = __ffs(m) - 1;  // list w's lag, relative to e_lo
+        m &= m - 1u;
+        for (; e <= ew; ++e) D = acc_sq<BF16>(D, qv[e], vc_t[e * kTileC + j]);
+        const float key = !valid ? f_inf() : (masked ? kBig : D);
+        if (s_end == s_next) {
+          offer_wide<R>(ld[w], li[w], key, cid, kFull, k, lane);
+          continue;
+        }
+        int lo = 0;
+        for (int s = s_next; s < s_end; ++s) {
+          const int hi = sizes.v[s] - base;  // positions base .. Ls-1
+          offer_wide<R>(ld[w], li[w], key, cid, lane_range(lo, hi), k, lane);
+          const size_t row =
+              ((((size_t)b * S_out + s0 + s) * n_out + si0 + w) * Lq + q) * k;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int slot = r * 32 + lane;
+            if (slot < k) {
+              out_dist[row + slot] = ld[w][r] >= kBig ? f_inf() : ld[w][r];
+              out_idx[row + slot] = li[w][r];
+            }
+          }
+          lo = hi;
+        }
+        if (lo < 32) offer_wide<R>(ld[w], li[w], key, cid, lane_range(lo, 32), k, lane);
+      }
+      s_next = s_end;
+    }
+  }
+}
+
+template <int R>
+int launch_wide(const float* vq, const float* vc, const int32_t* col_ids,
+                int32_t* idx, float* dist, int B, int E_rows, int Lq, int Lc, int k,
+                int e_lo, int E_hi, uint32_t sel_mask, int si0, int n_out, int s0,
+                int S_out, int exclude_self, int bf16, const LibSizes& sizes,
+                cudaStream_t stream) {
+  if (__builtin_popcount(sel_mask) > wide_lists(R)) return -8;
+  dim3 grid((Lq + kWarps - 1) / kWarps, B);
+  if (bf16)
+    knn_topk_prefix_wide_kernel<R, true><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, e_lo, E_hi, sel_mask, si0,
+        n_out, s0, S_out, exclude_self, sizes);
+  else
+    knn_topk_prefix_wide_kernel<R, false><<<grid, kWarps * 32, 0, stream>>>(
+        vq, vc, col_ids, idx, dist, E_rows, Lq, Lc, k, e_lo, E_hi, sel_mask, si0,
+        n_out, s0, S_out, exclude_self, sizes);
+  return (int)cudaGetLastError();
+}
+
 template <int MAXE>
 int launch(const float* vq, const float* vc, const int32_t* col_ids,
            int32_t* idx, float* dist, int B, int E_rows, int Lq, int Lc, int k,
@@ -240,26 +390,35 @@ const char* kernel_error_string(int code) {
 }
 
 int knn_topk_prefix_max_k() { return kMaxK; }
-int knn_topk_prefix_max_e() { return kMaxE; }
 int knn_topk_prefix_max_s() { return kMaxS; }
+// Selected E a launch holds lists for at k, as knn_topk_lists.
+int knn_topk_prefix_lists(int k) { return wide_lists((k + 31) / 32); }
 
 // vq (B, E_rows, Lq), vc (B, E_rows, Lc) float32 contiguous; col_ids
 // (>= lib_sizes[S-1],) int32 with entries in [0, Lc) (not checked), or
 // null for natural order; lib_sizes (S,) host ints, ascending, the last
-// <= Lc; idx / dist (B, S, popcount(sel_mask), Lq, k).  Bit e of sel_mask
-// selects E = e + 1; bf16 != 0 accumulates the distance in bfloat16.
-// Returns 0, a negative argument code, or the CUDA error of the launch.
+// <= Lc; idx / dist (B, S_out, n_out, Lq, k), of which this launch writes
+// size rows s0 .. s0 + S - 1 and E rows si0 .. si0 + popcount(sel_mask) -
+// 1.  Bit e of sel_mask selects E = e_lo + e + 1 (a window of the
+// selection); bf16 != 0 accumulates the distance in bfloat16.  The
+// caller picks the route: fast != 0 runs knn_topk_prefix_kernel, which
+// writes the whole output in one launch (e_lo 0, si0 0, n_out =
+// popcount(sel_mask), s0 0, S_out = S, E_hi <= 32, k <= 32; -9
+// otherwise); fast == 0 runs the wide kernel, at most
+// knn_topk_prefix_lists(k) selected E a launch.  Returns 0, a negative
+// argument code, or the CUDA error of the launch.
 int knn_topk_prefix_launch(const float* vq, const float* vc,
                            const int32_t* col_ids, int32_t* idx, float* dist,
                            int B, int E_rows, int Lq, int Lc, int k,
-                           unsigned int sel_mask, int exclude_self, int bf16,
-                           const int* lib_sizes, int S, void* stream) {
+                           unsigned int sel_mask, int e_lo, int si0, int n_out,
+                           int exclude_self, int bf16, const int* lib_sizes, int S,
+                           int s0, int S_out, int fast, void* stream) {
   if (B < 1 || Lq < 1 || Lc < 1 || B > 65535) return -1;
   if (k < 1 || k > kMaxK || k > Lc) return -2;
-  if (sel_mask == 0u) return -3;
-  const int E_hi = 32 - __builtin_clz(sel_mask);
-  if (E_hi > E_rows || E_hi > kMaxE) return -4;
-  if (S < 1 || S > kMaxS) return -5;
+  if (sel_mask == 0u || e_lo < 0) return -3;
+  const int E_hi = e_lo + 32 - __builtin_clz(sel_mask);
+  if (E_hi > E_rows) return -4;
+  if (S < 1 || S > kMaxS || s0 < 0 || s0 + S > S_out) return -5;
   LibSizes sizes;
   sizes.n = S;
   for (int s = 0; s < S; ++s) {
@@ -268,18 +427,42 @@ int knn_topk_prefix_launch(const float* vq, const float* vc,
     sizes.v[s] = lib_sizes[s];
   }
   const int n_sel = __builtin_popcount(sel_mask);
+  if (si0 < 0 || si0 + n_sel > n_out) return -7;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E_hi <= 8)
-    return launch<8>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                     sel_mask, n_sel, exclude_self, bf16, sizes, st);
-  if (E_hi <= 16)
-    return launch<16>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+  if (fast) {
+    if (e_lo != 0 || E_hi > kMaxE || k > kFastK || si0 != 0 || n_out != n_sel ||
+        s0 != 0 || S_out != S)
+      return -9;
+    if (E_hi <= 8)
+      return launch<8>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                       sel_mask, n_sel, exclude_self, bf16, sizes, st);
+    if (E_hi <= 16)
+      return launch<16>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                        sel_mask, n_sel, exclude_self, bf16, sizes, st);
+    if (E_hi <= 24)
+      return launch<24>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
+                        sel_mask, n_sel, exclude_self, bf16, sizes, st);
+    return launch<32>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
                       sel_mask, n_sel, exclude_self, bf16, sizes, st);
-  if (E_hi <= 24)
-    return launch<24>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                      sel_mask, n_sel, exclude_self, bf16, sizes, st);
-  return launch<32>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, E_hi,
-                    sel_mask, n_sel, exclude_self, bf16, sizes, st);
+  }
+  switch ((k + 31) / 32) {
+    case 1:
+      return launch_wide<1>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, e_lo,
+                            E_hi, sel_mask, si0, n_out, s0, S_out, exclude_self,
+                            bf16, sizes, st);
+    case 2:
+      return launch_wide<2>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, e_lo,
+                            E_hi, sel_mask, si0, n_out, s0, S_out, exclude_self,
+                            bf16, sizes, st);
+    case 3:
+      return launch_wide<3>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, e_lo,
+                            E_hi, sel_mask, si0, n_out, s0, S_out, exclude_self,
+                            bf16, sizes, st);
+    default:
+      return launch_wide<4>(vq, vc, col_ids, idx, dist, B, E_rows, Lq, Lc, k, e_lo,
+                            E_hi, sel_mask, si0, n_out, s0, S_out, exclude_self,
+                            bf16, sizes, st);
+  }
 }
 
 }  // extern "C"

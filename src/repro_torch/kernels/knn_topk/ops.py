@@ -6,7 +6,18 @@ For a CUDA tensor each launches its kernel or raises; for a CPU tensor it
 runs the plain version (``ref.py``).  There is no other route: no
 fallback from a failed launch to the plain version.  Both kernels take
 ``dist_dtype`` float32 or bfloat16 (the accumulator of the distance; the
-output distances are float32 either way).
+output distances are float32 either way), any E and k up to ``MAX_K``.
+
+The wrappers pick each launch's route, and nothing else does: the fast
+path (one launch that writes the whole output, at k <= 32 and every
+selected E at most 32: :func:`fast_path`) or the wide route, whose launch
+holds lists for one window of the selection: at most
+``knn_topk_lists(k)`` selected E whose lags span at most 32, its mask
+relative to the window's first lag (:func:`windows`).  The wide route
+launches one kernel a window (and, for the prefix kernel, one a run of at
+most 64 library sizes), each writing its rows of the output in place.
+The C entry points take the route as an argument and refuse a fast launch
+whose arguments do not fit it.
 """
 from __future__ import annotations
 
@@ -18,19 +29,20 @@ from repro_torch import kernels
 from repro_torch.core import knn
 from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
 
-#: the kernels' table width and E bound (kMaxK, kMaxE of both sources; the
-#: ccm_lookup kernel's kMaxK too): the engine checks a config against them
-#: before any work (``CudaEngine.check_limits``)
-MAX_K, MAX_E = 32, 32
+#: the kernels' table width (kMaxK of both sources; the ccm_lookup
+#: kernel's too): the engine checks a config against it before any work
+#: (``CudaEngine.check_limits``).  Any E runs.
+MAX_K = 128
+#: lags a launch's selection mask spans (kSpan of both sources: a c_uint)
+SPAN = 32
+#: the fast path: k and E_hi it takes in one launch (kFastK, kMaxE)
+FAST_K = FAST_E = 32
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
-]
+    ctypes.c_uint] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _PREFIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-    ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p,
-]
+    ctypes.c_uint] + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
 _DIST_DTYPES = {"float32": 0, "bfloat16": 1}
 
 
@@ -39,9 +51,11 @@ def _lib() -> ctypes.CDLL:
     if lib.knn_topk_launch.argtypes is None:
         lib.knn_topk_launch.argtypes = _ARGTYPES
         lib.knn_topk_launch.restype = ctypes.c_int
-        for fn in (lib.knn_topk_max_k, lib.knn_topk_max_e):
+        for fn in (lib.knn_topk_max_k, lib.knn_topk_span):
             fn.argtypes = []
             fn.restype = ctypes.c_int
+        lib.knn_topk_lists.argtypes = [ctypes.c_int]
+        lib.knn_topk_lists.restype = ctypes.c_int
     return lib
 
 
@@ -50,19 +64,64 @@ def _prefix_lib() -> ctypes.CDLL:
     if lib.knn_topk_prefix_launch.argtypes is None:
         lib.knn_topk_prefix_launch.argtypes = _PREFIX_ARGTYPES
         lib.knn_topk_prefix_launch.restype = ctypes.c_int
-        for fn in (lib.knn_topk_prefix_max_k, lib.knn_topk_prefix_max_e,
-                   lib.knn_topk_prefix_max_s):
+        for fn in (lib.knn_topk_prefix_max_k, lib.knn_topk_prefix_max_s):
             fn.argtypes = []
             fn.restype = ctypes.c_int
+        lib.knn_topk_prefix_lists.argtypes = [ctypes.c_int]
+        lib.knn_topk_prefix_lists.restype = ctypes.c_int
     return lib
 
 
-def select_mask(select_Es) -> int:
-    """Bit e set <=> E = e + 1 is selected."""
+def select_mask(select_Es, e_lo: int = 0) -> int:
+    """Bit e set <=> E = e_lo + e + 1 is selected.  Refuses a mask that
+    does not fit the kernels' 32-bit ``c_uint`` (ctypes would cut it
+    without an error)."""
     m = 0
     for e in select_Es:
-        m |= 1 << (int(e) - 1)
+        bit = int(e) - 1 - e_lo
+        if not 0 <= bit < SPAN:
+            raise ValueError(
+                f"E={int(e)} lies outside the {SPAN} lags of a launch's "
+                f"selection mask from lag {e_lo}: split the selection into "
+                "windows (windows())"
+            )
+        m |= 1 << bit
     return m
+
+
+def fast_path(select_Es, k: int, n_runs: int = 1) -> bool:
+    """True where one fast-path launch writes the whole output: k <= 32,
+    every selected E at most 32, and (prefix kernel) one run of library
+    sizes."""
+    return k <= FAST_K and max(int(e) for e in select_Es) <= FAST_E and n_runs == 1
+
+
+def windows(select_Es, lists: int, fast: bool = False
+            ) -> list[tuple[int, tuple[int, ...]]]:
+    """The selection split into launches: [(e_lo, Es), ...] in order.  On
+    the fast path (``fast``) one window from lag 0 with every E; on the
+    wide route each window at most ``lists`` E whose lags span at most 32,
+    e_lo the lag its mask starts at (0 wherever the window's E are all
+    <= 32)."""
+    select_Es = tuple(int(e) for e in select_Es)
+    if fast:
+        return [(0, select_Es)]
+    out, cur = [], []
+    for E in select_Es:
+        if cur and (len(cur) == lists or E - cur[0] >= SPAN):
+            out.append(tuple(cur))
+            cur = []
+        cur.append(E)
+    out.append(tuple(cur))
+    return [(max(0, Es[-1] - SPAN), Es) for Es in out]
+
+
+def size_runs(lib_sizes, max_s: int) -> list[tuple[int, tuple[int, ...]]]:
+    """The library sizes in launches of at most ``max_s``: [(s0, sizes),
+    ...].  A size's snapshot depends only on its own prefix of the sweep,
+    so each run's launch writes the rows one launch would."""
+    lib_sizes = tuple(int(s) for s in lib_sizes)
+    return [(s0, lib_sizes[s0 : s0 + max_s]) for s0 in range(0, len(lib_sizes), max_s)]
 
 
 def _check_cuda_pair(name: str, Vq, Vc, dist_dtype) -> int:
@@ -127,20 +186,23 @@ def knn_topk(
             f"knn_topk: k={k} must be in [1, min(Lc={Lc}, "
             f"{lib.knn_topk_max_k()})]"
         )
-    if select_Es[-1] > lib.knn_topk_max_e():
-        raise ValueError(f"knn_topk: E={select_Es[-1]} above {lib.knn_topk_max_e()}")
     col_hi = knn.check_col_range(Lq, Lc, exclude_self, col_offset, col_hi)
     n_sel = len(select_Es)
     idx = torch.empty((S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
     dist = torch.empty((S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
+    si0 = 0
+    fast = fast_path(select_Es, k)
     with torch.cuda.device(Vq.device):
-        rc = lib.knn_topk_launch(
-            Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
-            S, E_rows, Lq, Lc, k, select_mask(select_Es), int(exclude_self),
-            col_offset, col_hi, bf16, kernels.current_stream(Vq.device),
-        )
-    kernels.check_launch("knn_topk", rc, lib)
-    knn_topk.LAUNCHES += 1
+        for e_lo, Es in windows(select_Es, lib.knn_topk_lists(k), fast):
+            rc = lib.knn_topk_launch(
+                Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+                S, E_rows, Lq, Lc, k, select_mask(Es, e_lo), e_lo, si0, n_sel,
+                int(exclude_self), col_offset, col_hi, bf16, int(fast),
+                kernels.current_stream(Vq.device),
+            )
+            kernels.check_launch("knn_topk", rc, lib)
+            knn_topk.LAUNCHES += 1
+            si0 += len(Es)
     return idx, dist
 
 
@@ -192,26 +254,27 @@ def knn_topk_prefix(
     lib = _prefix_lib()
     if k > lib.knn_topk_prefix_max_k():
         raise ValueError(f"knn_topk_prefix: k={k} above {lib.knn_topk_prefix_max_k()}")
-    if buckets[-1] > lib.knn_topk_prefix_max_e():
-        raise ValueError(f"knn_topk_prefix: E={buckets[-1]} above "
-                         f"{lib.knn_topk_prefix_max_e()}")
-    if len(lib_sizes) > lib.knn_topk_prefix_max_s():
-        raise ValueError(f"knn_topk_prefix: {len(lib_sizes)} library sizes, at "
-                         f"most {lib.knn_topk_prefix_max_s()}")
     S, n_sel = len(lib_sizes), len(buckets)
     idx = torch.empty((B, S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
     dist = torch.empty((B, S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
-    sizes = (ctypes.c_int * S)(*lib_sizes)
+    runs = size_runs(lib_sizes, lib.knn_topk_prefix_max_s())
+    fast = fast_path(buckets, k, len(runs))
     with torch.cuda.device(Vq.device):
-        rc = lib.knn_topk_prefix_launch(
-            Vq.data_ptr(), Vc.data_ptr(),
-            None if col_ids is None else col_ids.data_ptr(),
-            idx.data_ptr(), dist.data_ptr(), B, E_rows, Lq, Lc, k,
-            select_mask(buckets), int(exclude_self), bf16, sizes, S,
-            kernels.current_stream(Vq.device),
-        )
-    kernels.check_launch("knn_topk_prefix", rc, lib)
-    knn_topk_prefix.LAUNCHES += 1
+        for s0, run in runs:
+            sizes = (ctypes.c_int * len(run))(*run)
+            si0 = 0
+            for e_lo, Es in windows(buckets, lib.knn_topk_prefix_lists(k), fast):
+                rc = lib.knn_topk_prefix_launch(
+                    Vq.data_ptr(), Vc.data_ptr(),
+                    None if col_ids is None else col_ids.data_ptr(),
+                    idx.data_ptr(), dist.data_ptr(), B, E_rows, Lq, Lc, k,
+                    select_mask(Es, e_lo), e_lo, si0, n_sel, int(exclude_self),
+                    bf16, sizes, len(run), s0, S, int(fast),
+                    kernels.current_stream(Vq.device),
+                )
+                kernels.check_launch("knn_topk_prefix", rc, lib)
+                knn_topk_prefix.LAUNCHES += 1
+                si0 += len(Es)
     return idx, dist
 
 

@@ -17,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORTED = ("table2", "fig6", "fig7", "fig8", "fig9", "knn", "phase2",
+PORTED = ("table2", "fig6", "fig7", "fig8", "fig9", "fig9b", "knn", "phase2",
           "significance", "roofline")
 JAX_JSONS = {"knn": "BENCH_knn.json", "phase2": "BENCH_phase2.json",
              "significance": "BENCH_significance.json"}
@@ -71,6 +71,8 @@ ROWS = {
     "fig7": ["fig7_L80", "fig7_L120", "fig7_L160", "fig7_scaling_exponent"],
     "fig8": ["fig8_knn_per_series", "fig8_lookup_per_series"],
     "fig9": ["fig9_cumulative_multiE", "fig9_per_E_rebuild"],
+    "fig9b": ["fig9b_knn_rebuild", "fig9b_knn_scan", "fig9b_knn_unroll",
+              "fig9b_knn_blocked4", "fig9b_knn_blocked2"],
 }
 
 
@@ -127,10 +129,10 @@ def test_roofline_bench_summarises_the_dry_runs(tmp_path, capsys):
 
 def test_unknown_bench_exits_nonzero(tmp_path):
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.bench.run", "knn", "fig9b",
+        [sys.executable, "-m", "repro_torch.bench.run", "knn", "fig99",
          "--tiny", "--device", "cpu", "--out", str(tmp_path)],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")},
     )
-    assert r.returncode != 0 and "fig9b" in r.stderr
+    assert r.returncode != 0 and "fig99" in r.stderr
     assert not any(tmp_path.iterdir())

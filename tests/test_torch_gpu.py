@@ -6,6 +6,7 @@ Marked ``gpu``; run on a machine with a card:
 
 Without a card every test here skips from inside its body (never at
 collection, so every pytest worker collects the same tests)."""
+import ctypes
 import dataclasses
 import json
 
@@ -114,7 +115,10 @@ def test_knn_topk_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         knn_topk(x, x, 3, True, (1,), dist_dtype="float16")
     with pytest.raises(ValueError, match="k="):
-        knn_topk(x, x, 33, True, (1,))
+        knn_topk(x, x, 41, True, (1,))  # k above Lc
+    y = torch.zeros((1, 4, 200), device=dev)
+    with pytest.raises(ValueError, match="k=129"):
+        knn_topk(y, y, 129, True, (1,))  # k above the kernel's 128
     with pytest.raises(ValueError, match="contiguous"):
         knn_topk(x[..., ::2], x[..., ::2], 3, True, (1,))
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -179,22 +183,26 @@ def test_ccm_lookup_kernel_refuses_what_it_does_not_take():
     dev = _card()
     from repro_torch.kernels.ccm_lookup.ops import _lib, ccm_lookup
 
-    max_lp = _lib().ccm_lookup_max_lp()
-    assert max_lp >= 16384
+    max_lp = _lib().ccm_lookup_max_lp(2)
+    assert max_lp >= 16384 and _lib().ccm_lookup_max_lp(1) >= 2 * max_lp
+    assert _lib().ccm_lookup_max_k() == 128
     idx = torch.zeros((1, 1, 4, 3), dtype=torch.int32, device=dev)
     w = torch.ones((1, 1, 4, 3), device=dev)
-    with pytest.raises(ValueError, match=f"limit {max_lp}"):
-        ccm_lookup(idx, w, torch.zeros((2, max_lp + 1), device=dev), ((0, 2),))
     Y = torch.zeros((2, 10), device=dev)
-    with pytest.raises(ValueError, match="k=33"):
-        ccm_lookup(torch.zeros((1, 1, 4, 33), dtype=torch.int32, device=dev),
-                   torch.ones((1, 1, 4, 33), device=dev), Y, ((0, 2),))
+    with pytest.raises(ValueError, match="k=129"):
+        ccm_lookup(torch.zeros((1, 1, 4, 129), dtype=torch.int32, device=dev),
+                   torch.ones((1, 1, 4, 129), device=dev), Y, ((0, 2),))
     with pytest.raises(ValueError, match="must cover"):
         ccm_lookup(idx, w, Y, ((0, 1),))
     with pytest.raises(ValueError, match="must cover"):
         ccm_lookup(idx, w, Y, ((1, 2),))
-    with pytest.raises(ValueError, match="at most 64"):
-        ccm_lookup(idx, w, torch.zeros((65, 10), device=dev), ((0, 1),) * 65)
+    # what the kernel took no more before: a target row past the two staged
+    # rows and 65 segments a call now run (test_ccm_lookup_wide_*)
+    before = ccm_lookup.LAUNCHES
+    Yl = torch.ones((65, max_lp + 1), device=dev)
+    out = ccm_lookup(idx, w, Yl, ((0, 1),) * 65)
+    assert out.shape == (1, 65, 4) and torch.equal(out, torch.full_like(out, 3.0))
+    assert ccm_lookup.LAUNCHES == before + 2
 
 
 def test_cuda_engine_map_matches_torch_reference_on_the_card():
@@ -293,6 +301,9 @@ def test_knn_topk_prefix_kernel_refuses_what_it_does_not_take():
                         col_ids=torch.arange(40, device=dev))
     with pytest.raises(ValueError, match="one CUDA device"):
         knn_topk_prefix(x, x.cpu(), 3, True, (1,), (10, 40))
+    y = torch.zeros((1, 4, 200), device=dev)
+    with pytest.raises(ValueError, match="k=129"):
+        knn_topk_prefix(y, y, 129, True, (1,), (150, 200))
 
 
 def test_prng_on_the_card_equals_the_cpu():
@@ -394,12 +405,224 @@ def test_knn_topk_prefix_kernel_bf16_equals_plain_version(case, Lq, k, buckets,
 def test_kernel_limits_are_the_libraries():
     _card()
     from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
-    from repro_torch.kernels.knn_topk.ops import MAX_E, MAX_K, _lib, _prefix_lib
+    from repro_torch.kernels.knn_topk.ops import MAX_K, SPAN, _lib, _prefix_lib
 
-    assert (_lib().knn_topk_max_k(), _lib().knn_topk_max_e()) == (MAX_K, MAX_E)
-    assert (_prefix_lib().knn_topk_prefix_max_k(),
-            _prefix_lib().knn_topk_prefix_max_e()) == (MAX_K, MAX_E)
+    assert (_lib().knn_topk_max_k(), _lib().knn_topk_span()) == (MAX_K, SPAN) == (128, 32)
+    assert _prefix_lib().knn_topk_prefix_max_k() == MAX_K
     assert lookup_lib().ccm_lookup_max_k() == MAX_K
+    for k, lists in ((1, 24), (32, 24), (33, 12), (64, 12), (65, 8), (96, 8),
+                     (97, 6), (128, 6)):
+        assert _lib().knn_topk_lists(k) == _prefix_lib().knn_topk_prefix_lists(k) == lists
+
+
+def test_knn_fast_route_refuses_arguments_it_does_not_fit():
+    """The wrapper picks the route; the C entry points refuse a fast launch
+    that would not write the whole output in one launch."""
+    dev = _card()
+    from repro_torch import kernels
+    from repro_torch.kernels.knn_topk.ops import _lib, _prefix_lib
+
+    V = torch.zeros((1, 40, 64), device=dev)
+    idx = torch.empty((1, 2, 2, 64, 33), dtype=torch.int32, device=dev)
+    dist = torch.empty((1, 2, 2, 64, 33), device=dev)
+    st = kernels.current_stream(dev)
+    mask = (1 << 2) | (1 << 4)  # E 3 and 5
+    for k, e_lo, mask_, si0, n_out in ((33, 0, mask, 0, 2),   # k past 32
+                                       (8, 30, mask, 0, 2),   # E past 32
+                                       (8, 0, 1 << 2, 1, 2),  # one row of two
+                                       (8, 0, mask, 0, 3)):
+        assert _lib().knn_topk_launch(
+            V.data_ptr(), V.data_ptr(), idx.data_ptr(), dist.data_ptr(), 1, 40, 64,
+            64, k, mask_, e_lo, si0, n_out, 1, 0, 64, 0, 1, st) == -8
+    sizes = (ctypes.c_int * 2)(40, 64)
+    for s0, S_out in ((0, 3), (1, 3)):  # a run of sizes, not the whole output
+        assert _prefix_lib().knn_topk_prefix_launch(
+            V.data_ptr(), V.data_ptr(), None, idx.data_ptr(), dist.data_ptr(), 1, 40,
+            64, 64, 8, mask, 0, 0, 2, 1, 0, sizes, 2, s0, S_out, 1, st) == -9
+
+
+# ------------------------------------ the wide route: k up to 128, any E
+def _wide_inputs(kind, S, E, L, seed):
+    x = (_tied if kind == "tied" else _lags)(S, E, L, seed)
+    return x
+
+
+@pytest.mark.parametrize("k", [33, 64, 96, 128])
+@pytest.mark.parametrize("dist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("exclude_self,kind", [(True, "lags"), (False, "lags"),
+                                               (True, "tied")])
+def test_knn_topk_wide_k_equals_plain_version(k, dist_dtype, exclude_self, kind):
+    """k past the warp width (R = 2-4 slots a lane), at E_max 20 (windows
+    of at most 12 / 8 / 6 selected E), bit-equal to the plain version;
+    "tied" lags quantised to quarter steps tie everywhere."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = _wide_inputs(kind, 3, 20, 700, k)
+    if exclude_self:
+        Vq = Vc = torch.tensor(x[..., :500], device=dev)
+    else:
+        Vq = torch.tensor(x[..., 500:].copy(), device=dev)
+        Vc = torch.tensor(x[..., :500].copy(), device=dev)
+    sel = tuple(range(1, 21))
+    before = knn_topk.LAUNCHES
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype)
+    assert knn_topk.LAUNCHES - before == -(-20 // {2: 12, 3: 8, 4: 6}[-(-k // 32)])
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,select_Es,dist_dtype", [
+    (21, (3, 20, 33), "float32"),                 # E_hi 33, k in the fast width
+    (41, tuple(range(1, 41)), "float32"),         # E_max 40, k 41: 4 windows
+    (41, tuple(range(1, 41)), "bfloat16"),
+    (8, (1, 2, 36, 37, 70), "float32"),           # windows from lags 4 and 38
+    (71, (5, 30, 36, 37, 70), "bfloat16"),
+    (128, (64, 65, 66, 67, 68, 69, 70), "float32"),
+])
+def test_knn_topk_wide_e_equals_plain_version(k, select_Es, dist_dtype):
+    """E_hi 33-70: selection windows, each launch accumulating the lags
+    below its window through L1, bit-equal to the plain version."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    V = torch.tensor(_lags(3, 70, 400, 12), device=dev)
+    ki, kd = knn_topk(V, V, k, True, select_Es, dist_dtype=dist_dtype)
+    ri, rd = knn_topk_ref(V, V, k, True, select_Es, dist_dtype=dist_dtype)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("lo,hi,width,k,exclude_self,dist_dtype", [
+    (200, 400, 200, 64, True, "float32"),
+    (330, 400, 77, 48, False, "bfloat16"),
+    (0, 200, 200, 128, True, "float32"),
+])
+def test_knn_topk_wide_column_range_equals_plain_version(lo, hi, width, k,
+                                                         exclude_self, dist_dtype):
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = _lags(3, 40, 400, 9)
+    part = np.zeros((3, 40, width), np.float32)
+    n = max(0, min(hi, 400) - lo)
+    part[..., :n] = x[..., lo:lo + n]
+    Vq, Vc = torch.tensor(x, device=dev), torch.tensor(part, device=dev)
+    sel = (3, 5, 8, 12, 20, 34, 40)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                      col_offset=lo, col_hi=hi)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                          col_offset=lo, col_hi=hi)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,buckets,lib_sizes,dist_dtype,kind", [
+    (33, (3, 5, 8, 12), (34, 100, 400), "float32", "lags"),
+    (64, tuple(range(1, 21)), (65, 77, 300, 400), "bfloat16", "lags"),
+    (96, (2, 9, 17), (97, 200, 400), "float32", "tied"),
+    (128, (4, 11, 20), (129, 130, 161, 400), "bfloat16", "tied"),
+    (41, (3, 20, 33, 39, 40), (45, 100, 400), "float32", "lags"),  # E_hi 40
+    (21, (2, 33, 70), (22, 333, 400), "bfloat16", "lags"),          # E_hi 70
+    (13, (3, 5, 8, 12), tuple(range(14, 14 + 5 * 70, 5)), "float32", "lags"),
+    (70, (3, 36, 69), tuple(range(71, 400, 4)), "bfloat16", "tied"),
+    # k within the fast width, 30 buckets, 70 sizes: two runs, the wide
+    # route at one slot a lane, two windows a run
+    (21, tuple(range(1, 31)), tuple(range(22, 22 + 5 * 70, 5)), "float32", "lags"),
+    (21, tuple(range(1, 31)), tuple(range(22, 22 + 5 * 70, 5)), "bfloat16", "tied"),
+])
+@pytest.mark.parametrize("permuted", [True, False])
+def test_knn_topk_prefix_wide_equals_plain_version(k, buckets, lib_sizes,
+                                                   dist_dtype, kind, permuted):
+    """The prefix kernel at k 33-128, E_hi up to 70 and 70-83 library sizes
+    (runs of at most 64 a launch), bit-equal to the plain version."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    x = torch.tensor(_wide_inputs(kind, 3, 70, 400, k), device=dev)
+    col_ids = None
+    if permuted:
+        col_ids = torch.tensor(
+            np.random.default_rng(k).permutation(400).astype(np.int32), device=dev)
+    ki, kd = knn_topk_prefix(x, x, k, True, buckets, lib_sizes, col_ids=col_ids,
+                             dist_dtype=dist_dtype)
+    ri, rd = knn_topk_prefix_ref(x, x, k, True, buckets, lib_sizes,
+                                 col_ids=col_ids, dist_dtype=dist_dtype)
+    assert ki.shape == (3, len(lib_sizes), len(buckets), 400, k)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("S,nb,Lq,k,Lp,n_seg", [
+    (8, 3, 1430, 33, 1430, 11),     # the staged kernel, G = 8, two chunks
+    (3, 2, 1000, 64, 2000, 11),     # G = 4
+    (2, 3, 300, 96, 5000, 11),      # G = 2
+    (2, 2, 700, 128, 8528, 11),     # the stream kernel, four chunks
+    (2, 2, 700, 21, 29057, 11),     # one staged row, just past two stages
+    (2, 2, 500, 70, 36000, 11),     # one staged row, wide
+    (2, 2, 600, 24, 58113, 11),     # the gather route, just past one stage
+    (2, 2, 300, 100, 70001, 11),    # the gather route, wide
+    (2, 3, 400, 21, 1430, 150),     # 150 segments: three launches
+    (2, 3, 300, 40, 9001, 70),      # 70 segments, the stream kernel, wide
+])
+def test_ccm_lookup_wide_equals_plain_version(S, nb, Lq, k, Lp, n_seg):
+    """k 33-128, Lp past the two staged rows, more than 64 segments: within
+    the lookup's gate of the plain version (and bit-equal as a rule)."""
+    dev = _card()
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+
+    rng = np.random.default_rng(Lp + k)
+    counts = ((1, 7, 8, 9, 0, 3, 4, 5, 2, 1, 17) * 14)[:n_seg]
+    segs = tuple((i % nb, c) for i, c in enumerate(counts))
+    B = sum(counts)
+    idx = rng.integers(0, Lp, (S, nb, Lq, k)).astype(np.int32)
+    idx[:, :, 0] = 0
+    idx[:, :, -1] = Lp - 1
+    idx = torch.tensor(idx, device=dev)
+    w = torch.tensor(rng.uniform(0, 1, (S, nb, Lq, k)).astype(np.float32), device=dev)
+    Y = torch.tensor(rng.standard_normal((B, Lp)).astype(np.float32), device=dev)
+    before = ccm_lookup.LAUNCHES
+    got, want = ccm_lookup(idx, w, Y, segs), ccm_lookup_ref(idx, w, Y, segs)
+    assert ccm_lookup.LAUNCHES - before == -(-n_seg // 64)
+    assert got.shape == want.shape == (S, B, Lq)
+    assert float((got - want).abs().max()) <= 1e-6 * float(Y.abs().max())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_engine_wide_maps_match_torch_reference_on_the_card():
+    """The main path at E_max 40 and at k_override 70, and the significance
+    path at E_max 40 with 66 library sizes, on the kernels against the
+    plain-version engine."""
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.inference import SignificanceConfig, run_significance
+
+    ts = np.cumsum(np.random.default_rng(0).standard_normal((24, 500)), axis=1)
+    ts = ts.astype(np.float32)
+    for cfg in (EDMConfig(E_max=40), EDMConfig(E_max=12, k_override=70)):
+        got = run_causal_inference(ts, cfg, device=dev)
+        want = run_causal_inference(ts, dataclasses.replace(cfg, engine="torch-reference"),
+                                    device=dev)
+        assert np.array_equal(got.optE, want.optE)
+        assert np.abs(got.rho - want.rho).max() <= 1e-5
+    cfg = EDMConfig(E_max=40)
+    cmap = run_causal_inference(ts, cfg, device=dev)
+    sig = SignificanceConfig(lib_sizes=tuple(range(100, 100 + 5 * 66, 5)),
+                             n_surrogates=9, seed=0)
+    got = run_significance(ts, cmap.optE, cmap.rho, cfg, sig, device=dev)
+    want = run_significance(ts, cmap.optE, cmap.rho,
+                            dataclasses.replace(cfg, engine="torch-reference"), sig,
+                            device=dev)
+    assert np.abs(got.drho - want.drho).max() <= 1e-5
+    assert (got.pvals != want.pvals).mean() <= 0.01
+    assert (got.trend != want.trend).mean() <= 0.01
 
 
 # ------------------------------------------------ tiled and all-E phase 2

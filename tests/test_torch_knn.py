@@ -120,6 +120,43 @@ def test_dense_oracle_matches_streaming_and_jax_dense(exclude_self):
         _assert_same(di[s], dd[s], ji, jd)
 
 
+@pytest.mark.parametrize("impl", ["scan", "unroll", "blocked:4", "blocked:2",
+                                  "blocked:3", "rebuild"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_dense_oracle_impls_match_jax_impls(impl, exclude_self):
+    """``knn_tables_dense(impl=)`` against the JAX function's same impl
+    (E_max 8: blocked:3 falls back to unroll, as JAX does).  The
+    cumulative variants: indices and distances bit-equal, ties included.
+    rebuild (the matrix-product form, summed in another order than XLA's):
+    distances within float32 round-off of their scale, indices equal
+    wherever the table's neighbours are no near-tie."""
+    x = np.random.default_rng(9).standard_normal((2, 8, 80)).astype(np.float32)
+    x[1, :, 40:55] = x[1, :, 0:15]  # duplicated points: exact ties
+    k = 9
+    ti, td = tknn.knn_tables_dense(torch.tensor(x), torch.tensor(x), k,
+                                   exclude_self, impl=impl)
+    for s in range(2):
+        if impl != "rebuild":
+            ji, jd = jknn.knn_tables_dense(jnp.asarray(x[s]), jnp.asarray(x[s]), k,
+                                           exclude_self, impl=impl)
+            _assert_same(ti[s], td[s], ji, jd)
+            continue
+        # one neighbour more, to see a near-tie at the k-th place too
+        ji, jd = (np.asarray(a) for a in jknn.knn_tables_dense(
+            jnp.asarray(x[s]), jnp.asarray(x[s]), k + 1, exclude_self, impl=impl))
+        fin = np.isfinite(jd[..., :k])
+        tol = 1e-5 * max(1.0, float(np.abs(jd[np.isfinite(jd)]).max()))
+        assert np.array_equal(np.isfinite(td[s].numpy()), fin)
+        assert np.abs(td[s].numpy()[fin] - jd[..., :k][fin]).max() <= tol
+        # a near-tie: two of a row's k + 1 nearest within tol of each other
+        # -- either order is right there
+        near = (np.diff(jd, axis=-1) <= tol).any(-1)
+        diff = (ti[s].numpy() != ji[..., :k]).any(-1)
+        print(f"rebuild, series {s}: {int(near.sum())} rows with near-ties, "
+              f"{int((diff & ~near).sum())} other rows differ")
+        assert not (diff & ~near).any()
+
+
 @pytest.mark.parametrize("tile", [7, 40])
 def test_bfloat16_accumulator_is_tile_invariant(tile):
     """The bf16 accumulator stays in the plain version.  XLA keeps excess

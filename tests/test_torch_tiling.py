@@ -276,8 +276,8 @@ def test_cli_tile_and_all_e_flags_match_the_jax_cli(tmp_path, monkeypatch, extra
 
 
 # ------------------------------------------------------ the kernels' limits
-@pytest.mark.parametrize("kw", [{"E_max": 32}, {"E_max": 20, "k_override": 33},
-                                {"E_max": 33, "k_override": 8}])
+@pytest.mark.parametrize("kw", [{"E_max": 128}, {"E_max": 20, "k_override": 129},
+                                {"E_max": 300}])
 def test_cuda_engine_refuses_past_the_kernel_limits_before_any_work(kw):
     from repro_torch import engine
     from repro_torch.inference import SignificanceConfig, run_significance
@@ -285,21 +285,23 @@ def test_cuda_engine_refuses_past_the_kernel_limits_before_any_work(kw):
     cfg = EDMConfig(**kw)
     eng = engine.get_engine("cuda")
     for dev in (None, "cuda", torch.device("cuda", 0)):
-        with pytest.raises(ValueError, match="at most 32 neighbours") as e:
+        with pytest.raises(ValueError, match="at most 128 neighbours") as e:
             eng.check_limits(cfg, dev)
         assert "device='cpu'" in str(e.value) and "torch-reference" in str(e.value)
     eng.check_limits(cfg, "cpu")  # the plain versions take any config
     engine.get_engine("torch-reference").check_limits(cfg, "cuda")
     ts = np.zeros((4, 100), np.float32)
     # raised by the entry points before the card is looked for
-    with pytest.raises(ValueError, match="at most 32 neighbours"):
+    with pytest.raises(ValueError, match="at most 128 neighbours"):
         run_causal_inference(ts, cfg)
-    with pytest.raises(ValueError, match="at most 32 neighbours"):
+    with pytest.raises(ValueError, match="at most 128 neighbours"):
         run_significance(ts, np.ones(4, np.int32), np.zeros((4, 4), np.float32),
                          cfg, SignificanceConfig(n_surrogates=3))
     EDMConfig(**kw)  # the config itself stays as permissive as the reference's
-    assert EDMConfig(E_max=31).k_max == 32
-    eng.check_limits(EDMConfig(E_max=31), "cuda")
+    assert EDMConfig(E_max=127).k_max == 128
+    for ok in (EDMConfig(E_max=127), EDMConfig(E_max=32), EDMConfig(E_max=40),
+               EDMConfig(E_max=20, k_override=64), EDMConfig(E_max=300, k_override=8)):
+        eng.check_limits(ok, "cuda")  # any E_max, k up to 128
 
 
 # ---------------------------------------------------------------- bfloat16
