@@ -6,7 +6,10 @@
 
 Builds the port's CUDA kernels from the sources in the checkout.  First
 the LM serving path: the flash-attention kernel against its plain
-version and timed, qwen2.5-3b at full width (random init) served through
+version and timed (phase ``flash_grid``: B * H = 65,540 batch-heads on the
+CUDA-core route against the plain version, a tensor-core call in chunks
+of 2 query tiles bit-equal to one launch), qwen2.5-3b at full width
+(random init) served through
 ``repro_torch.launch.steps`` — four prompts of 2048 tokens through
 ``make_prefill_step`` (the flash launch count set to 0 just before it),
 16 greedy decode steps — and the float32 gate of the kernel route
@@ -83,7 +86,17 @@ just before it, against ``torch-reference``) and phase
 ``long_recording`` (a map of 32 series of 36,020 frames, Lp 36,000,
 whole on ``cuda`` with its counts; one series' tables and a chunk's
 lookup against the plain versions; the lookup at Lp 36,000 beside
-``F.embedding_bag``).
+``F.embedding_bag``).  Then past 128 neighbours, the kNN kernels'
+key-select route: phase ``deep_tables`` (``knn_topk`` at phase 1's shape
+at k 160, 256 and 715 -- k == Lc, the self excluded, ending in (+inf,
+self) --, in bf16 at k 256, at phase 2's shape over four buckets at k
+200, on one library shard at k 160 and at E_max 160 / k 161;
+``knn_topk_prefix`` at k 160 and 256 over five library sizes in both
+accumulators; ``ccm_lookup`` at k 160 and 256 beside
+``F.embedding_bag`` and at Lp 36,000 on one staged row: each bit-equal
+to its plain version, the lookup within 1e-6 max|Y|, timed beside its
+bound; the map at k_override 200 on ``cuda``, its counts set to 0 just
+before it, against ``torch-reference``).
 
 Before the fleet, the kNN selection bench's path: the slab kernel
 (``kernels/knn_slab``, the port of the bench's dense-slab Pallas kernel)
@@ -99,6 +112,10 @@ device counters; phase ``bench_knn``, the port's ``knn`` bench
 64,000 on both engines, every launch and route count set to 0 just
 before it, with each kernel's CUDA-event time and the slab's routes
 beside the slab's plain version and bound;
+phase ``bench_gate``, the bench's ``--check`` regression gate at
+``--tiny`` (``build/smoke_bench_gate/``: the baselines written, a check
+against them passing, one against an empty directory skipping, one
+against a field divided by 10 retrying and exiting nonzero);
 and phase ``dryrun``, ``repro_torch.launch.edm_dryrun`` for Fish1_Normo
 and Subject11 at their own N and L (one chunk each: peak device memory,
 seconds, roofline terms, the whole run extrapolated; JSONs in
@@ -4519,15 +4536,303 @@ def long_recording_phase(torch, dev, smi):
     return {"launches": launches, "lookup": lookup, "max_abs_err": lookup_err}
 
 
-def wide_line(cases) -> dict:
-    """The kernels line's keys of one kernel's timed wide cases: per case
-    its ms, plain ms, bound ms and launches a call."""
+# The key-select route (k past 128): phase 1's shape at k 160, 256 and 715
+# (k == Lc with the self excluded), phase 2's shape at k 200 over four
+# buckets, one library shard at k 160, E_max 160 at k 161; the prefix
+# kernel at k 160 and 256 over five library sizes (the first at least
+# k + 1, the plain version's rule); the lookup at k 160 and 256, and at
+# Lp 36,000 on one staged row; the map at k_override 200.
+DEEP_KS = (160, 256)
+DEEP_E = 160
+DEEP_SIZES = (260, 400, 700, 1000, 1430)
+DEEP_MAP_K = 200
+
+
+def deep_tables_phase(torch, dev, smi):
+    """Phase ``deep_tables``: the EDM kernels past 128 neighbours (the
+    kNN kernels' key-select route) against their plain versions -- tables
+    bit-equal in float32 and bfloat16, the lookup within 1e-6 max|Y| --
+    each timed with CUDA events beside its bound, its plain version (and
+    ``F.embedding_bag`` for the lookup); the map at k_override 200 on
+    ``cuda`` (launch counts from 0 just before it) against
+    ``torch-reference`` within the engine check's tolerances."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import embedding
+    from repro_torch.core import knn as tknn
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import prng
+    from repro_torch.inference.convergence import subsample_permutation
+    from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
+    from repro_torch.launch.roofline import (
+        knn_counts,
+        lookup_counts,
+        prefix_counts,
+        segmented_counts,
+    )
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ts8 = dummy_brain(LIB_BLOCK, FISH1_L, seed=1)
+    Lp = FISH1_L - (E_MAX - 1) - 1  # 1430
+    Lh = Lp // 2
+    V8 = lag_batch(torch, ts8, Lp, dev)
+    Vq1, Vc1 = V8[..., Lh:].contiguous(), V8[..., :Lh].contiguous()
+    Lp160 = FISH1_L - (DEEP_E - 1) - 1  # 1290
+    V160 = embedding.lag_matrix(torch.as_tensor(ts8).to(dev), DEEP_E, 1,
+                                Lp160).contiguous()
+    all_E, all_E160 = tuple(range(1, E_MAX + 1)), tuple(range(1, DEEP_E + 1))
+    err = {"knn_topk": 0.0, "knn_topk_prefix": 0.0, "ccm_lookup": 0.0}
+    times = {name: {} for name in err}
+
+    # ---- knn_topk: the key-select route
+    h160 = Lp160 // 2
+    knn_cases = [(f"phase1_k{k}", Vq1, Vc1, k, False, all_E, "float32") for k in DEEP_KS]
+    knn_cases += [
+        ("phase1_k256_bf16", Vq1, Vc1, 256, False, all_E, "bfloat16"),
+        ("k_eq_Lc_715_self", Vc1, Vc1, Lh, True, all_E, "float32"),
+        ("phase2_buckets_k200", V8, V8, DEEP_MAP_K, True, (3, 8, 15, 20), "float32"),
+        ("phase1_E160_k161", V160[..., h160:].contiguous(), V160[..., :h160].contiguous(),
+         DEEP_E + 1, False, all_E160, "float32"),
+    ]
+    for name, Vq, Vc, k, excl, sel, dt in knn_cases:
+        err["knn_topk"] = max(err["knn_topk"], check_knn(
+            torch, f"deep_{name}", Vq, Vc, k, excl, sel, dt))
+        n = _launches_of(lambda: knn_topk(Vq, Vc, k, excl, sel, dist_dtype=dt), knn_topk)
+        times["knn_topk"][name] = _wide_time(
+            torch, lambda: knn_topk(Vq, Vc, k, excl, sel, dist_dtype=dt),
+            lambda: knn_topk_ref(Vq, Vc, k, excl, sel, dist_dtype=dt),
+            knn_counts(Vq.shape[0], sel[-1], len(sel), Vq.shape[-1], Vc.shape[-1], k),
+            n, S=Vq.shape[0], Lq=Vq.shape[-1], Lc=Vc.shape[-1], k=k,
+            n_sel=len(sel), dist_dtype=dt)
+    ki, kd = knn_topk(Vc1, Vc1, Lh, True, all_E)  # k == Lc: (+inf, self) last
+    self_last = bool(torch.equal(
+        ki[..., -1], torch.arange(Lh, device=dev, dtype=torch.int32).expand_as(
+            ki[..., -1]))) and bool(torch.isinf(kd[..., -1]).all())
+    del ki, kd
+    if not self_last:
+        raise AssertionError("deep_tables: k == Lc did not end in (+inf, self)")
+    # one library shard: columns 700.. of the phase-2 library
+    err["knn_topk"] = max(err["knn_topk"], check_knn(
+        torch, "deep_column_range_k160", V8, V8[..., 700:].contiguous(), 160, True,
+        (3, 8, 15, 20), col_offset=700, col_hi=Lp))
+
+    # ---- knn_topk_prefix: the significance path's shape at k 160 and 256
+    perm_key = prng.split(prng.prng_key(0, dev), 2)[0]
+    col_ids = subsample_permutation(perm_key, Lp)
+    bsel = (3, 5, 8, 12)
+    for k in DEEP_KS:
+        for dt in ("float32", "bfloat16"):
+            name = f"sig_k{k}" + ("_bf16" if dt == "bfloat16" else "")
+            err["knn_topk_prefix"] = max(err["knn_topk_prefix"], check_knn_prefix(
+                torch, f"deep_{name}", V8, V8, k, True, bsel, DEEP_SIZES, col_ids, dt))
+            fn = (lambda k=k, dt=dt: knn_topk_prefix(V8, V8, k, True, bsel, DEEP_SIZES,
+                                                     col_ids=col_ids, dist_dtype=dt))
+            n = _launches_of(fn, knn_topk_prefix)
+            times["knn_topk_prefix"][name] = _wide_time(
+                torch, fn,
+                lambda k=k, dt=dt: knn_topk_prefix_ref(
+                    V8, V8, k, True, bsel, DEEP_SIZES, col_ids=col_ids, dist_dtype=dt),
+                prefix_counts(LIB_BLOCK, bsel[-1], len(bsel), Lp, DEEP_SIZES[-1],
+                              len(DEEP_SIZES), k),
+                n, B=LIB_BLOCK, Lq=Lp, k=k, buckets=list(bsel),
+                lib_sizes=list(DEEP_SIZES), dist_dtype=dt)
+
+    # ---- ccm_lookup at k 160 and 256: the chunk's 8 tables, B 2,048
+    Y = torch.as_tensor(dummy_brain(TARGET_BLOCK, FISH1_L, seed=2)
+                        [:, E_MAX : E_MAX + Lp]).to(dev).contiguous()
+    YT = Y.t().contiguous()
+    for k in DEEP_KS:
+        idx, sqd = knn_topk(V8, V8, k, True, (E_MAX,))
+        idx, w = tknn.tables_with_weights_bucketed(idx, sqd, (E_MAX,))
+        idx, w = idx[:, 0].contiguous(), w[:, 0].contiguous()
+        err["ccm_lookup"] = max(err["ccm_lookup"], check_lookup(
+            torch, f"deep_chunk_tables_k{k}", idx, w, Y))
+        il, wl = idx.reshape(-1, k).long(), w.reshape(-1, k)
+        case = _wide_time(torch, lambda: ccm_lookup(idx, w, Y),
+                          lambda: ccm_lookup_ref(idx, w, Y),
+                          lookup_counts(LIB_BLOCK, TARGET_BLOCK, Lp, Lp, k), 1,
+                          S=LIB_BLOCK, B=TARGET_BLOCK, Lq=Lp, Lp=Lp, k=k)
+        case["library_ms"] = time_ms(torch, lambda: F.embedding_bag(
+            il, YT, per_sample_weights=wl, mode="sum"), 5)
+        times["ccm_lookup"][f"chunk_tables_k{k}"] = case
+    del idx, w, sqd, il, wl, Y, YT
+    # Lp 36,000: past the two staged rows, one staged row at a time
+    rng = np.random.default_rng(31)
+    Lp_long = 36000
+    if not lookup_lib().ccm_lookup_max_lp(2) < Lp_long <= lookup_lib().ccm_lookup_max_lp(1):
+        raise AssertionError("deep_tables: Lp 36,000 is not on the one-row route")
+    segs = ((0, 20), (1, 12))
+    ri = torch.as_tensor(rng.integers(0, Lp_long, (2, 2, 700, 160)).astype(np.int32)).to(dev)
+    rw = torch.as_tensor(rng.uniform(0, 1, (2, 2, 700, 160)).astype(np.float32)).to(dev)
+    rY = torch.as_tensor(rng.standard_normal((32, Lp_long)).astype(np.float32)).to(dev)
+    err["ccm_lookup"] = max(err["ccm_lookup"], check_lookup(
+        torch, "deep_Lp36000_k160_one_row", ri, rw, rY, segs))
+    times["ccm_lookup"]["Lp36000_k160"] = _wide_time(
+        torch, lambda: ccm_lookup(ri, rw, rY, segs),
+        lambda: ccm_lookup_ref(ri, rw, rY, segs),
+        segmented_counts(2, ((0, 32, segs),), 700, Lp_long, 160),
+        _launches_of(lambda: ccm_lookup(ri, rw, rY, segs), ccm_lookup),
+        S=2, B=32, Lq=700, Lp=Lp_long, k=160, segments=len(segs))
+    del ri, rw, rY
+
+    # ---- the map at k_override 200 on the kernels against torch-reference
+    ts = dummy_brain(CHECK_N, FISH1_L, seed=4)
+    knn_topk.LAUNCHES = ccm_lookup.LAUNCHES = 0
+    knn_topk.ROUTE_LAUNCHES = dict.fromkeys(knn_topk.ROUTE_LAUNCHES, 0)
+    t1 = time.perf_counter()
+    cfg = EDMConfig(E_max=E_MAX, k_override=DEEP_MAP_K, engine="cuda")
+    got = run_causal_inference(ts, cfg, device=dev)
+    map_s = time.perf_counter() - t1
+    launches = {"knn_topk": knn_topk.LAUNCHES, "ccm_lookup": ccm_lookup.LAUNCHES}
+    by_route = dict(knn_topk.ROUTE_LAUNCHES)
+    want = run_causal_inference(ts, dataclasses.replace(cfg, engine="torch-reference"),
+                                device=dev)
+    optE_eq = bool(np.array_equal(got.optE, want.optE))
+    rho_err = float(np.abs(got.rho - want.rho).max())
+    emit("deep_tables", k_override=DEEP_MAP_K, E_max=E_MAX, map_N=CHECK_N,
+         map_L=FISH1_L, map_s=map_s, map_launches=launches,
+         map_knn_launches_by_route=by_route, optE_equal=optE_eq,
+         rho_max_abs_err=rho_err, tol=1e-5, k_eq_Lc_self_last=self_last,
+         max_abs_err=err, times=times, seconds=time.perf_counter() - t0, smi=smi)
+    if not (optE_eq and rho_err <= 1e-5):
+        raise AssertionError(f"deep_tables: the k_override {DEEP_MAP_K} map on cuda "
+                             f"!= torch-reference (optE equal {optE_eq}, rho {rho_err})")
+    if min(launches.values()) < 1 or by_route["key_select"] != launches["knn_topk"]:
+        raise AssertionError(f"deep_tables: the k_override {DEEP_MAP_K} map missed the "
+                             f"key-select route: {launches}, {by_route}")
+    return {"launches": launches, "launches_by_route": by_route, "max_abs_err": err,
+            "times": times}
+
+
+def bench_gate_phase(torch, dev, smi):
+    """Phase ``bench_gate``: the port bench's ``--check`` regression gate
+    on the card at ``--tiny``: ``knn significance`` without ``--check``
+    writes the baselines (after a first run that warms those shapes);
+    ``--check`` against them passes
+    (CHECK_summary.json ``passed: true``); against an empty directory it
+    prints SKIP rows and exits 0; against a baseline with one gated field
+    divided by 10 it retries once and exits nonzero."""
+    from repro_torch.bench import run as brun
+
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "smoke_bench_gate"
+    shutil.rmtree(out, ignore_errors=True)
+    empty, doctored = out / "empty", out / "doctored"
+    empty.mkdir(parents=True)
+    doctored.mkdir()
+    log = io.StringIO()
+
+    def gate_rows():
+        return [r for r in log.getvalue().splitlines() if r.startswith("gate,")]
+
+    # The benches time single calls of well under a millisecond at --tiny.
+    # This process holds every earlier phase's objects, so a full
+    # collection inside a timed call takes longer than the call; the
+    # bench run as a process of its own has no such heap.  The objects
+    # alive now are moved out of the collector's reach for the phase.
+    gc.collect()
+    gc.freeze()
+    try:
+        with contextlib.redirect_stdout(log):
+            # a first run at these shapes warms them (allocations, launch
+            # caches), so the baselines are taken as warm as the check
+            brun.main(["knn", "significance", "--tiny", "--out", str(out / "warm")])
+            brun.main(["knn", "significance", "--tiny", "--out", str(out)])
+            passed = brun.main(["knn", "significance", "--check", "--tiny",
+                                "--out", str(out)])
+            skipped = brun.main(["significance", "--check", "--tiny", "--out",
+                                 str(out), "--baselines", str(empty)])
+        sig = json.loads((out / "BENCH_significance.json").read_text())
+        sig["one_sweep_chunk_s"] /= 10
+        (doctored / "BENCH_significance.json").write_text(json.dumps(sig))
+        with contextlib.redirect_stdout(log):
+            try:
+                brun.main(["significance", "--check", "--tiny", "--out", str(out),
+                           "--baselines", str(doctored)])
+                regression_exit = 0
+            except SystemExit as e:
+                regression_exit = e.code
+    except SystemExit as e:
+        emit("bench_gate", failed=str(e.code), rows=gate_rows(),
+             log=log.getvalue().splitlines()[-40:], smi=smi)
+        raise AssertionError(f"bench_gate: {e.code}") from None
+    finally:
+        gc.unfreeze()
+    rows = gate_rows()
+    summary = json.loads((out / "fresh" / "CHECK_summary.json").read_text())
+    res = dict(pass_rows=len(passed["gates"]), passed=passed["passed"],
+               skip_rows=sum("SKIP_no_committed_baseline" in r for r in rows),
+               skip_passed=skipped["passed"],
+               regression_exit_nonzero=regression_exit not in (0, None),
+               retry_row=any(r.startswith("gate,retry,") for r in rows),
+               regression_failed=summary["failed"],
+               fresh_card=json.loads((out / "fresh" / "BENCH_significance.json")
+                                     .read_text())["card"])
+    emit("bench_gate", **res, rows=rows, seconds=time.perf_counter() - t0, smi=smi)
+    if not (res["passed"] and res["pass_rows"] > 0 and res["skip_passed"]
+            and res["skip_rows"] >= 1 and res["regression_exit_nonzero"]
+            and res["retry_row"] and summary["failed"] == ["significance"]):
+        raise AssertionError(f"bench_gate: {res}")
+    return res
+
+
+def flash_grid_phase(torch, dev, smi):
+    """Phase ``flash_grid``: the flash kernel past 65,535 batch-heads on the
+    CUDA-core route (B * H = 65,540: two launches of grid.y), float32,
+    against the plain version; and a bfloat16 call on the tensor-core
+    route cut into chunks of 2 query tiles, bit-equal to one launch."""
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+
+    t0 = time.perf_counter()
+    B, S, H, K, dh = 16385, 16, 4, 2, 32
+    q, k, v = qkv(torch, dev, B, S, S, H, K, dh, "float32", seed=7)
+    before = dict(ops.flash_attn.ROUTE_LAUNCHES)
+    got = ops.flash_attn(q, k, v, True)
+    launches = ops.flash_attn.ROUTE_LAUNCHES["cuda_core"] - before["cuda_core"]
+    want = flash_attn_ref(q, k, v, True)
+    atol, rtol = FLASH_TOL_F32
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol + rtol * want.abs()).all())
+    ms = time_ms(torch, lambda: ops.flash_attn(q, k, v, True), 3)
+    del q, k, v, got, want, diff
+    qb, kb, vb = qkv(torch, dev, 3, 700, 700, 4, 2, 64, "bfloat16", seed=8)
+    one = ops.flash_attn(qb, kb, vb, True)
+    ops.GRID_Y_MAX = 2
+    try:
+        chunked = ops.flash_attn(qb, kb, vb, True)
+    finally:
+        ops.GRID_Y_MAX = 65535
+    tc_equal = bool(torch.equal(one, chunked))
+    emit("flash_grid", B=B, Sq=S, Sk=S, H=H, K=K, dh=dh, batch_heads=B * H,
+         route="cuda_core", launches=launches, max_abs_err=err, atol=atol, rtol=rtol,
+         ok=ok, kernel_ms=ms, tensor_core_chunks_of_2_bit_equal=tc_equal,
+         seconds=time.perf_counter() - t0, smi=smi)
+    if not (ok and tc_equal and launches == 1):
+        raise AssertionError(f"flash_grid: B * H {B * H}: ok {ok}, err {err}, "
+                             f"tensor-core chunks equal {tc_equal}")
+    return {"max_abs_err": err, "kernel_ms": ms}
+
+
+def wide_line(cases, tag: str = "wide") -> dict:
+    """The kernels line's keys of one kernel's timed wide (or deep) cases:
+    per case its ms, plain ms, bound ms and launches a call."""
     cases = {c: t for c, t in cases.items() if "kernel_ms" in t}
-    return {"ms_wide": {c: t["kernel_ms"] for c, t in cases.items()},
-            "plain_ms_wide": {c: t["plain_ms"] for c, t in cases.items()},
-            "bound_ms_wide": {c: t["bound_ms"] for c, t in cases.items()},
-            "launches_per_call_wide": {c: t["launches_per_call"]
-                                       for c, t in cases.items()}}
+    return {f"ms_{tag}": {c: t["kernel_ms"] for c, t in cases.items()},
+            f"plain_ms_{tag}": {c: t["plain_ms"] for c, t in cases.items()},
+            f"bound_ms_{tag}": {c: t["bound_ms"] for c, t in cases.items()},
+            f"launches_per_call_{tag}": {c: t["launches_per_call"]
+                                         for c, t in cases.items()}}
+
 
 
 def multi_card_only(torch, dev, smi, n) -> int:
@@ -4573,7 +4878,8 @@ def main(argv=None) -> int:
                     help="run only these phases after the build, comma-separated: "
                     "train_cli, lm_shard_check, lm_shard_check4, examples, "
                     "lm_shard_multi, lm_seq_multi, flash_positions, lm_dryrun, "
-                    "wide_tables, long_recording")
+                    "wide_tables, long_recording, deep_tables, bench_gate, "
+                    "flash_grid")
     ap.add_argument("--shard-rank", choices=("check", "multi", "seq"), default=None,
                     help=argparse.SUPPRESS)  # a rank of run_shard_world
     ap.add_argument("--shard-out", default=None, help=argparse.SUPPRESS)
@@ -4643,7 +4949,10 @@ def main(argv=None) -> int:
                                                  train_check(torch, dev, smi))),
                 "flash_positions": lambda: flash_positions(torch, dev, smi),
                 "wide_tables": lambda: wide_tables_phase(torch, dev, smi),
-                "long_recording": lambda: long_recording_phase(torch, dev, smi)}
+                "long_recording": lambda: long_recording_phase(torch, dev, smi),
+                "deep_tables": lambda: deep_tables_phase(torch, dev, smi),
+                "bench_gate": lambda: bench_gate_phase(torch, dev, smi),
+                "flash_grid": lambda: flash_grid_phase(torch, dev, smi)}
         for name in args.only.split(","):
             only[name]()
         print(smi, flush=True)
@@ -4655,6 +4964,7 @@ def main(argv=None) -> int:
     # first, in a fresh process: after the EDM paths have run, the same
     # decode steps take about twice as long (PERF.md, open questions)
     flash_err = check_flash(torch, dev)
+    fgrid = flash_grid_phase(torch, dev, smi)
     fpos = flash_positions(torch, dev, smi)
     ftimes = time_flash(torch, dev, smi)
     ftimes_moe = time_flash(torch, dev, smi, MOE_ARCH)
@@ -5282,10 +5592,13 @@ def main(argv=None) -> int:
     # staged target rows, each map's counts set to 0 just before it
     wide = wide_tables_phase(torch, dev, smi)
     longrec = long_recording_phase(torch, dev, smi)
+    # ---- tables past 128 neighbours: the kNN kernels' key-select route
+    deep = deep_tables_phase(torch, dev, smi)
 
     # ---- the port's kNN bench (the slab kernel's path) and the dry runs
     # of Fish1_Normo and Subject11 at their own N and L
     bknn = bench_knn(torch, dev, smi)
+    bench_gate_phase(torch, dev, smi)
     dry = dryrun_phase(torch, dev, smi)
 
     # ---- the fleet: W worker processes on the card, each with its own
@@ -5362,8 +5675,12 @@ def main(argv=None) -> int:
          "launches_long_recording": longrec["launches"]["knn_topk"],
          "max_abs_err_wide": wide["max_abs_err"]["knn_topk"],
          **wide_line(wide["times"]["knn_topk"]),
+         "launches_deep_map": deep["launches"]["knn_topk"],
+         "launches_by_route_deep_map": deep["launches_by_route"],
+         "max_abs_err_deep": deep["max_abs_err"]["knn_topk"],
+         **wide_line(deep["times"]["knn_topk"], "deep"),
          "checked": True, "checked_bf16": True, "checked_column_range": True,
-         "checked_wide": True},
+         "checked_wide": True, "checked_key_select": True},
         {"name": "ccm_lookup", "route": "cuda",
          "source": "src/repro_torch/kernels/ccm_lookup/csrc/ccm_lookup.cu",
          "replaces": "src/repro/kernels/ccm_lookup/ccm_lookup.py:24",
@@ -5398,6 +5715,11 @@ def main(argv=None) -> int:
          **wide_line(wide["times"]["ccm_lookup"]),
          "library_ms_wide": {c: t["library_ms"] for c, t in
                              wide["times"]["ccm_lookup"].items() if "library_ms" in t},
+         "launches_deep_map": deep["launches"]["ccm_lookup"],
+         "max_abs_err_deep": deep["max_abs_err"]["ccm_lookup"],
+         **wide_line(deep["times"]["ccm_lookup"], "deep"),
+         "library_ms_deep": {c: t["library_ms"] for c, t in
+                             deep["times"]["ccm_lookup"].items() if "library_ms" in t},
          "ms_Lp36000": longrec["lookup"]["kernel_ms"],
          "plain_ms_Lp36000": longrec["lookup"]["plain_ms"],
          "bound_ms_Lp36000": longrec["lookup"]["bound_ms"],
@@ -5420,12 +5742,17 @@ def main(argv=None) -> int:
          "launches_ranks_significance": ranks_sig["launches"]["knn_topk_prefix"],
          "max_abs_err_wide": wide["max_abs_err"]["knn_topk_prefix"],
          **wide_line(wide["times"]["knn_topk_prefix"]),
-         "checked": True, "checked_bf16": True, "checked_wide": True},
+         "max_abs_err_deep": deep["max_abs_err"]["knn_topk_prefix"],
+         **wide_line(deep["times"]["knn_topk_prefix"], "deep"),
+         "checked": True, "checked_bf16": True, "checked_wide": True,
+         "checked_key_select": True},
         {"name": "flash_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:26",
          "launches": serve["launches"]["flash_attn"],
          "launches_by_route": serve["launches_by_route"], "max_abs_err": flash_err,
+         "max_abs_err_grid_65540": fgrid["max_abs_err"],
+         "ms_grid_65540": fgrid["kernel_ms"],
          "ms": ftimes["kernel_ms"],
          "plain_ms": ftimes["plain_ms"],
          "bound_ms": ftimes["bound_ms"], "bound_by": ftimes["bound_by"],

@@ -46,15 +46,39 @@ where two layouts are compared.
                 unsharded table, and the merge alone on the device vs the
                 host oracle
 
-Not ported: the ``--check`` regression gate (no committed baselines for
-the port yet).
+Regression gate (``--check``), the JAX harness's, with the port's engine
+names (``torch-reference`` and ``cuda``):
+
+  PYTHONPATH=src python -m repro_torch.bench.run knn phase2 significance \
+      --out build/bench                          # writes the baselines
+  PYTHONPATH=src python -m repro_torch.bench.run --check knn phase2 \
+      significance --out build/bench             # the gate against them
+
+Without ``--check`` a run writes its JSONs, the baselines, to ``--out``.
+With it the named benches write to ``<out>/fresh/`` (the gated JSONs
+there are removed first, so a stale one never stands in for this run's),
+and each gated timing field (:data:`GATES`) is compared against the JSON
+of the same name in ``--baselines`` (default ``--out``): one ``gate,`` row
+per field, a ``SKIP_no_committed_baseline`` row where the baseline is
+missing, a regression past ``SLOWDOWN_LIMIT`` (``BENCH_GATE_LIMIT``,
+default 1.5) times the baseline.  ``knn`` adds the knn-gate: the
+streaming tables at every Lc on both engines at most the slab's, fresh
+(times ``KNN_STREAM_MARGIN``, default 1.15) or baseline (times
+``SLOWDOWN_LIMIT``).  The offending benches run once more and each field
+keeps its best time; ``<out>/fresh/CHECK_summary.json`` holds every
+row, and the run exits nonzero naming the benches still slower.  Each row
+also prints the ``card`` of the baseline and of the fresh run: a CPU
+baseline read beside a card run shows as such.  Nothing is committed as a
+baseline.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import resource
+import sys
 import tempfile
 import time
 import tracemalloc
@@ -780,7 +804,8 @@ BENCHES = {
 }
 
 
-def run(names, device=None, out=DEFAULT_OUT, tiny: bool = False) -> dict:
+def run(names, device=None, out=DEFAULT_OUT, tiny: bool = False,
+        header: bool = True) -> dict:
     """Run the named benches; {name: the JSON each wrote}."""
     unknown = [n for n in names if n not in BENCHES]
     if unknown:
@@ -790,11 +815,177 @@ def run(names, device=None, out=DEFAULT_OUT, tiny: bool = False) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     results = {}
-    print("name,us_per_call,derived", flush=True)
+    if header:
+        print("name,us_per_call,derived", flush=True)
     for name in names:
         b = Bench(dev, pathlib.Path(out))
         results[name] = BENCHES[name](b, **SIZES[name]["tiny" if tiny else "card"])
     return results
+
+
+# ------------------------------------------------ the regression gate
+def gates(tiny: bool = False) -> dict[str, tuple[str, list[tuple[str, ...]]]]:
+    """bench -> (its JSON, the gated timing fields as key paths): the JAX
+    gate's fields, ``reference`` read as ``torch-reference`` and
+    ``pallas-interpret`` as ``cuda``.  The knn fields are at Lc 64,000 and
+    16,000 at card sizes, at the sweep's largest Lc under ``--tiny``.
+    Wall times only: the derived ratios divide out the machine's speed and
+    the working sets are deterministic."""
+    sweep = SIZES["knn"]["tiny" if tiny else "card"]["Lc_sweep"]
+    lc_ref, lc_cuda = (str(max(sweep)),) * 2 if tiny else ("64000", "16000")
+    return {
+        "phase2": ("BENCH_phase2.json",
+                   [("seed_path", "phase2_s"), ("new_path", "phase2_s"),
+                    ("tiled_path", "phase2_s")]),
+        "knn": ("BENCH_knn.json",
+                [("phase1", "auto_s"),
+                 ("engines", "torch-reference", lc_ref, "stream_s"),
+                 ("engines", "cuda", lc_cuda, "stream_s")]),
+        "significance": ("BENCH_significance.json",
+                         [("one_sweep_chunk_s",), ("rebuild_chunk_s",)]),
+    }
+
+
+#: the gated fields at card sizes
+GATES = gates()
+#: the slowdown past which a gated field regresses
+SLOWDOWN_LIMIT = float(os.environ.get("BENCH_GATE_LIMIT", "1.5"))
+#: the knn-gate's margin over the slab timed in the same run (timer noise
+#: where the two layouts tie)
+KNN_STREAM_MARGIN = float(os.environ.get("KNN_STREAM_MARGIN", "1.15"))
+
+
+def _dig(d: dict, path: tuple[str, ...]) -> float:
+    for k in path:
+        d = d[k]
+    return float(d)
+
+
+def _cards(base: dict, fresh: dict) -> str:
+    """The row's card fields (commas dropped: the rows are CSV)."""
+    def one(d):
+        return str(d.get("card")).replace(",", "")
+    return f"base_card={one(base)};fresh_card={one(fresh)}"
+
+
+def _knn_stream_gate(base: dict, fresh: dict, floor: dict,
+                     summary: list | None = None) -> bool:
+    """The knn-gate: the fresh streaming build at every benched Lc on both
+    engines at most the slab's -- the slab timed in the same run (times
+    KNN_STREAM_MARGIN) or the baseline's slab (times SLOWDOWN_LIMIT).
+    ``floor`` keeps the best streaming time per cell across passes."""
+    ok = True
+    for engine, rows in fresh.get("engines", {}).items():
+        for lc, r in sorted(rows.items(), key=lambda kv: int(kv[0])):
+            key = f"BENCH_knn.json:knn-gate.{engine}.Lc{lc}"
+            f = min(float(r["stream_s"]), floor.get(key, float("inf")))
+            floor[key] = f
+            slab_fresh = float(r["slab_s"])
+            slab_base = float(base.get("engines", {}).get(engine, {}).get(lc, {}).get(
+                "slab_s", slab_fresh))
+            limit = max(slab_fresh * KNN_STREAM_MARGIN, slab_base * SLOWDOWN_LIMIT)
+            verdict = "OK" if f <= limit else "STREAM_SLOWER_THAN_SLAB"
+            ok = ok and verdict == "OK"
+            if summary is not None:
+                summary.append({
+                    "gate": key, "bench": "knn", "kind": "knn-stream",
+                    "fresh_s": f, "slab_fresh_s": slab_fresh,
+                    "slab_base_s": slab_base, "limit_s": limit,
+                    "verdict": verdict,
+                })
+            print(f"gate,{key},stream={f:.3f}s;slab_fresh={slab_fresh:.3f}s;"
+                  f"slab_base={slab_base:.3f}s;{verdict};{_cards(base, fresh)}",
+                  flush=True)
+    return ok
+
+
+def check_regressions(names, baselines, fresh_dir, gated=None,
+                      floor: dict | None = None,
+                      summary: list | None = None) -> list[str]:
+    """Compare the fresh JSONs in ``fresh_dir`` against the baselines in
+    ``baselines``: one row per gated field (``gated``: :func:`gates`'
+    mapping, default :data:`GATES`), the benches with a field past
+    SLOWDOWN_LIMIT returned.  ``floor`` keeps the best fresh time per field
+    across passes (a field regresses only if its best time is slow);
+    ``summary`` collects one entry per row for CHECK_summary.json."""
+    gated = GATES if gated is None else gated
+    bad: list[str] = []
+    floor = {} if floor is None else floor
+    for name in names:
+        if name not in gated:
+            continue
+        fname, fields = gated[name]
+        base_f, fresh_f = pathlib.Path(baselines) / fname, pathlib.Path(fresh_dir) / fname
+        if not base_f.exists():
+            print(f"gate,{fname},SKIP_no_committed_baseline", flush=True)
+            continue
+        base = json.loads(base_f.read_text())
+        fresh = json.loads(fresh_f.read_text())
+        for path in fields:
+            key = f"{fname}:{'.'.join(path)}"
+            b = _dig(base, path)
+            f = min(_dig(fresh, path), floor.get(key, float("inf")))
+            floor[key] = f
+            ratio = f / b if b > 0 else float("inf")
+            verdict = "OK" if ratio <= SLOWDOWN_LIMIT else "REGRESSION"
+            if verdict != "OK" and name not in bad:
+                bad.append(name)
+            if summary is not None:
+                summary.append({
+                    "gate": key, "bench": name, "kind": "drift",
+                    "base_s": b, "fresh_s": f, "ratio": ratio,
+                    "verdict": verdict,
+                })
+            print(f"gate,{key},base={b:.3f}s;fresh={f:.3f}s;ratio={ratio:.2f}x;"
+                  f"{verdict};{_cards(base, fresh)}", flush=True)
+        if name == "knn" and not _knn_stream_gate(base, fresh, floor, summary):
+            if name not in bad:
+                bad.append(name)
+    return bad
+
+
+def check(names, device=None, out=DEFAULT_OUT, baselines=None,
+          tiny: bool = False) -> dict:
+    """The ``--check`` run: the benches into ``<out>/fresh/``, the gate
+    against ``baselines`` (default ``out``), one retry of the offending
+    benches, CHECK_summary.json.  Returns the summary; exits nonzero on a
+    regression that the retry does not clear."""
+    gated = gates(tiny)
+    if not [n for n in names if n in gated]:
+        sys.exit(f"--check needs at least one gated bench: {list(gated)}")
+    fresh_dir = pathlib.Path(out) / "fresh"
+    baselines = pathlib.Path(out if baselines is None else baselines)
+    for name in names:  # a stale fresh JSON must never stand in for this run's
+        if name in gated:
+            (fresh_dir / gated[name][0]).unlink(missing_ok=True)
+    (fresh_dir / "CHECK_summary.json").unlink(missing_ok=True)
+    run(names, device, fresh_dir, tiny)
+    floor: dict = {}
+    summary: list = []
+    bad = check_regressions(names, baselines, fresh_dir, gated, floor, summary)
+    if bad:
+        # one retry of only the offending benches: noise clears (best of
+        # two per field), a real regression stays
+        print(f"gate,retry,rerunning_{'+'.join(bad)}_once", flush=True)
+        run(bad, device, fresh_dir, tiny, header=False)
+        summary = [e for e in summary if e["bench"] not in bad]
+        bad = check_regressions(bad, baselines, fresh_dir, gated, floor, summary)
+    out_summary = {
+        "slowdown_limit": SLOWDOWN_LIMIT,
+        "knn_stream_margin": KNN_STREAM_MARGIN,
+        "benches": list(names),
+        "gates": summary,
+        "failed": bad,
+        "passed": not bad,
+    }
+    fresh_dir.mkdir(parents=True, exist_ok=True)
+    (fresh_dir / "CHECK_summary.json").write_text(json.dumps(out_summary, indent=1))
+    if bad:
+        sys.exit(f"bench regression gate FAILED: {bad} slower than "
+                 f"{SLOWDOWN_LIMIT}x baseline (see the gate rows above; refresh "
+                 f"the baselines by rerunning without --check)")
+    print(f"gate,all,within_{SLOWDOWN_LIMIT}x_of_baselines", flush=True)
+    return out_summary
 
 
 def main(argv=None) -> dict:
@@ -804,11 +995,21 @@ def main(argv=None) -> dict:
                     help="directory of the BENCH_*.json files (default build/bench)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--tiny", action="store_true", help="test sizes")
+    ap.add_argument("--check", action="store_true",
+                    help="the regression gate: fresh JSONs to <out>/fresh/, "
+                    "compared against --baselines")
+    ap.add_argument("--baselines", default=None,
+                    help="directory of the gate's baseline JSONs (default --out)")
     args = ap.parse_args(argv)
     unknown = [n for n in args.names if n not in BENCHES]
     if unknown:
         ap.error(f"unknown bench(es) {unknown}; available: {list(BENCHES)}")
-    return run(args.names or list(BENCHES), args.device, args.out, args.tiny)
+    names = args.names or list(BENCHES)
+    if args.check:
+        return check(names, args.device, args.out, args.baselines, args.tiny)
+    if args.baselines is not None:
+        ap.error("--baselines takes effect only with --check")
+    return run(names, args.device, args.out, args.tiny)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` with a plain C
 entry point.  :func:`load_library` compiles it with ``nvcc`` for
 ``sm_90a`` into ``<repo>/build/kernels/`` (git-ignored) and loads it
 with ``ctypes``; the library file name carries a hash of the source, the
-headers beside it (``*.cuh``) and the flags, so an edited source rebuilds
-and an unchanged one is reused.
+headers beside it and in ``kernels/common/`` (``*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them.  Nothing here runs at import time: the CPU tests import
 every module of the port on a machine without ``nvcc`` or a card.
@@ -65,10 +65,14 @@ def kernels_available() -> bool:
     )
 
 
+#: headers shared by several sources (``#include "../../common/..."``)
+COMMON_DIR = _HERE / "common"
+
+
 def library_path(name: str) -> pathlib.Path:
     source = KERNEL_SOURCES[name]
-    src = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    headers = sorted(source.parent.glob("*.cuh")) + sorted(COMMON_DIR.glob("*.cuh"))
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -93,12 +93,13 @@
 // is an __ldg of the target row, served by L2 while the run's blocks read
 // the same row, so there is no barrier and any Lp runs.
 //
-// Past k = 32 (WIDE, up to kMaxK = 128): the idx / w row is walked in
-// chunks of 32 held in registers (the MAXK 32 register arrays), the sums
-// carried across chunks, so each sum still runs over j in ascending order
-// with the same rounded ops.  The staged kernel keeps its G sums across
-// the chunks; the stream and gather kernels reload the chunks for every
-// target.  At k <= 32 every route launches the instantiations it did
+// Past k = 32 (WIDE, any k): the idx / w row is walked in chunks of 32
+// held in registers (the MAXK 32 register arrays), the sums carried
+// across chunks, so each sum still runs over j in ascending order with
+// the same rounded ops; nothing of a kernel is sized by k, so any k runs
+// (the tables past 128 neighbours of the kNN kernels' key-select route).
+// The staged kernel keeps its G sums across the chunks; the stream and
+// gather kernels reload the chunks for every target.  At k <= 32 every route launches the instantiations it did
 // before.  The wrapper splits a segment list longer than kMaxSegs into
 // launches, each over its own run of targets (Y and out offset to its
 // first target, out's rows B_out apart).  -Xptxas=-v (sm_90a), no
@@ -116,7 +117,6 @@ namespace {
 
 constexpr int kT = 256;        // time points per item, one per thread
 constexpr int kTS = 512;       // (table, time point) pairs a stream block
-constexpr int kMaxK = 128;     // neighbours per table row
 constexpr int kChunk = 32;     // of them held in registers at once (MAXK bound)
 constexpr int kMaxSegs = 64;   // segments per launch (kernel parameter)
 constexpr size_t kTwoBlockBytes = 112 * 1024;  // shared memory for 2 blocks an SM
@@ -531,7 +531,6 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int ccm_lookup_max_k() { return kMaxK; }
 int ccm_lookup_max_segments() { return kMaxSegs; }
 
 // The longest target row (Lp) the stream kernel stages on the current
@@ -555,7 +554,7 @@ int ccm_lookup_launch(const int32_t* idx, const float* w, const float* Y,
                       const int* seg_rows, const int* seg_counts, int n_seg,
                       int B_out, void* stream) {
   if (S < 1 || nb < 1 || Lq < 1 || B < 1 || Lp < 1 || B_out < B) return -1;
-  if (k < 1 || k > kMaxK) return -2;
+  if (k < 1) return -2;
   if (n_seg < 1 || n_seg > kMaxSegs) return -3;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

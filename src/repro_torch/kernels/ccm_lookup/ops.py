@@ -2,7 +2,7 @@
 
 For a CUDA tensor it launches the kernel or raises; for a CPU tensor it
 runs the plain version (``ref.py``).  No fallback from a failed launch.
-The kernel takes k up to 128 and any target length Lp (past the two
+The kernel takes any k and any target length Lp (past the two
 staged rows of ``ccm_lookup_max_lp(2)`` it stages one row at a time, past
 ``ccm_lookup_max_lp(1)`` its gather route reads the targets through L2);
 a segment list longer than a launch takes is split into launches, each
@@ -28,9 +28,8 @@ def _lib() -> ctypes.CDLL:
     if lib.ccm_lookup_launch.argtypes is None:
         lib.ccm_lookup_launch.argtypes = _ARGTYPES
         lib.ccm_lookup_launch.restype = ctypes.c_int
-        for fn in (lib.ccm_lookup_max_k, lib.ccm_lookup_max_segments):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
+        lib.ccm_lookup_max_segments.argtypes = []
+        lib.ccm_lookup_max_segments.restype = ctypes.c_int
         lib.ccm_lookup_max_lp.argtypes = [ctypes.c_int]
         lib.ccm_lookup_max_lp.restype = ctypes.c_int
     return lib
@@ -107,9 +106,6 @@ def ccm_lookup(idx: torch.Tensor, w: torch.Tensor, Y: torch.Tensor,
             f"table rows in [0, {nb})"
         )
     lib = _lib()
-    if k > lib.ccm_lookup_max_k():
-        raise ValueError(f"ccm_lookup: k={k} above the kernel's limit "
-                         f"{lib.ccm_lookup_max_k()}")
     out = torch.empty((S, B, Lq), dtype=torch.float32, device=Y.device)
     with torch.cuda.device(Y.device):
         for b0, n, part in segment_runs(segs, lib.ccm_lookup_max_segments()):

@@ -77,6 +77,13 @@
 // fmaf calls, so --fmad=false (every kernel's flag; the float32 gate's
 // numbers rest on this code's rounding) does not split them; it does keep
 // the rescales and exponent arguments as separate multiplies and adds.
+//
+// Grid limits: CUDA caps grid.y at 65,535.  The CUDA-core route puts B * H
+// on grid.y and the tensor-core route the query tiles; each launch runs in
+// chunks of at most max_grid_y along that dimension (the caller passes
+// 65,535), the kernel given its chunk's first batch-head (bh0) or its
+// heaviest query tile (tile_hi).  One chunk is the launch of any smaller
+// shape, argument for argument, so any B * H and any Sq run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -121,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                   int H, int K, int dh, int causal, float scale,
-                  const int* __restrict__ qpos) {
+                  const int* __restrict__ qpos, int bh0) {
   constexpr int LD = D + 1;   // odd row stride: column reads are conflict-free
   constexpr int kDC = D / kTX;  // head-dim columns per thread
   constexpr int kKReg = kBK * LD > kBQ * kPLD ? kBK * LD : kBQ * kPLD;
@@ -132,7 +139,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Ks;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int bh = bh0 + (int)blockIdx.y;
+  const int b = bh / H, h = bh % H;
   const int g = h / (H / K);
   const int tid = threadIdx.x;
   const int tx = tid % kTX, ty = tid / kTX;
@@ -271,27 +279,34 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int K, int dh, int causal, const int* qpos,
+           int Sk, int H, int K, int dh, int causal, const int* qpos, int max_grid_y,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)dh));
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale, qpos);
-  return (int)cudaGetLastError();
+  const int BH = B * H;
+  for (int bh0 = 0; bh0 < BH; bh0 += max_grid_y) {
+    dim3 grid((Sq + kBQ - 1) / kBQ, min(max_grid_y, BH - bh0));
+    flash_attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), Sq, Sk, H, K, dh, causal, scale, qpos, bh0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Sk, int H, int K, int dh, int causal, const int* qpos,
+              int Sk, int H, int K, int dh, int causal, const int* qpos, int my,
               cudaStream_t stream) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
-  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, stream);
+  if (dh <= 32)
+    return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, my, stream);
+  if (dh <= 64)
+    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, my, stream);
+  return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, qpos, my, stream);
 }
 
 }  // namespace
@@ -477,7 +492,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_v,
                         __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
                         int K, int dh, int causal, float scale_log2,
-                        const int* __restrict__ qpos) {
+                        const int* __restrict__ qpos, int tile_hi) {
   constexpr int kNSub = D / kSub;
   constexpr int kQBytes = 2 * kNSub * kSubBytes;     // both warpgroups' q
   constexpr int kTileBytes = kNSub * kSubBytes;      // one K (or V) stage
@@ -492,7 +507,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int g = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
+  const int q0 = (tile_hi - (int)blockIdx.y) * kBQ;  // heaviest tiles first
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int p_last = qpos ? qpos[q_last] : q_last;  // the tile's largest position
   int n_kt = (Sk + kBK - 1) / kBK;
@@ -695,7 +710,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int K, int dh, int causal, const int* qpos,
+           int Sk, int H, int K, int dh, int causal, const int* qpos, int max_grid_y,
            cudaStream_t stream) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return -7;
@@ -708,11 +723,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
       flash_attn_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)dh));
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, dh, causal,
-      scale_log2, qpos);
-  return (int)cudaGetLastError();
+  // chunks of query tiles, the heaviest (last) tiles first
+  for (int tile_hi = (Sq + kBQ - 1) / kBQ - 1; tile_hi >= 0; tile_hi -= max_grid_y) {
+    dim3 grid(B * H, min(max_grid_y, tile_hi + 1));
+    flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, K, dh, causal,
+        scale_log2, qpos, tile_hi);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace tc
@@ -725,40 +745,46 @@ const char* kernel_error_string(int code) {
 
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous,
 // all of one type: dtype 0 = float32, 1 = bfloat16.  H % K == 0,
-// 1 <= dh <= 128, B * H <= 65535.  q_pos: null (row i at position i) or
-// int32 (Sq,), non-decreasing.  Returns 0, a negative argument code, or
-// the CUDA error of the launch.
+// 1 <= dh <= 128, B * H < 2^31.  q_pos: null (row i at position i) or
+// int32 (Sq,), non-decreasing.  max_grid_y (1 .. 65535): batch-heads a
+// launch's chunk takes on grid.y.  Returns 0, a negative argument code, or
+// the CUDA error of a launch.
 int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
                       int dtype, int B, int Sq, int Sk, int H, int K, int dh,
-                      int causal, const int* q_pos, void* stream) {
+                      int causal, const int* q_pos, int max_grid_y, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128) return -3;
-  if ((long long)B * H > 65535) return -4;
+  if ((long long)B * H > 0x7fffffffLL) return -4;
+  if (max_grid_y < 1 || max_grid_y > 65535) return -6;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
+  if (dtype == 0)
+    return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, max_grid_y,
+                            s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos,
+                                    max_grid_y, s);
   return -5;
 }
 
 // q (B, Sq, H, dh), k / v (B, Sk, K, dh), o (B, Sq, H, dh), contiguous
 // bfloat16.  H % K == 0, dh a multiple of 16 in [16, 128],
-// ceil(Sq / 128) <= 65535 (grid.y; B * H is grid.x).  q_pos as
-// flash_attn_launch's.  Returns 0, a negative argument code, or the CUDA
-// error of the launch.
+// B * H < 2^31 (grid.x).  q_pos as flash_attn_launch's.  max_grid_y (1 ..
+// 65535): query tiles of 128 rows a launch's chunk takes on grid.y.
+// Returns 0, a negative argument code, or the CUDA error of a launch.
 int flash_attn_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                             int B, int Sq, int Sk, int H, int K, int dh,
-                            int causal, const int* q_pos, void* stream) {
+                            int causal, const int* q_pos, int max_grid_y,
+                            void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || dh < 1) return -1;
   if (H % K != 0) return -2;
   if (dh > 128 || dh % 16 != 0) return -3;
-  if ((long long)B * H > 0x7fffffffLL ||
-      ((long long)Sq + tc::kBQ - 1) / tc::kBQ > 65535)
-    return -4;
+  if ((long long)B * H > 0x7fffffffLL) return -4;
+  if (max_grid_y < 1 || max_grid_y > 65535) return -6;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64) return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
-  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, s);
+  if (dh <= 64)
+    return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, max_grid_y, s);
+  return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, K, dh, causal, q_pos, max_grid_y, s);
 }
 
 }  // extern "C"

@@ -47,12 +47,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_HEAD = 128
 #: query rows of one block of the tensor-core kernel (grid.y counts them)
 TC_BLOCK_ROWS = 128
+#: grid.y of one launch chunk: batch-heads on the CUDA-core route, query
+#: tiles on the tensor-core route (CUDA caps grid.y at 65,535; a call past
+#: it runs in chunks, so any B * H and any Sq run)
+GRID_Y_MAX = 65535
 
 #: the kernel routes of a CUDA call
 ROUTES = ("tensor_core", "cuda_core")
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int,
+                                                          ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 #: host copies of the position arrays :func:`block_positions` made
 _HOST_POS = WeakIdKeyDictionary()
@@ -160,13 +166,9 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if not 1 <= dh <= MAX_D_HEAD:
         raise ValueError(f"flash_attn kernel takes d_head up to {MAX_D_HEAD}, got {dh}")
-    route = flash_route("cuda", q.dtype, dh)
-    # grid.y is B * H on the CUDA-core route, Sq / TC_BLOCK_ROWS on the
-    # tensor-core route; CUDA caps it at 65535
-    grid_y = B * H if route == "cuda_core" else -(-Sq // TC_BLOCK_ROWS)
-    if min(B, Sq, Sk) < 1 or grid_y > 65535:
-        raise ValueError(f"flash_attn kernel ({route}) cannot take B {B}, Sq {Sq}, "
-                         f"Sk {Sk}, H {H}")
+    if min(B, Sq, Sk) < 1 or B * H >= 2**31:
+        raise ValueError(f"flash_attn kernel cannot take B {B}, Sq {Sq}, Sk {Sk}, "
+                         f"H {H}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attn kernel takes contiguous q, k and v")
     if q_pos is not None and (tuple(q_pos.shape) != (Sq,) or q_pos.dtype.is_floating_point
@@ -201,10 +203,10 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = kernels.current_stream(q.device)
         if route == "tensor_core":
             rc = lib.flash_attn_wgmma_launch(*ptrs, B, Sq, Sk, H, K, dh, int(causal),
-                                             pos_ptr, stream)
+                                             pos_ptr, GRID_Y_MAX, stream)
         else:
             rc = lib.flash_attn_launch(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, Sk, H, K,
-                                       dh, int(causal), pos_ptr, stream)
+                                       dh, int(causal), pos_ptr, GRID_Y_MAX, stream)
     kernels.check_launch(f"flash_attn ({route})", rc, lib)
     flash_attn.ROUTE_LAUNCHES[route] += 1
     if q_pos is not None:

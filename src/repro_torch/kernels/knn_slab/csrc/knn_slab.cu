@@ -73,6 +73,9 @@
 //    all in use by the sweep and the selection, against the ~10 columns
 //    a thread past 53,760.  At Lc 64,000 the workspace holds 10,240
 //    columns a row, 16% of a whole-row slab's traffic.
+//  * Shared code.  The keys, the block reductions, the buffer's append,
+//    the bitonic sort and the search are common/key_select.cuh's, shared
+//    with the key-select route of knn_topk.cu and knn_topk_prefix.cu.
 //  * Counters.  Thread 0 of each block counts its (row, lag) selections by
 //    route (filter, search) and those whose threshold came from the
 //    sample, and adds them at its end to a small device buffer that the
@@ -81,113 +84,44 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/key_select.cuh"
+
 namespace {
 
-using u64 = unsigned long long;
+using key_select::append;
+using key_select::kFull;
+using key_select::kMaxKey;
+using key_select::make_key;
+using key_select::u64;
+using key_select::umax;
+using key_select::umin;
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using KS = key_select::Block<kThreads>;
+constexpr int kWarps = KS::kWarps;
 constexpr int kPad = 128;  // the TPU kernel's lane width: Lc_pad granularity
-constexpr int kCap = 2 * kThreads;  // candidate keys sorted at once
-constexpr int kMinSort = 64;        // the smallest sort: one warp's 64 keys
+constexpr int kCap = KS::kCap;      // candidate keys sorted at once
 constexpr int kWarpK = 32;          // k up to this: a warp-register selection
 constexpr int kRankMax = 256;       // candidates up to this: ranked by counting
 constexpr int kUnroll = 4;          // sweep columns a thread keeps in flight
 constexpr float kBig = 3.0e38f;
 constexpr int kNone = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr u64 kMaxKey = ~0ull;
 // dynamic shared memory: the buffer, two rows of block-reduction slots,
 // the candidate count and a broadcast key (16 bytes), then the slab row
-constexpr int kFixedBytes = kCap * 8 + 2 * kWarps * 8 + 16;
+constexpr int kFixedBytes = KS::kFixedBytes;
 
 enum Counter { kFilter = 0, kSearch = 1, kSampled = 2, kCounters = 3 };
 
-__device__ __forceinline__ u64 make_key(float v, int c) {
-  return (u64(__float_as_uint(v)) << 32) | uint32_t(c);
+__device__ __forceinline__ u64 block_max(u64 v, u64* red, int& parity) {
+  return key_select::block_max<kThreads>(v, red, parity);
 }
 
-__device__ __forceinline__ u64 umax(u64 a, u64 b) {
-  return a > b ? a : b;
+__device__ __forceinline__ unsigned block_sum(unsigned v, u64* red, int& parity) {
+  return key_select::block_sum<kThreads>(v, red, parity);
 }
 
-__device__ __forceinline__ u64 umin(u64 a, u64 b) {
-  return a < b ? a : b;
-}
-
-// Block-wide max and sum, every thread gets the result; one barrier each.
-// The two rows of slots alternate, so no second barrier is needed before
-// the next call writes its slots.
-__device__ u64 block_max(u64 v, u64* red, int& parity) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = umax(v, __shfl_xor_sync(kFull, v, off));
-  u64* r = red + parity * kWarps;
-  parity ^= 1;
-  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
-  __syncthreads();
-  u64 m = 0;
-#pragma unroll 8
-  for (int w = 0; w < kWarps; ++w) m = umax(m, r[w]);
-  return m;
-}
-
-__device__ unsigned block_sum(unsigned v, u64* red, int& parity) {
-  v = __reduce_add_sync(kFull, v);
-  u64* r = red + parity * kWarps;
-  parity ^= 1;
-  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned s = 0;
-#pragma unroll 8
-  for (int w = 0; w < kWarps; ++w) s += unsigned(r[w]);
-  return s;
-}
-
-// Append the passing keys of a warp to buf (one shared atomic a warp);
-// called by all 32 lanes.  The count runs on past kCap: it then says the
-// buffer overflowed.
-__device__ __forceinline__ void append(bool pass, u64 key, u64* buf,
-                                       unsigned* count) {
-  const unsigned m = __ballot_sync(kFull, pass);
-  if (m == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  unsigned base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(kFull, base, leader);
-  if (pass) {
-    const unsigned pos = base + __popc(m & ((1u << lane) - 1u));
-    if (pos < kCap) buf[pos] = key;
-  }
-}
-
-// Ascending bitonic sort of a[0, n), n a power of two in [kMinSort, kCap],
-// by every thread.  A stage of stride j <= 32 pairs keys inside one
-// warp's 64, so only stages of stride >= 64, and the ones before them,
-// end in a block barrier.
-__device__ void sort_keys(u64* a, int n) {
-  const int t = threadIdx.x;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      if (t < (n >> 1)) {
-        const int lo = 2 * t - (t & (j - 1));
-        const int hi = lo + j;
-        const u64 x = a[lo], y = a[hi];
-        if ((x > y) == ((lo & size) == 0)) {
-          a[lo] = y;
-          a[hi] = x;
-        }
-      }
-      const int next = j > 1 ? j >> 1 : size;  // the next stage's stride
-      if (j >= 64 || next >= 64) {
-        __syncthreads();
-      } else {
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void sort_keys(u64* a, int n) {
+  key_select::sort_keys<kThreads>(a, n);
 }
 
 // A warp's 32 keys, one a lane, sorted ascending across the lanes
@@ -253,21 +187,6 @@ __device__ void block_least32(u64 a, u64 b, u64 a2, u64 b2, int n_warps,
   }
 }
 
-// Sort the n_keys keys in buf and write the first n_out as (idx, dist).
-__device__ void sort_emit(u64* buf, int n_keys, int n_out, int32_t* oi,
-                          float* od) {
-  int n = kMinSort;
-  while (n < n_keys) n <<= 1;
-  for (int i = n_keys + threadIdx.x; i < n; i += kThreads) buf[i] = kMaxKey;
-  __syncthreads();
-  sort_keys(buf, n);
-  for (int j = threadIdx.x; j < n_out; j += kThreads) {
-    const u64 key = buf[j];
-    oi[j] = int32_t(uint32_t(key));
-    od[j] = __uint_as_float(uint32_t(key >> 32));
-  }
-}
-
 // One query row's slab: columns [0, n_sm) in shared memory, the rest in
 // the device workspace.
 struct Row {
@@ -283,25 +202,6 @@ struct Row {
     return (c < Lc && c != self) ? make_key(get(c), c) : make_key(kBig, c);
   }
 };
-
-// The least key K with at least t keys in [floor, K]: a bitwise search,
-// high bit first, over the value bits (30..0; the sign bit is 0) and the
-// column bits that Lc_pad needs.
-__device__ u64 nth_key(const Row& row, int Lc_pad, int colbits, u64 floor,
-                       int t, u64* red, int& parity) {
-  u64 ans = 0;
-  for (int b = 62; b >= 0; --b) {
-    if (b < 32 && b >= colbits) continue;
-    const u64 trial = ans | ((1ull << b) - 1);
-    unsigned n = 0;
-    for (int c = threadIdx.x; c < Lc_pad; c += kThreads) {
-      const u64 key = row.key(c);
-      n += unsigned(key >= floor && key <= trial);
-    }
-    if (block_sum(n, red, parity) < unsigned(t)) ans |= 1ull << b;
-  }
-  return ans;
-}
 
 // Is key (v, c) <= the threshold (hi, lo)?  A compare of the value bits
 // first, so the sweep builds no 64-bit key for the columns that fail.
@@ -339,7 +239,8 @@ __device__ void sweep(float* P, int c0, int c1, const float* __restrict__ vce,
     if (filter && __any_sync(kFull, pass != 0)) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        append((pass >> u) & 1u, make_key(v[u], c + u * kThreads), buf, count);
+        append<kThreads>((pass >> u) & 1u, make_key(v[u], c + u * kThreads), buf,
+                         count);
     }
   }
   for (; base < c1; base += kThreads) {  // the rest: one column a thread
@@ -353,7 +254,7 @@ __device__ void sweep(float* P, int c0, int c1, const float* __restrict__ vce,
       if (c != self) v = acc;
     }
     if (filter)
-      append(c < c1 && at_most(v, c, hi, lo), make_key(v, c), buf, count);
+      append<kThreads>(c < c1 && at_most(v, c, hi, lo), make_key(v, c), buf, count);
   }
 }
 
@@ -456,8 +357,8 @@ knn_slab_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
             count);
     if (filter) {  // the padding columns, keyed kBig
       for (int c = (Lc & ~31) + tid; c < Lc_pad; c += kThreads)
-        append(c >= Lc && at_most(kBig, c, hi, lo), make_key(kBig, c), buf,
-               count);
+        append<kThreads>(c >= Lc && at_most(kBig, c, hi, lo), make_key(kBig, c), buf,
+                         count);
     }
     __syncthreads();
     const unsigned n_cand = *count;
@@ -465,6 +366,10 @@ knn_slab_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
     // ---- the selection
     int32_t* oi = out_idx + ((size_t)e * Lq + q) * k;
     float* od = out_dist + ((size_t)e * Lq + q) * k;
+    auto emit = [&](int j, u64 key) {
+      oi[j] = int32_t(uint32_t(key));
+      od[j] = __uint_as_float(uint32_t(key >> 32));
+    };
     if (filter && n_cand <= unsigned(kCap)) {
       if (warp_k && n_cand <= unsigned(kRankMax)) {
         // the same two selections by rank: candidate t's rank is the count
@@ -509,26 +414,12 @@ knn_slab_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
         if (tid == k - 1) *bcast = y;
         __syncthreads();
       } else {
-        sort_emit(buf, int(n_cand), k, oi, od);
+        key_select::sort_emit<kThreads>(buf, int(n_cand), k, emit);
       }
       if (tid == 0) ++routes[kFilter];
     } else {
-      u64 floor = 0;
-      for (int done = 0; done < k;) {
-        const int t = min(kCap, k - done);
-        const u64 last = nth_key(row, Lc_pad, colbits, floor, t, red, parity);
-        if (tid == 0) *count = 0;
-        __syncthreads();
-        for (int c = tid; c < Lc_pad; c += kThreads) {
-          const u64 key = row.key(c);
-          append(key >= floor && key <= last, key, buf, count);
-        }
-        __syncthreads();
-        sort_emit(buf, t, t, oi + done, od + done);
-        __syncthreads();
-        done += t;
-        floor = last + 1;
-      }
+      key_select::search<kThreads>(row, Lc_pad, colbits, k, buf, red, count, parity,
+                                   emit);
       if (warp_k && tid < 32) {  // the next threshold: the winners' bound
         u64 m = tid < k ? rekey(buf[tid]) : 0;
 #pragma unroll

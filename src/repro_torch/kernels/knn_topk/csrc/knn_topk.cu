@@ -114,11 +114,37 @@
 //    52-60, 40 / 100 and 56-64 / 116-124 bytes of spill stores / loads at
 //    R = 1, 2, 3 and 4 (the offer's R shifted copies), less than the fast
 //    path's at MAXE 24 and 32.
+//
+// The key-select route (k past 128, any k <= Lc): knn_topk_ks_kernel.
+// Register lists stop at R = 4, so past them a row's candidates are
+// selected as keys (common/key_select.cuh, shared with knn_slab.cu):
+//  * key = (float bits of D << 32) | global id; keys are distinct, so
+//    one unsigned compare is the (distance, lowest id) rule.  A masked
+//    candidate keys as (kBig, id): the masked ones sort last in id
+//    order, as the plain version's stable sort puts its +inf entries.
+//    The mask is the sign bit of the row's stored D (D >= +0), set at
+//    lag 1.
+//  * Persistent blocks of kKsThreads, one (series, query) row at a time:
+//    the row's D for all Lc candidates in dynamic shared memory up to the
+//    card's opt-in limit, the rest in the block's device workspace (the
+//    wrapper allocates grid x block bytes, knn_topk_ks_shape).  One sweep
+//    of the row a lag, with the pinned acc_sq; after each selected E one
+//    selection (select_least): a row of at most 1,024 keys is sorted
+//    whole; past it the last selected E's k winners, re-keyed at this E,
+//    bound the k-th key (the first E: the k-th of 1,024 strided columns),
+//    the keys at or below that bound are gathered and sorted, and a full
+//    buffer or k > 1,024 takes the exact bitwise search.  The k least
+//    keys are written sorted.  One launch holds every selected E up to lag
+//    2,048 (kKsWords mask words).
+//  * What bounds it: the tables written (bytes) at the smoke's shapes;
+//    the selection's sort sets the time.  -Xptxas=-v (sm_90a): 64
+//    registers, no spill, at __launch_bounds__(512, 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/key_select.cuh"
 #include "wide_lists.cuh"
 
 namespace {
@@ -128,8 +154,11 @@ using knn_wide::wide_lists;
 
 constexpr int kMaxE = 32;     // fast path: selection set is a 32-bit mask over E-1
 constexpr int kFastK = 32;    // fast path: neighbours per table row = the warp width
-constexpr int kMaxK = 128;    // wide route: up to 4 slots a lane
+constexpr int kWideK = 128;   // wide route: up to 4 slots a lane; past it key-select
 constexpr int kSpan = 32;     // wide route: lags a window's mask spans
+constexpr int kKsThreads = 512;  // key-select route: threads of a block (one row)
+constexpr int kKsWords = 64;     // key-select route: 32-bit words of its lag mask
+using KS = key_select::Block<kKsThreads>;
 constexpr int kWarps = 8;     // query rows per block, one per warp
 constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
 constexpr int kTileC = 256;   // candidates staged per shared-memory tile
@@ -338,6 +367,88 @@ knn_topk_wide_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
   }
 }
 
+// The key-select route (k past kWideK): the lags of one window [e_lo,
+// e_lo + 32 kKsWords) selected by the mask words, lags below e_lo only
+// accumulated; persistent blocks of kKsThreads, one (series, query) row
+// at a time.  Rows si0 .. of the n_out rows a series.
+struct LagMask {
+  uint32_t w[kKsWords];
+};
+
+template <bool BF16>
+__global__ void __launch_bounds__(kKsThreads, 2)
+knn_topk_ks_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                   unsigned char* __restrict__ work, int32_t* __restrict__ out_idx,
+                   float* __restrict__ out_dist, int S, int E_rows, int Lq, int Lc,
+                   int k, int e_lo, int E_hi, LagMask sel, int si0, int n_out,
+                   int exclude_self, int col_offset, int col_hi, int n_sm) {
+  using key_select::u64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* buf = reinterpret_cast<u64*>(smem);
+  u64* red = buf + KS::kCap;
+  unsigned* count = reinterpret_cast<unsigned*>(red + 2 * KS::kWarps);
+  float* d_sm = reinterpret_cast<float*>(smem + KS::kFixedBytes);
+  float* d_gm = reinterpret_cast<float*>(
+      work + blockIdx.x * key_select::ks_block_bytes(Lc, n_sm, k));
+  int32_t* wins = reinterpret_cast<int32_t*>(d_gm + (Lc - n_sm));  // columns
+  const key_select::DistRow row{d_sm, d_gm, n_sm, uint32_t(col_offset)};
+  const int tid = threadIdx.x;
+  const int lowbits = key_select::low_bits(uint32_t(col_offset + Lc - 1));
+  const int hi = col_hi - col_offset;  // columns at or past it are masked
+  int parity = 0;
+  const long long rows = (long long)S * Lq;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int s = int(r / Lq), q = int(r - (long long)s * Lq);
+    const float* vq_s = vq + (size_t)s * E_rows * Lq;
+    const float* vc_s = vc + (size_t)s * E_rows * Lc;
+    const int self = exclude_self ? q - col_offset : -1;
+    int si = si0;
+    bool have_wins = false;
+    for (int e = 0; e < E_hi; ++e) {
+      const float qv = __ldg(vq_s + (size_t)e * Lq + q);
+      const float* vce = vc_s + (size_t)e * Lc;
+      for (int c = tid; c < Lc; c += kKsThreads) {
+        float* d = row.at(c);
+        const uint32_t old =
+            e == 0 ? ((c >= hi || c == self) ? key_select::kSign : 0u) : __float_as_uint(*d);
+        const float prev = __uint_as_float(old & ~key_select::kSign);
+        *d = key_select::with_mask(acc_sq<BF16>(prev, qv, __ldg(vce + c)),
+                                   old & key_select::kSign);
+      }
+      const int rel = e - e_lo;
+      if (rel < 0 || !((sel.w[rel >> 5] >> (rel & 31)) & 1u)) continue;
+      __syncthreads();  // the row at lag e + 1 is whole
+      u64 tau = key_select::kMaxKey;
+      if (have_wins && Lc > KS::kCap && k <= KS::kCap) {
+        // the last selection's winners: k distinct columns bound the k-th key
+        u64 m = 0;
+        for (int j = tid; j < k; j += kKsThreads) m = key_select::umax(m, row.key(wins[j]));
+        tau = key_select::block_max<kKsThreads>(m, red, parity);
+      }
+      const size_t o = (((size_t)s * n_out + si) * Lq + q) * k;
+      int32_t* oi = out_idx + o;
+      float* od = out_dist + o;
+      key_select::select_least<kKsThreads>(
+          row, Lc, lowbits, k, tau, buf, red, count, parity, [&](int j, u64 key) {
+            const uint32_t low = uint32_t(key);
+            const float v = __uint_as_float(uint32_t(key >> 32));
+            oi[j] = int32_t(low);
+            od[j] = v >= kBig ? f_inf() : v;
+            wins[j] = int32_t(low) - col_offset;
+          });
+      have_wins = true;
+      ++si;
+    }
+    __syncthreads();  // the next row overwrites the distances
+  }
+}
+
+template <bool BF16>
+long long ks_grid(int n_sm, long long rows) {
+  return key_select::ks_grid(knn_topk_ks_kernel<BF16>, kKsThreads,
+                             KS::kFixedBytes + 4 * n_sm, rows);
+}
+
 template <int R>
 int launch_wide(const float* vq, const float* vc, int32_t* idx, float* dist, int S,
                 int E_rows, int Lq, int Lc, int k, int e_lo, int E_hi,
@@ -381,11 +492,69 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int knn_topk_max_k() { return kMaxK; }
+// The wide route's table width: the key-select route takes k past it.
+int knn_topk_wide_k() { return kWideK; }
 // Selected E a launch holds lists for at k (a window of the selection):
 // the fast path's 32 where k <= 32 and every selected E is at most 32.
 int knn_topk_lists(int k) { return wide_lists((k + 31) / 32); }
 int knn_topk_span() { return kSpan; }
+// Lags a key-select launch's mask spans (kKsWords words).
+int knn_topk_ks_span() { return 32 * kKsWords; }
+
+// The key-select route's launch shape for rows of Lc columns on the
+// current device: its grid (blocks) and each block's device workspace in
+// bytes; the workspace of a launch is grid * block bytes.  Returns 0 or a
+// CUDA error.
+int knn_topk_ks_shape(long long rows, int Lc, int k, int bf16, long long* grid,
+                      long long* block_bytes) {
+  const int n_sm = key_select::ks_cols_on_chip(Lc, KS::kFixedBytes);
+  if (n_sm < 0) return (int)cudaGetLastError();
+  const long long g = bf16 ? ks_grid<true>(n_sm, rows) : ks_grid<false>(n_sm, rows);
+  if (g < 0) return (int)(-g);
+  *grid = g;
+  *block_bytes = key_select::ks_block_bytes(Lc, n_sm, k);
+  return 0;
+}
+
+// The key-select route, any k <= Lc: arguments as knn_topk_launch's, the
+// selection as kKsWords mask words (bit e of word w selects E = e_lo + 32 w
+// + e + 1), work a device workspace of grid * block_bytes bytes and grid
+// as knn_topk_ks_shape gave them.  Returns 0, a negative argument code,
+// or the CUDA error of the launch.
+int knn_topk_ks_launch(const float* vq, const float* vc, int32_t* idx, float* dist,
+                       void* work, long long grid, int S, int E_rows, int Lq, int Lc,
+                       int k, const unsigned int* sel_words, int e_lo, int si0,
+                       int n_out, int exclude_self, int col_offset, int col_hi,
+                       int bf16, void* stream) {
+  if (S < 1 || Lq < 1 || Lc < 1 || grid < 1 || grid > 0x7fffffffLL) return -1;
+  if (k < 1 || k > Lc) return -2;
+  if (e_lo < 0) return -3;
+  LagMask sel;
+  int E_hi = 0, n_sel = 0;
+  for (int w = 0; w < kKsWords; ++w) {
+    sel.w[w] = sel_words[w];
+    n_sel += __builtin_popcount(sel_words[w]);
+    if (sel_words[w]) E_hi = e_lo + 32 * w + 32 - __builtin_clz(sel_words[w]);
+  }
+  if (n_sel == 0) return -3;
+  if (E_hi > E_rows) return -4;
+  if (col_offset < 0 || col_hi < 0 || (long long)col_hi > (long long)col_offset + Lc)
+    return -5;
+  if (exclude_self && Lq < col_hi) return -6;
+  if (si0 < 0 || si0 + n_sel > n_out) return -7;
+  const int n_sm = key_select::ks_cols_on_chip(Lc, KS::kFixedBytes);
+  if (n_sm < 0) return (int)cudaGetLastError();
+  const int smem = KS::kFixedBytes + 4 * n_sm;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kern = bf16 ? knn_topk_ks_kernel<true> : knn_topk_ks_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)grid, kKsThreads, smem, st>>>(
+      vq, vc, static_cast<unsigned char*>(work), idx, dist, S, E_rows, Lq, Lc, k, e_lo,
+      E_hi, sel, si0, n_out, exclude_self, col_offset, col_hi, n_sm);
+  return (int)cudaGetLastError();
+}
 
 // vq (S, E_rows, Lq), vc (S, E_rows, Lc) float32 contiguous; idx / dist
 // (S, n_out, Lq, k), of which this launch writes rows si0 ..
@@ -405,7 +574,7 @@ int knn_topk_launch(const float* vq, const float* vc, int32_t* idx,
                     int exclude_self, int col_offset, int col_hi, int bf16,
                     int fast, void* stream) {
   if (S < 1 || Lq < 1 || Lc < 1 || S > 65535) return -1;
-  if (k < 1 || k > kMaxK || k > Lc) return -2;
+  if (k < 1 || k > kWideK || k > Lc) return -2;
   if (sel_mask == 0u || e_lo < 0) return -3;
   const int E_hi = e_lo + 32 - __builtin_clz(sel_mask);
   if (E_hi > E_rows) return -4;

@@ -82,11 +82,22 @@
 // 108 / 496-504 bytes of spill stores / loads at R = 1, 2, 3 and 4; the
 // fast path spills 100 / 172 at MAXE 24 and 920 / 1,768 at 32 with this
 // toolkit.
+//
+// The key-select route (k past 128): knn_topk_prefix_ks_kernel,
+// knn_topk.cu's over sweep positions.  A key's low word is the position p
+// (the earliest-sweep-position rule), the id written col_ids[p]; the row
+// holds the run's P = last size positions.  After each selected E, one
+// selection per library size of the run over the positions below it: the
+// first size's threshold from the last selected E's winners (positions),
+// each later size's from the shorter prefix's k-th key (its k winners are
+// in the longer prefix).  -Xptxas=-v (sm_90a): 64 registers, 16 / 20
+// bytes of spill stores / loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/key_select.cuh"
 #include "wide_lists.cuh"
 
 namespace {
@@ -96,8 +107,11 @@ using knn_wide::wide_lists;
 
 constexpr int kMaxE = 32;     // fast path: selection set is a 32-bit mask over E-1
 constexpr int kFastK = 32;    // fast path: neighbours per table row = the warp width
-constexpr int kMaxK = 128;    // wide route: up to 4 slots a lane
+constexpr int kWideK = 128;   // wide route: up to 4 slots a lane; past it key-select
 constexpr int kSpan = 32;     // wide route: lags a window's mask spans
+constexpr int kKsThreads = 512;  // key-select route: threads of a block (one row)
+constexpr int kKsWords = 64;     // key-select route: 32-bit words of its lag mask
+using KS = key_select::Block<kKsThreads>;
 constexpr int kMaxS = 64;     // library sizes per launch
 constexpr int kWarps = 8;     // query rows per block, one per warp
 constexpr int kMinBlocks = 3; // blocks per SM the register budget is set for
@@ -345,6 +359,104 @@ knn_topk_prefix_wide_kernel(const float* __restrict__ vq, const float* __restric
   }
 }
 
+// The key-select route (k past kWideK), knn_topk.cu's over sweep
+// positions: the lags of one window [e_lo, e_lo + 32 kKsWords) selected by
+// the mask words, each selected E's snapshots at every library size of
+// `sizes` (size rows s0 .. of S_out, E rows si0 .. of n_out); persistent
+// blocks of kKsThreads, one (series, query) row at a time.  The row holds
+// sweep positions [0, P), P the run's last size; a key's low word is the
+// position, so equal distances go to the earliest position, and the id
+// written is col_ids[p].
+struct LagMask {
+  uint32_t w[kKsWords];
+};
+
+template <bool BF16>
+__global__ void __launch_bounds__(kKsThreads, 2)
+knn_topk_prefix_ks_kernel(const float* __restrict__ vq, const float* __restrict__ vc,
+                          const int32_t* __restrict__ col_ids,
+                          unsigned char* __restrict__ work,
+                          int32_t* __restrict__ out_idx, float* __restrict__ out_dist,
+                          int B, int E_rows, int Lq, int Lc, int k, int e_lo, int E_hi,
+                          LagMask sel, int si0, int n_out, int s0, int S_out,
+                          int exclude_self, LibSizes sizes, int n_sm) {
+  using key_select::u64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* buf = reinterpret_cast<u64*>(smem);
+  u64* red = buf + KS::kCap;
+  unsigned* count = reinterpret_cast<unsigned*>(red + 2 * KS::kWarps);
+  u64* bcast = red + 2 * KS::kWarps + 1;
+  float* d_sm = reinterpret_cast<float*>(smem + KS::kFixedBytes);
+  const int S = sizes.n;
+  const int P = sizes.v[S - 1];
+  float* d_gm = reinterpret_cast<float*>(
+      work + blockIdx.x * key_select::ks_block_bytes(P, n_sm, k));
+  int32_t* wins = reinterpret_cast<int32_t*>(d_gm + (P - n_sm));  // positions
+  const key_select::DistRow row{d_sm, d_gm, n_sm, 0u};
+  const int tid = threadIdx.x;
+  int parity = 0;
+  const long long rows = (long long)B * Lq;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int b = int(r / Lq), q = int(r - (long long)b * Lq);
+    const float* vq_b = vq + (size_t)b * E_rows * Lq;
+    const float* vc_b = vc + (size_t)b * E_rows * Lc;
+    int si = si0;
+    bool have_wins = false;
+    for (int e = 0; e < E_hi; ++e) {
+      const float qv = __ldg(vq_b + (size_t)e * Lq + q);
+      const float* vce = vc_b + (size_t)e * Lc;
+      for (int p = tid; p < P; p += kKsThreads) {
+        const int cid = col_ids != nullptr ? __ldg(col_ids + p) : p;
+        float* d = row.at(p);
+        const uint32_t old = e == 0 ? ((exclude_self && cid == q) ? key_select::kSign : 0u)
+                                    : __float_as_uint(*d);
+        const float prev = __uint_as_float(old & ~key_select::kSign);
+        *d = key_select::with_mask(acc_sq<BF16>(prev, qv, __ldg(vce + cid)),
+                                   old & key_select::kSign);
+      }
+      const int rel = e - e_lo;
+      if (rel < 0 || !((sel.w[rel >> 5] >> (rel & 31)) & 1u)) continue;
+      __syncthreads();  // the row at lag e + 1 is whole
+      u64 tau = key_select::kMaxKey;
+      if (have_wins && sizes.v[0] > KS::kCap && k <= KS::kCap) {
+        // the first size's winners at the last selected E: k distinct
+        // positions bound the k-th key
+        u64 m = 0;
+        for (int j = tid; j < k; j += kKsThreads) m = key_select::umax(m, row.key(wins[j]));
+        tau = key_select::block_max<kKsThreads>(m, red, parity);
+      }
+      for (int s = 0; s < S; ++s) {
+        const int n = sizes.v[s];
+        const size_t o = ((((size_t)b * S_out + s0 + s) * n_out + si) * Lq + q) * k;
+        int32_t* oi = out_idx + o;
+        float* od = out_dist + o;
+        key_select::select_least<kKsThreads>(
+            row, n, key_select::low_bits(uint32_t(n - 1)), k, tau, buf, red, count,
+            parity, [&](int j, u64 key) {
+              const int pos = int(uint32_t(key));
+              const float v = __uint_as_float(uint32_t(key >> 32));
+              oi[j] = col_ids != nullptr ? __ldg(col_ids + pos) : pos;
+              od[j] = v >= kBig ? f_inf() : v;
+              if (s == 0) wins[j] = pos;
+              if (j == k - 1) *bcast = key;
+            });
+        // the k-th key of a prefix bounds the next, longer one's
+        tau = *bcast;
+        __syncthreads();  // every thread has read it
+      }
+      have_wins = true;
+      ++si;
+    }
+    __syncthreads();  // the next row overwrites the distances
+  }
+}
+
+template <bool BF16>
+long long ks_grid(int n_sm, long long rows) {
+  return key_select::ks_grid(knn_topk_prefix_ks_kernel<BF16>, kKsThreads,
+                             KS::kFixedBytes + 4 * n_sm, rows);
+}
+
 template <int R>
 int launch_wide(const float* vq, const float* vc, const int32_t* col_ids,
                 int32_t* idx, float* dist, int B, int E_rows, int Lq, int Lc, int k,
@@ -389,10 +501,76 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int knn_topk_prefix_max_k() { return kMaxK; }
+// The wide route's table width: the key-select route takes k past it.
+int knn_topk_prefix_wide_k() { return kWideK; }
 int knn_topk_prefix_max_s() { return kMaxS; }
 // Selected E a launch holds lists for at k, as knn_topk_lists.
 int knn_topk_prefix_lists(int k) { return wide_lists((k + 31) / 32); }
+// Lags a key-select launch's mask spans (kKsWords words).
+int knn_topk_prefix_ks_span() { return 32 * kKsWords; }
+
+// The key-select route's launch shape for a run whose last library size
+// is P on the current device: its grid (blocks) and each block's device
+// workspace in bytes (the launch's: grid * block bytes).  Returns 0 or a
+// CUDA error.
+int knn_topk_prefix_ks_shape(long long rows, int P, int k, int bf16, long long* grid,
+                             long long* block_bytes) {
+  const int n_sm = key_select::ks_cols_on_chip(P, KS::kFixedBytes);
+  if (n_sm < 0) return (int)cudaGetLastError();
+  const long long g = bf16 ? ks_grid<true>(n_sm, rows) : ks_grid<false>(n_sm, rows);
+  if (g < 0) return (int)(-g);
+  *grid = g;
+  *block_bytes = key_select::ks_block_bytes(P, n_sm, k);
+  return 0;
+}
+
+// The key-select route, any k <= lib_sizes[0]: arguments as
+// knn_topk_prefix_launch's, the selection as kKsWords mask words (bit e of
+// word w selects E = e_lo + 32 w + e + 1), work a device workspace of grid
+// * block_bytes bytes and grid as knn_topk_prefix_ks_shape gave them for
+// P = lib_sizes[S - 1].  Returns 0, a negative argument code, or the CUDA
+// error of the launch.
+int knn_topk_prefix_ks_launch(const float* vq, const float* vc, const int32_t* col_ids,
+                              int32_t* idx, float* dist, void* work, long long grid,
+                              int B, int E_rows, int Lq, int Lc, int k,
+                              const unsigned int* sel_words, int e_lo, int si0,
+                              int n_out, int exclude_self, int bf16,
+                              const int* lib_sizes, int S, int s0, int S_out,
+                              void* stream) {
+  if (B < 1 || Lq < 1 || Lc < 1 || grid < 1 || grid > 0x7fffffffLL) return -1;
+  if (k < 1 || k > Lc) return -2;
+  if (e_lo < 0) return -3;
+  LagMask sel;
+  int E_hi = 0, n_sel = 0;
+  for (int w = 0; w < kKsWords; ++w) {
+    sel.w[w] = sel_words[w];
+    n_sel += __builtin_popcount(sel_words[w]);
+    if (sel_words[w]) E_hi = e_lo + 32 * w + 32 - __builtin_clz(sel_words[w]);
+  }
+  if (n_sel == 0) return -3;
+  if (E_hi > E_rows) return -4;
+  if (S < 1 || S > kMaxS || s0 < 0 || s0 + S > S_out) return -5;
+  LibSizes sizes;
+  sizes.n = S;
+  for (int s = 0; s < S; ++s) {
+    if (lib_sizes[s] < k || lib_sizes[s] > Lc) return -6;
+    if (s > 0 && lib_sizes[s] <= lib_sizes[s - 1]) return -6;
+    sizes.v[s] = lib_sizes[s];
+  }
+  if (si0 < 0 || si0 + n_sel > n_out) return -7;
+  const int n_sm = key_select::ks_cols_on_chip(sizes.v[S - 1], KS::kFixedBytes);
+  if (n_sm < 0) return (int)cudaGetLastError();
+  const int smem = KS::kFixedBytes + 4 * n_sm;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kern = bf16 ? knn_topk_prefix_ks_kernel<true> : knn_topk_prefix_ks_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)grid, kKsThreads, smem, st>>>(
+      vq, vc, col_ids, static_cast<unsigned char*>(work), idx, dist, B, E_rows, Lq, Lc,
+      k, e_lo, E_hi, sel, si0, n_out, s0, S_out, exclude_self, sizes, n_sm);
+  return (int)cudaGetLastError();
+}
 
 // vq (B, E_rows, Lq), vc (B, E_rows, Lc) float32 contiguous; col_ids
 // (>= lib_sizes[S-1],) int32 with entries in [0, Lc) (not checked), or
@@ -414,7 +592,7 @@ int knn_topk_prefix_launch(const float* vq, const float* vc,
                            int exclude_self, int bf16, const int* lib_sizes, int S,
                            int s0, int S_out, int fast, void* stream) {
   if (B < 1 || Lq < 1 || Lc < 1 || B > 65535) return -1;
-  if (k < 1 || k > kMaxK || k > Lc) return -2;
+  if (k < 1 || k > kWideK || k > Lc) return -2;
   if (sel_mask == 0u || e_lo < 0) return -3;
   const int E_hi = e_lo + 32 - __builtin_clz(sel_mask);
   if (E_hi > E_rows) return -4;

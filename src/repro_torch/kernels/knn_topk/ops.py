@@ -6,18 +6,24 @@ For a CUDA tensor each launches its kernel or raises; for a CPU tensor it
 runs the plain version (``ref.py``).  There is no other route: no
 fallback from a failed launch to the plain version.  Both kernels take
 ``dist_dtype`` float32 or bfloat16 (the accumulator of the distance; the
-output distances are float32 either way), any E and k up to ``MAX_K``.
+output distances are float32 either way), any E and any k up to the
+candidates (the smallest library size for the prefix kernel).
 
-The wrappers pick each launch's route, and nothing else does: the fast
-path (one launch that writes the whole output, at k <= 32 and every
-selected E at most 32: :func:`fast_path`) or the wide route, whose launch
-holds lists for one window of the selection: at most
+The wrappers pick each launch's route by k, once, in Python
+(:func:`route`), and nothing else does: the fast path (one launch that
+writes the whole output, at k <= 32 and every selected E at most 32:
+:func:`fast_path`); the wide route up to k = ``WIDE_K``, whose launch
+holds register lists for one window of the selection: at most
 ``knn_topk_lists(k)`` selected E whose lags span at most 32, its mask
-relative to the window's first lag (:func:`windows`).  The wide route
-launches one kernel a window (and, for the prefix kernel, one a run of at
-most 64 library sizes), each writing its rows of the output in place.
-The C entry points take the route as an argument and refuse a fast launch
-whose arguments do not fit it.
+relative to the window's first lag (:func:`windows`); past ``WIDE_K`` the
+key-select route, one block a query row that keeps the row's distances
+on chip and selects the k least (distance, id) keys after each selected
+E (``common/key_select.cuh``), one launch for every selected E up to lag
+``KS_SPAN`` (:func:`ks_windows`).  The wide and key-select routes launch
+one kernel a window (and, for the prefix kernel, one a run of at most 64
+library sizes), each writing its rows of the output in place.  The C
+entry points take the route as their own entry (key-select) or an
+argument (fast or wide) and refuse arguments that do not fit it.
 """
 from __future__ import annotations
 
@@ -29,20 +35,30 @@ from repro_torch import kernels
 from repro_torch.core import knn
 from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref, knn_topk_ref
 
-#: the kernels' table width (kMaxK of both sources; the ccm_lookup
-#: kernel's too): the engine checks a config against it before any work
-#: (``CudaEngine.check_limits``).  Any E runs.
-MAX_K = 128
-#: lags a launch's selection mask spans (kSpan of both sources: a c_uint)
+#: the wide route's table width (kWideK of both sources): past it the
+#: key-select route runs
+WIDE_K = 128
+#: lags a wide launch's selection mask spans (kSpan of both sources: a c_uint)
 SPAN = 32
 #: the fast path: k and E_hi it takes in one launch (kFastK, kMaxE)
 FAST_K = FAST_E = 32
+#: lags a key-select launch's mask spans (32 kKsWords of both sources)
+KS_SPAN = 2048
+#: the launch routes, as :func:`route` names them
+ROUTES = ("fast", "wide", "key_select")
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_uint] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _PREFIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_uint] + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
+_KS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_PREFIX_KS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SHAPE_ARGTYPES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
 _DIST_DTYPES = {"float32": 0, "bfloat16": 1}
 
 
@@ -51,8 +67,11 @@ def _lib() -> ctypes.CDLL:
     if lib.knn_topk_launch.argtypes is None:
         lib.knn_topk_launch.argtypes = _ARGTYPES
         lib.knn_topk_launch.restype = ctypes.c_int
-        for fn in (lib.knn_topk_max_k, lib.knn_topk_span):
-            fn.argtypes = []
+        for fn, argtypes in ((lib.knn_topk_ks_launch, _KS_ARGTYPES),
+                             (lib.knn_topk_ks_shape, _SHAPE_ARGTYPES),
+                             (lib.knn_topk_wide_k, []), (lib.knn_topk_span, []),
+                             (lib.knn_topk_ks_span, [])):
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.knn_topk_lists.argtypes = [ctypes.c_int]
         lib.knn_topk_lists.restype = ctypes.c_int
@@ -64,8 +83,12 @@ def _prefix_lib() -> ctypes.CDLL:
     if lib.knn_topk_prefix_launch.argtypes is None:
         lib.knn_topk_prefix_launch.argtypes = _PREFIX_ARGTYPES
         lib.knn_topk_prefix_launch.restype = ctypes.c_int
-        for fn in (lib.knn_topk_prefix_max_k, lib.knn_topk_prefix_max_s):
-            fn.argtypes = []
+        for fn, argtypes in ((lib.knn_topk_prefix_ks_launch, _PREFIX_KS_ARGTYPES),
+                             (lib.knn_topk_prefix_ks_shape, _SHAPE_ARGTYPES),
+                             (lib.knn_topk_prefix_wide_k, []),
+                             (lib.knn_topk_prefix_max_s, []),
+                             (lib.knn_topk_prefix_ks_span, [])):
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.knn_topk_prefix_lists.argtypes = [ctypes.c_int]
         lib.knn_topk_prefix_lists.restype = ctypes.c_int
@@ -94,6 +117,49 @@ def fast_path(select_Es, k: int, n_runs: int = 1) -> bool:
     every selected E at most 32, and (prefix kernel) one run of library
     sizes."""
     return k <= FAST_K and max(int(e) for e in select_Es) <= FAST_E and n_runs == 1
+
+
+def route(select_Es, k: int, n_runs: int = 1) -> str:
+    """The route of a call: ``fast`` (:func:`fast_path`), ``wide`` (k up
+    to ``WIDE_K``) or ``key_select`` (past it)."""
+    if fast_path(select_Es, k, n_runs):
+        return "fast"
+    return "wide" if k <= WIDE_K else "key_select"
+
+
+def ks_windows(select_Es) -> list[tuple[int, tuple[int, ...]]]:
+    """The selection in key-select launches: [(e_lo, Es), ...], each
+    window the selected E in lags [e_lo, e_lo + KS_SPAN), e_lo a multiple
+    of ``KS_SPAN`` (one launch for every E up to ``KS_SPAN``)."""
+    out: dict[int, list[int]] = {}
+    for E in select_Es:
+        out.setdefault((int(E) - 1) // KS_SPAN * KS_SPAN, []).append(int(E))
+    return [(e_lo, tuple(Es)) for e_lo, Es in out.items()]
+
+
+def ks_mask_words(select_Es, e_lo: int):
+    """A key-select launch's mask: KS_SPAN // 32 words, bit e of word w
+    set <=> E = e_lo + 32 w + e + 1 is selected."""
+    words = [0] * (KS_SPAN // 32)
+    for E in select_Es:
+        bit = int(E) - 1 - e_lo
+        if not 0 <= bit < KS_SPAN:
+            raise ValueError(f"E={int(E)} lies outside the {KS_SPAN} lags of a "
+                             f"key-select launch from lag {e_lo} (ks_windows())")
+        words[bit // 32] |= 1 << (bit % 32)
+    return (ctypes.c_uint * len(words))(*words)
+
+
+def _ks_workspace(shape_fn, rows: int, n: int, k: int, bf16: int, dev, name: str):
+    """(grid, device workspace) of a key-select launch over ``rows`` rows
+    of ``n`` columns."""
+    grid, block_bytes = ctypes.c_longlong(), ctypes.c_longlong()
+    rc = shape_fn(rows, n, k, bf16, ctypes.byref(grid), ctypes.byref(block_bytes))
+    if rc != 0:
+        raise RuntimeError(f"{name}: the key-select route's launch shape failed: "
+                           f"CUDA error {rc}")
+    work = torch.empty(grid.value * block_bytes.value, dtype=torch.uint8, device=dev)
+    return grid.value, work
 
 
 def windows(select_Es, lists: int, fast: bool = False
@@ -180,34 +246,50 @@ def knn_topk(
     S, E_rows, Lq = Vq.shape
     Lc = Vc.shape[2]
     knn.check_select_Es(select_Es, E_rows)
+    if not 1 <= k <= Lc:
+        raise ValueError(f"knn_topk: k={k} must be in [1, Lc={Lc}]")
     lib = _lib()
-    if not 1 <= k <= min(Lc, lib.knn_topk_max_k()):
-        raise ValueError(
-            f"knn_topk: k={k} must be in [1, min(Lc={Lc}, "
-            f"{lib.knn_topk_max_k()})]"
-        )
     col_hi = knn.check_col_range(Lq, Lc, exclude_self, col_offset, col_hi)
     n_sel = len(select_Es)
     idx = torch.empty((S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
     dist = torch.empty((S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
     si0 = 0
-    fast = fast_path(select_Es, k)
+    kind = route(select_Es, k)
+    stream = kernels.current_stream(Vq.device)
     with torch.cuda.device(Vq.device):
-        for e_lo, Es in windows(select_Es, lib.knn_topk_lists(k), fast):
+        if kind == "key_select":
+            grid, work = _ks_workspace(lib.knn_topk_ks_shape, S * Lq, Lc, k, bf16,
+                                       Vq.device, "knn_topk")
+            for e_lo, Es in ks_windows(select_Es):
+                rc = lib.knn_topk_ks_launch(
+                    Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+                    work.data_ptr(), grid, S, E_rows, Lq, Lc, k,
+                    ks_mask_words(Es, e_lo), e_lo, si0, n_sel, int(exclude_self),
+                    col_offset, col_hi, bf16, stream,
+                )
+                kernels.check_launch("knn_topk", rc, lib)
+                knn_topk.LAUNCHES += 1
+                knn_topk.ROUTE_LAUNCHES[kind] += 1
+                si0 += len(Es)
+            return idx, dist
+        for e_lo, Es in windows(select_Es, lib.knn_topk_lists(k), kind == "fast"):
             rc = lib.knn_topk_launch(
                 Vq.data_ptr(), Vc.data_ptr(), idx.data_ptr(), dist.data_ptr(),
                 S, E_rows, Lq, Lc, k, select_mask(Es, e_lo), e_lo, si0, n_sel,
-                int(exclude_self), col_offset, col_hi, bf16, int(fast),
-                kernels.current_stream(Vq.device),
+                int(exclude_self), col_offset, col_hi, bf16, int(kind == "fast"),
+                stream,
             )
             kernels.check_launch("knn_topk", rc, lib)
             knn_topk.LAUNCHES += 1
+            knn_topk.ROUTE_LAUNCHES[kind] += 1
             si0 += len(Es)
     return idx, dist
 
 
-#: kernel launches since the last reset (chip_smoke.py resets and reads it)
+#: kernel launches since the last reset (chip_smoke.py resets and reads
+#: it), and of them those of each route
 knn_topk.LAUNCHES = 0
+knn_topk.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def knn_topk_prefix(
@@ -252,31 +334,49 @@ def knn_topk_prefix(
                 f"got {tuple(col_ids.shape)}"
             )
     lib = _prefix_lib()
-    if k > lib.knn_topk_prefix_max_k():
-        raise ValueError(f"knn_topk_prefix: k={k} above {lib.knn_topk_prefix_max_k()}")
     S, n_sel = len(lib_sizes), len(buckets)
     idx = torch.empty((B, S, n_sel, Lq, k), dtype=torch.int32, device=Vq.device)
     dist = torch.empty((B, S, n_sel, Lq, k), dtype=torch.float32, device=Vq.device)
     runs = size_runs(lib_sizes, lib.knn_topk_prefix_max_s())
-    fast = fast_path(buckets, k, len(runs))
+    kind = route(buckets, k, len(runs))
+    cids = None if col_ids is None else col_ids.data_ptr()
+    stream = kernels.current_stream(Vq.device)
     with torch.cuda.device(Vq.device):
         for s0, run in runs:
             sizes = (ctypes.c_int * len(run))(*run)
             si0 = 0
-            for e_lo, Es in windows(buckets, lib.knn_topk_prefix_lists(k), fast):
+            if kind == "key_select":
+                grid, work = _ks_workspace(lib.knn_topk_prefix_ks_shape, B * Lq,
+                                           run[-1], k, bf16, Vq.device,
+                                           "knn_topk_prefix")
+                for e_lo, Es in ks_windows(buckets):
+                    rc = lib.knn_topk_prefix_ks_launch(
+                        Vq.data_ptr(), Vc.data_ptr(), cids, idx.data_ptr(),
+                        dist.data_ptr(), work.data_ptr(), grid, B, E_rows, Lq, Lc,
+                        k, ks_mask_words(Es, e_lo), e_lo, si0, n_sel,
+                        int(exclude_self), bf16, sizes, len(run), s0, S, stream,
+                    )
+                    kernels.check_launch("knn_topk_prefix", rc, lib)
+                    knn_topk_prefix.LAUNCHES += 1
+                    knn_topk_prefix.ROUTE_LAUNCHES[kind] += 1
+                    si0 += len(Es)
+                continue
+            for e_lo, Es in windows(buckets, lib.knn_topk_prefix_lists(k),
+                                    kind == "fast"):
                 rc = lib.knn_topk_prefix_launch(
-                    Vq.data_ptr(), Vc.data_ptr(),
-                    None if col_ids is None else col_ids.data_ptr(),
-                    idx.data_ptr(), dist.data_ptr(), B, E_rows, Lq, Lc, k,
-                    select_mask(Es, e_lo), e_lo, si0, n_sel, int(exclude_self),
-                    bf16, sizes, len(run), s0, S, int(fast),
-                    kernels.current_stream(Vq.device),
+                    Vq.data_ptr(), Vc.data_ptr(), cids, idx.data_ptr(),
+                    dist.data_ptr(), B, E_rows, Lq, Lc, k, select_mask(Es, e_lo),
+                    e_lo, si0, n_sel, int(exclude_self), bf16, sizes, len(run), s0,
+                    S, int(kind == "fast"), stream,
                 )
                 kernels.check_launch("knn_topk_prefix", rc, lib)
                 knn_topk_prefix.LAUNCHES += 1
+                knn_topk_prefix.ROUTE_LAUNCHES[kind] += 1
                 si0 += len(Es)
     return idx, dist
 
 
-#: kernel launches since the last reset (chip_smoke.py resets and reads it)
+#: kernel launches since the last reset (chip_smoke.py resets and reads
+#: it), and of them those of each route
 knn_topk_prefix.LAUNCHES = 0
+knn_topk_prefix.ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)

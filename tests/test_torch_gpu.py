@@ -117,8 +117,8 @@ def test_knn_topk_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="k="):
         knn_topk(x, x, 41, True, (1,))  # k above Lc
     y = torch.zeros((1, 4, 200), device=dev)
-    with pytest.raises(ValueError, match="k=129"):
-        knn_topk(y, y, 129, True, (1,))  # k above the kernel's 128
+    ki, kd = knn_topk(y, y, 129, True, (1,))  # past 128: the key-select route
+    assert ki.shape == (1, 1, 200, 129) and bool((kd == 0).all())
     with pytest.raises(ValueError, match="contiguous"):
         knn_topk(x[..., ::2], x[..., ::2], 3, True, (1,))
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -185,13 +185,13 @@ def test_ccm_lookup_kernel_refuses_what_it_does_not_take():
 
     max_lp = _lib().ccm_lookup_max_lp(2)
     assert max_lp >= 16384 and _lib().ccm_lookup_max_lp(1) >= 2 * max_lp
-    assert _lib().ccm_lookup_max_k() == 128
     idx = torch.zeros((1, 1, 4, 3), dtype=torch.int32, device=dev)
     w = torch.ones((1, 1, 4, 3), device=dev)
     Y = torch.zeros((2, 10), device=dev)
-    with pytest.raises(ValueError, match="k=129"):
-        ccm_lookup(torch.zeros((1, 1, 4, 129), dtype=torch.int32, device=dev),
-                   torch.ones((1, 1, 4, 129), device=dev), Y, ((0, 2),))
+    # k past 128 runs (the key-select route's tables)
+    out = ccm_lookup(torch.zeros((1, 1, 4, 129), dtype=torch.int32, device=dev),
+                     torch.ones((1, 1, 4, 129), device=dev), Y, ((0, 2),))
+    assert out.shape == (1, 2, 4) and bool((out == 0).all())
     with pytest.raises(ValueError, match="must cover"):
         ccm_lookup(idx, w, Y, ((0, 1),))
     with pytest.raises(ValueError, match="must cover"):
@@ -302,8 +302,10 @@ def test_knn_topk_prefix_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         knn_topk_prefix(x, x.cpu(), 3, True, (1,), (10, 40))
     y = torch.zeros((1, 4, 200), device=dev)
-    with pytest.raises(ValueError, match="k=129"):
-        knn_topk_prefix(y, y, 129, True, (1,), (150, 200))
+    with pytest.raises(ValueError, match="too small"):  # the smallest size is k
+        knn_topk_prefix(y, y, 150, True, (1,), (150, 200))
+    ki, kd = knn_topk_prefix(y, y, 149, True, (1,), (150, 200))  # key-select
+    assert ki.shape == (1, 2, 1, 200, 149) and bool((kd == 0).all())
 
 
 def test_prng_on_the_card_equals_the_cpu():
@@ -405,11 +407,12 @@ def test_knn_topk_prefix_kernel_bf16_equals_plain_version(case, Lq, k, buckets,
 def test_kernel_limits_are_the_libraries():
     _card()
     from repro_torch.kernels.ccm_lookup.ops import _lib as lookup_lib
-    from repro_torch.kernels.knn_topk.ops import MAX_K, SPAN, _lib, _prefix_lib
+    from repro_torch.kernels.knn_topk.ops import KS_SPAN, SPAN, WIDE_K, _lib, _prefix_lib
 
-    assert (_lib().knn_topk_max_k(), _lib().knn_topk_span()) == (MAX_K, SPAN) == (128, 32)
-    assert _prefix_lib().knn_topk_prefix_max_k() == MAX_K
-    assert lookup_lib().ccm_lookup_max_k() == MAX_K
+    assert (_lib().knn_topk_wide_k(), _lib().knn_topk_span()) == (WIDE_K, SPAN) == (128, 32)
+    assert _prefix_lib().knn_topk_prefix_wide_k() == WIDE_K
+    assert _lib().knn_topk_ks_span() == _prefix_lib().knn_topk_prefix_ks_span() == KS_SPAN
+    assert lookup_lib().ccm_lookup_max_segments() == 64
     for k, lists in ((1, 24), (32, 24), (33, 12), (64, 12), (65, 8), (96, 8),
                      (97, 6), (128, 6)):
         assert _lib().knn_topk_lists(k) == _prefix_lib().knn_topk_prefix_lists(k) == lists
@@ -595,6 +598,188 @@ def test_ccm_lookup_wide_equals_plain_version(S, nb, Lq, k, Lp, n_seg):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# ------------------------------ the key-select route: any k past 128
+@pytest.mark.parametrize("k,S,Lq,Lc,exclude_self,select_Es,dist_dtype,kind", [
+    (129, 3, 500, 500, True, tuple(range(1, 21)), "float32", "lags"),
+    (256, 3, 500, 500, True, (3, 5, 8, 12), "bfloat16", "lags"),
+    (500, 3, 500, 500, True, (1, 20), "float32", "lags"),     # k == Lc: (+inf, self) last
+    (200, 3, 300, 2000, False, tuple(range(1, 21)), "float32", "lags"),  # the filter
+    (160, 3, 400, 400, True, (2, 20, 33, 40), "bfloat16", "tied"),
+    (1500, 2, 64, 3000, False, (1, 7, 20), "float32", "lags"),  # k past the buffer
+    (200, 1, 16, 60000, False, (4, 20), "float32", "lags"),    # the row's tail in the workspace
+])
+def test_knn_topk_key_select_equals_plain_version(k, S, Lq, Lc, exclude_self,
+                                                  select_Es, dist_dtype, kind):
+    """The key-select route (one block a row, keys sorted on chip) at k
+    past 128 up to k == Lc, bit-equal to the plain version, ties included;
+    one launch for the whole selection."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    E = max(select_Es)
+    x = _wide_inputs(kind, S, E, Lc if exclude_self else Lq + Lc, k)
+    if exclude_self:
+        Vq = Vc = torch.tensor(x, device=dev)
+    else:
+        Vq = torch.tensor(x[..., :Lq].copy(), device=dev)
+        Vc = torch.tensor(x[..., Lq:].copy(), device=dev)
+    before = dict(knn_topk.ROUTE_LAUNCHES)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype)
+    assert knn_topk.ROUTE_LAUNCHES["key_select"] - before["key_select"] == 1
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, select_Es, dist_dtype=dist_dtype,
+                          tile_c=4096)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+    if exclude_self and k == Lc:
+        rows = torch.arange(Lq, device=dev, dtype=torch.int32)
+        assert torch.equal(ki[..., -1], rows.expand_as(ki[..., -1]))
+        assert torch.isinf(kd[..., -1]).all()
+
+
+@pytest.mark.parametrize("lo,hi,width,k,exclude_self,dist_dtype", [
+    (200, 400, 200, 160, True, "float32"),
+    (100, 300, 300, 250, False, "bfloat16"),
+])
+def test_knn_topk_key_select_column_range_equals_plain_version(lo, hi, width, k,
+                                                               exclude_self,
+                                                               dist_dtype):
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.knn_topk.ref import knn_topk_ref
+
+    x = _lags(3, 40, 400, 11)
+    part = np.zeros((3, 40, width), np.float32)
+    n = max(0, min(hi, 400) - lo)
+    part[..., :n] = x[..., lo:lo + n]
+    Vq, Vc = torch.tensor(x, device=dev), torch.tensor(part, device=dev)
+    sel = (3, 5, 8, 12, 20, 34, 40)
+    ki, kd = knn_topk(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                      col_offset=lo, col_hi=hi)
+    ri, rd = knn_topk_ref(Vq, Vc, k, exclude_self, sel, dist_dtype=dist_dtype,
+                          col_offset=lo, col_hi=hi)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,buckets,lib_sizes,dist_dtype,kind", [
+    (160, (3, 5, 8, 12), (161, 200, 400), "float32", "lags"),
+    (256, (3, 5, 8, 12), (257, 300, 400), "bfloat16", "lags"),
+    (200, (2, 20, 33, 40), tuple(range(201, 400, 3)), "float32", "tied"),  # 67 sizes
+    (399, (1, 6), (400,), "float32", "lags"),
+])
+@pytest.mark.parametrize("permuted", [True, False])
+def test_knn_topk_prefix_key_select_equals_plain_version(k, buckets, lib_sizes,
+                                                         dist_dtype, kind, permuted):
+    """The prefix kernel's key-select route: one launch a run of at most 64
+    library sizes, bit-equal to the plain version."""
+    dev = _card()
+    from repro_torch.kernels.knn_topk.ops import knn_topk_prefix
+    from repro_torch.kernels.knn_topk.ref import knn_topk_prefix_ref
+
+    x = torch.tensor(_wide_inputs(kind, 3, 40, 400, k), device=dev)
+    col_ids = None
+    if permuted:
+        col_ids = torch.tensor(
+            np.random.default_rng(k).permutation(400).astype(np.int32), device=dev)
+    before = knn_topk_prefix.ROUTE_LAUNCHES["key_select"]
+    ki, kd = knn_topk_prefix(x, x, k, True, buckets, lib_sizes, col_ids=col_ids,
+                             dist_dtype=dist_dtype)
+    assert (knn_topk_prefix.ROUTE_LAUNCHES["key_select"] - before
+            == -(-len(lib_sizes) // 64))
+    ri, rd = knn_topk_prefix_ref(x, x, k, True, buckets, lib_sizes,
+                                 col_ids=col_ids, dist_dtype=dist_dtype)
+    assert torch.equal(ki, ri)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32))
+
+
+@pytest.mark.parametrize("S,nb,Lq,k,Lp,n_seg", [
+    (8, 3, 1430, 160, 1430, 11),    # the staged kernel
+    (2, 2, 700, 256, 8528, 11),     # the stream kernel
+    (2, 2, 300, 160, 36000, 11),    # one staged row
+    (2, 2, 300, 200, 70001, 11),    # the gather route
+])
+def test_ccm_lookup_past_128_equals_plain_version(S, nb, Lq, k, Lp, n_seg):
+    """k 160-256 on every route of the lookup: within its gate of the plain
+    version."""
+    dev = _card()
+    from repro_torch.kernels.ccm_lookup.ops import ccm_lookup
+    from repro_torch.kernels.ccm_lookup.ref import ccm_lookup_ref
+
+    rng = np.random.default_rng(Lp + k)
+    counts = ((1, 7, 8, 9, 0, 3, 4, 5, 2, 1, 17) * 14)[:n_seg]
+    segs = tuple((i % nb, c) for i, c in enumerate(counts))
+    B = sum(counts)
+    idx = torch.tensor(rng.integers(0, Lp, (S, nb, Lq, k)).astype(np.int32), device=dev)
+    w = torch.tensor(rng.uniform(0, 1, (S, nb, Lq, k)).astype(np.float32), device=dev)
+    Y = torch.tensor(rng.standard_normal((B, Lp)).astype(np.float32), device=dev)
+    got, want = ccm_lookup(idx, w, Y, segs), ccm_lookup_ref(idx, w, Y, segs)
+    assert float((got - want).abs().max()) <= 1e-6 * float(Y.abs().max())
+
+
+def test_cuda_engine_key_select_maps_match_torch_reference_on_the_card():
+    """The main path at k_override 200 and the significance path at
+    k_override 160 on the kernels (the key-select route) against
+    torch-reference on the card: optE equal, rho and drho within 1e-5."""
+    dev = _card()
+    from repro_torch.core.pipeline import run_causal_inference
+    from repro_torch.core.types import EDMConfig
+    from repro_torch.data.synthetic import dummy_brain
+    from repro_torch.inference import SignificanceConfig, run_significance
+    from repro_torch.kernels.knn_topk.ops import knn_topk, knn_topk_prefix
+
+    ts = dummy_brain(24, 500, seed=3)
+    for k, sizes in ((200, None), (160, (170, 300, 480))):
+        knn_topk.ROUTE_LAUNCHES["key_select"] = 0
+        knn_topk_prefix.ROUTE_LAUNCHES["key_select"] = 0
+        got = run_causal_inference(ts, EDMConfig(E_max=6, k_override=k), device=dev)
+        want = run_causal_inference(
+            ts, EDMConfig(E_max=6, k_override=k, engine="torch-reference"), device=dev)
+        np.testing.assert_array_equal(got.optE, want.optE)
+        assert np.abs(got.rho - want.rho).max() <= 1e-5
+        assert knn_topk.ROUTE_LAUNCHES["key_select"] > 0
+        if sizes:
+            sig = SignificanceConfig(lib_sizes=sizes, n_surrogates=5, seed=0)
+            gs = run_significance(ts, got.optE, got.rho, EDMConfig(E_max=6, k_override=k),
+                                  sig, device=dev)
+            ws = run_significance(ts, got.optE, got.rho,
+                                  EDMConfig(E_max=6, k_override=k,
+                                            engine="torch-reference"), sig, device=dev)
+            assert np.abs(gs.drho - ws.drho).max() <= 1e-5
+            assert knn_topk_prefix.ROUTE_LAUNCHES["key_select"] > 0
+
+
+@pytest.mark.parametrize("dtype,dh,grid_y", [("float32", 32, 65535), ("float32", 32, 3),
+                                             ("bfloat16", 64, 2)])
+def test_flash_attn_kernel_past_the_grid_limit(monkeypatch, dtype, dh, grid_y):
+    """B * H = 65,540 batch-heads on the CUDA-core route (two launches of
+    grid.y), and launches cut into chunks of ``grid_y`` on both routes
+    (query tiles on the tensor-core route), against the plain version."""
+    dev = _card()
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+
+    monkeypatch.setattr(ops, "GRID_Y_MAX", grid_y)
+    dt = getattr(torch, dtype)
+    if grid_y == 65535:
+        B, S, H, K = 16385, 16, 4, 2   # B * H = 65,540
+    else:
+        B, S, H, K = 3, 700, 4, 2       # 12 batch-heads, 11 / 6 query tiles
+    g = torch.Generator(device=dev).manual_seed(dh)
+    q = torch.randn((B, S, H, dh), device=dev, generator=g).to(dt)
+    k = torch.randn((B, S, K, dh), device=dev, generator=g).to(dt)
+    v = torch.randn((B, S, K, dh), device=dev, generator=g).to(dt)
+    route = ops.flash_route("cuda", dt, dh)
+    assert route == ("tensor_core" if dtype == "bfloat16" else "cuda_core")
+    got = ops.flash_attn(q, k, v, True)
+    if dtype == "float32":
+        want = flash_attn_ref(q, k, v, True)
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        monkeypatch.setattr(ops, "GRID_Y_MAX", 65535)
+        assert torch.equal(got, ops.flash_attn(q, k, v, True))  # one launch's bits
+
+
 def test_cuda_engine_wide_maps_match_torch_reference_on_the_card():
     """The main path at E_max 40 and at k_override 70, and the significance
     path at E_max 40 with 66 library sizes, on the kernels against the
@@ -743,9 +928,9 @@ def test_flash_attn_kernel_refuses_what_it_does_not_take():
         flash_attn(x, x.cpu(), x)
     with pytest.raises(ValueError, match="divisible"):
         flash_attn(torch.zeros((1, 8, 3, 16), device=dev), x, x)
-    with pytest.raises(ValueError, match="cannot take"):
-        wide, kv = (torch.zeros((4100, 2, h, 8), device=dev) for h in (16, 2))
-        flash_attn(wide, kv, kv)  # float32: the CUDA-core route, B * H over 65535
+    # float32: the CUDA-core route, B * H over 65535 runs in two launches
+    wide, kv = (torch.zeros((4100, 2, h, 8), device=dev) for h in (16, 2))
+    assert bool((flash_attn(wide, kv, kv) == 0).all())
     with pytest.raises(ValueError, match="16-byte aligned"):
         t = torch.zeros(1 + 8 * 2 * 16, device=dev, dtype=torch.bfloat16)[1:]
         t = t.view(1, 8, 2, 16)

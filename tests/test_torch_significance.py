@@ -281,6 +281,49 @@ def test_run_significance_matches_jax_end_to_end(sig_system, kind, record_proper
         assert got.p_threshold == want.p_threshold
 
 
+@pytest.mark.parametrize("grid", [None, 4])
+def test_significance_at_exclude_self_false_matches_jax_off_near_ties(
+        grid, record_property):
+    """The stage with the query point kept among its own neighbours
+    (``exclude_self=False``), against JAX, at N 9 x L 131, E_max 6 and 6
+    surrogates.  A point's own future then carries its forecast, so the
+    observed rho lies within one ulp of 1.0 and the null's ``>= obs`` may
+    round either way: those p-values are counted and reported, not
+    compared.  On the raw series every rho is such a near-tie; with the
+    values on a grid of 1/4 (``grid``), repeated points share their
+    futures and most rho fall below 1.0.  Every other p-value is equal,
+    and drho is within 1e-5."""
+    from repro.core.pipeline import run_causal_inference as jax_map
+    from repro.data.synthetic import dummy_brain
+    from repro.inference import SignificanceConfig as JSig
+    from repro.inference import run_significance as jrun
+    from repro_torch.inference import run_significance
+
+    ts = dummy_brain(9, 131, seed=0)
+    if grid is not None:
+        ts = (np.round(ts * grid) / grid).astype(np.float32)
+    jcfg = JCfg(E_max=6, exclude_self=False)
+    jres = jax_map(ts, jcfg)
+    optE, rho = np.asarray(jres.optE), np.asarray(jres.rho)
+    jsig_cfg = JSig(lib_sizes=(20, 60, 125), n_surrogates=6, alpha=0.5, seed=0,
+                    surrogate="shuffle")
+    cfg, sig = _tcfg(jcfg), sig_config_from_jax(dataclasses.asdict(jsig_cfg))
+    assert cfg.exclude_self is False
+    want = jrun(ts, optE, rho, jcfg, jsig_cfg)
+    got = run_significance(ts, optE, rho, cfg, sig, device="cpu")
+    assert np.abs(got.drho - np.asarray(want.drho)).max() <= 1e-5
+    near_one = np.abs(rho.astype(np.float64) - 1.0) <= np.spacing(np.float32(1.0))
+    differ = got.pvals != np.asarray(want.pvals)
+    record_property("near_ties_skipped", int(near_one.sum()))
+    print(f"exclude_self=False, grid {grid}: {int(near_one.sum())} of "
+          f"{near_one.size} observed rho within 1 ulp of 1.0 (not compared), "
+          f"{int(differ[near_one].sum())} of their p-values differ")
+    if grid is not None:
+        assert (~near_one).sum() >= near_one.size // 2
+    np.testing.assert_array_equal(got.pvals[~near_one],
+                                  np.asarray(want.pvals)[~near_one])
+
+
 def test_tiled_significance_matches_jax_untiled(sig_system):
     """The tiled stage (tile 3 of 4 targets) against JAX's untiled stage,
     with the tolerances of the untiled comparison."""

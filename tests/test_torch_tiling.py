@@ -279,29 +279,35 @@ def test_cli_tile_and_all_e_flags_match_the_jax_cli(tmp_path, monkeypatch, extra
 @pytest.mark.parametrize("kw", [{"E_max": 128}, {"E_max": 20, "k_override": 129},
                                 {"E_max": 300}])
 def test_cuda_engine_refuses_past_the_kernel_limits_before_any_work(kw):
+    """The configs the ``cuda`` engine once refused (tables past 128
+    neighbours) are refused no longer: the card takes any config the CPU
+    takes.  ``check_limits`` passes them for every device, and the entry
+    points raise no limit: without a card they get as far as looking for
+    it; on the CPU the k 129 config runs through both."""
     from repro_torch import engine
     from repro_torch.inference import SignificanceConfig, run_significance
 
     cfg = EDMConfig(**kw)
-    eng = engine.get_engine("cuda")
-    for dev in (None, "cuda", torch.device("cuda", 0)):
-        with pytest.raises(ValueError, match="at most 128 neighbours") as e:
-            eng.check_limits(cfg, dev)
-        assert "device='cpu'" in str(e.value) and "torch-reference" in str(e.value)
-    eng.check_limits(cfg, "cpu")  # the plain versions take any config
-    engine.get_engine("torch-reference").check_limits(cfg, "cuda")
-    ts = np.zeros((4, 100), np.float32)
-    # raised by the entry points before the card is looked for
-    with pytest.raises(ValueError, match="at most 128 neighbours"):
-        run_causal_inference(ts, cfg)
-    with pytest.raises(ValueError, match="at most 128 neighbours"):
-        run_significance(ts, np.ones(4, np.int32), np.zeros((4, 4), np.float32),
-                         cfg, SignificanceConfig(n_surrogates=3))
+    assert cfg.k_max > 128
+    for name in ("cuda", "torch-reference"):
+        for dev in (None, "cuda", torch.device("cuda", 0), "cpu"):
+            engine.get_engine(name).check_limits(cfg, dev)
+    sig = SignificanceConfig(lib_sizes=(cfg.k_max + 1,), n_surrogates=3)
+    if not torch.cuda.is_available():
+        ts = np.zeros((4, 100), np.float32)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_causal_inference(ts, cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_significance(ts, np.ones(4, np.int32), np.zeros((4, 4), np.float32),
+                             cfg, sig)
+    if "k_override" in kw:  # L 300: 280 points, 140 a phase-1 half
+        ts = dummy_brain(4, 300, seed=2)
+        res = run_causal_inference(ts, cfg, device="cpu")
+        assert res.rho.shape == (4, 4) and np.isfinite(res.rho).all()
+        out = run_significance(ts, res.optE, res.rho, cfg, sig, device="cpu")
+        assert np.isfinite(out.drho).all() and np.isfinite(out.pvals).all()
     EDMConfig(**kw)  # the config itself stays as permissive as the reference's
     assert EDMConfig(E_max=127).k_max == 128
-    for ok in (EDMConfig(E_max=127), EDMConfig(E_max=32), EDMConfig(E_max=40),
-               EDMConfig(E_max=20, k_override=64), EDMConfig(E_max=300, k_override=8)):
-        eng.check_limits(ok, "cuda")  # any E_max, k up to 128
 
 
 # ---------------------------------------------------------------- bfloat16

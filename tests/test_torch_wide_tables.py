@@ -1,10 +1,11 @@
-"""The EDM paths past the kernels' fast path (k up to 128, any E_max, more
-than 64 library sizes or segments a launch) against the JAX package, on
-the CPU, where the wrappers run their plain versions: the main path at
-E_max 40 and at k_override 70, the significance path at E_max 40 with 66
-library sizes, and the wrappers' splits (selection windows, runs of
-library sizes, runs of segments) replayed through the plain versions
-against one call.
+"""The EDM paths past the kernels' fast path (any k, any E_max, more than
+64 library sizes or segments a launch) against the JAX package, on the
+CPU, where the wrappers run their plain versions: the main path at
+E_max 40 and at k_override 70 and 200, the significance path at E_max 40
+with 66 library sizes and at k_override 160, the wrappers' routes by k,
+and their splits (selection windows, key-select windows, runs of library
+sizes, runs of segments) replayed through the plain versions against one
+call.
 
 Tolerances as in tests/test_torch_pipeline.py and
 tests/test_torch_significance.py: optE equal, rho within 1e-5, the
@@ -73,6 +74,23 @@ def test_main_path_at_k_override_70_matches_jax(walks):
     assert np.abs(got.rho - np.asarray(want.rho)).max() <= 1e-5
 
 
+@pytest.fixture(scope="module")
+def walks_8x460():
+    rng = np.random.default_rng(8)
+    return np.cumsum(rng.standard_normal((8, 460)), axis=1).astype(np.float32)
+
+
+def test_main_path_at_k_override_200_matches_jax(walks_8x460):
+    """Tables of 200 neighbours (the kernels' key-select route on the card):
+    phase 1 over 228 candidates, phase 2 over 456."""
+    want = jax_run(walks_8x460, JCfg(E_max=4, k_override=200))
+    got = run_causal_inference(walks_8x460, EDMConfig(E_max=4, k_override=200),
+                               device="cpu")
+    assert kops.route(tuple(range(1, 5)), 200) == "key_select"
+    np.testing.assert_array_equal(got.optE, np.asarray(want.optE))
+    assert np.abs(got.rho - np.asarray(want.rho)).max() <= 1e-5
+
+
 # ------------------------------------------------------ significance path
 def test_significance_at_e_max_40_with_66_sizes_matches_jax(walks, jax_map_e40):
     """The port's stage at 66 library sizes; JAX's p-values (drawn from the
@@ -126,7 +144,117 @@ def test_significance_at_e_max_40_with_66_sizes_matches_jax(walks, jax_map_e40):
             np.testing.assert_array_equal(td[0, si, bi].numpy(), np.asarray(jd))
 
 
+def test_significance_at_k_override_160_matches_jax(walks_8x460):
+    """The stage with tables of 160 neighbours at library sizes 170, 300 and
+    456: drho within 1e-5, trends and p-values equal away from near-ties
+    (a null rho within NEAR_TIE of the observed one)."""
+    from repro_torch.inference.pipeline import SignificanceChunkRunner
+
+    jcfg = JCfg(E_max=4, k_override=160)
+    jmap = jax_run(walks_8x460, jcfg)
+    optE, rho = np.asarray(jmap.optE), np.asarray(jmap.rho)
+    jsig_cfg = JSig(lib_sizes=(170, 300, 456), n_surrogates=7, alpha=0.5, seed=0,
+                    surrogate="shuffle")
+    cfg, sig = _tcfg(jcfg), sig_config_from_jax(dataclasses.asdict(jsig_cfg))
+    want = jax_sig(walks_8x460, optE, rho, jcfg, jsig_cfg)
+    got = run_significance(walks_8x460, optE, rho, cfg, sig, device="cpu")
+    assert np.abs(got.drho - np.asarray(want.drho)).max() <= 1e-5
+
+    r = SignificanceChunkRunner(walks_8x460, optE, cfg, sig, device="cpu")
+    assert tccm._bucket_k(cfg, r.plan) == 160
+    inv = np.argsort(r.order)
+    fidx, fw = tccm.ccm_row_tables_bucketed(r.rows(0, r.N), cfg, r.plan)
+    seg = tuple(enumerate(r.plan.counts))
+    m = sig.n_surrogates
+    null = tccm.ccm_row_lookup_bucketed(
+        fidx, fw, r.fut_surr, cfg, tuple((b, c * m) for b, c in seg)
+    ).numpy().reshape(r.N, r.N, m)[:, inv]
+    p_tie = (np.abs(null - rho[..., None]) <= NEAR_TIE).any(-1)
+    assert p_tie.sum() <= p_tie.size // 4
+    np.testing.assert_array_equal(got.pvals[~p_tie], np.asarray(want.pvals)[~p_tie])
+    np.testing.assert_array_equal(got.trend, np.asarray(want.trend))
+
+
 # ---------------------------------------------------- the wrappers' splits
+@pytest.mark.parametrize("k,E_hi,n_runs,want", [
+    (21, 20, 1, "fast"), (32, 32, 1, "fast"), (21, 20, 2, "wide"),
+    (33, 20, 1, "wide"), (21, 33, 1, "wide"), (128, 40, 1, "wide"),
+    (129, 4, 1, "key_select"), (200, 20, 1, "key_select"),
+    (715, 40, 3, "key_select"),
+])
+def test_route_by_k(k, E_hi, n_runs, want):
+    """The route of a call, picked once in Python: the fast path at k and
+    E_hi up to 32 (one run of sizes), the wide route up to k 128, the
+    key-select route past it at any E."""
+    assert kops.route(tuple(range(1, E_hi + 1)), k, n_runs) == want
+    assert kops.WIDE_K == 128 and kops.ROUTES == ("fast", "wide", "key_select")
+
+
+def test_ks_mask_words_and_windows(monkeypatch):
+    words = kops.ks_mask_words((1, 33, 2048), 0)
+    assert len(words) == kops.KS_SPAN // 32 == 64
+    assert (words[0], words[1], words[63]) == (1, 1, 1 << 31)
+    assert sum(bin(w).count("1") for w in words) == 3
+    assert list(kops.ks_mask_words((2049,), 2048))[0] == 1
+    for sel, e_lo in (((2049,), 0), ((1,), 2048)):
+        with pytest.raises(ValueError, match="key-select launch"):
+            kops.ks_mask_words(sel, e_lo)
+    assert kops.ks_windows((1, 5, 2048, 2049, 5000)) == [
+        (0, (1, 5, 2048)), (2048, (2049,)), (4096, (5000,))]
+    monkeypatch.setattr(kops, "KS_SPAN", 8)
+    assert kops.ks_windows((1, 8, 9, 20)) == [(0, (1, 8)), (8, (9,)), (16, (20,))]
+
+
+@pytest.mark.parametrize("k,select_Es", [(150, (1, 5, 9, 17, 20)),
+                                         (209, tuple(range(1, 21)))])
+def test_knn_topk_key_select_windows_replayed_equal_one_call(monkeypatch, k,
+                                                             select_Es):
+    """The key-select route's windows (KS_SPAN cut to 8 lags, so that one
+    selection takes several launches), each written into its rows, equal
+    one call, bit for bit, with a column range, at k below and above the
+    candidates that are not masked."""
+    monkeypatch.setattr(kops, "KS_SPAN", 8)
+    rng = np.random.default_rng(k)
+    V = torch.tensor(rng.standard_normal((2, 20, 230)).astype(np.float32))
+    Vc = V[..., 20:].contiguous()
+    kw = dict(col_offset=20, col_hi=225)
+    want_i, want_d = knn_topk_ref(V, Vc, k, True, select_Es, **kw)
+    got_i, got_d = torch.empty_like(want_i), torch.empty_like(want_d)
+    si0 = 0
+    wins = kops.ks_windows(select_Es)
+    assert len(wins) > 1
+    for e_lo, Es in wins:
+        assert Es[0] > e_lo and Es[-1] <= e_lo + 8
+        i, d = knn_topk_ref(V, Vc, k, True, Es, **kw)
+        got_i[:, si0 : si0 + len(Es)], got_d[:, si0 : si0 + len(Es)] = i, d
+        si0 += len(Es)
+    assert si0 == len(select_Es)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    # past the 204 candidates of a row below col_hi (the self masked), the
+    # masked columns come last, as +inf
+    assert torch.isinf(want_d[..., -1]).any() == (k > 204)
+
+
+def test_prefix_key_select_runs_replayed_equal_one_call():
+    """Runs of at most 64 library sizes at k 150 (the key-select route:
+    every selected E in one launch a run) equal one call at 66 sizes."""
+    rng = np.random.default_rng(5)
+    Lp = 230
+    V = torch.tensor(rng.standard_normal((1, 8, Lp)).astype(np.float32))
+    col_ids = torch.tensor(rng.permutation(Lp).astype(np.int32))
+    sizes = tuple(range(151, 151 + 66))
+    buckets, k = (2, 5, 8), 150
+    want_i, want_d = knn_topk_prefix_ref(V, V, k, True, buckets, sizes, col_ids=col_ids)
+    got_i, got_d = torch.empty_like(want_i), torch.empty_like(want_d)
+    runs = kops.size_runs(sizes, 64)
+    assert kops.route(buckets, k, len(runs)) == "key_select"
+    assert kops.ks_windows(buckets) == [(0, buckets)]
+    for s0, run in runs:
+        i, d = knn_topk_prefix_ref(V, V, k, True, buckets, run, col_ids=col_ids)
+        got_i[:, s0 : s0 + len(run)], got_d[:, s0 : s0 + len(run)] = i, d
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
 def test_select_mask_refuses_a_mask_past_32_bits():
     assert kops.select_mask((1, 32)) == (1 << 31) | 1
     assert kops.select_mask((35, 40), e_lo=8) == (1 << 26) | (1 << 31)
